@@ -1,0 +1,149 @@
+// Whole-sequence univariate-SVOL bootstrap filter bank for Hopper.
+//
+// Replaces ssme_tpu/ops/svol_filter_kernel.py::svol_filter_pallas (the
+// Pallas kernel body _make_kernel): B filters over T observations in ONE
+// launch, the particle cloud never leaving the chip.
+//
+// Layout: one CTA per filter row, one particle per thread (blockDim = N,
+// a multiple of 32, at most 1024).  x and the carried log-weight live in
+// registers for all T steps; the CDF and the gather buffer in shared
+// memory; lcl[b, t] and xmean[b, t] are written straight to global
+// memory by thread 0.  __launch_bounds__(1024, 1) caps the kernel at 64
+// registers a thread, so two 512-thread CTAs share an SM and B = 256
+// rows fit the H100's 132 SMs in one wave.
+//
+// What bounds it: per-step latency, not bytes.  Each of the T sequential
+// steps costs block barriers (one max and one three-way sum reduction,
+// plus a scan and a gather when it resamples) and the transcendentals
+// of one Box-Muller half-pair, one exp for the weight and one for the
+// renormalisation.  The kernel moves about 8 bytes a step per row.
+//
+// Per step it computes exactly what the Pallas kernel computes:
+//   t = 0   x ~ N(0, sigma^2 / (1 - phi^2)), lw = 0, carry = log N;
+//   t > 0   gate_stride 1: resample (always, or when ESS < tau N) THEN
+//           propagate x' = phi x + sigma eps;
+//           gate_stride g > 1: propagate only, weights accumulate;
+//   weight  lw += -log(2 pi)/2 - log beta - x/2 - (y e^{-x/2} / beta)^2 / 2;
+//   check   (every step at g = 1; at t = g-1 mod g and t = T-1 otherwise)
+//           lcl = LSE(lw) - carry, xmean under the full carried weights,
+//           renormalise (lw -= max, carry = log sum); at g > 1 the ESS of
+//           the renormalised weights then gates a resample.
+//   lcl and xmean are zero off the check columns.
+//
+// Intended divergences from the Pallas kernel:
+//  - the ESS gate is per row (the TPU gates on the worst row of an 8-row
+//    tile and pads B with a real row; there is no tile here);
+//  - the loop runs to T exactly: no padded steps, so the padded-step wipe
+//    of the TPU kernel at T mod 128 in [1, g-1] cannot occur;
+//  - steps_per_cell, substep_regions and compensated_cdf are TPU
+//    artefacts and have no counterpart;
+//  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "philox.cuh"
+#include "systematic_select.cuh"
+
+namespace {
+
+constexpr float kHalfLog2Pi = 0.9189385332046727f;
+constexpr int kMaxParticles = 1024;
+
+__global__ void __launch_bounds__(kMaxParticles, 1)
+svol_filter_kernel(const int64_t* __restrict__ seed,
+                   const float* __restrict__ params,
+                   const float* __restrict__ ys, int num_steps,
+                   float ess_limit, int always, int gate_stride,
+                   float* __restrict__ total, float* __restrict__ lcl,
+                   float* __restrict__ xmean) {
+  __shared__ float cdf[kMaxParticles];
+  __shared__ float buf[kMaxParticles];
+  __shared__ float red[3 * 32];
+
+  const uint32_t b = blockIdx.x;
+  const uint32_t i = threadIdx.x;
+  const uint32_t k0 = static_cast<uint32_t>(seed[0]);
+  const uint32_t k1 = static_cast<uint32_t>(seed[1]);
+  const float beta = params[3 * b];
+  const float phi = params[3 * b + 1];
+  const float sigma = params[3 * b + 2];
+  const float log_n = logf(static_cast<float>(blockDim.x));
+  const float c0 = -kHalfLog2Pi - logf(beta);
+  float* lcl_row = lcl + static_cast<size_t>(b) * num_steps;
+  float* xmean_row = xmean + static_cast<size_t>(b) * num_steps;
+
+  float x = ssme::normal_at(k0, k1, i, 0u, b) *
+            (sigma / sqrtf(1.0f - phi * phi));
+  float lw = 0.0f;
+  float carry = log_n;
+  float wn = 1.0f;            // exp(lw) after the last check
+  float s_last = 1.0f;        // sum and sum of squares of wn at that check
+  float s2_last = 1.0f;
+  float row_total = 0.0f;
+
+  for (int t = 0; t < num_steps; ++t) {
+    if (t > 0) {
+      if (gate_stride == 1 &&
+          (always || s_last * s_last / s2_last < ess_limit)) {
+        const int anc = ssme::systematic_ancestor(
+            wn, ssme::offset_at(k0, k1, t, b), cdf, red);
+        x = ssme::gather_from(x, anc, buf);
+        lw = 0.0f;
+        carry = log_n;
+      }
+      x = phi * x + sigma * ssme::normal_at(k0, k1, i, t, b);
+    }
+    const float z = (ys[t] / beta) * expf(-0.5f * x);
+    lw = lw + ((c0 - 0.5f * x) - 0.5f * z * z);
+
+    const bool check = gate_stride == 1 || t % gate_stride == gate_stride - 1
+                       || t == num_steps - 1;
+    if (!check) {
+      if (i == 0) {
+        lcl_row[t] = 0.0f;
+        xmean_row[t] = 0.0f;
+      }
+      continue;
+    }
+    const float m = ssme::block_max(lw, red);
+    wn = expf(lw - m);
+    const float3 r = ssme::block_sum3(wn, x * wn, wn * wn, red);
+    const float step_lcl = (m + logf(r.x)) - carry;
+    lw = lw - m;
+    carry = logf(r.x);
+    s_last = r.x;
+    s2_last = r.z;
+    if (i == 0) {
+      lcl_row[t] = step_lcl;
+      xmean_row[t] = r.y / r.x;
+    }
+    row_total += step_lcl;
+    if (gate_stride > 1 && r.x * r.x / r.z < ess_limit) {
+      const int anc = ssme::systematic_ancestor(
+          wn, ssme::offset_at(k0, k1, t, b), cdf, red);
+      x = ssme::gather_from(x, anc, buf);
+      lw = 0.0f;
+      carry = log_n;
+    }
+  }
+  if (i == 0) total[b] = row_total;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  All pointers are device
+// pointers the caller allocated; the kernel allocates nothing and runs
+// on `stream`.  Returns cudaGetLastError() after the launch.
+extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
+                                const float* ys, int num_rows,
+                                int num_steps, int num_particles,
+                                float ess_limit, int always,
+                                int gate_stride, float* total, float* lcl,
+                                float* xmean, void* stream) {
+  svol_filter_kernel<<<num_rows, num_particles, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      seed, params, ys, num_steps, ess_limit, always, gate_stride, total,
+      lcl, xmean);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,131 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources in ``ssme_tpu_torch/csrc/`` expose a plain C interface.  At
+first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library under ``ssme_tpu_torch/_build/`` whose name carries a hash of the
+sources, and loaded with ``ctypes``.  Nothing here runs at import time:
+a machine without ``nvcc`` or a card can import every module, and only a
+call on a CUDA tensor reaches :func:`library`, which raises if the build
+fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
+    # total, lcl, xmean, stream
+    "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                         _P],
+    # w, leaves, u0, L, B, N, picked, ancestors, stream
+    "ssme_systematic_select": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # seed, B, N/2, step, bits, u1, u2, normals, offsets, stream
+    "ssme_philox_fill": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_info = {}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
+                  glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
+    return path
+
+
+def _library_path() -> str:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR,
+                        f"libssme_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      ptxas=[ln for ln in res.stderr.splitlines()
+                             if "registers" in ln or "Compiling" in ln])
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use; raises when it
+    cannot be built or loaded."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = _library_path()
+        if not os.path.exists(path):
+            _build(path)
+        else:
+            build_info.setdefault("seconds", 0.0)
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_info["path"] = path
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+__all__ = ["library", "check", "stream_ptr", "build_info", "BUILD_DIR"]

@@ -1,0 +1,200 @@
+"""Counter-based random numbers for the SVOL filter kernel: Philox4x32-10.
+
+Replaces the TPU hardware PRNG helpers of ``ssme_tpu/ops/_prng.py``.  The
+CUDA side is ``csrc/philox.cuh``; this module holds the plain PyTorch
+version, which consumes exactly the same bits, and the wrapper of the
+standalone ``philox_fill`` kernel.
+
+The mapping (the only place it is written down):
+
+- key: two 32-bit seed words (k0, k1), read from a device tensor of shape
+  (2,), int64, each in [0, 2^32);
+- counter: (c0, c1, c2, c3) = (particle-pair index i >> 1, step t,
+  filter row b, stream tag), tag 0 for the init / propagate normals and
+  tag 1 for the resampling offset (counter (0, t, b, 1));
+- Philox4x32-10 (Salmon et al. 2011; the Random123 constants) gives four
+  words (w0, w1, w2, w3);
+- normals: u1 = ((w0 >> 8) + 1) 2^-24 in (0, 1],
+  u2 = (w1 >> 8) 2^-24 in [0, 1), r = sqrt(-2 log u1), a = 2 pi u2 (all
+  float32); particle 2j takes r cos a and particle 2j+1 takes r sin a;
+- offset: ((w0 >> 9) + 0.5) 2^-23 in (0, 1), never 0 (a zero offset makes
+  slot 0 select a zero-weight particle) and never 1.  It uses 23 bits
+  where the normals use 24 because (w0 >> 9) + 0.5 is exact in float32,
+  while (w0 >> 8) + 0.5 rounds to 2^24, an offset of exactly 1, at the
+  top word;
+- w2, w3 are drawn but unused.
+
+Every conversion is an integer operation followed by one exact multiply,
+so kernel and plain version agree bitwise up to the library's log, sqrt,
+cos and sin.  The plain Philox runs in int64: a 32 x 32-bit product can
+exceed the signed range and wraps modulo 2^64, so the high word is
+``(p >> 32) & 0xFFFFFFFF`` with the mask after the shift.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ssme_tpu_torch.ops import _cuda
+
+MASK32 = 0xFFFFFFFF
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+TAG_NORMAL = 0
+TAG_OFFSET = 1
+TWO_PI = 6.283185307179586
+HALF_LOG_2PI = 0.9189385332046727
+_INV_2_24 = 2.0 ** -24
+_INV_2_23 = 2.0 ** -23
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit values (broadcast
+    together); returns the four output words as int64 in [0, 2^32)."""
+    for _ in range(10):
+        p0 = c0 * PHILOX_M0
+        p1 = c2 * PHILOX_M1
+        hi0, lo0 = (p0 >> 32) & MASK32, p0 & MASK32
+        hi1, lo1 = (p1 >> 32) & MASK32, p1 & MASK32
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & MASK32
+        k1 = (k1 + PHILOX_W1) & MASK32
+    return c0, c1, c2, c3
+
+
+def seed_words(seed, device=None) -> torch.Tensor:
+    """(2,) int64 key words from a Python int or an existing tensor."""
+    if isinstance(seed, torch.Tensor):
+        if seed.shape != (2,) or seed.dtype != torch.int64:
+            raise ValueError("seed tensor must be (2,) int64 words")
+        return seed
+    seed = int(seed)
+    return torch.tensor([seed & MASK32, (seed >> 32) & MASK32],
+                        dtype=torch.int64, device=device)
+
+
+def uniform_open_zero(w):
+    """u in (0, 1] from a word."""
+    return ((w >> 8) + 1).to(torch.float32) * _INV_2_24
+
+
+def uniform_closed_zero(w):
+    """u in [0, 1) from a word."""
+    return (w >> 8).to(torch.float32) * _INV_2_24
+
+
+def uniform_offset(w):
+    """Systematic offset in (0, 1) from a word (never 0)."""
+    return ((w >> 9).to(torch.float32) + 0.5) * _INV_2_23
+
+
+def box_muller(w0, w1):
+    """Paired Box-Muller: (r cos a, r sin a)."""
+    u1 = uniform_open_zero(w0)
+    u2 = uniform_closed_zero(w1)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    a = TWO_PI * u2
+    return r * torch.cos(a), r * torch.sin(a)
+
+
+def _key(seed):
+    return seed[0] & MASK32, seed[1] & MASK32
+
+
+def normals_steps(seed, rows, steps, num_particles):
+    """Standard normals (len(steps), len(rows), num_particles) of the
+    given filter rows at the given steps, as the kernel draws them."""
+    k0, k1 = _key(seed)
+    pair = torch.arange(num_particles // 2, device=seed.device)[None, None]
+    t = steps.to(torch.int64)[:, None, None]
+    b = rows.to(torch.int64)[None, :, None]
+    w0, w1, _, _ = philox4x32_10(pair, t, b, torch.full_like(pair,
+                                                             TAG_NORMAL),
+                                 k0, k1)
+    zc, zs = box_muller(w0, w1)
+    return torch.stack([zc, zs], dim=-1).reshape(
+        steps.shape[0], rows.shape[0], num_particles)
+
+
+def offsets_steps(seed, rows, steps):
+    """Resampling offsets (len(steps), len(rows))."""
+    k0, k1 = _key(seed)
+    t = steps.to(torch.int64)[:, None]
+    b = rows.to(torch.int64)[None, :]
+    zero = torch.zeros_like(t)
+    w0, _, _, _ = philox4x32_10(zero, t, b, zero + TAG_OFFSET, k0, k1)
+    return uniform_offset(w0)
+
+
+def offsets(seed, rows, step):
+    """Resampling offsets (len(rows),) at one step."""
+    steps = torch.tensor([step], device=seed.device)
+    return offsets_steps(seed, rows, steps)[0]
+
+
+def philox_fill_reference(seed, num_rows, num_particles, step):
+    """Plain version of :func:`philox_fill` (same outputs)."""
+    k0, k1 = _key(seed)
+    pair = torch.arange(num_particles // 2, device=seed.device)[None, :]
+    b = torch.arange(num_rows, device=seed.device)[:, None]
+    words = philox4x32_10(pair, torch.full_like(pair, step), b,
+                          torch.full_like(pair, TAG_NORMAL), k0, k1)
+    zc, zs = box_muller(words[0], words[1])
+    return {
+        "bits": torch.stack(words, dim=-1),
+        "u1": uniform_open_zero(words[0]),
+        "u2": uniform_closed_zero(words[1]),
+        "normals": torch.stack([zc, zs], dim=-1).reshape(num_rows,
+                                                         num_particles),
+        "offsets": offsets(seed, torch.arange(num_rows,
+                                              device=seed.device), step),
+    }
+
+
+def philox_fill(seed, num_rows, num_particles, step):
+    """Fill Philox words, uniforms, normals and offsets for rows
+    b < num_rows, particles i < num_particles, at one step.
+
+    ``bits``: (B, N/2, 4) int64 words of counter (i >> 1, step, b, 0);
+    ``u1``, ``u2``: (B, N/2); ``normals``: (B, N); ``offsets``: (B,).
+    Launches the CUDA kernel for a seed on the card and runs
+    :func:`philox_fill_reference` for a seed on the CPU.
+    """
+    seed = seed_words(seed)
+    if num_particles % 2 or num_particles < 2 or num_rows < 1:
+        raise ValueError("philox_fill needs num_rows >= 1 and an even "
+                         "num_particles >= 2")
+    if step < 0 or step > MASK32:
+        raise ValueError("step must be a 32-bit counter word")
+    if seed.device.type == "cpu":
+        return philox_fill_reference(seed, num_rows, num_particles, step)
+    if seed.device.type != "cuda":
+        raise ValueError(f"philox_fill: unsupported device {seed.device}")
+    lib = _cuda.library()
+    half = num_particles // 2
+    dev = seed.device
+    bits = torch.empty((num_rows, half, 4), dtype=torch.int32, device=dev)
+    u1 = torch.empty((num_rows, half), dtype=torch.float32, device=dev)
+    u2 = torch.empty_like(u1)
+    nrm = torch.empty((num_rows, num_particles), dtype=torch.float32,
+                      device=dev)
+    offs = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    err = lib.ssme_philox_fill(seed.data_ptr(), num_rows, half, int(step),
+                               bits.data_ptr(), u1.data_ptr(),
+                               u2.data_ptr(), nrm.data_ptr(),
+                               offs.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, "ssme_philox_fill")
+    philox_fill.launches += 1
+    return {"bits": bits.to(torch.int64) & MASK32, "u1": u1, "u2": u2,
+            "normals": nrm, "offsets": offs}
+
+
+philox_fill.launches = 0
+
+__all__ = ["philox4x32_10", "seed_words", "normals_steps", "offsets",
+           "offsets_steps",
+           "philox_fill", "philox_fill_reference", "uniform_open_zero",
+           "uniform_closed_zero", "uniform_offset", "box_muller",
+           "TWO_PI", "HALF_LOG_2PI"]

@@ -1,0 +1,229 @@
+"""Whole-sequence univariate-SVOL bootstrap filter bank: CUDA kernel and
+its plain PyTorch version.
+
+Replaces ``ssme_tpu/ops/svol_filter_kernel.py::svol_filter_pallas``.  The
+kernel is ``csrc/svol_filter.cu`` (its header comment gives the step
+recursion, the layout and the intended divergences from the Pallas
+kernel); :func:`svol_filter_reference` runs the same recursion step by
+step with plain tensor operations and the same Philox bits
+(``ops/_prng.py``), on either device.
+
+:func:`svol_filter` launches the kernel for CUDA tensors and runs the
+plain version for CPU tensors; on a CUDA tensor it never falls back.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ssme_tpu_torch.ops import _cuda, _prng
+from ssme_tpu_torch.ops._select import (check_particles,
+                                        systematic_select_reference)
+from ssme_tpu_torch.utils import logmeanexp
+
+
+def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride):
+    if not isinstance(params, torch.Tensor) or params.ndim != 2 \
+            or params.shape[1] != 3 or params.shape[0] < 1:
+        raise ValueError("params must be a (B, 3) tensor of "
+                         "[beta, phi, sigma] rows")
+    dev = params.device
+    if not isinstance(ys, torch.Tensor):
+        raise ValueError("ys must be a tensor")
+    if ys.ndim == 2 and ys.shape[1] == 1:
+        ys = ys.reshape(-1)
+    if ys.ndim != 1 or ys.shape[0] < 1:
+        raise ValueError(f"ys must be (T,) or (T, 1), got {tuple(ys.shape)}")
+    seed = _prng.seed_words(seed, device=dev)
+    for name, t, dtype in (("params", params, torch.float32),
+                           ("ys", ys, torch.float32),
+                           ("seed", seed, torch.int64)):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, params on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    check_particles(int(num_particles))
+    if int(gate_stride) != gate_stride or gate_stride < 1:
+        raise ValueError("gate_stride must be a positive integer")
+    if gate_stride > 1 and ess_threshold >= 1.0:
+        raise ValueError(
+            "gate_stride > 1 accumulates weights between ESS checks; the "
+            "every-step schedule (ess_threshold >= 1) requires "
+            "gate_stride=1")
+    return seed, ys
+
+
+def _resample_rows(wn, u0, x, lw, carry, fire, log_n):
+    """Systematic resample of the rows where ``fire`` (a (B, 1) bool
+    tensor, or True for all rows) with offsets ``u0`` (B,)."""
+    picked, _ = systematic_select_reference(wn, x[None], u0)
+    if fire is True:
+        return picked[0], torch.zeros_like(lw), torch.full_like(carry, log_n)
+    return (torch.where(fire, picked[0], x),
+            torch.where(fire, torch.zeros_like(lw), lw),
+            torch.where(fire, torch.full_like(carry, log_n), carry))
+
+
+# elements of Philox output the plain version draws at once (a block of
+# steps), so the bits cost a few large tensor operations, not many small
+_BLOCK_ELEMENTS = 1 << 22
+
+
+def svol_filter_reference(seed, params, ys, num_particles=512,
+                          ess_threshold=1.0, gate_stride=1):
+    """Plain PyTorch version of :func:`svol_filter`, callable on either
+    device; consumes the kernel's Philox bits step by step."""
+    seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
+                         gate_stride)
+    n, g = int(num_particles), int(gate_stride)
+    b, t_len = params.shape[0], ys.shape[0]
+    rows = torch.arange(b, device=params.device)
+    beta, phi, sigma = params[:, 0:1], params[:, 1:2], params[:, 2:3]
+    log_n = math.log(float(n))
+    always = ess_threshold >= 1.0
+    ess_limit = float(ess_threshold) * n
+    c0 = -_prng.HALF_LOG_2PI - torch.log(beta)
+
+    lcl = torch.zeros((b, t_len), dtype=torch.float32, device=params.device)
+    xmean = torch.zeros_like(lcl)
+    block = max(1, _BLOCK_ELEMENTS // (b * n))
+    carry = torch.full_like(beta, log_n)
+    s_last = s2_last = torch.ones_like(beta)
+    for t in range(t_len):
+        if t % block == 0:
+            steps = torch.arange(t, min(t + block, t_len),
+                                 device=params.device)
+            eps = _prng.normals_steps(seed, rows, steps, n)
+            u0 = _prng.offsets_steps(seed, rows, steps)
+        if t == 0:
+            x = eps[0] * (sigma / torch.sqrt(1.0 - phi * phi))
+            lw = torch.zeros_like(x)
+            wn = torch.ones_like(x)
+        else:
+            if g == 1:
+                fire = True if always else s_last * s_last / s2_last < ess_limit
+                x, lw, carry = _resample_rows(wn, u0[t % block], x, lw,
+                                              carry, fire, log_n)
+            x = phi * x + sigma * eps[t % block]
+        z = (ys[t] / beta) * torch.exp(-0.5 * x)
+        lw = lw + ((c0 - 0.5 * x) - 0.5 * z * z)
+        if not (g == 1 or t % g == g - 1 or t == t_len - 1):
+            continue
+        m = torch.amax(lw, dim=-1, keepdim=True)
+        wn = torch.exp(lw - m)
+        s = wn.sum(-1, keepdim=True)
+        s2 = (wn * wn).sum(-1, keepdim=True)
+        lcl[:, t] = ((m + torch.log(s)) - carry)[:, 0]
+        xmean[:, t] = ((x * wn).sum(-1, keepdim=True) / s)[:, 0]
+        lw = lw - m
+        carry = torch.log(s)
+        s_last, s2_last = s, s2
+        if g > 1:
+            x, lw, carry = _resample_rows(wn, u0[t % block], x, lw, carry,
+                                          s * s / s2 < ess_limit, log_n)
+    return lcl.sum(-1), lcl, xmean
+
+
+def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
+                gate_stride=1):
+    """B whole-sequence SVOL bootstrap filters in one launch.
+
+    seed: (2,) int64 Philox key words on the params' device, or a Python
+    int; params: (B, 3) float32 constrained [beta, phi, sigma] (sigma,
+    not sigma^2); ys: (T,) or (T, 1) float32.  ``num_particles`` is a
+    multiple of 32 in [32, 1024].  Returns (total (B,), lcl (B, T),
+    xmean (B, T)): total = sum_t log p(y_t | y_{1:t-1}); xmean the
+    filtered E[x_t | y_{1:t}].
+
+    ess_threshold: resample when a row's ESS falls below this fraction of
+    N (1.0 = every step).  gate_stride g > 1 (ESS-adaptive schedules
+    only): weights accumulate between checks at t = g-1 (mod g) and
+    t = T-1; lcl and xmean are zero off those columns and sum(lcl) stays
+    the exact evidence.
+    """
+    seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
+                         gate_stride)
+    if params.device.type == "cpu":
+        return svol_filter_reference(seed, params, ys, num_particles,
+                                     ess_threshold, gate_stride)
+    if params.device.type != "cuda":
+        raise ValueError(f"svol_filter: unsupported device {params.device}")
+    lib = _cuda.library()
+    b, t_len = params.shape[0], ys.shape[0]
+    dev = params.device
+    total = torch.empty((b,), dtype=torch.float32, device=dev)
+    lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
+    xmean = torch.empty_like(lcl)
+    err = lib.ssme_svol_filter(
+        seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len,
+        int(num_particles), float(ess_threshold) * int(num_particles),
+        int(ess_threshold >= 1.0), int(gate_stride), total.data_ptr(),
+        lcl.data_ptr(), xmean.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, "ssme_svol_filter")
+    svol_filter.launches += 1
+    return total, lcl, xmean
+
+
+svol_filter.launches = 0
+
+
+def _kernel_rows(params):
+    """Constrained (beta, phi, ss) rows -> kernel (beta, phi, sigma)."""
+    return torch.stack([params[..., 0], params[..., 1],
+                        torch.sqrt(params[..., 2])], dim=-1)
+
+
+def _draw_seed(gen, device):
+    return torch.randint(0, 2 ** 32, (2,), generator=gen, dtype=torch.int64,
+                         device=device)
+
+
+def svol_replicated_log_like(num_particles: int, num_replicates: int,
+                             ess_threshold: float = 0.5,
+                             gate_stride: int = 1):
+    """PMMH likelihood hook ``ll(gen, params (3,), ys) -> ()``: the
+    log-mean-exp of ``num_replicates`` filters run in one launch."""
+    r = num_replicates
+
+    def ll(gen, params, ys):
+        rows = _kernel_rows(params)[None].expand(r, 3).contiguous()
+        vals, _, _ = svol_filter(_draw_seed(gen, params.device), rows, ys,
+                                 num_particles=num_particles,
+                                 ess_threshold=ess_threshold,
+                                 gate_stride=gate_stride)
+        return logmeanexp(vals)
+
+    return ll
+
+
+def svol_batched_log_like(num_particles: int, num_replicates: int,
+                          ess_threshold: float = 0.5, gate_stride: int = 1):
+    """PMMH ``batched_log_like`` hook: all chains x replicates in ONE
+    kernel launch.
+
+    Returns ``ll(gen, params (C, 3), ys) -> (C,)`` with ``params`` the
+    constrained (beta, phi, ss) rows.  Rows are chain-major (row c*R + r
+    is replicate r of chain c), reduced by a per-chain log-mean-exp.  The
+    two seed words are drawn on the device with ``gen``, so the host
+    never waits.  No padding rows: the ESS gate is per row.
+    """
+    r = num_replicates
+
+    def ll(gen, params, ys):
+        c = params.shape[0]
+        rows = _kernel_rows(params)[:, None].expand(c, r, 3).reshape(c * r, 3)
+        vals, _, _ = svol_filter(_draw_seed(gen, params.device), rows, ys,
+                                 num_particles=num_particles,
+                                 ess_threshold=ess_threshold,
+                                 gate_stride=gate_stride)
+        return logmeanexp(vals.reshape(c, r), dim=-1)
+
+    return ll
+
+
+__all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
+           "svol_replicated_log_like"]
