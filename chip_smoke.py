@@ -3,10 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``ssme_tpu_torch/csrc`` and drives its
-main path, adaptive PMMH on univariate SVOL over the full SPY series at
-the flagship size (C=64 chains x R=4 replicates x N=512 particles,
-T=3084), through the port's own entry points.  Phases, one line each:
+Builds the port's CUDA kernels from ``ssme_tpu_torch/csrc`` and drives
+its paths through the port's own entry points, over the full SPY series
+(T=3084): adaptive PMMH on univariate SVOL at the flagship size (C=64
+chains x R=4 replicates x N=512 particles) through the SVOL filter
+kernel, adaptive PMMH on SVOL with leverage at its tuned size (C=64 x
+R=2 x N=512) through the generic filter kernel, and the kernel swarm
+forecast (32 parameter draws x N=1024) from that posterior.  Phases, one
+line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts;
@@ -20,10 +24,27 @@ T=3084), through the port's own entry points.  Phases, one line each:
             per schedule; the kernel's launch count must rise by exactly
             iterations + 1 per run, and the iterations never synchronise
             with the host;
-8. cli      ``ssme_tpu_torch.examples.estimate_univ_svol`` on the card.
+8. cli      ``ssme_tpu_torch.examples.estimate_univ_svol`` on the card;
+9. megakernel-sis   the generic kernel against its plain version for
+            both instances with a gate that never fires (totals, zero
+            patterns, functional means, the final cloud), and its svol
+            instance against the SVOL kernel on the same seed;
+10. megakernel-full B=128 N=512, both instances, three schedules, two
+            parameter points: kernel and plain means within 4 combined
+            standard errors; times;
+11. pmmh-leverage   ``AdaptivePMMH`` + ``megakernel_log_like`` on the
+            leverage model, 30 iterations per gate stride, launches =
+            iterations + 1, no host synchronisation;
+12. posterior-leverage  ``ssme_tpu_torch.examples.estimate_svol_leverage
+            --tuned`` for 2000 iterations at gate strides 1 and 8: the
+            posterior means within 4 combined Monte-Carlo standard errors
+            of the committed JAX posteriors;
+13. swarm   ``ssme_tpu_torch.examples.swarm_forecast`` on the posterior
+            samples of phase 12, and the swarm evidence against the plain
+            version at N=1024.
 
 Any failure exits non-zero.  The line before the last is a JSON object
-describing the kernel; the last is the ``{"ok": true, ...}`` contract.
+describing the kernels; the last is the ``{"ok": true, ...}`` contract.
 Imports nothing of JAX.
 """
 
@@ -42,10 +63,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from ssme_tpu_torch.bench import gpu_identity  # noqa: E402
-from ssme_tpu_torch.inference import AdaptivePMMH  # noqa: E402
-from ssme_tpu_torch.io import read_data  # noqa: E402
-from ssme_tpu_torch.models import svol  # noqa: E402
+from ssme_tpu_torch.examples import estimate_svol_leverage as lev_cli  # noqa: E402,E501
+from ssme_tpu_torch.inference import (AdaptivePMMH,  # noqa: E402
+                                      forecast_from_cloud)
+from ssme_tpu_torch.io import ParamSampler, read_data  # noqa: E402
+from ssme_tpu_torch.models import svol, svol_leverage  # noqa: E402
 from ssme_tpu_torch.ops import _cuda, _prng, _select  # noqa: E402
+from ssme_tpu_torch.ops import filter_megakernel as fmk  # noqa: E402
 from ssme_tpu_torch.ops import svol_filter_kernel as sfk  # noqa: E402
 from ssme_tpu_torch.utils import logmeanexp  # noqa: E402
 
@@ -54,6 +78,16 @@ B = C * R
 ITERS = 30
 SCHEDULES = {"parity": (1.0, 1), "adaptive": (0.5, 8)}
 START = torch.tensor(svol.START_TRANS_THETA)
+
+# the leverage path (estimate_svol_leverage --tuned) and its swarm
+LC, LR = 64, 2
+LB = LC * LR
+K2_SCHEDULES = {"parity": (1.0, 1), "tuned": (0.5, 1), "adaptive": (0.5, 8)}
+LEV_POINTS = {"start": lev_cli.START,
+              "posterior": (0.958, -0.080, 0.311, -0.751)}
+POSTERIORS = {1: "spy_leverage_pmmh_tuned.json",
+              8: "spy_leverage_pmmh_tuned_stride8.json"}
+SWARM_N, SWARM_M = 1024, 32
 
 
 def phase(num, name, msg):
@@ -285,6 +319,268 @@ def phase_cli():
           "files well formed")
 
 
+def _svol_rows(theta, rows):
+    """Constrained (beta, phi, ss) -> (rows, 3) kernel rows."""
+    row = torch.tensor([float(theta[0]), float(theta[1]),
+                        math.sqrt(float(theta[2]))])
+    return row.expand(rows, 3).contiguous()
+
+
+def _instances(zs):
+    """(name, kernel model, covariates) of both generic-kernel instances."""
+    return [("svol", fmk.svol_kernel_model(), None),
+            ("svol_leverage", fmk.svol_leverage_kernel_model(), zs)]
+
+
+def phase_megakernel_sis(dev, ys_all):
+    """No resampling: identical bits through identical recursions."""
+    ys = ys_all[:512, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)
+    half = LB // 2
+    params = {
+        "svol": torch.cat([_svol_rows((1.0, 0.5, 2e-4), half),
+                           _svol_rows((0.9, 0.98, 0.02), half)]).to(dev),
+        "svol_leverage": torch.tensor(
+            [LEV_POINTS["start"]] * half + [LEV_POINTS["posterior"]] * half,
+            device=dev)}
+    errs, k1_errs = [], []
+    for name, km, z in _instances(zs):
+        for g in (1, 8):
+            kw = dict(num_particles=N, ess_threshold=1e-6, gate_stride=g,
+                      return_cloud=True)
+            tot, lcl, fm, cloud, clw = fmk.filter_megakernel(
+                km, 7, params[name], ys, z, **kw)
+            tot_p, lcl_p, fm_p, cloud_p, clw_p = \
+                fmk.filter_megakernel_reference(km, 7, params[name], ys, z,
+                                                **kw)
+            # float32 throughout; fused multiply-adds and another reduction
+            # order put a few ulp into each step (see phase 5)
+            torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=1e-3)
+            require(torch.equal(lcl != 0, lcl_p != 0),
+                    f"{name} g={g}: zero pattern")
+            torch.testing.assert_close(fm, fm_p, rtol=1e-3, atol=1e-3)
+            torch.testing.assert_close(cloud[0], cloud_p[0], rtol=1e-3,
+                                       atol=1e-3)
+            # the carried log-weights of negligible particles reach -1e9
+            # and beyond, where a relative ulp is large: compare weights
+            torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p),
+                                       rtol=1e-3, atol=1e-3)
+            errs.append(float((tot - tot_p).abs().max()))
+            if name == "svol":
+                tot_k1 = sfk.svol_filter(7, params[name], ys,
+                                         num_particles=N, ess_threshold=1e-6,
+                                         gate_stride=g)[0]
+                k1_errs.append(float((tot - tot_k1).abs().max()))
+                require(k1_errs[-1] <= 1e-3,
+                        f"g={g}: svol instance vs svol_filter differ by "
+                        f"{k1_errs[-1]:.3e}")
+    phase(9, "megakernel-sis", f"B={LB} N={N} T=512 strides 1, 8: totals max"
+          f" abs err {', '.join(f'{e:.3e}' for e in errs)} (svol g1, g8, "
+          f"leverage g1, g8); cloud and weights within 1e-3; svol instance "
+          f"vs svol_filter {k1_errs[0]:.3e}, {k1_errs[1]:.3e}")
+    return max(errs)
+
+
+def phase_megakernel_full(dev, ys_all, ident):
+    ys = ys_all[:, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)
+    points = {
+        "svol": {"start": svol.make_model().transform.constrain(START),
+                 "posterior": (0.9, 0.98, 0.02)},
+        "svol_leverage": LEV_POINTS}
+    times = {}
+    for name, km, z in _instances(zs):
+        for sched, (ess, g) in K2_SCHEDULES.items():
+            kw = dict(num_particles=N, ess_threshold=ess, gate_stride=g)
+            for pname, theta in points[name].items():
+                params = (_svol_rows(theta, LB) if name == "svol"
+                          else torch.tensor([theta] * LB)).to(dev)
+                tot = fmk.filter_megakernel(km, 11, params, ys, z, **kw)[0]
+                tot_p = fmk.filter_megakernel_reference(km, 12, params, ys, z,
+                                                        **kw)[0]
+                require(bool(torch.isfinite(tot).all())
+                        and bool(torch.isfinite(tot_p).all()),
+                        f"{name}/{sched}/{pname}: NaN totals")
+                se = math.sqrt(float(tot.var()) / LB + float(tot_p.var()) / LB)
+                d = abs(float(tot.mean()) - float(tot_p.mean()))
+                require(d <= 4 * se, f"{name}/{sched}/{pname}: means differ "
+                        f"by {d:.3f} > 4 SE {4 * se:.3f}")
+                print(f"  {name}/{sched}/{pname}: kernel mean "
+                      f"{float(tot.mean()):.4f} plain mean "
+                      f"{float(tot_p.mean()):.4f} (4 SE {4 * se:.4f})",
+                      flush=True)
+                if pname == "start":
+                    times[f"{name}/{sched}"] = (
+                        cuda_ms(lambda: fmk.filter_megakernel(
+                            km, 11, params, ys, z, **kw), 5),
+                        cuda_ms(lambda: fmk.filter_megakernel_reference(
+                            km, 12, params, ys, z, **kw), 1))
+    phase(10, "megakernel-full", f"B={LB} N={N} T={ys.shape[0]}: " + "; ".join(
+        f"{s} kernel {k:.4f} ms, plain {p:.4f} ms"
+        for s, (k, p) in times.items()) + f" ({ident})")
+    return times
+
+
+def phase_pmmh_leverage(dev, ys_all, ident):
+    ys = ys_all
+    zs = svol_leverage.lagged_covariates(ys)
+    model = svol_leverage.make_model(prior_bounds=lev_cli.PRIOR_BOUNDS)
+    start = model.transform.unconstrain(torch.tensor(lev_cli.START))
+    props_per_run = ITERS * LC * LR * N * ys.shape[0]   # init not timed
+    # the counts start at 0 just before this path and are read just after
+    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    rates = {}
+    for g in (1, 8):
+        before = fmk.filter_megakernel.launches
+        pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=LR,
+                            t0=150, t1=10 ** 9,
+                            batched_log_like=fmk.megakernel_log_like(
+                                fmk.svol_leverage_kernel_model(), N, LR,
+                                ess_threshold=0.5, gate_stride=g))
+        state = pmmh.init(0, start, ys, zs=zs, num_chains=LC)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            res = pmmh.run_from(state, ITERS, ys, zs=zs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fmk.filter_megakernel.launches - before
+        require(count == ITERS + 1,
+                f"g={g}: {count} kernel launches, want {ITERS + 1}")
+        require(bool(torch.isfinite(state.log_like).all())
+                and bool(torch.isfinite(res.log_likes).all()),
+                f"g={g}: non-finite log-likelihoods")
+        n_acc = int(res.accepted.sum())
+        require(n_acc >= 1, f"g={g}: no proposal accepted")
+        rates[g] = props_per_run / secs
+        print(f"  g={g}: {count} launches, {n_acc} accepts, {secs:.4f} s, "
+              f"{rates[g]:.6e} props/s on {ident}", flush=True)
+    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
+    launches = fmk.filter_megakernel.launches
+    phase(11, "pmmh-leverage", f"C={LC} R={LR} N={N} T={ys.shape[0]} {ITERS} "
+          f"iters: " + "; ".join(f"g{g} {r:.6e} props/s"
+                                 for g, r in rates.items()) + f" ({ident})")
+    return launches
+
+
+def _run_cli(module, args, timeout):
+    cmd = [sys.executable, "-m", module, *args]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    require(out.returncode == 0, f"{module} exited {out.returncode}:\n"
+            f"{out.stderr[-4000:]}")
+    return out
+
+
+def _cli_launches(stderr):
+    lines = [ln for ln in stderr.splitlines()
+             if ln.startswith("filter_megakernel launches:")]
+    require(len(lines) == 1, "the CLI did not report its kernel launches")
+    return int(lines[0].split(":")[1])
+
+
+def phase_posterior_leverage(tmp, ident):
+    samples_csv = os.path.join(tmp, "leverage_samples.csv")
+    lines = []
+    for g, ref_name in POSTERIORS.items():
+        out_json = os.path.join(tmp, f"leverage_g{g}.json")
+        extra = ["--samples-out", samples_csv] if g == 1 else []
+        res = _run_cli("ssme_tpu_torch.examples.estimate_svol_leverage",
+                       ["--tuned", "--engine", "kernel", "--device", "cuda",
+                        "--iters", "2000", "--burn", "500", "--gate-stride",
+                        str(g), "--out", out_json, *extra], 900)
+        launches = _cli_launches(res.stderr)
+        require(launches == 2001, f"g={g}: {launches} kernel launches, "
+                "want 2001 (init + 2000 iterations)")
+        with open(out_json) as f:
+            got = json.load(f)
+        with open(os.path.join(ROOT, "data", ref_name)) as f:
+            ref = json.load(f)
+        parts = []
+        for name in lev_cli.NAMES:
+            a, b = got["posterior"][name], ref["posterior"][name]
+            se = math.hypot(a["sd"] / math.sqrt(a["ess"]),
+                            b["sd"] / math.sqrt(b["ess"]))
+            d = abs(a["mean"] - b["mean"])
+            require(d <= 4 * se, f"g={g} {name}: port mean {a['mean']:.5f} "
+                    f"vs JAX {b['mean']:.5f}, diff {d:.5f} > 4 SE "
+                    f"{4 * se:.5f}")
+            parts.append(f"{name} {a['mean']:.5f} (JAX {b['mean']:.5f}, "
+                         f"4 SE {4 * se:.5f}, ESS/s "
+                         f"{a['ess'] / got['secs']:.3f})")
+        line = (f"g{g}: accept {got['accept']:.4f}, {got['secs']:.3f} s, "
+                + "; ".join(parts))
+        print(f"  {line} on {ident}", flush=True)
+        lines.append(line)
+    phase(12, "posterior-leverage", "C=64 R=2 N=512 T=3084 2000 iters "
+          "(500 burn-in), within 4 combined MC-SE of both JAX posteriors | "
+          + " | ".join(lines))
+    return samples_csv
+
+
+def phase_swarm(dev, ys_all, samples_csv, ident):
+    data = os.path.join(ROOT, "data", "spy_returns.csv")
+    t0 = time.perf_counter()
+    res = _run_cli("ssme_tpu_torch.examples.swarm_forecast",
+                   [data, samples_csv, "--model", "svol_leverage", "--engine",
+                    "kernel", "--device", "cuda"], 600)
+    cli_secs = time.perf_counter() - t0
+    ev_line = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("total conditional evidence:")]
+    require(len(ev_line) == 1, "swarm CLI printed no evidence line")
+    evidence = float(ev_line[0].split(":")[1].split()[0])
+    require(math.isfinite(evidence), "non-finite swarm evidence")
+    quants = [ln.split(":")[1].split() for ln in res.stderr.splitlines()
+              if ln.strip().startswith("t+")]
+    require(len(quants) == 10 and all(
+        math.isfinite(float(v)) for q in quants for v in q),
+        "swarm forecast quantiles missing or not finite")
+    require(_cli_launches(res.stderr) >= 1, "the swarm CLI ran no kernel")
+
+    ys = ys_all[:, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)
+    km = fmk.svol_leverage_kernel_model()
+    draws = ParamSampler(samples_csv, dim_param=4).samp(
+        torch.Generator(device=dev).manual_seed(3), SWARM_M).contiguous()
+    # the counts start at 0 just before this path and are read just after
+    fmk.filter_megakernel.launches = 0
+    ev = fmk.megakernel_swarm_evidence(km, 21, draws, ys, zs,
+                                       num_particles=SWARM_N,
+                                       return_cloud=True)
+    launches = fmk.filter_megakernel.launches
+    require(launches == 1, f"{launches} kernel launches for the swarm")
+    obs = forecast_from_cloud(svol_leverage.make_model(), draws,
+                              ev["final_cloud"], ev["final_log_weights"],
+                              torch.Generator(device=dev).manual_seed(4), 10,
+                              last_obs=ys[-1:])
+    require(obs.shape == (SWARM_M, 10, SWARM_N, 1)
+            and bool(torch.isfinite(obs).all()), "bad forecast paths")
+    tot_k = ev["per_model_log_cond_likes"].sum(-1)
+    tot_p = fmk.filter_megakernel_reference(km, 22, draws, ys, zs,
+                                            num_particles=SWARM_N)[0]
+    require(bool(torch.isfinite(tot_k).all())
+            and bool(torch.isfinite(tot_p).all()), "NaN swarm totals")
+    diff = (tot_k - tot_p).double()
+    se = float(diff.std()) / math.sqrt(SWARM_M)
+    require(abs(float(diff.mean())) <= 4 * se,
+            f"swarm: kernel minus plain {float(diff.mean()):.4f} > 4 SE "
+            f"{4 * se:.4f}")
+    times = (cuda_ms(lambda: fmk.megakernel_swarm_evidence(
+                 km, 21, draws, ys, zs, num_particles=SWARM_N,
+                 return_cloud=True), 5),
+             cuda_ms(lambda: fmk.filter_megakernel_reference(
+                 km, 22, draws, ys, zs, num_particles=SWARM_N,
+                 return_cloud=True), 1))
+    phase(13, "swarm", f"CLI evidence {evidence:.2f}, 10 forecast steps "
+          f"finite, {cli_secs:.3f} s wall; M={SWARM_M} N={SWARM_N}: kernel minus plain totals "
+          f"{float(diff.mean()):.4f} (4 SE {4 * se:.4f}); kernel "
+          f"{times[0]:.4f} ms, plain {times[1]:.4f} ms ({ident})")
+    return launches, times
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
@@ -298,7 +594,15 @@ def main():
     times, plain_start = phase_filter_full(dev, ys)
     launches, _ = phase_pmmh(dev, ys, ident, plain_start)
     phase_cli()
+    k2_err = phase_megakernel_sis(dev, ys)
+    k2_times = phase_megakernel_full(dev, ys, ident)
+    k2_launches = phase_pmmh_leverage(dev, ys, ident)
+    with tempfile.TemporaryDirectory() as tmp:
+        samples_csv = phase_posterior_leverage(tmp, ident)
+        swarm_launches, swarm_times = phase_swarm(dev, ys, samples_csv,
+                                                  ident)
     k_ms, p_ms = times["adaptive"]
+    k2_ms, k2_plain = k2_times["svol_leverage/tuned"]
     print(json.dumps({"kernels": [{
         "name": "svol_filter",
         "route": "cuda",
@@ -310,6 +614,19 @@ def main():
         "plain_ms": p_ms,
         "ms_parity": times["parity"][0],
         "plain_ms_parity": times["parity"][1],
+    }, {
+        "name": "filter_megakernel",
+        "route": "cuda",
+        "source": "ssme_tpu_torch/csrc/filter_megakernel.cu",
+        "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
+        "launches": k2_launches + swarm_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain,
+        "per_schedule": {s: {"ms": k, "plain_ms": p}
+                         for s, (k, p) in k2_times.items()},
+        "swarm_ms": swarm_times[0],
+        "swarm_plain_ms": swarm_times[1],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

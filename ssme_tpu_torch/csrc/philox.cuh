@@ -1,5 +1,5 @@
-// Philox4x32-10 and the uniform / Box-Muller conversions the SVOL filter
-// kernel draws from.  Replaces the TPU hardware PRNG helpers of
+// Philox4x32-10 and the uniform / Box-Muller conversions the filter
+// kernels draw from.  Replaces the TPU hardware PRNG helpers of
 // ssme_tpu/ops/_prng.py (uniform_bits, normal_bits, uniform_offset).
 //
 // The mapping from counters to numbers is written down once, in the
@@ -18,8 +18,10 @@ constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
 // fourth counter word: which stream a draw belongs to
-constexpr uint32_t kTagNormal = 0u;  // init / propagate normals
+constexpr uint32_t kTagNormal = 0u;  // normal draw 0: init / propagate
 constexpr uint32_t kTagOffset = 1u;  // systematic resampling offset
+constexpr uint32_t kTagChain = 2u;   // host-side chain seeds, never here
+                                     // normal draw k >= 1: kTagChain + k
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24
@@ -66,12 +68,13 @@ __device__ __forceinline__ float2 box_muller(uint32_t w0, uint32_t w1) {
   return make_float2(r * c, r * s);
 }
 
-// normal number i of row b at step t: the pair i >> 1 shares one Philox
-// call; even i takes the cosine, odd i the sine
+// normal number i of row b at step t, draw `draw` of the step: the pair
+// i >> 1 shares one Philox call; even i takes the cosine, odd i the sine
 __device__ __forceinline__ float normal_at(uint32_t k0, uint32_t k1,
                                            uint32_t i, uint32_t t,
-                                           uint32_t b) {
-  const uint4 w = philox4x32_10(make_uint4(i >> 1, t, b, kTagNormal), k0, k1);
+                                           uint32_t b, uint32_t draw = 0u) {
+  const uint32_t tag = draw == 0u ? kTagNormal : kTagChain + draw;
+  const uint4 w = philox4x32_10(make_uint4(i >> 1, t, b, tag), k0, k1);
   const float2 z = box_muller(w.x, w.y);
   return (i & 1u) ? z.y : z.x;
 }

@@ -120,4 +120,14 @@ __device__ __forceinline__ float gather_from(float v, int anc, float* buf) {
   return r;
 }
 
+// every leaf of a particle's state moved by the same ancestor, through
+// one shared buffer reused leaf by leaf (kNumLeaves is a compile-time
+// count, so the leaves stay in registers)
+template <int kNumLeaves>
+__device__ __forceinline__ void gather_leaves(float (&v)[kNumLeaves],
+                                              int anc, float* buf) {
+#pragma unroll
+  for (int l = 0; l < kNumLeaves; ++l) v[l] = gather_from(v[l], anc, buf);
+}
+
 }  // namespace ssme

@@ -132,6 +132,39 @@ class BootstrapFilter:
             last_log_weights=log_w,
         )
 
+    def sim_future_obs(self, gen, params, particles, num_steps,
+                       feedback_obs_as_cov=False, last_obs=None):
+        """Future observation paths from current (unweighted) particles
+        (..., N, dim_state): the reference's ``sim_future_obs``.
+
+        With ``feedback_obs_as_cov`` each step's sampled observation is
+        the next step's covariate (the lagged-observation convention;
+        needs dim_obs == dim_cov), starting from ``last_obs``.  Returns
+        (..., num_steps, N, dim_obs).
+        """
+        m = self.model
+        m.require("sample_f", "sample_g")
+        z = None
+        if feedback_obs_as_cov:
+            if last_obs is None:
+                raise ValueError("feedback covariates require last_obs")
+            z = torch.as_tensor(last_obs, dtype=particles.dtype,
+                                device=particles.device).reshape(
+                m.dim_cov).expand(particles.shape[:-1] + (m.dim_cov,))
+        elif m.has_covariates:
+            raise ValueError(
+                f"model {m.name!r} has covariates: future simulation "
+                "requires feedback_obs_as_cov=True (the lagged-observation "
+                "convention); there are no future covariate values")
+        xs, obs_traj = particles, []
+        for _ in range(int(num_steps)):
+            xs = m.sample_f(gen, params, xs, z)
+            obs = m.sample_g(gen, params, xs)
+            if feedback_obs_as_cov:
+                z = obs
+            obs_traj.append(obs)
+        return torch.stack(obs_traj, dim=-3)
+
 
 def log_likelihood_fn(model: StateSpaceModel, num_particles: int,
                       resampler: str = "systematic", resample_every: int = 1):

@@ -35,7 +35,7 @@ import torch
 from ssme_tpu_torch import rv
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
 from ssme_tpu_torch.models.base import StateSpaceModel
-from ssme_tpu_torch.ops._prng import philox4x32_10, seed_words
+from ssme_tpu_torch.ops._prng import TAG_CHAIN, philox4x32_10, seed_words
 from ssme_tpu_torch.utils import logmeanexp
 
 
@@ -77,7 +77,7 @@ def chain_generators(seed: int, num_chains: int, device) -> tuple:
     words = seed_words(seed)
     c = torch.arange(num_chains, dtype=torch.int64)
     zero = torch.zeros_like(c)
-    w0, w1, _, _ = philox4x32_10(c, zero, zero, zero + 2, words[0],
+    w0, w1, _, _ = philox4x32_10(c, zero, zero, zero + TAG_CHAIN, words[0],
                                  words[1])
     return tuple(generator_from_seed((int(a) << 32) | int(b), device)
                  for a, b in zip(w0, w1))
@@ -97,7 +97,11 @@ class AdaptivePMMH:
     every chain's replicate-averaged likelihood in one call (e.g.
     ``ops.svol_filter_kernel.svol_batched_log_like``, one kernel launch);
     by default the generic filter bank.  ``custom_log_like``:
-    ``(gen, params (d,), ys) -> ()`` for one replicate of one chain.
+    ``(gen, params (d,), ys) -> ()`` for one replicate of one chain.  For
+    a model with covariates both hooks take ``zs`` as a fourth argument,
+    as in JAX; the generic bank always receives it.  ``zs`` moves to the
+    device of ``ys`` once per ``init``/``run_from`` call, never inside an
+    iteration.
     """
 
     model: StateSpaceModel
@@ -125,20 +129,29 @@ class AdaptivePMMH:
         return (self.model.log_prior(tf.constrain(trans_theta))
                 + tf.log_det_jacobian(trans_theta))
 
-    def _log_like(self, gens, trans_theta, ys):
+    def _log_like(self, gens, trans_theta, ys, zs=None):
         """(C,) replicate-averaged log-likelihoods of the chains' points."""
         params = self.model.transform.constrain(trans_theta)
+        cov = (zs,) if self.model.has_covariates else ()
         if self.batched_log_like is not None:
-            return self.batched_log_like(gens[0], params, ys)
+            return self.batched_log_like(gens[0], params, ys, *cov)
         if self.custom_log_like is not None:
-            vals = [torch.stack([self.custom_log_like(g, params[c], ys)
+            vals = [torch.stack([self.custom_log_like(g, params[c], ys, *cov)
                                  for _ in range(self.num_replicates)])
                     for c, g in enumerate(gens)]
             return logmeanexp(torch.stack(vals), dim=-1)
         bank = replicated_log_like_fn(self.model, self.num_particles,
                                       self.num_replicates, self.resampler,
                                       self.resample_every)
-        return bank(gens[0], params, ys)
+        return bank(gens[0], params, ys, zs)
+
+    @staticmethod
+    def _covariates(zs, ys):
+        """``zs`` as a float32 tensor on ``ys``'s device (None stays
+        None); a tensor already there is used as it is."""
+        if zs is None:
+            return None
+        return torch.as_tensor(zs, dtype=torch.float32, device=ys.device)
 
     def _update_moments_and_ct(self, theta, mean, sigma_hat, ct, i: int):
         """Branch-free ``update_moments_and_Ct`` for all chains; ``i`` is
@@ -172,14 +185,16 @@ class AdaptivePMMH:
 
     # ------------------------------------------------------------------
     def init(self, seed: int, start_trans_theta, ys, c0=None,
-             num_chains=1, device=None) -> PMMHState:
+             num_chains=1, device=None, zs=None) -> PMMHState:
         """Evaluate the starting point for every chain.
 
         ``start_trans_theta``: (d,) shared or (C, d) per chain.  ``c0``:
         initial proposal covariance (d, d), default 0.15 I.  ``device``
-        defaults to the device of ``ys``.
+        defaults to the device of ``ys``.  ``zs``: (T, dim_cov)
+        covariates of a model that has them.
         """
         ys = torch.as_tensor(ys)
+        zs = self._covariates(zs, ys)
         device = ys.device if device is None else torch.device(device)
         d = self.model.dim_param
         start = torch.as_tensor(start_trans_theta, dtype=torch.float32,
@@ -195,7 +210,7 @@ class AdaptivePMMH:
         gens = chain_generators(seed, c, device)
         return PMMHState(
             trans_theta=start,
-            log_like=self._log_like(gens, start, ys),
+            log_like=self._log_like(gens, start, ys, zs),
             log_prior=self._log_prior_with_jacobian(start),
             mean=torch.zeros((c, d), device=device),
             sigma_hat=torch.zeros((c, d, d), device=device),
@@ -216,10 +231,11 @@ class AdaptivePMMH:
                          for g in state.generators])
         return eps, torch.log(u)
 
-    def step(self, state: PMMHState, ys, eps=None, log_u=None):
+    def step(self, state: PMMHState, ys, eps=None, log_u=None, zs=None):
         """One MH iteration of every chain; returns (new state, the
         iteration's outputs).  ``eps`` (C, d) and ``log_u`` (C,) default
-        to draws from the chains' generators."""
+        to draws from the chains' generators; ``zs`` is used as given (on
+        the device of ``ys``)."""
         i = state.iteration + 1
         if eps is None:
             eps, log_u = self.draw(state)
@@ -228,7 +244,7 @@ class AdaptivePMMH:
         chol = rv.chol_with_jitter(ct)
         proposed = state.trans_theta + torch.matmul(chol, eps[..., None])[..., 0]
         new_lp = self._log_prior_with_jacobian(proposed)
-        new_ll = self._log_like(state.generators, proposed, ys)
+        new_ll = self._log_like(state.generators, proposed, ys, zs)
         theta, ll, lp, ama, log_accept, accepted = self._accept(
             state.trans_theta, state.log_like, state.log_prior,
             state.accept_ma, proposed, new_ll, new_lp, log_u, i)
@@ -237,12 +253,14 @@ class AdaptivePMMH:
         return new_state, (theta, ll, lp, new_ll, new_lp, log_accept,
                            accepted, ama)
 
-    def run_from(self, state: PMMHState, num_iters: int, ys) -> PMMHResult:
+    def run_from(self, state: PMMHState, num_iters: int, ys,
+                 zs=None) -> PMMHResult:
         """Advance every chain ``num_iters`` MH iterations (resumable)."""
         ys = torch.as_tensor(ys)
+        zs = self._covariates(zs, ys)
         outs = []
         for _ in range(int(num_iters)):
-            state, out = self.step(state, ys)
+            state, out = self.step(state, ys, zs=zs)
             outs.append(out)
         c, d = state.trans_theta.shape
         if outs:
@@ -279,16 +297,16 @@ class AdaptivePMMH:
             accept_ma=torch.zeros_like(state.accept_ma))
 
     def run(self, seed: int, start_trans_theta, num_iters, ys, c0=None,
-            num_chains=1, device=None) -> PMMHResult:
+            num_chains=1, device=None, zs=None) -> PMMHResult:
         """Init at the start point, then ``num_iters`` iterations."""
         state = self.init(seed, start_trans_theta, ys, c0=c0,
-                          num_chains=num_chains, device=device)
-        return self.run_from(state, num_iters, ys)
+                          num_chains=num_chains, device=device, zs=zs)
+        return self.run_from(state, num_iters, ys, zs=zs)
 
     def sample(self, seed: int, start_trans_theta, num_iters, ys, c0=None,
                num_chains=1, chunk_size=250, sample_writer=None,
                message_writer=None, checkpoint_path=None,
-               checkpoint_every_chunks=2, device=None):
+               checkpoint_every_chunks=2, device=None, zs=None):
         """Host-driven chunked sampling with streaming output.
 
         Chunks of ``chunk_size`` iterations run on the device; between
@@ -301,8 +319,10 @@ class AdaptivePMMH:
         from ssme_tpu_torch.io.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
 
+        ys = torch.as_tensor(ys)
+        zs = self._covariates(zs, ys)
         state = self.init(seed, start_trans_theta, ys, c0=c0,
-                          num_chains=num_chains, device=device)
+                          num_chains=num_chains, device=device, zs=zs)
         done = 0
         if checkpoint_path is not None and os.path.exists(checkpoint_path):
             state, meta = load_checkpoint(checkpoint_path,
@@ -312,7 +332,7 @@ class AdaptivePMMH:
         chunk_idx = 0
         while done < num_iters:
             take = min(int(chunk_size), num_iters - done)
-            res = self.run_from(state, take, ys)
+            res = self.run_from(state, take, ys, zs=zs)
             state = res.final_state
             host = PMMHResult(*[t.cpu().numpy() for t in res[:-1]],
                               final_state=state)

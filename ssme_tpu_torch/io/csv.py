@@ -11,6 +11,7 @@ import sys
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ssme_tpu_torch.native import native_read_csv
 
@@ -51,4 +52,32 @@ def read_params_csv(path: str, dim_param: Optional[int] = None) -> np.ndarray:
     return read_data(path, num_cols=dim_param)
 
 
-__all__ = ["read_data", "read_params_csv"]
+class ParamSampler:
+    """Uniformly-at-random draws, with replacement, from stored posterior
+    samples (``ssme_tpu.io.ParamSampler``): a CSV that
+    :func:`read_params_csv` reads, or an (M, d) array."""
+
+    def __init__(self, path_or_array, dim_param: Optional[int] = None):
+        if isinstance(path_or_array, (str, bytes)):
+            arr = read_params_csv(path_or_array, dim_param)
+        else:
+            arr = path_or_array
+        self.samples = torch.as_tensor(arr, dtype=torch.float32)
+        if self.samples.ndim != 2 or self.samples.shape[0] == 0:
+            raise ValueError("parameter samples must be a nonempty (M, d) "
+                             "array")
+        if dim_param is not None and self.samples.shape[1] != dim_param:
+            raise ValueError(f"expected {dim_param} columns, found "
+                             f"{self.samples.shape[1]}")
+
+    def samp(self, generator: torch.Generator,
+             num: Optional[int] = None) -> torch.Tensor:
+        """(d,) or (num, d) rows drawn with ``generator``, on its
+        device."""
+        shape = () if num is None else (num,)
+        idx = torch.randint(0, self.samples.shape[0], shape,
+                            generator=generator, device=generator.device)
+        return self.samples.to(generator.device)[idx]
+
+
+__all__ = ["read_data", "read_params_csv", "ParamSampler"]

@@ -1,6 +1,6 @@
 """State-space model specifications (batched PyTorch hooks)."""
 
-from ssme_tpu_torch.models import svol
+from ssme_tpu_torch.models import svol, svol_leverage
 from ssme_tpu_torch.models.base import StateSpaceModel, bcol
 
-__all__ = ["StateSpaceModel", "bcol", "svol"]
+__all__ = ["StateSpaceModel", "bcol", "svol", "svol_leverage"]

@@ -19,6 +19,7 @@ hook               signature
 ``log_g``          (params, y, x, z) -> (..., N)
 ``sample_g``       (gen, params, x) -> (..., N, dim_obs)
 ``log_prior``      (params) -> (...)
+``sample_prior``   (gen) -> (P,) constrained draw from the prior
 =================  ==================================================
 """
 
@@ -51,6 +52,7 @@ class StateSpaceModel:
     sample_g: Callable = None
     prop_mu: Callable = None
     log_prior: Callable = None
+    sample_prior: Callable = None
 
     name: str = "ssm"
 

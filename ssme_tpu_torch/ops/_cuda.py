@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``ssme_tpu_torch/csrc/`` expose a plain C interface.  At
-first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``ssme_tpu_torch/_build/`` whose name carries a hash of the
-sources, and loaded with ``ctypes``.  Nothing here runs at import time:
+first use each ``.cu`` file is compiled by its own ``nvcc`` for
+``sm_90a``, all of them at once, and the objects are linked into one
+shared library under ``ssme_tpu_torch/_build/`` whose name carries a hash
+of the sources, loaded with ``ctypes``.  Nothing here runs at import time:
 a machine without ``nvcc`` or a card can import every module, and only a
 call on a CUDA tensor reaches :func:`library`, which raises if the build
 fails.
@@ -25,10 +26,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # model id, seed, params, ys, zs, B, T, N, ess_limit, always,
+    # gate_stride, total, lcl, fmean, cloud, cloud_lw, stream
+    "ssme_filter_megakernel": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                               _P, _P, _P, _P, _P, _P],
     # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
     # total, lcl, xmean, stream
     "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
@@ -73,26 +78,47 @@ def _library_path() -> str:
                         f"libssme_kernels_{digest.hexdigest()[:16]}.so")
 
 
+def _run(procs):
+    """Wait for every (name, Popen) and raise on the first failure."""
+    logs = []
+    for name, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                               f"\n{out}\n{err}")
+        logs.append(err)
+    return logs
+
+
 def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        try:
+            for src in (s for s in _sources() if s.endswith(".cu")):
+                obj = os.path.join(tmp, os.path.basename(src) + ".o")
+                objs.append(obj)
+                procs.append((src, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            logs = _run(procs)
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        _run([("link", subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, path)
     build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas=[ln for ln in res.stderr.splitlines()
-                             if "registers" in ln or "Compiling" in ln])
+                      ptxas=[ln for log in logs for ln in log.splitlines()
+                             if "registers" in ln or "Compiling" in ln
+                             or "spill" in ln])
 
 
 def library() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Counter-based random numbers for the SVOL filter kernel: Philox4x32-10.
+"""Counter-based random numbers for the filter kernels: Philox4x32-10.
 
 Replaces the TPU hardware PRNG helpers of ``ssme_tpu/ops/_prng.py``.  The
 CUDA side is ``csrc/philox.cuh``; this module holds the plain PyTorch
@@ -10,8 +10,15 @@ The mapping (the only place it is written down):
 - key: two 32-bit seed words (k0, k1), read from a device tensor of shape
   (2,), int64, each in [0, 2^32);
 - counter: (c0, c1, c2, c3) = (particle-pair index i >> 1, step t,
-  filter row b, stream tag), tag 0 for the init / propagate normals and
-  tag 1 for the resampling offset (counter (0, t, b, 1));
+  filter row b, stream tag).  Tags:
+  - 0: normal draw 0 of a step, the init / propagate normals (the only
+    draw of the SVOL kernel, so the generic kernel's svol instance
+    consumes exactly its bits);
+  - 1: the resampling offset (counter (0, t, b, 1));
+  - 2: not drawn by the filters (``inference/pmmh.py::chain_generators``
+    seeds chains with counter (c, 0, 0, 2) under the run's seed);
+  - 2 + k: normal draw k >= 1 of a step, for model hooks that draw more
+    than one normal per particle per step (``normal_tag``);
 - Philox4x32-10 (Salmon et al. 2011; the Random123 constants) gives four
   words (w0, w1, w2, w3);
 - normals: u1 = ((w0 >> 8) + 1) 2^-24 in (0, 1],
@@ -44,6 +51,7 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 TAG_NORMAL = 0
 TAG_OFFSET = 1
+TAG_CHAIN = 2
 TWO_PI = 6.283185307179586
 HALF_LOG_2PI = 0.9189385332046727
 _INV_2_24 = 2.0 ** -24
@@ -103,16 +111,23 @@ def _key(seed):
     return seed[0] & MASK32, seed[1] & MASK32
 
 
-def normals_steps(seed, rows, steps, num_particles):
+def normal_tag(draw: int) -> int:
+    """Counter tag of normal draw ``draw`` of a step (the mapping above)."""
+    if draw < 0:
+        raise ValueError(f"draw must be >= 0, got {draw}")
+    return TAG_NORMAL if draw == 0 else TAG_CHAIN + draw
+
+
+def normals_steps(seed, rows, steps, num_particles, draw=0):
     """Standard normals (len(steps), len(rows), num_particles) of the
-    given filter rows at the given steps, as the kernel draws them."""
+    given filter rows at the given steps, draw ``draw`` of each step, as
+    the kernels draw them."""
     k0, k1 = _key(seed)
     pair = torch.arange(num_particles // 2, device=seed.device)[None, None]
     t = steps.to(torch.int64)[:, None, None]
     b = rows.to(torch.int64)[None, :, None]
-    w0, w1, _, _ = philox4x32_10(pair, t, b, torch.full_like(pair,
-                                                             TAG_NORMAL),
-                                 k0, k1)
+    w0, w1, _, _ = philox4x32_10(pair, t, b, torch.full_like(
+        pair, normal_tag(draw)), k0, k1)
     zc, zs = box_muller(w0, w1)
     return torch.stack([zc, zs], dim=-1).reshape(
         steps.shape[0], rows.shape[0], num_particles)
@@ -193,8 +208,8 @@ def philox_fill(seed, num_rows, num_particles, step):
 
 philox_fill.launches = 0
 
-__all__ = ["philox4x32_10", "seed_words", "normals_steps", "offsets",
-           "offsets_steps",
+__all__ = ["philox4x32_10", "seed_words", "normals_steps", "normal_tag",
+           "offsets", "offsets_steps",
            "philox_fill", "philox_fill_reference", "uniform_open_zero",
            "uniform_closed_zero", "uniform_offset", "box_muller",
            "TWO_PI", "HALF_LOG_2PI"]

@@ -215,7 +215,8 @@ def svol_batched_log_like(num_particles: int, num_replicates: int,
 
     def ll(gen, params, ys):
         c = params.shape[0]
-        rows = _kernel_rows(params)[:, None].expand(c, r, 3).reshape(c * r, 3)
+        rows = _kernel_rows(params)[:, None].expand(c, r, 3).reshape(
+            c * r, 3).contiguous()
         vals, _, _ = svol_filter(_draw_seed(gen, params.device), rows, ys,
                                  num_particles=num_particles,
                                  ess_threshold=ess_threshold,
@@ -225,5 +226,31 @@ def svol_batched_log_like(num_particles: int, num_replicates: int,
     return ll
 
 
+def svol_swarm_evidence(seed, param_draws, ys, num_particles=512,
+                        ess_threshold: float = 1.0, gate_stride: int = 1):
+    """Particle-swarm conditional evidence through the SVOL kernel: one
+    filter per parameter draw (the kernel's row axis), per-step
+    aggregation across models.
+
+    ``param_draws``: (M, 3) constrained (beta, phi, ss) rows (e.g. from
+    ``ssme_tpu_torch.io.ParamSampler``).  Returns ``log_cond_like`` (T,) =
+    logmeanexp over models, ``mean_log_cond_like`` (T,) = the arithmetic
+    mean of logs, ``per_model_log_cond_likes`` (M, T) and
+    ``volatility_path`` (T,) = the swarm's E[x_t]; with ``gate_stride >
+    1`` the lcls coarsen to per-check block sums and the path is zero off
+    the check columns.
+    """
+    _, lcls, xmeans = svol_filter(seed, _kernel_rows(param_draws).contiguous(),
+                                  ys, num_particles=num_particles,
+                                  ess_threshold=ess_threshold,
+                                  gate_stride=gate_stride)
+    return {
+        "log_cond_like": logmeanexp(lcls, dim=0),
+        "mean_log_cond_like": lcls.mean(0),
+        "per_model_log_cond_likes": lcls,
+        "volatility_path": xmeans.mean(0),
+    }
+
+
 __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
-           "svol_replicated_log_like"]
+           "svol_replicated_log_like", "svol_swarm_evidence"]

@@ -36,12 +36,37 @@ def norm_logpdf(x, mu=0.0, sigma=1.0):
 
 
 def uniform_logpdf(x, lower=0.0, upper=1.0):
-    """log U(x; lower, upper); -inf outside the support."""
+    """log U(x; lower, upper); -inf outside the support.
+
+    Python-number bounds stay host constants; tensor bounds (on ``x``'s
+    device) are evaluated with tensor operations, never read back to the
+    host.  For one box per last-axis column given as Python floats, see
+    :func:`box_uniform_logpdf`.
+    """
     x = _f32(x)
+    if isinstance(lower, torch.Tensor) or isinstance(upper, torch.Tensor):
+        lo, hi = _f32(lower, x), _f32(upper, x)
+        inside = (x >= lo) & (x <= hi) & (hi > lo)
+        return torch.where(inside, -torch.log(hi - lo),
+                           torch.full_like(x, -math.inf))
+    lower, upper = float(lower), float(upper)
     inside = (x >= lower) & (x <= upper) & (upper > lower)
-    val = torch.full_like(x, -math.log(float(upper) - float(lower))
+    val = torch.full_like(x, -math.log(upper - lower)
                           if upper > lower else -math.inf)
     return torch.where(inside, val, torch.full_like(x, -math.inf))
+
+
+def box_uniform_logpdf(x, bounds):
+    """Per-column log U(x[..., k]; lo_k, hi_k) for ``bounds`` a sequence
+    of (lo, hi) Python floats, one per last-axis column; returns the
+    (..., d) log-densities (JAX ``rv.uniform_logpdf`` with vector bounds).
+    Each column is evaluated against host constants, so nothing is copied
+    to the device."""
+    x = _f32(x)
+    if len(bounds) != x.shape[-1]:
+        raise ValueError(f"{len(bounds)} bounds for {x.shape[-1]} columns")
+    return torch.stack([uniform_logpdf(x[..., k], lo, hi)
+                        for k, (lo, hi) in enumerate(bounds)], dim=-1)
 
 
 def invgamma_logpdf(x, alpha, beta):
@@ -93,5 +118,5 @@ def mvn_sample(generator, mean, cov=None, chol=None):
     return mean + torch.matmul(chol, eps[..., None])[..., 0]
 
 
-__all__ = ["norm_logpdf", "uniform_logpdf", "invgamma_logpdf",
-           "twice_fisher", "chol_with_jitter", "mvn_sample"]
+__all__ = ["norm_logpdf", "uniform_logpdf", "box_uniform_logpdf",
+           "invgamma_logpdf", "twice_fisher", "chol_with_jitter", "mvn_sample"]

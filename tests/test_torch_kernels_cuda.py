@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import _prng, _select
+from ssme_tpu_torch.ops import filter_megakernel as fm
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_filter,
                                                    svol_filter_reference)
 
@@ -84,3 +86,62 @@ def test_filter_launch_counter_and_errors(dev):
     assert svol_filter.launches == before + 1
     with pytest.raises(ValueError):      # ys on another device
         svol_filter(1, params, _ys(20, 2), num_particles=64)
+
+
+def _instance(name, dev, ys):
+    if name == "svol":
+        return (fm.svol_kernel_model(),
+                torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 64, device=dev),
+                None)
+    return (fm.svol_leverage_kernel_model(),
+            torch.tensor([[0.95, -0.1, 0.3, -0.7]] * 64, device=dev),
+            lagged_covariates(ys))
+
+
+@pytest.mark.parametrize("gate_stride", [1, 8])
+@pytest.mark.parametrize("name", ["svol", "svol_leverage"])
+def test_megakernel_matches_plain_without_resampling(dev, name, gate_stride):
+    """The generic kernel against its plain version on the same bits with
+    a gate that never fires, the final cloud included."""
+    ys = _ys(300, 8).to(dev)
+    km, params, zs = _instance(name, dev, ys)
+    kw = dict(num_particles=256, ess_threshold=1e-6, gate_stride=gate_stride,
+              return_cloud=True)
+    tot, lcl, fmean, cloud, clw = fm.filter_megakernel(km, 9, params, ys, zs,
+                                                       **kw)
+    tot_p, lcl_p, fmean_p, cloud_p, clw_p = fm.filter_megakernel_reference(
+        km, 9, params, ys, zs, **kw)
+    torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(lcl != 0, lcl_p != 0)
+    torch.testing.assert_close(fmean, fmean_p, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(cloud[0], cloud_p[0], rtol=1e-3, atol=1e-3)
+    # negligible particles carry log-weights far below -1e6: compare weights
+    torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_megakernel_svol_instance_equals_the_svol_kernel(dev):
+    ys = _ys(300, 9).to(dev)
+    km, params, _ = _instance("svol", dev, ys)
+    for ess in (1.0, 0.5):
+        a = fm.filter_megakernel(km, 4, params, ys, num_particles=256,
+                                 ess_threshold=ess)[0]
+        b = svol_filter(4, params, ys, num_particles=256,
+                        ess_threshold=ess)[0]
+        assert float((a - b).abs().max()) <= 1e-3
+
+
+def test_megakernel_launch_counter_and_errors(dev):
+    ys = _ys(20, 2).to(dev)
+    km, params, zs = _instance("svol_leverage", dev, ys)
+    before = fm.filter_megakernel.launches
+    fm.filter_megakernel(km, 1, params, ys, zs, num_particles=64)
+    assert fm.filter_megakernel.launches == before + 1
+    with pytest.raises(ValueError):      # covariates on another device
+        fm.filter_megakernel(km, 1, params, ys, zs.cpu(), num_particles=64)
+    custom = fm.KernelModel(num_params=4, init=km.init,
+                            propagate=km.propagate, log_weight=km.log_weight,
+                            dim_cov=1, name="custom")
+    with pytest.raises(ValueError, match="no CUDA instance"):
+        fm.filter_megakernel(custom, 1, params, ys, zs, num_particles=64)
+    assert fm.filter_megakernel.launches == before + 1

@@ -39,7 +39,12 @@ def test_port_and_chip_smoke_import_without_jax():
     modules = _port_modules()
     assert {"ssme_tpu_torch.bench",
             "ssme_tpu_torch.examples.estimate_univ_svol",
+            "ssme_tpu_torch.examples.estimate_svol_leverage",
+            "ssme_tpu_torch.examples.swarm_forecast",
             "ssme_tpu_torch.ops.svol_filter_kernel",
+            "ssme_tpu_torch.ops.filter_megakernel",
+            "ssme_tpu_torch.models.svol_leverage",
+            "ssme_tpu_torch.inference.swarm",
             "ssme_tpu_torch.io.checkpoint"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT.format(root=ROOT, modules=modules)],

@@ -13,10 +13,13 @@ from ssme_tpu import rv as jrv
 from ssme_tpu.inference import AdaptivePMMH as JaxPMMH
 from ssme_tpu.io import save_checkpoint as jax_save_checkpoint
 from ssme_tpu.models import svol as jsvol
+from ssme_tpu.models import svol_leverage as jlev
 from ssme_tpu_torch.diagnostics import ess as mcmc_ess
 from ssme_tpu_torch.inference import AdaptivePMMH
 from ssme_tpu_torch.io import load_jax_checkpoint
-from ssme_tpu_torch.models import svol
+from ssme_tpu_torch.models import svol, svol_leverage
+from ssme_tpu_torch.ops.filter_megakernel import (megakernel_log_like,
+                                                  svol_leverage_kernel_model)
 from ssme_tpu_torch.ops.svol_filter_kernel import svol_batched_log_like
 
 torch.set_num_threads(1)
@@ -38,27 +41,50 @@ def _ll_jax(params):
                    ).sum(-1)
 
 
-def test_trajectory_matches_jax_recursion():
+# the covariate twin: a closed form on the constrained (phi, mu, sigma,
+# rho) that also reads the covariates
+LEV_MODE = (0.95, -0.1, math.log(0.3), -0.6)
+LEV_SCALE = (0.02, 0.2, 0.3, 0.1)
+WIDE = ((0.5, 0.999), (-2.0, 2.0), (0.05, 1.0), (-0.95, 0.0))
+
+
+def _ll_torch_cov(gen, params, ys, zs):
+    assert zs is not None and zs.shape == (ys.shape[0], 1)
+    z = torch.stack([params[:, 0], params[:, 1], torch.log(params[:, 2]),
+                     params[:, 3]], -1)
+    return (-0.5 * (((z - torch.tensor(LEV_MODE)) / torch.tensor(LEV_SCALE))
+                    ** 2).sum(-1) + 0.5 * params[:, 3] * zs.sum())
+
+
+def _ll_jax_cov(params, zs):
+    z = jnp.stack([params[:, 0], params[:, 1], jnp.log(params[:, 2]),
+                   params[:, 3]], -1)
+    return (-0.5 * (((z - jnp.asarray(LEV_MODE)) / jnp.asarray(LEV_SCALE))
+                    ** 2).sum(-1) + 0.5 * params[:, 3] * zs.sum())
+
+
+def _check_trajectory(port_model, jax_model, start, ll_torch, ll_jax,
+                      ys=None, zs=None):
     """Explicit normals and log-uniforms through both recursions: 200
     iterations x 8 chains with adaptation in (20, 120).  States agree to
     1e-4; a chain may only part ways at an accept decision within 1e-5
     of its boundary, and is not compared after that."""
-    c, d, iters = 8, 3, 200
+    c, d, iters = 8, port_model.dim_param, 200
     rng = np.random.default_rng(0)
     eps = rng.normal(size=(iters, c, d)).astype(np.float32)
     log_u = np.log(rng.uniform(size=(iters, c))).astype(np.float32)
+    ys_t = torch.zeros(1, 1) if ys is None else torch.from_numpy(ys)
+    zs_t = None if zs is None else torch.from_numpy(zs)
 
-    port = AdaptivePMMH(svol.make_model(), num_particles=1, t0=20, t1=120,
-                        batched_log_like=_ll_torch)
-    st = port.init(0, svol.START_TRANS_THETA, torch.zeros(1, 1),
-                   num_chains=c)
+    port = AdaptivePMMH(port_model, num_particles=1, t0=20, t1=120,
+                        batched_log_like=ll_torch)
+    st = port.init(0, start, ys_t, num_chains=c, zs=zs_t)
 
-    jp = JaxPMMH(jsvol.make_model(), num_particles=1, t0=20, t1=120)
-    theta = jnp.broadcast_to(jnp.asarray(svol.START_TRANS_THETA,
-                                         jnp.float32), (c, d))
-    tf = jsvol.make_model().transform
+    jp = JaxPMMH(jax_model, num_particles=1, t0=20, t1=120)
+    theta = jnp.broadcast_to(jnp.asarray(start, jnp.float32), (c, d))
+    tf = jax_model.transform
     lp = jax.vmap(jp._log_prior_with_jacobian)(theta)
-    ll = _ll_jax(tf.constrain(theta))
+    ll = ll_jax(tf.constrain(theta))
     mean = jnp.zeros((c, d))
     sig = jnp.zeros((c, d, d))
     ct = jnp.broadcast_to(0.15 * jnp.eye(d), (c, d, d))
@@ -73,7 +99,7 @@ def test_trajectory_matches_jax_recursion():
         prop = theta + jnp.einsum("cij,cj->ci", chol, eps_k,
                                   precision=jax.lax.Precision.HIGHEST)
         new_lp = jax.vmap(jp._log_prior_with_jacobian)(prop)
-        new_ll = _ll_jax(tf.constrain(prop))
+        new_ll = ll_jax(tf.constrain(prop))
         log_acc = new_lp + new_ll - lp - ll
         acc = log_u_k < log_acc
         theta = jnp.where(acc[:, None], prop, theta)
@@ -90,8 +116,8 @@ def test_trajectory_matches_jax_recursion():
                                        jnp.asarray(eps[k]),
                                        jnp.asarray(log_u[k]))
         theta, ll, lp, mean, sig, ct, ama = carry
-        st, out = port.step(st, None, torch.from_numpy(eps[k]),
-                            torch.from_numpy(log_u[k]))
+        st, out = port.step(st, ys_t, torch.from_numpy(eps[k]),
+                            torch.from_numpy(log_u[k]), zs=zs_t)
         near = np.abs(np.asarray(log_acc) - log_u[k]) < 1e-5
         same = np.asarray(out[6]) == np.asarray(acc)
         assert np.all(same | near | ~live), f"iteration {k + 1}"
@@ -105,6 +131,48 @@ def test_trajectory_matches_jax_recursion():
                                        rtol=1e-4, atol=1e-4)
     assert live.sum() >= c - 1
     assert float(st.accept_ma.mean()) > 0.05
+
+
+def test_trajectory_matches_jax_recursion():
+    _check_trajectory(svol.make_model(), jsvol.make_model(),
+                      svol.START_TRANS_THETA, _ll_torch,
+                      lambda params: _ll_jax(params))
+
+
+def test_covariate_trajectory_matches_jax_recursion():
+    """The twin on the 4-parameter leverage model: the port's PMMH passes
+    zs to the batched hook on every iteration, as JAX does."""
+    ys = _spy_like(20, 7)
+    zs = np.concatenate([[[0.0]], ys[:-1]]).astype(np.float32)
+    start = np.asarray(svol_leverage.make_model().transform.unconstrain(
+        torch.tensor([0.9, 0.0, 0.3, -0.3])))
+    _check_trajectory(svol_leverage.make_model(WIDE), jlev.make_model(WIDE),
+                      start, _ll_torch_cov,
+                      lambda params: _ll_jax_cov(params, jnp.asarray(zs)),
+                      ys=ys, zs=zs)
+
+
+def test_every_likelihood_route_receives_zs():
+    """batched_log_like and custom_log_like get zs iff the model has
+    covariates; the generic bank always does (and needs it here)."""
+    ys = torch.from_numpy(_spy_like(15, 8))
+    zs = torch.cat([torch.zeros(1, 1), ys[:-1]])
+    seen = []
+
+    def custom(gen, params, ys_, zs_):
+        seen.append(zs_)
+        return _ll_torch_cov(gen, params[None], ys_, zs_)[0]
+
+    model = svol_leverage.make_model(WIDE)
+    start = model.transform.unconstrain(torch.tensor([0.9, 0.0, 0.3, -0.3]))
+    for pmmh in (AdaptivePMMH(model, num_particles=16, num_replicates=2,
+                              custom_log_like=custom),
+                 AdaptivePMMH(model, num_particles=16, num_replicates=2)):
+        res = pmmh.run(0, start, 2, ys, num_chains=2, zs=zs)
+        assert torch.isfinite(res.log_likes).all()
+    assert len(seen) == 2 * 2 * 3 and all(z is zs for z in seen)
+    with pytest.raises(ValueError, match="requires covariates"):
+        AdaptivePMMH(model, num_particles=16).run(0, start, 1, ys)
 
 
 def _spy_like(t_len, seed):
@@ -139,6 +207,35 @@ def test_load_jax_checkpoint_resumes_on_the_port(tmp_path):
     assert res.samples.shape == (3, 4, 3)
     assert res.final_state.iteration == 3
     assert torch.isfinite(res.log_likes).all()
+
+
+def test_load_jax_leverage_checkpoint_resumes_with_covariates(tmp_path):
+    """A JAX PMMHState of the 4-parameter leverage model, saved by the JAX
+    package, resumes on the port's PMMH with zs through the generic
+    kernel's plain version."""
+    ys = _spy_like(30, 9)
+    zs = np.concatenate([[[0.0]], ys[:-1]]).astype(np.float32)
+    jp = JaxPMMH(jlev.make_model(WIDE), num_particles=32,
+                 batched_log_like=lambda key, params, ys_, zs_: _ll_jax_cov(
+                     params, zs_))
+    start = jlev.make_model().transform.unconstrain(
+        jnp.asarray([0.9, 0.0, 0.3, -0.3]))
+    jstate = jp.init(jax.random.key(4), start, jnp.asarray(ys),
+                     zs=jnp.asarray(zs), num_chains=4)
+    path = str(tmp_path / "lev.npz")
+    jax_save_checkpoint(path, jstate, {"completed_iters": 0})
+    state, _ = load_jax_checkpoint(path)
+    assert state.trans_theta.shape == (4, 4) and state.ct.shape == (4, 4, 4)
+    np.testing.assert_array_equal(state.log_like.numpy(),
+                                  np.asarray(jstate.log_like))
+    port = AdaptivePMMH(svol_leverage.make_model(WIDE), num_particles=64,
+                        num_replicates=2,
+                        batched_log_like=megakernel_log_like(
+                            svol_leverage_kernel_model(), 64, 2))
+    res = port.run_from(state, 3, torch.from_numpy(ys), zs=zs)
+    assert res.samples.shape == (3, 4, 4)
+    assert res.final_state.iteration == 3
+    assert torch.isfinite(res.new_log_likes).all()
 
 
 def test_svol_posterior_matches_jax_pmmh():
