@@ -8,9 +8,10 @@ its paths through the port's own entry points, over the full SPY series
 (T=3084): adaptive PMMH on univariate SVOL at the flagship size (C=64
 chains x R=4 replicates x N=512 particles) through the SVOL filter
 kernel, adaptive PMMH on SVOL with leverage at its tuned size (C=64 x
-R=2 x N=512) through the generic filter kernel, and the kernel swarm
-forecast (32 parameter draws x N=1024) from that posterior.  Phases, one
-line each:
+R=2 x N=512) through the generic filter kernel, the kernel swarm
+forecast (32 parameter draws x N=1024) from that posterior, and
+Liu-West joint state + parameter filtering of SVOL with leverage (F=64
+filters x N=512) through the Liu-West kernel.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts;
@@ -41,16 +42,28 @@ line each:
             of the committed JAX posteriors;
 13. swarm   ``ssme_tpu_torch.examples.swarm_forecast`` on the posterior
             samples of phase 12, and the swarm evidence against the plain
-            version at N=1024.
+            version at N=1024;
+14. lw-sis  the Liu-West kernel against its plain version for both
+            instances (SISR, a gate that never fires: identical bits),
+            and the leverage wrapper (K4) equal to the K3 instance;
+15. lw-full F=64 N=512 over SPY, four schedules: kernel and plain means
+            within 4 combined standard errors; times; a forecast from the
+            kernel's cloud;
+16. lw-cli  ``ssme_tpu_torch.examples.liu_west_leverage`` on the card,
+            both engines, against the JAX package's float32 results in
+            ``data/spy_liu_west_jax.json``; exactly one kernel launch.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
 Imports nothing of JAX.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,13 +77,16 @@ sys.path.insert(0, ROOT)
 
 from ssme_tpu_torch.bench import gpu_identity  # noqa: E402
 from ssme_tpu_torch.examples import estimate_svol_leverage as lev_cli  # noqa: E402,E501
+from ssme_tpu_torch.examples import liu_west_leverage as lw_cli  # noqa: E402
 from ssme_tpu_torch.inference import (AdaptivePMMH,  # noqa: E402
                                       forecast_from_cloud)
 from ssme_tpu_torch.io import ParamSampler, read_data  # noqa: E402
 from ssme_tpu_torch.models import svol, svol_leverage  # noqa: E402
 from ssme_tpu_torch.ops import _cuda, _prng, _select  # noqa: E402
 from ssme_tpu_torch.ops import filter_megakernel as fmk  # noqa: E402
+from ssme_tpu_torch.ops import liu_west_megakernel as lwm  # noqa: E402
 from ssme_tpu_torch.ops import svol_filter_kernel as sfk  # noqa: E402
+from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4  # noqa: E402
 from ssme_tpu_torch.utils import logmeanexp  # noqa: E402
 
 C, R, N = 64, 4, 512
@@ -88,6 +104,39 @@ LEV_POINTS = {"start": lev_cli.START,
 POSTERIORS = {1: "spy_leverage_pmmh_tuned.json",
               8: "spy_leverage_pmmh_tuned_stride8.json"}
 SWARM_N, SWARM_M = 1024, 32
+
+# the Liu-West path (liu_west_leverage --engine kernel)
+LW_F, LW_N = 64, 512
+LW_RUNS = {"apf": ("svol_leverage_lw", dict(variant="apf")),
+           "apf-ess": ("svol_leverage_lw",
+                       dict(variant="apf", ess_threshold=0.5)),
+           "sisr": ("svol_leverage_lw", dict(variant="sisr")),
+           "svol_t-apf": ("svol_t_lw", dict(variant="apf"))}
+
+# the least time of a kernel's work: the larger of its bytes over the HBM
+# rate and its operations over the float32 rate outside the tensor cores
+# (H100 SXM data sheet; integer and special-
+# function operations run no faster, so the bound stays a lower bound)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# operations per particle and step, counted from the sources; a normal is
+# half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
+# adds = 100) plus its half of Box-Muller (~12): 56.  Resampling inside a
+# gated schedule depends on the data and is left out (a lower bound).
+NORMAL_OPS = 56
+STEP_OPS = {
+    # normal, phi x + sigma e, the weight (exp, 2 mul, fma), max/exp/3 sums
+    "svol_filter": NORMAL_OPS + 2 + 6 + 8,
+    # the leverage transition mean (exp, 3 mul, fma, clamp) adds 10
+    "filter_megakernel": NORMAL_OPS + 12 + 6 + 8,
+    # P + 1 = 5 normals; moments (exp, 5 sums, 10 Gram terms x 3); shrink
+    # 8; four constrains (7 each); lookahead 12; three weights (6 each);
+    # first-stage max/exp and selection (scan, 9-step search, 6 gathers)
+    # 20; kernel draw 10 fma = 20; transition 14; weigh 8; the every-step
+    # resample (scan, search, 5 gathers) 15
+    "lw_megakernel": 5 * NORMAL_OPS + 36 + 8 + 28 + 12 + 18 + 20 + 20 + 14
+                     + 8 + 15,
+}
 
 
 def phase(num, name, msg):
@@ -107,6 +156,27 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(name, num_rows, num_particles, num_steps, in_bytes, out_bytes):
+    """(bound_ms, bound_by) of one launch of kernel ``name``."""
+    ops = STEP_OPS[name] * num_rows * num_particles * num_steps
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else
+            "operations")
+
+
+def event_ms(fn):
+    """(result, milliseconds) of one call of ``fn`` by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def require(cond, msg):
@@ -581,6 +651,170 @@ def phase_swarm(dev, ys_all, samples_csv, ident):
     return launches, times
 
 
+def _lw_instances(zs):
+    return {"svol_leverage_lw": (lwm.svol_leverage_lw_kernel_model(), zs),
+            "svol_t_lw": (lwm.svol_t_lw_kernel_model(), None)}
+
+
+def phase_lw_sis(dev, ys_all):
+    """SISR with a gate that never fires: identical bits, no selection."""
+    ys = ys_all[:512, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    kw = dict(num_filters=32, num_particles=LW_N, variant="sisr",
+              ess_threshold=0.5 / LW_N)
+    errs = {}
+    for name, (km, z) in _lw_instances(zs).items():
+        got = (k4.svol_leverage_lw(7, ys, **kw) if name == "svol_leverage_lw"
+               else lwm.lw_megakernel(km, 7, ys, z, **kw))
+        want = lwm.lw_megakernel_reference(km, 7, ys, z, **kw)
+        err = float((got["log_likelihood"] - want["log_likelihood"])
+                    .abs().max())
+        # float32 throughout; fused multiply-adds and another reduction
+        # order put a few ulp into each step, as in phases 5 and 9
+        require(err <= 2e-3, f"{name}: totals differ by {err:.3e}")
+        s_rows = km.num_state
+        for rows, what in ((slice(0, s_rows), "state"),
+                           (slice(s_rows + 1, None), "theta")):
+            torch.testing.assert_close(got["cloud"][:, rows],
+                                       want["cloud"][:, rows], rtol=0,
+                                       atol=1e-3, msg=f"{name} {what} rows")
+        # negligible particles carry log-weights far below -100: compare
+        # the normalised weights
+        torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                                   lwm.lw_cloud_weights(km, want["cloud"]),
+                                   rtol=0, atol=1e-3)
+        if km.functionals:
+            torch.testing.assert_close(got["functional_paths"][0],
+                                       want["functional_paths"][0], rtol=0,
+                                       atol=1e-3)
+        errs[name] = err
+    # K4 is the K3 instance: the same launch, bit for bit, APF every step
+    km, z = _lw_instances(zs)["svol_leverage_lw"]
+    a = k4.svol_leverage_lw(9, ys, num_filters=32, num_particles=LW_N)
+    b = lwm.lw_megakernel(km, 9, ys, z, num_filters=32, num_particles=LW_N)
+    for key in ("log_cond_likes", "cloud"):
+        require(torch.equal(a[key], b[key]), f"K4 != K3 instance: {key}")
+    phase(14, "lw-sis", f"F=32 N={LW_N} T=512 SISR, gate never fires: totals"
+          f" max abs err {errs['svol_leverage_lw']:.3e} (leverage, through "
+          f"svol_leverage_lw), {errs['svol_t_lw']:.3e} (svol_t); state, "
+          "theta, weights and the svol_t path within 1e-3; svol_leverage_lw "
+          "== K3 instance bit for bit (APF, every step)")
+    return errs
+
+
+def phase_lw_full(dev, ys_all, ident):
+    ys = ys_all[:, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    inst = _lw_instances(zs)
+    times, clouds = {}, {}
+    for run, (name, kw) in LW_RUNS.items():
+        km, z = inst[name]
+        kw = dict(num_filters=LW_F, num_particles=LW_N, **kw)
+        out = lwm.lw_megakernel(km, 11, ys, z, **kw)
+        ref, plain_ms = event_ms(
+            lambda: lwm.lw_megakernel_reference(km, 12, ys, z, **kw))
+        tot, tot_p = out["log_likelihood"], ref["log_likelihood"]
+        require(bool(torch.isfinite(tot).all())
+                and bool(torch.isfinite(tot_p).all()), f"{run}: NaN totals")
+        se = math.sqrt(float(tot.var()) / LW_F + float(tot_p.var()) / LW_F)
+        d = abs(float(tot.mean()) - float(tot_p.mean()))
+        require(d <= 4 * se, f"{run}: means differ by {d:.3f} > 4 SE "
+                f"{4 * se:.3f}")
+        print(f"  {run}: kernel mean {float(tot.mean()):.4f} sd "
+              f"{float(tot.std()):.4f}, plain mean {float(tot_p.mean()):.4f}"
+              f" sd {float(tot_p.std()):.4f} (4 SE {4 * se:.4f})",
+              flush=True)
+        times[run] = (cuda_ms(lambda: lwm.lw_megakernel(km, 11, ys, z, **kw),
+                              5), plain_ms)
+        clouds[run] = out["cloud"]
+    k4_ms = cuda_ms(lambda: k4.svol_leverage_lw(11, ys, num_filters=LW_F,
+                                                num_particles=LW_N), 5)
+    fut = lwm.lw_kernel_sim_future_obs(
+        inst["svol_leverage_lw"][0], svol_leverage.make_model(),
+        clouds["apf"], torch.Generator(device=dev).manual_seed(5), 10,
+        last_obs=ys[-1:])
+    require(fut.shape == (LW_F, 10, LW_N, 1)
+            and bool(torch.isfinite(fut).all()), "bad Liu-West forecast")
+    phase(15, "lw-full", f"F={LW_F} N={LW_N} T={ys.shape[0]}: " + "; ".join(
+        f"{r} kernel {k:.4f} ms, plain {p:.4f} ms"
+        for r, (k, p) in times.items())
+        + f"; svol_leverage_lw {k4_ms:.4f} ms; 10-step forecast finite "
+        f"({ident})")
+    return times, k4_ms
+
+
+def _run_in_process(main, argv):
+    """(stdout, stderr) of an entry point's ``main(argv)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        main(argv)
+    return out.getvalue(), err.getvalue()
+
+
+def _cli_params(stderr):
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^\s+(\w+)\s+= ([-+]?\d+\.\d+) \+-", stderr, re.M)}
+
+
+def phase_lw_cli(ident):
+    data = os.path.join(ROOT, "data", "spy_returns.csv")
+    with open(os.path.join(ROOT, "data", "spy_liu_west_jax.json")) as f:
+        ref = json.load(f)
+    # the kernel engine: the counts start at 0 just before and are read
+    # just after
+    lwm.lw_megakernel.launches = k4.svol_leverage_lw.launches = 0
+    t0 = time.perf_counter()
+    out, err = _run_in_process(lw_cli.main, [
+        data, "--engine", "kernel", "--filters", str(LW_F), "--particles",
+        str(LW_N), "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches)
+    require(launches == (1, 1), f"{launches} kernel launches, want 1")
+    m = re.search(r"log-likelihood: ([-\d.]+) \+- ([\d.]+) \((\d+) "
+                  r"filters\)", out)
+    require(m is not None, f"no log-likelihood line in {out!r}")
+    mean, sd, f = float(m.group(1)), float(m.group(2)), int(m.group(3))
+    # the kernel selects its first stage systematically: its yardstick is
+    # the JAX filter with that selection
+    jax_k = ref["systematic_first_stage"]
+    se = math.hypot(sd / math.sqrt(f), jax_k["log_likelihood"]["sd"]
+                    / math.sqrt(ref["filters"]))
+    d = abs(mean - jax_k["log_likelihood"]["mean"])
+    require(d <= 4 * se, f"kernel CLI mean {mean:.2f} vs JAX "
+            f"{jax_k['log_likelihood']['mean']:.2f}: {d:.2f} > 4 SE "
+            f"{4 * se:.2f}")
+    params = _cli_params(err)
+    for name in ("phi", "sigma", "rho"):
+        want = jax_k["params"][name]
+        require(abs(params[name] - want["mean"]) <= 2 * want["sd"],
+                f"kernel CLI {name} {params[name]:.4f} outside JAX "
+                f"{want['mean']:.4f} +- 2 x {want['sd']:.4f}")
+    # the generic engine (multinomial first stage, as the JAX filter)
+    t1 = time.perf_counter()
+    gout, _ = _run_in_process(lw_cli.main, [
+        data, "--engine", "generic", "--particles", str(LW_N), "--forecast",
+        "10", "--device", "cuda"])
+    gsecs = time.perf_counter() - t1
+    g_ll = float(re.search(r"log-likelihood: ([-\d.]+)", gout).group(1))
+    jax_g = ref["generic"]["log_likelihood"]
+    require(math.isfinite(g_ll) and abs(g_ll - jax_g["mean"])
+            <= 4 * jax_g["sd"], f"generic CLI log-likelihood {g_ll:.2f} vs "
+            f"JAX {jax_g['mean']:.2f} +- 4 x {jax_g['sd']:.2f}")
+    quants = [ln.split(":")[1].split() for ln in gout.splitlines()
+              if ln.strip().startswith("t+")]
+    require(len(quants) == 10 and all(math.isfinite(float(v))
+                                      for q in quants for v in q),
+            "generic CLI forecast quantiles missing or not finite")
+    phase(16, "lw-cli", f"kernel engine F={f} N={LW_N}: {mean:.2f} +- "
+          f"{sd:.2f} (JAX systematic first stage "
+          f"{jax_k['log_likelihood']['mean']:.2f}, 4 SE {4 * se:.2f}), phi "
+          f"{params['phi']:.4f} sigma {params['sigma']:.4f} rho "
+          f"{params['rho']:.4f}, 1 launch, {secs:.3f} s; generic engine "
+          f"{g_ll:.2f} (JAX {jax_g['mean']:.2f} +- {jax_g['sd']:.2f}), "
+          f"10 forecast steps finite, {gsecs:.3f} s ({ident})")
+    return launches[0]
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
@@ -601,8 +835,22 @@ def main():
         samples_csv = phase_posterior_leverage(tmp, ident)
         swarm_launches, swarm_times = phase_swarm(dev, ys, samples_csv,
                                                   ident)
+    lw_errs = phase_lw_sis(dev, ys)
+    lw_times, k4_ms = phase_lw_full(dev, ys, ident)
+    lw_launches = phase_lw_cli(ident)
+
+    t_len = ys.shape[0]
     k_ms, p_ms = times["adaptive"]
     k2_ms, k2_plain = k2_times["svol_leverage/tuned"]
+    lw_ms, lw_plain = lw_times["apf"]
+    # bytes: inputs read once (series, covariates, parameter rows, seed),
+    # outputs written once (lcl, means or paths, totals, cloud)
+    k1_bound = bound("svol_filter", B, N, t_len, 4 * t_len + 12 * B + 16,
+                     4 * B * (2 * t_len + 1))
+    k2_bound = bound("filter_megakernel", LB, N, t_len,
+                     8 * t_len + 16 * LB + 16, 4 * LB * (2 * t_len + 1))
+    lw_bound = bound("lw_megakernel", LW_F, LW_N, t_len, 8 * t_len + 16,
+                     4 * LW_F * (t_len + 6 * LW_N))
     print(json.dumps({"kernels": [{
         "name": "svol_filter",
         "route": "cuda",
@@ -612,6 +860,9 @@ def main():
         "max_abs_err": sis_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
         "ms_parity": times["parity"][0],
         "plain_ms_parity": times["parity"][1],
     }, {
@@ -623,10 +874,40 @@ def main():
         "max_abs_err": k2_err,
         "ms": k2_ms,
         "plain_ms": k2_plain,
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
         "per_schedule": {s: {"ms": k, "plain_ms": p}
                          for s, (k, p) in k2_times.items()},
         "swarm_ms": swarm_times[0],
         "swarm_plain_ms": swarm_times[1],
+    }, {
+        "name": "lw_megakernel",
+        "route": "cuda",
+        "source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
+        "replaces": "ssme_tpu/ops/liu_west_megakernel.py:500",
+        "launches": lw_launches,
+        "max_abs_err": max(lw_errs.values()),
+        "ms": lw_ms,
+        "plain_ms": lw_plain,
+        "bound_ms": lw_bound[0],
+        "bound_by": lw_bound[1],
+        "library_ms": None,
+        "per_schedule": {r: {"ms": k, "plain_ms": p}
+                         for r, (k, p) in lw_times.items()},
+    }, {
+        "name": "svol_leverage_lw",
+        "route": "cuda",
+        "instance_of": "lw_megakernel (its svol_leverage_lw instance)",
+        "source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
+        "replaces": "ssme_tpu/ops/svol_leverage_lw_kernel.py:331",
+        "launches": lw_launches,
+        "max_abs_err": lw_errs["svol_leverage_lw"],
+        "ms": k4_ms,
+        "plain_ms": lw_plain,
+        "bound_ms": lw_bound[0],
+        "bound_by": lw_bound[1],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,405 @@
+// Whole-sequence Liu-West filter bank for Hopper: one template kernel over
+// model functors (lw_models.cuh).
+//
+// Replaces ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel (the Pallas
+// body _build_kernel) and, through its svol_leverage_lw instance,
+// ssme_tpu/ops/svol_leverage_lw_kernel.py::svol_leverage_lw_pallas, to
+// which that instance is bit-compatible in JAX.  F filters, each on a
+// joint (state, theta) cloud of N particles, over T observations in ONE
+// launch; the cloud never leaves the chip.
+//
+// Layout: one CTA per filter, one particle per thread (blockDim = N, a
+// multiple of 32, at most 1024).  The state leaves, the carried
+// log-weight and the transformed theta[P] live in registers for all T
+// steps.  Shared memory holds one CDF, one gather buffer reused leaf by
+// leaf, the reduction scratch (32 floats per simultaneous sum), theta_bar
+// and the P x P Cholesky factor, which thread 0 computes once per step
+// from the block sums.  ys (T, dim_obs) and zs (T, dim_cov) are read row-major from
+// global memory.  __launch_bounds__(1024, 1) caps a thread at 64 registers.
+//
+// What bounds it: per-step latency of block barriers, not bytes.  Each of
+// the T sequential steps costs a (1 + P)-way and a P(P+1)/2-way block sum
+// (the moments), one Cholesky on one thread, the first-stage max, scan
+// and (2S + P)-leaf gather (APF), the weights' max and sums, and on a
+// resampling step a scan and an (S + P)-leaf gather: some forty barriers
+// against a few hundred float operations per thread.  The inputs are
+// T floats, the outputs (F, T) and the final cloud.
+//
+// Per step it computes what _build_kernel computes:
+//   t = 0   prior draw (uniform box, lo + (hi - lo) u), transform, init,
+//           lw = log g, lcl = LSE(lw) - log N, functionals, then the
+//           resample schedule;
+//   t > 0   theta_bar = sum w theta / sum w and Vt = sum w (theta -
+//           theta_bar)(theta - theta_bar)' / sum w, in two passes, with w
+//           = exp(lw); L = chol(h^2 Vt), diagonal floored at 1e-9;
+//           shrunk = a theta + (1 - a) theta_bar;
+//     apf:  lookahead at the pre-shrinkage theta, first-stage weights
+//           lw + log g(y, lookahead; shrunk), systematic selection on them
+//           and a joint gather of (state, lookahead, shrunk);
+//     both: theta' = shrunk_anc + L e (draws 0 .. P-1), the transition
+//           (its normals from draw P on);
+//     apf:  lw' = log g(y, x'; theta') - log g(y, lookahead_anc;
+//           shrunk_anc), lcl = LSE(fsw) - LSE(lw) + LSE(lw') - log N;
+//     sisr: lw' = lw + log g(y, x'; theta'), lcl = LSE(lw') - LSE(lw);
+//   then    functionals under the normalised weights, lw' renormalised by
+//           its maximum, and the joint (state, theta) resample on the
+//           resample_every schedule or when ESS < ess_limit, lw' = 0.
+//   Outputs: lcl (F, T), the functional paths (K, F, T), the final cloud
+//   (F, S + 1 + P, N) rows [state x S, logw, theta x P].
+//
+// Intended divergences from the Pallas kernel:
+//  - the ESS gate is per filter (as the Pallas kernel's one-filter grid
+//    rows; there is no tile to share it);
+//  - the loop runs to T exactly: no padded steps, no steps_per_cell;
+//  - no (N, N) lt matrix, no compensated_cdf and no tile_seeds: the
+//    selection is the block scan of systematic_select.cuh;
+//  - no zero pad rows in the cloud (a TPU sublane artefact);
+//  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's;
+//  - the log-weights are renormalised by their maximum after every step
+//    (the conditional likelihoods are unchanged; the cloud's log-weight
+//    row has maximum 0);
+//  - the hooks are compiled functors, so only the instances of
+//    lw_models.cuh run here; the SISR form's custom proposal (sample_q,
+//    log_fq) and the metropolis / rejection resamplers are not ported.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "lw_models.cuh"
+#include "philox.cuh"
+#include "systematic_select.cuh"
+
+namespace {
+
+constexpr int kMaxParticles = 1024;
+constexpr int kMaxParams = 8;
+constexpr int kMaxModelArgs = 4;
+constexpr float kEpsChol = 1e-9f;
+
+// call-time arguments, passed by value
+struct LWArgs {
+  float a, one_minus_a, h2;     // kernel shrinkage, from delta on the host
+  float prior_lo[kMaxParams];   // uniform prior box lo, hi - lo (float32)
+  float prior_scale[kMaxParams];
+  float model[kMaxModelArgs];   // the functor's constants
+};
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <class Model>
+__device__ __forceinline__ void load_step(const float* ys, const float* zs,
+                                          int t, float* y, float* z) {
+#pragma unroll
+  for (int j = 0; j < Model::kDimObs; ++j) y[j] = ys[t * Model::kDimObs + j];
+#pragma unroll
+  for (int j = 0; j < Model::kDimCov; ++j) z[j] = zs[t * Model::kDimCov + j];
+}
+
+template <class Model>
+__device__ __forceinline__ void constrain(const float* th, float* cp) {
+#pragma unroll
+  for (int k = 0; k < Model::kNumParams; ++k)
+    cp[k] = ssme::to_constrained(Model::code(k), th[k]);
+}
+
+// the max of lw, then the block sums of w = exp(lw - max) (*wn, this
+// thread's), of each functional times w and of w^2: *s, the functional
+// means fmean[K], *s2, and *lse = LSE(lw).  Returns the max.
+template <class Model>
+__device__ __forceinline__ float weigh(const Model& model, float lw,
+                                       const float* cp, const float* x,
+                                       float* red, float* wn, float* s,
+                                       float* s2, float* lse, float* fmean) {
+  constexpr int K = Model::kNumFunctionals;
+  const float m = ssme::block_max(lw, red);
+  *wn = expf(lw - m);
+  float v[K + 2];
+  v[0] = *wn;
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[1 + k] = model.functional(k, cp, x) * *wn;
+  v[K + 1] = *wn * *wn;
+  ssme::block_sum<K + 2>(v, red);
+  *s = v[0];
+  *s2 = v[K + 1];
+  *lse = m + logf(v[0]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) fmean[k] = v[1 + k] / v[0];
+  return m;
+}
+
+// the joint (state, theta) resample of one filter, on the resample_every
+// schedule or when its ESS falls below ess_limit; lw = 0 after it
+template <int S, int P>
+__device__ __forceinline__ void maybe_resample(
+    int t, float wn, float s, float s2, float ess_limit, int resample_every,
+    uint32_t k0, uint32_t k1, uint32_t b, float (&x)[S], float (&th)[P],
+    float& lw, float* cdf, float* buf, float* red) {
+  const bool fire = ess_limit > 0.0f
+                        ? s * s / s2 < ess_limit
+                        : (resample_every == 1 ||
+                           (t + 1) % resample_every == 0);
+  if (!fire) return;
+  const int anc =
+      ssme::systematic_ancestor(wn, ssme::offset_at(k0, k1, t, b), cdf, red);
+  float v[S + P];
+#pragma unroll
+  for (int l = 0; l < S; ++l) v[l] = x[l];
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[S + k] = th[k];
+  ssme::gather_leaves<S + P>(v, anc, buf);
+#pragma unroll
+  for (int l = 0; l < S; ++l) x[l] = v[l];
+#pragma unroll
+  for (int k = 0; k < P; ++k) th[k] = v[S + k];
+  lw = 0.0f;
+}
+
+template <class Model>
+__global__ void __launch_bounds__(kMaxParticles, 1)
+lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
+              const float* __restrict__ zs, int num_steps, int apf,
+              int resample_every, float ess_limit, LWArgs args,
+              float* __restrict__ lcl, float* __restrict__ fpaths,
+              float* __restrict__ cloud) {
+  constexpr int P = Model::kNumParams;
+  constexpr int S = Model::kNumState;
+  constexpr int K = Model::kNumFunctionals;
+  constexpr int kGram = P * (P + 1) / 2;
+  constexpr int kSums = cmax(cmax(1 + P, kGram), K + 2);
+  __shared__ float cdf[kMaxParticles];
+  __shared__ float buf[kMaxParticles];
+  __shared__ float red[32 * kSums];
+  __shared__ float chol[P * P];
+  __shared__ float tbar[P];
+
+  const uint32_t b = blockIdx.x;
+  const uint32_t i = threadIdx.x;
+  const int n = blockDim.x;
+  const int num_filters = gridDim.x;
+  const uint32_t k0 = static_cast<uint32_t>(seed[0]);
+  const uint32_t k1 = static_cast<uint32_t>(seed[1]);
+  const Model model(args.model);
+  const float log_n = logf(static_cast<float>(n));
+  float* lcl_row = lcl + static_cast<size_t>(b) * num_steps;
+
+  float y[Model::kDimObs];
+  float z[Model::kDimCov > 0 ? Model::kDimCov : 1];
+  float x[S], th[P], cp[P];
+  float fmean[K > 0 ? K : 1];
+
+  // lcl and the functional means of column t, written by thread 0
+  const auto emit = [&](int t, float val) {
+    if (i == 0) {
+      lcl_row[t] = val;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        fpaths[(static_cast<size_t>(k) * num_filters + b) * num_steps + t] =
+            fmean[k];
+    }
+  };
+
+  // t = 0: the prior draw, the init draw, the first weights
+  float lw, wn, s, s2, lse;
+  load_step<Model>(ys, zs, 0, y, z);
+#pragma unroll
+  for (int blk = 0; blk < (P + 3) / 4; ++blk) {
+    const float4 u = ssme::prior_uniforms_at(k0, k1, i, blk, b);
+    const float uu[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4 && 4 * blk + j < P; ++j) {
+      const int k = 4 * blk + j;
+      cp[k] = args.prior_lo[k] + args.prior_scale[k] * uu[j];
+      th[k] = ssme::to_transformed(Model::code(k), cp[k]);
+    }
+  }
+  {
+    ssme::StepRng rng{k0, k1, i, 0u, b, static_cast<uint32_t>(P)};
+    model.init(rng, cp, y, z, x);
+  }
+  lw = model.log_weight(cp, x, y, z);
+  float m = weigh(model, lw, cp, x, red, &wn, &s, &s2, &lse, fmean);
+  emit(0, lse - log_n);
+  lw = lw - m;
+  maybe_resample(0, wn, s, s2, ess_limit, resample_every, k0, k1, b, x, th,
+                 lw, cdf, buf, red);
+
+  for (int t = 1; t < num_steps; ++t) {
+    load_step<Model>(ys, zs, t, y, z);
+    // weighted shrinkage moments in two passes; lw has maximum 0
+    const float ww = expf(lw);
+    float v1[1 + P];
+    v1[0] = ww;
+#pragma unroll
+    for (int k = 0; k < P; ++k) v1[1 + k] = th[k] * ww;
+    ssme::block_sum<1 + P>(v1, red);
+    const float wsum = v1[0];
+    // theta_bar goes to shared memory (thread 0 writes it; the Gram's
+    // barriers publish it) so that it holds no registers across the Gram
+    float cen[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float tb = v1[1 + k] / wsum;
+      cen[k] = th[k] - tb;
+      if (i == 0) tbar[k] = tb;
+    }
+    float v2[kGram];
+    {
+      int at = 0;
+#pragma unroll
+      for (int r = 0; r < P; ++r)
+#pragma unroll
+        for (int c = 0; c <= r; ++c) v2[at++] = (cen[r] * ww) * cen[c];
+    }
+    ssme::block_sum<kGram>(v2, red);
+    if (i == 0) {
+      // unrolled P x P Cholesky of h^2 Vt straight into shared memory,
+      // the floored diagonal; v2[r (r + 1) / 2 + c] is Gram entry (r, c)
+#pragma unroll
+      for (int jj = 0; jj < P; ++jj) {
+        float acc = args.h2 * (v2[jj * (jj + 1) / 2 + jj] / wsum);
+#pragma unroll
+        for (int k = 0; k < jj; ++k)
+          acc = acc - chol[jj * P + k] * chol[jj * P + k];
+        chol[jj * P + jj] = sqrtf(acc < kEpsChol ? kEpsChol : acc);
+#pragma unroll
+        for (int r = jj + 1; r < P; ++r) {
+          float acc2 = args.h2 * (v2[r * (r + 1) / 2 + jj] / wsum);
+#pragma unroll
+          for (int k = 0; k < jj; ++k)
+            acc2 = acc2 - chol[r * P + k] * chol[jj * P + k];
+          chol[r * P + jj] = acc2 / chol[jj * P + jj];
+        }
+      }
+    }
+    float shrunk[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      shrunk[k] = args.a * th[k] + args.one_minus_a * tbar[k];
+
+    float look[S];
+    float lse_fs = 0.0f;
+    if (apf) {
+      constrain<Model>(th, cp);
+      model.prop_mu(cp, x, y, z, look);
+      constrain<Model>(shrunk, cp);
+      const float lfs = lw + model.log_weight(cp, look, y, z);
+      const float mfs = ssme::block_max(lfs, red);
+      const int anc = ssme::systematic_ancestor(
+          expf(lfs - mfs),
+          ssme::offset_at(k0, k1, t, b, ssme::kTagSelectOffset), cdf, red);
+      lse_fs = mfs + logf(cdf[n - 1]);
+      float g[2 * S + P];
+#pragma unroll
+      for (int l = 0; l < S; ++l) {
+        g[l] = x[l];
+        g[S + l] = look[l];
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) g[2 * S + k] = shrunk[k];
+      ssme::gather_leaves<2 * S + P>(g, anc, buf);
+#pragma unroll
+      for (int l = 0; l < S; ++l) {
+        x[l] = g[l];
+        look[l] = g[S + l];
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) shrunk[k] = g[2 * S + k];
+    } else {
+      __syncthreads();  // the Cholesky factor of thread 0
+    }
+
+    // kernel draws theta' = shrunk_anc + L e
+#pragma unroll
+    for (int r = 0; r < P; ++r) th[r] = shrunk[r];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float e = ssme::normal_at(k0, k1, i, t, b, k);
+#pragma unroll
+      for (int r = k; r < P; ++r) th[r] = th[r] + chol[r * P + k] * e;
+    }
+    constrain<Model>(th, cp);
+    {
+      ssme::StepRng rng{k0, k1, i, static_cast<uint32_t>(t), b,
+                        static_cast<uint32_t>(P)};
+      model.propagate(rng, cp, x, y, z);
+    }
+    float lw_new;
+    if (apf) {
+      float cpa[P];
+      constrain<Model>(shrunk, cpa);
+      lw_new = model.log_weight(cp, x, y, z) -
+               model.log_weight(cpa, look, y, z);
+    } else {
+      lw_new = lw + model.log_weight(cp, x, y, z);
+    }
+    m = weigh(model, lw_new, cp, x, red, &wn, &s, &s2, &lse, fmean);
+    emit(t, apf ? ((lse_fs - logf(wsum)) + lse) - log_n : lse - logf(wsum));
+    lw = lw_new - m;
+    maybe_resample(t, wn, s, s2, ess_limit, resample_every, k0, k1, b, x, th,
+                   lw, cdf, buf, red);
+  }
+
+  const size_t rows = S + 1 + P;
+  float* out = cloud + static_cast<size_t>(b) * rows * n + i;
+#pragma unroll
+  for (int l = 0; l < S; ++l) out[l * n] = x[l];
+  out[S * n] = lw;
+#pragma unroll
+  for (int k = 0; k < P; ++k) out[(S + 1 + k) * n] = th[k];
+}
+
+template <class Model>
+void launch(const int64_t* seed, const float* ys, const float* zs,
+            int num_filters, int num_steps, int num_particles, int apf,
+            int resample_every, float ess_limit, const LWArgs& args,
+            float* lcl, float* fpaths, float* cloud, cudaStream_t stream) {
+  lw_megakernel<Model><<<num_filters, num_particles, 0, stream>>>(
+      seed, ys, zs, num_steps, apf, resample_every, ess_limit, args, lcl,
+      fpaths, cloud);
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  seed, ys, zs, lcl, fpaths and
+// cloud are device pointers the caller allocated (zs null without
+// covariates, fpaths null without functionals); coefs (a, 1 - a, h^2),
+// prior_lo, prior_scale (kMaxParams each) and model_args (kMaxModelArgs)
+// are host arrays, copied into the launch's argument block.  ess_limit > 0
+// gates the resample on ESS < ess_limit, else it follows resample_every.
+// The kernel allocates nothing and runs on `stream`.  Returns
+// cudaGetLastError() after the launch, or -1 for an unknown model id.
+extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
+                                  const float* ys, const float* zs,
+                                  int num_filters, int num_steps,
+                                  int num_particles, int apf,
+                                  int resample_every, float ess_limit,
+                                  const float* coefs, const float* prior_lo,
+                                  const float* prior_scale,
+                                  const float* model_args, float* lcl,
+                                  float* fpaths, float* cloud, void* stream) {
+  LWArgs args;
+  args.a = coefs[0];
+  args.one_minus_a = coefs[1];
+  args.h2 = coefs[2];
+  for (int k = 0; k < kMaxParams; ++k) {
+    args.prior_lo[k] = prior_lo[k];
+    args.prior_scale[k] = prior_scale[k];
+  }
+  for (int k = 0; k < kMaxModelArgs; ++k) args.model[k] = model_args[k];
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (model_id) {
+    case ssme::kLWModelSvolLeverage:
+      launch<ssme::SvolLeverageLW>(seed, ys, zs, num_filters, num_steps,
+                                   num_particles, apf, resample_every,
+                                   ess_limit, args, lcl, fpaths, cloud, s);
+      break;
+    case ssme::kLWModelSvolT:
+      launch<ssme::SvolTLW>(seed, ys, zs, num_filters, num_steps,
+                            num_particles, apf, resample_every, ess_limit,
+                            args, lcl, fpaths, cloud, s);
+      break;
+    default:
+      return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}

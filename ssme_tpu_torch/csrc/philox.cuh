@@ -22,6 +22,8 @@ constexpr uint32_t kTagNormal = 0u;  // normal draw 0: init / propagate
 constexpr uint32_t kTagOffset = 1u;  // systematic resampling offset
 constexpr uint32_t kTagChain = 2u;   // host-side chain seeds, never here
                                      // normal draw k >= 1: kTagChain + k
+constexpr uint32_t kTagPriorUniform = 0x80000000u;  // Liu-West t = 0 prior
+constexpr uint32_t kTagSelectOffset = 0x80000001u;  // Liu-West APF selection
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24
@@ -80,9 +82,21 @@ __device__ __forceinline__ float normal_at(uint32_t k0, uint32_t k1,
 }
 
 __device__ __forceinline__ float offset_at(uint32_t k0, uint32_t k1,
-                                           uint32_t t, uint32_t b) {
-  const uint4 w = philox4x32_10(make_uint4(0u, t, b, kTagOffset), k0, k1);
+                                           uint32_t t, uint32_t b,
+                                           uint32_t tag = kTagOffset) {
+  const uint4 w = philox4x32_10(make_uint4(0u, t, b, tag), k0, k1);
   return uniform_offset(w.x);
+}
+
+// prior uniforms k = 4 blk .. 4 blk + 3 of particle i in row b, in [0, 1):
+// word k & 3 of counter (i, blk, b, kTagPriorUniform)
+__device__ __forceinline__ float4 prior_uniforms_at(uint32_t k0, uint32_t k1,
+                                                    uint32_t i, uint32_t blk,
+                                                    uint32_t b) {
+  const uint4 w = philox4x32_10(make_uint4(i, blk, b, kTagPriorUniform), k0,
+                                k1);
+  return make_float4(uniform_closed_zero(w.x), uniform_closed_zero(w.y),
+                     uniform_closed_zero(w.z), uniform_closed_zero(w.w));
 }
 
 }  // namespace ssme

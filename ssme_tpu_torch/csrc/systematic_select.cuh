@@ -34,7 +34,8 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Every warp reduces the per-warp partials itself, so all threads return
-// the same bits without a second barrier.  red: shared float[3 * 32].
+// the same bits without a second barrier.  red: shared float[32] for a
+// max, float[32 * K] for K sums.
 __device__ __forceinline__ float block_max(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -45,24 +46,29 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return warp_max(lane < nw ? red[lane] : __int_as_float(0xff800000));
 }
 
-__device__ __forceinline__ float3 block_sum3(float a, float b, float c,
-                                             float* red) {
+// K sums at once (red: shared float[32 * K]); every thread returns them
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  c = warp_sum(c);
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
   __syncthreads();
   if (lane == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-    red[64 + warp] = c;
+#pragma unroll
+    for (int k = 0; k < K; ++k) red[32 * k + warp] = v[k];
   }
   __syncthreads();
   const bool in = lane < nw;
-  return make_float3(warp_sum(in ? red[lane] : 0.0f),
-                     warp_sum(in ? red[32 + lane] : 0.0f),
-                     warp_sum(in ? red[64 + lane] : 0.0f));
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = warp_sum(in ? red[32 * k + lane] : 0.0f);
+}
+
+__device__ __forceinline__ float3 block_sum3(float a, float b, float c,
+                                             float* red) {
+  float v[3] = {a, b, c};
+  block_sum<3>(v, red);
+  return make_float3(v[0], v[1], v[2]);
 }
 
 // inclusive scan of one value per thread into cdf[0 .. blockDim.x)

@@ -17,7 +17,8 @@ in one launch of the generic filter kernel's leverage instance
 (``ops/filter_megakernel.py``), with ESS-adaptive resampling (ESS < N/2)
 and the check stride ``--gate-stride``; it is the default on ``cuda``.
 ``--engine generic`` runs the PyTorch filter bank (every-step
-resampling).  ``--device cuda`` without a card raises.  ``--tuned`` is
+resampling).  ``--device`` defaults to ``cuda`` and raises without a
+card; the CPU runs only on ``--device cpu``.  ``--tuned`` is
 the measured preset: C >= 64 chains, R = 2 replicates, adaptation that
 never freezes and a warm restart of it after burn-in.
 
@@ -62,8 +63,8 @@ def main(argv=None):
     p.add_argument("--replicates", type=int, default=2)
     p.add_argument("--t-len", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="default: cuda when a card is present, else cpu")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     p.add_argument("--engine", choices=["kernel", "generic"], default=None,
                    help="kernel: all chains x replicates per MH iteration "
                         "in one filter-kernel launch (default on cuda); "
@@ -79,7 +80,7 @@ def main(argv=None):
                         "restart of the adaptation after burn-in")
     args = p.parse_args(argv)
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     engine = args.engine or ("kernel" if device == "cuda" else "generic")

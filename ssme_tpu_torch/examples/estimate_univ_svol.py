@@ -18,8 +18,8 @@ constrained samples per chain and a message stream per chain.
 ``--engine kernel`` evaluates all chains x replicates of an MH iteration
 in one launch of the CUDA filter kernel (ESS-adaptive resampling); it is
 the default on ``cuda``.  ``--engine generic`` runs the PyTorch filter
-bank.  ``--device cuda`` without a card raises; nothing continues on the
-CPU in its place.
+bank.  ``--device`` defaults to ``cuda`` and raises without a card;
+nothing continues on the CPU in its place unless ``--device cpu`` asks.
 """
 
 import argparse
@@ -57,8 +57,8 @@ def main(argv=None):
     p.add_argument("--no-timestamp", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="path to write a resumable chain checkpoint")
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="default: cuda when a card is present, else cpu")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     p.add_argument("--engine", choices=["kernel", "generic"], default=None,
                    help="kernel: all chains x replicates per MH iteration "
                         "in one filter-kernel launch (default on cuda); "
@@ -70,7 +70,7 @@ def main(argv=None):
                         "never freezes; an explicit --chains still wins")
     args = p.parse_args(argv)
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     engine = args.engine or ("kernel" if device == "cuda" else "generic")

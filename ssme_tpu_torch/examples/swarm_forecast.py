@@ -17,8 +17,8 @@ generic filter kernel (``ops/filter_megakernel.py``; its ``svol`` or
 ``svol_leverage`` instance) and forecasts from the final clouds it
 exports; ``--state-particles`` must then be a multiple of 32 and at most
 1024.  It is the default on ``cuda``.  ``--engine generic`` runs the
-PyTorch swarm filter (``inference/swarm.py``).  ``--device cuda``
-without a card raises.  Samples of ``--model svol`` are constrained
+PyTorch swarm filter (``inference/swarm.py``).  ``--device`` defaults
+to ``cuda`` and raises without a card.  Samples of ``--model svol`` are constrained
 (beta, phi, ss) rows, of ``svol_leverage`` (phi, mu, sigma, rho) rows.
 """
 
@@ -57,8 +57,8 @@ def main(argv=None):
     p.add_argument("--param-particles", type=int, default=32)
     p.add_argument("--forecast", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", choices=["cuda", "cpu"], default=None,
-                   help="default: cuda when a card is present, else cpu")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     p.add_argument("--engine", choices=["kernel", "generic"], default=None,
                    help="kernel: the whole filter bank in ONE launch of "
                         "the generic filter kernel (default on cuda); "
@@ -70,7 +70,7 @@ def main(argv=None):
                    help="kernel LSE/ESS check stride (needs --ess < 1)")
     args = p.parse_args(argv)
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     engine = args.engine or ("kernel" if device == "cuda" else "generic")

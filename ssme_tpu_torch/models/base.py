@@ -16,10 +16,12 @@ hook               signature
 ``log_q1``         (params, x1, y1) -> (..., N)
 ``sample_f``       (gen, params, x_prev, z) -> (..., N, dim_state)
 ``log_f``          (params, x, x_prev, z) -> (..., N)
+``sample_q``       (gen, params, x_prev, y, z) -> (..., N, dim_state)
+``log_q``          (params, x, x_prev, y, z) -> (..., N)
 ``log_g``          (params, y, x, z) -> (..., N)
 ``sample_g``       (gen, params, x) -> (..., N, dim_obs)
 ``log_prior``      (params) -> (...)
-``sample_prior``   (gen) -> (P,) constrained draw from the prior
+``sample_prior``   (gen, shape=()) -> (*shape, P) constrained prior draws
 =================  ==================================================
 """
 
@@ -49,6 +51,8 @@ class StateSpaceModel:
 
     # optional hooks
     log_f: Callable = None
+    sample_q: Callable = None     # general proposal of the SISR Liu-West
+    log_q: Callable = None
     sample_g: Callable = None
     prop_mu: Callable = None
     log_prior: Callable = None

@@ -123,15 +123,17 @@ def lagged_covariates(ys):
 
 
 def make_uniform_prior(bounds=DEFAULT_PRIOR_BOUNDS):
-    """(sample_prior(gen) -> (P,), log_prior(params (..., P)) -> (...))
-    of the uniform prior over the box ``bounds``: one (lo, hi) pair of
-    Python floats per parameter, evaluated as host constants."""
+    """(sample_prior(gen, shape=()) -> (*shape, P), log_prior(params
+    (..., P)) -> (...)) of the uniform prior over the box ``bounds``: one
+    (lo, hi) pair of Python floats per parameter, evaluated as host
+    constants."""
     bounds = tuple((float(lo), float(hi)) for lo, hi in bounds)
 
-    def sample_prior(gen):
-        u = torch.rand(len(bounds), generator=gen, device=gen.device)
-        return torch.stack([lo + (hi - lo) * u[k]
-                            for k, (lo, hi) in enumerate(bounds)])
+    def sample_prior(gen, shape=()):
+        u = torch.rand(tuple(shape) + (len(bounds),), generator=gen,
+                       device=gen.device)
+        return torch.stack([lo + (hi - lo) * u[..., k]
+                            for k, (lo, hi) in enumerate(bounds)], dim=-1)
 
     def log_prior(params):
         return rv.box_uniform_logpdf(params, bounds).sum(-1)
@@ -151,6 +153,8 @@ def make_model(prior_bounds=DEFAULT_PRIOR_BOUNDS) -> StateSpaceModel:
         log_q1=log_q1,
         sample_f=sample_f,
         log_f=log_f,
+        sample_q=sample_q,
+        log_q=log_q,
         log_g=log_g,
         sample_g=sample_g,
         prop_mu=prop_mu,

@@ -19,17 +19,25 @@ The mapping (the only place it is written down):
     seeds chains with counter (c, 0, 0, 2) under the run's seed);
   - 2 + k: normal draw k >= 1 of a step, for model hooks that draw more
     than one normal per particle per step (``normal_tag``);
+  - 2^31: the prior uniforms of the Liu-West kernel, drawn at t = 0 only:
+    uniform k of particle i in row b is word k & 3 of counter
+    (i, k >> 2, b, 2^31), so the step word holds the block k >> 2
+    (``prior_uniforms``);
+  - 2^31 + 1: the second offset of a Liu-West step, the auxiliary-PF
+    first-stage selection (counter (0, t, b, 2^31 + 1)); the joint
+    resample after the weights keeps tag 1;
 - Philox4x32-10 (Salmon et al. 2011; the Random123 constants) gives four
   words (w0, w1, w2, w3);
 - normals: u1 = ((w0 >> 8) + 1) 2^-24 in (0, 1],
   u2 = (w1 >> 8) 2^-24 in [0, 1), r = sqrt(-2 log u1), a = 2 pi u2 (all
   float32); particle 2j takes r cos a and particle 2j+1 takes r sin a;
+- prior uniform: (w >> 8) 2^-24 in [0, 1), as the normals' u2;
 - offset: ((w0 >> 9) + 0.5) 2^-23 in (0, 1), never 0 (a zero offset makes
   slot 0 select a zero-weight particle) and never 1.  It uses 23 bits
   where the normals use 24 because (w0 >> 9) + 0.5 is exact in float32,
   while (w0 >> 8) + 0.5 rounds to 2^24, an offset of exactly 1, at the
   top word;
-- w2, w3 are drawn but unused.
+- w2, w3 are drawn but unused, except by the prior uniforms.
 
 Every conversion is an integer operation followed by one exact multiply,
 so kernel and plain version agree bitwise up to the library's log, sqrt,
@@ -52,6 +60,8 @@ PHILOX_W1 = 0xBB67AE85
 TAG_NORMAL = 0
 TAG_OFFSET = 1
 TAG_CHAIN = 2
+TAG_PRIOR_UNIFORM = 1 << 31
+TAG_SELECT_OFFSET = (1 << 31) + 1
 TWO_PI = 6.283185307179586
 HALF_LOG_2PI = 0.9189385332046727
 _INV_2_24 = 2.0 ** -24
@@ -113,8 +123,8 @@ def _key(seed):
 
 def normal_tag(draw: int) -> int:
     """Counter tag of normal draw ``draw`` of a step (the mapping above)."""
-    if draw < 0:
-        raise ValueError(f"draw must be >= 0, got {draw}")
+    if not 0 <= draw < TAG_PRIOR_UNIFORM - TAG_CHAIN:
+        raise ValueError(f"draw must be in [0, 2^31 - 2), got {draw}")
     return TAG_NORMAL if draw == 0 else TAG_CHAIN + draw
 
 
@@ -133,14 +143,30 @@ def normals_steps(seed, rows, steps, num_particles, draw=0):
         steps.shape[0], rows.shape[0], num_particles)
 
 
-def offsets_steps(seed, rows, steps):
-    """Resampling offsets (len(steps), len(rows))."""
+def offsets_steps(seed, rows, steps, tag=TAG_OFFSET):
+    """Offsets (len(steps), len(rows)) of stream ``tag``: the resampling
+    offsets, or with ``TAG_SELECT_OFFSET`` the Liu-West first-stage
+    selection offsets."""
     k0, k1 = _key(seed)
     t = steps.to(torch.int64)[:, None]
     b = rows.to(torch.int64)[None, :]
     zero = torch.zeros_like(t)
-    w0, _, _, _ = philox4x32_10(zero, t, b, zero + TAG_OFFSET, k0, k1)
+    w0, _, _, _ = philox4x32_10(zero, t, b, zero + tag, k0, k1)
     return uniform_offset(w0)
+
+
+def prior_uniforms(seed, rows, num_particles, num_uniforms):
+    """Prior uniforms (num_uniforms, len(rows), num_particles) in [0, 1)
+    of the Liu-West kernel's t = 0 draw."""
+    k0, k1 = _key(seed)
+    i = torch.arange(num_particles, device=seed.device)[None, None]
+    blk = torch.arange((num_uniforms + 3) // 4, device=seed.device)[
+        :, None, None]
+    b = rows.to(torch.int64)[None, :, None]
+    words = philox4x32_10(i, blk, b, torch.full_like(i, TAG_PRIOR_UNIFORM),
+                          k0, k1)
+    u = uniform_closed_zero(torch.stack(words, dim=1))   # (blk, 4, B, N)
+    return u.reshape(-1, rows.shape[0], num_particles)[:num_uniforms]
 
 
 def offsets(seed, rows, step):
@@ -209,7 +235,7 @@ def philox_fill(seed, num_rows, num_particles, step):
 philox_fill.launches = 0
 
 __all__ = ["philox4x32_10", "seed_words", "normals_steps", "normal_tag",
-           "offsets", "offsets_steps",
+           "offsets", "offsets_steps", "prior_uniforms",
            "philox_fill", "philox_fill_reference", "uniform_open_zero",
            "uniform_closed_zero", "uniform_offset", "box_muller",
            "TWO_PI", "HALF_LOG_2PI"]

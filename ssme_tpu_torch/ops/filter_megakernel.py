@@ -161,7 +161,7 @@ def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
     if resampler != "systematic":
         raise ValueError(f"resampler={resampler!r} is not ported to the "
                          "PyTorch/CUDA package yet (ROADMAP.md section 2, "
-                         "item 4); the systematic selection has no "
+                         "item 2); the systematic selection has no "
                          "particle cap below the kernel's 1024")
     if kmodel.functionals is not None:
         raise ValueError(f"model {kmodel.name!r}: vector functionals "

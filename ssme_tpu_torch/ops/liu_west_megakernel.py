@@ -1,0 +1,696 @@
+"""Whole-sequence Liu-West filter bank over model hooks: the CUDA template
+kernel and its plain PyTorch version.
+
+Replaces ``ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel``: F
+independent Liu-West filters, each on a joint (state, theta) cloud of N
+particles, over T observations in one launch.  Per step: weighted
+shrinkage moments of the transformed parameters, a P x P Cholesky of
+h^2 Vt, the auxiliary-PF first stage (``variant="apf"``) or the SISR
+form, kernel draws theta' = a theta + (1 - a) theta_bar + L e, the
+transition, the weights and the conditional likelihood, the model's
+functionals, and the joint resample on schedule or under the ESS gate.
+
+An :class:`LWKernelModel` supplies hooks over one step of the bank, with
+``cp`` the (P, F, N) constrained parameters (one per particle), ``state``
+a tuple of ``num_state`` (F, N) leaves, ``y``/``z`` tuples of the step's
+observation and covariate scalars:
+
+- ``sample_prior(rng, shape) -> (P, F, N)``   constrained prior draws
+- ``init(rng, cp, y, shape) -> state``        the t = 0 draw
+- ``propagate(rng, cp, state, y, z) -> state``  the transition draw
+- ``log_weight(cp, state, y, z) -> (F, N)``   the observation density
+- ``prop_mu(cp, state, y, z) -> state``       the APF lookahead
+- optional ``sample_q`` / ``log_fq``: the SISR form's own proposal and
+  its log f - log q correction (default: the transition, 0)
+- optional ``functionals``: ``h(cp, state) -> (F, N)`` whose
+  self-normalised filtered means are emitted per step.
+
+``transform_codes`` names each parameter's bijection (null, log, logit,
+twice_fisher): the cloud keeps theta transformed, and hooks receive it
+constrained.  ``rng.uniform(shape)`` returns the kernel's prior uniforms
+and ``rng.normal(shape)`` the kernel's Philox normals of the step: a
+hook's draw j is normal draw P + j, since draws 0 .. P-1 are the kernel
+draws of theta (``ops/_prng.py``).
+
+The kernel is ``csrc/lw_megakernel.cu``, one template over the functors of
+``csrc/lw_models.cuh``; its header comment gives the layout and the
+intended divergences from the Pallas kernel.  On a CUDA tensor only a
+model whose ``cuda_instance`` names a functor there runs, and only the
+systematic resampler; anything else raises.  On a CPU tensor every model
+runs through :func:`lw_megakernel_reference`, which calls the hooks step
+by step with the kernel's random bits.  The carried log-weights are
+renormalised by their maximum after every step (the conditional
+likelihoods are unchanged), so the cloud's log-weight row has maximum 0;
+the decoders normalise it.  The cloud has rows [state x S, logw, theta x
+P], without the Pallas kernel's zero pad rows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Callable
+
+import torch
+
+from ssme_tpu_torch.ops import _cuda, _prng
+from ssme_tpu_torch.ops._select import (check_particles,
+                                        systematic_points)
+from ssme_tpu_torch.ops.filter_megakernel import _as_rows
+from ssme_tpu_torch.ops.svol_filter_kernel import _BLOCK_ELEMENTS
+
+# the dispatch table of csrc/lw_models.cuh (same names, same numbers;
+# tests/test_torch_lw_megakernel.py parses the header and compares)
+CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1}
+
+# one CTA of N threads per filter
+MAX_LW_KERNEL_PARTICLES = 1024
+
+_EPS_CHOL = 1e-9
+_CODES = ("null", "log", "logit", "twice_fisher")
+# the kernel's argument block: prior box and model constants
+_MAX_PARAMS = 8
+_MAX_MODEL_ARGS = 4
+
+
+def _to_transformed(code, row):
+    """Constrained -> unconstrained, with the Pallas kernel's float
+    operations (``parameters.h`` forward maps)."""
+    if code == "null":
+        return row
+    if code == "log":
+        return torch.log(row)
+    if code == "logit":
+        return torch.log(row) - torch.log1p(-row)
+    if code == "twice_fisher":
+        return torch.log1p(row) - torch.log1p(-row)
+    raise ValueError(f"unknown transform code {code!r}")
+
+
+def _to_constrained(code, row):
+    """Unconstrained -> constrained (the inverse maps)."""
+    if code == "null":
+        return row
+    if code == "log":
+        return torch.exp(row)
+    if code == "logit":
+        return 1.0 / (1.0 + torch.exp(-row))
+    if code == "twice_fisher":
+        return torch.tanh(0.5 * row)
+    raise ValueError(f"unknown transform code {code!r}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LWKernelModel:
+    """A Liu-West model as batched hooks (see the module docstring).
+
+    ``cuda_instance``: the functor of ``csrc/lw_models.cuh`` computing the
+    same hooks, or None for a model that runs on CPU tensors only;
+    ``prior_bounds`` and ``cuda_args``: the call-time arguments of that
+    functor (its uniform prior box, its model constants)."""
+
+    num_params: int
+    transform_codes: tuple
+    sample_prior: Callable
+    init: Callable
+    propagate: Callable
+    log_weight: Callable
+    prop_mu: Callable = None
+    sample_q: Callable = None       # SISR proposal; default = propagate
+    log_fq: Callable = None         # SISR log f - log q; default = 0
+    functionals: tuple = None       # optional h_k(cp, state) -> (F, N)
+    num_state: int = 1
+    dim_obs: int = 1
+    dim_cov: int = 0
+    name: str = "lw_kernel_model"
+    cuda_instance: str = None
+    prior_bounds: tuple = None
+    cuda_args: tuple = ()
+
+    def __post_init__(self):
+        if len(self.transform_codes) != self.num_params:
+            raise ValueError("transform_codes must have one code per "
+                             "parameter")
+        for c in self.transform_codes:
+            if c not in _CODES:
+                raise ValueError(f"unknown transform code {c!r}")
+        if (self.sample_q is None) != (self.log_fq is None):
+            raise ValueError(
+                "sample_q and log_fq must be supplied together: a "
+                "custom SISR proposal (qSamp) requires its logF - logQ "
+                "weight correction, and vice versa")
+
+    @property
+    def tile_rows(self):
+        """Cloud rows: [state x S, logw, theta x P]."""
+        return self.num_state + 1 + self.num_params
+
+    def constrain(self, th):
+        """(P, ...) transformed -> (P, ...) constrained."""
+        return torch.stack([_to_constrained(c, th[i])
+                            for i, c in enumerate(self.transform_codes)])
+
+    def transform(self, cp):
+        """(P, ...) constrained -> (P, ...) transformed."""
+        return torch.stack([_to_transformed(c, cp[i])
+                            for i, c in enumerate(self.transform_codes)])
+
+
+class _PlainRng:
+    """The ``rng`` the plain version hands to the hooks: the kernel's
+    prior uniforms, and its normals of the current step starting at draw
+    P (draws 0 .. P-1 are the kernel draws of theta).  Draws 0 .. P and
+    both offsets are made for blocks of steps."""
+
+    HALF_LOG_2PI = _prng.HALF_LOG_2PI
+
+    def __init__(self, seed, rows, num_particles, num_steps, num_params):
+        self._seed, self._rows, self._n = seed, rows, num_particles
+        self._t_len, self._p = num_steps, num_params
+        self._span = max(1, _BLOCK_ELEMENTS // (
+            rows.numel() * num_particles * (num_params + 1)))
+        self._start = None
+        self.t = 0
+        self._draw = num_params
+
+    def at(self, t):
+        """Begin one hook call at step ``t``."""
+        self.t, self._draw = t, self._p
+        return self
+
+    def _fill(self, t):
+        if self._start is not None and \
+                self._start <= t < self._start + self._span:
+            return
+        self._start = t
+        steps = torch.arange(t, min(t + self._span, self._t_len),
+                             device=self._seed.device)
+        self._normals = [_prng.normals_steps(self._seed, self._rows, steps,
+                                             self._n, draw=d)
+                         for d in range(self._p + 1)]
+        self._offsets = [_prng.offsets_steps(self._seed, self._rows, steps,
+                                             tag=tag)
+                         for tag in (_prng.TAG_OFFSET,
+                                     _prng.TAG_SELECT_OFFSET)]
+
+    def normals(self, t, draw):
+        """(F, N) normals of draw ``draw`` at step ``t``."""
+        if draw <= self._p:
+            self._fill(t)
+            return self._normals[draw][t - self._start]
+        return _prng.normals_steps(
+            self._seed, self._rows,
+            torch.arange(t, t + 1, device=self._seed.device), self._n,
+            draw=draw)[0]
+
+    def normal(self, shape):
+        z = self.normals(self.t, self._draw)
+        self._draw += 1
+        if tuple(shape) != tuple(z.shape):
+            raise ValueError(f"rng.normal({tuple(shape)}): the kernel draws "
+                             f"one normal per particle, {tuple(z.shape)}")
+        return z
+
+    def uniform(self, shape):
+        u = _prng.prior_uniforms(self._seed, self._rows, self._n, self._p)
+        if tuple(shape) != tuple(u.shape):
+            raise ValueError(f"rng.uniform({tuple(shape)}): the kernel draws "
+                             f"the prior block {tuple(u.shape)}")
+        return u
+
+    def resample_offsets(self, t):
+        self._fill(t)
+        return self._offsets[0][t - self._start]
+
+    def select_offsets(self, t):
+        self._fill(t)
+        return self._offsets[1][t - self._start]
+
+
+def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
+              resample_every, variant, ess_threshold, resampler):
+    if not isinstance(ys, torch.Tensor):
+        raise ValueError("ys must be a tensor")
+    dev = ys.device
+    if ys.ndim == 1 and kmodel.dim_obs > 1:
+        ys = ys.reshape(-1, kmodel.dim_obs)
+    ys = _as_rows("ys", ys, None, kmodel.dim_obs, dev)
+    if kmodel.dim_cov:
+        if zs is None:
+            raise ValueError(f"model {kmodel.name!r} needs covariates zs")
+        zs = _as_rows("zs", zs, ys.shape[0], kmodel.dim_cov, dev)
+    elif zs is not None:
+        raise ValueError(
+            f"model {kmodel.name!r} has dim_cov=0 but covariates zs were "
+            "supplied: build the kernel model with dim_cov set if the "
+            "model should see them")
+    check_particles(int(num_particles))
+    if resampler not in ("systematic", "metropolis", "rejection"):
+        raise ValueError(f"unknown resampler {resampler!r}")
+    if resampler != "systematic":
+        raise ValueError(f"resampler={resampler!r} is not ported to the "
+                         "PyTorch/CUDA package yet (ROADMAP.md section 2, "
+                         "item 2); the systematic selection has no "
+                         "particle cap below the kernel's 1024")
+    if variant not in ("apf", "sisr"):
+        raise ValueError("variant must be 'apf' or 'sisr'")
+    if variant == "apf" and kmodel.prop_mu is None:
+        raise ValueError(f"model {kmodel.name!r} has no prop_mu hook "
+                         "(required for the APF form)")
+    if int(resample_every) != resample_every or resample_every < 1:
+        raise ValueError("resample_every must be >= 1 (1 = the reference "
+                         "schedule, liu_west_filter.h:480-481)")
+    if int(num_filters) != num_filters or num_filters < 1:
+        raise ValueError("num_filters must be a positive integer")
+    seed = _prng.seed_words(seed, device=dev)
+    if seed.device != dev:
+        raise ValueError(f"seed is on {seed.device}, ys on {dev}")
+    return seed, ys, zs
+
+
+def _coefficients(delta):
+    """(a, 1 - a, h^2) of the kernel shrinkage, in double on the host."""
+    a = (3.0 * delta - 1.0) / (2.0 * delta)
+    return a, 1.0 - a, 1.0 - a * a
+
+
+def _cholesky(gram, h2, p):
+    """Lower P x P Cholesky of h^2 * gram with the floored diagonal, on
+    lists of (F, 1) entries; the kernel's thread 0 does the same."""
+    lmat = [[None] * p for _ in range(p)]
+    for jj in range(p):
+        s = h2 * gram[jj][jj]
+        for k in range(jj):
+            s = s - lmat[jj][k] * lmat[jj][k]
+        lmat[jj][jj] = torch.sqrt(torch.clamp(s, min=_EPS_CHOL))
+        for i in range(jj + 1, p):
+            s = h2 * gram[i][jj]
+            for k in range(jj):
+                s = s - lmat[i][k] * lmat[jj][k]
+            lmat[i][jj] = s / lmat[jj][jj]
+    return lmat
+
+
+def _select(w, u0):
+    """Systematic ancestors (F, N) and the weight totals (F, 1)."""
+    cdf, u = systematic_points(w, u0)
+    anc = torch.searchsorted(cdf.contiguous(), u.contiguous(), side="left")
+    return torch.clamp(anc, max=w.shape[-1] - 1), cdf[:, -1:]
+
+
+def _gather(leaves, anc):
+    return tuple(torch.gather(v, 1, anc) for v in leaves)
+
+
+def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
+                            num_particles=512, delta=0.99, resample_every=1,
+                            variant="apf", ess_threshold=0.0,
+                            resampler="systematic"):
+    """Plain PyTorch version of :func:`lw_megakernel`, callable on either
+    device and with any :class:`LWKernelModel`; consumes the kernel's
+    Philox bits step by step."""
+    seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
+                             num_particles, resample_every, variant,
+                             ess_threshold, resampler)
+    f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
+    p, s_rows = kmodel.num_params, kmodel.num_state
+    dev = ys.device
+    a, one_minus_a, h2 = _coefficients(delta)
+    log_n = math.log(float(n))
+    ess_limit = float(ess_threshold) * n
+    fns = tuple(kmodel.functionals or ())
+    apf = variant == "apf"
+    rng = _PlainRng(seed, torch.arange(f, device=dev), n, t_len, p)
+    lcl = torch.zeros((f, t_len), dtype=torch.float32, device=dev)
+    fpaths = torch.zeros((len(fns), f, t_len), dtype=torch.float32,
+                         device=dev)
+
+    def obs_at(t):
+        return (tuple(ys[t].unbind()),
+                () if zs is None else tuple(zs[t].unbind()))
+
+    def weigh(t, cp, state, lw):
+        """Max, normalised weights and their sums; writes the functionals."""
+        m = torch.amax(lw, dim=-1, keepdim=True)
+        wn = torch.exp(lw - m)
+        s = wn.sum(-1, keepdim=True)
+        for k, h in enumerate(fns):
+            fpaths[k, :, t] = ((h(cp, state) * wn).sum(-1, keepdim=True)
+                               / s)[:, 0]
+        return m, wn, s, (wn * wn).sum(-1, keepdim=True)
+
+    def maybe_resample(t, wn, s, s2, state, th, lw):
+        if ess_threshold > 0.0:
+            fire = s * s / s2 < ess_limit
+        elif resample_every == 1 or (t + 1) % resample_every == 0:
+            fire = True
+        else:
+            return state, th, lw
+        anc, _ = _select(wn, rng.resample_offsets(t))
+        picked = _gather(state + tuple(th.unbind()), anc)
+        if fire is True:
+            return (picked[:s_rows], torch.stack(picked[s_rows:]),
+                    torch.zeros_like(lw))
+        return (tuple(torch.where(fire, new, old)
+                      for new, old in zip(picked[:s_rows], state)),
+                torch.where(fire, torch.stack(picked[s_rows:]), th),
+                torch.where(fire, torch.zeros_like(lw), lw))
+
+    # t = 0: the prior draw, the init draw, the first weights
+    y, z = obs_at(0)
+    cp = kmodel.sample_prior(rng.at(0), (f, n))
+    th = kmodel.transform(cp)
+    state = tuple(kmodel.init(rng.at(0), cp, y, (f, n)))
+    lw = kmodel.log_weight(cp, state, y, z)
+    m, wn, s, s2 = weigh(0, cp, state, lw)
+    lcl[:, 0] = ((m + torch.log(s)) - log_n)[:, 0]
+    lw = lw - m
+    state, th, lw = maybe_resample(0, wn, s, s2, state, th, lw)
+
+    for t in range(1, t_len):
+        y, z = obs_at(t)
+        # weighted shrinkage moments; lw has maximum 0
+        ww = torch.exp(lw)
+        wsum = ww.sum(-1, keepdim=True)
+        tbar = [(th[k] * ww).sum(-1, keepdim=True) / wsum for k in range(p)]
+        cen = [th[k] - tbar[k] for k in range(p)]
+        gram = [[((cen[i] * ww) * cen[j]).sum(-1, keepdim=True) / wsum
+                 if j <= i else None for j in range(p)] for i in range(p)]
+        lmat = _cholesky(gram, h2, p)
+        shrunk = torch.stack([a * th[k] + one_minus_a * tbar[k]
+                              for k in range(p)])
+        if apf:
+            look = tuple(kmodel.prop_mu(kmodel.constrain(th), state, y, z))
+            lfs = lw + kmodel.log_weight(kmodel.constrain(shrunk), look, y, z)
+            mfs = torch.amax(lfs, dim=-1, keepdim=True)
+            anc, total = _select(torch.exp(lfs - mfs), rng.select_offsets(t))
+            lse_fs = mfs + torch.log(total)
+            picked = _gather(state + look + tuple(shrunk.unbind()), anc)
+            state_anc = picked[:s_rows]
+            look_anc = picked[s_rows:2 * s_rows]
+            shrunk_anc = picked[2 * s_rows:]
+        else:
+            state_anc, shrunk_anc = state, tuple(shrunk.unbind())
+        rows = []
+        for i in range(p):
+            acc = shrunk_anc[i]
+            for k in range(i + 1):
+                acc = acc + lmat[i][k] * rng.normals(t, k)
+            rows.append(acc)
+        th_new = torch.stack(rows)
+        cp = kmodel.constrain(th_new)
+        prop = (kmodel.sample_q if not apf and kmodel.sample_q is not None
+                else kmodel.propagate)
+        new_state = tuple(prop(rng.at(t), cp, state_anc, y, z))
+        if apf:
+            lw_new = (kmodel.log_weight(cp, new_state, y, z)
+                      - kmodel.log_weight(kmodel.constrain(
+                          torch.stack(shrunk_anc)), look_anc, y, z))
+        else:
+            inc = kmodel.log_weight(cp, new_state, y, z)
+            if kmodel.log_fq is not None:
+                inc = inc + kmodel.log_fq(cp, new_state, state_anc, y, z)
+            lw_new = lw + inc
+        m, wn, s, s2 = weigh(t, cp, new_state, lw_new)
+        lse_new = m + torch.log(s)
+        if apf:
+            val = ((lse_fs - torch.log(wsum)) + lse_new) - log_n
+        else:
+            val = lse_new - torch.log(wsum)
+        lcl[:, t] = val[:, 0]
+        state, th, lw = maybe_resample(t, wn, s, s2, new_state, th_new,
+                                       lw_new - m)
+
+    cloud = torch.stack(state + (lw,) + tuple(th.unbind()), dim=1)
+    return _result(lcl, fpaths, cloud, len(fns))
+
+
+def _result(lcl, fpaths, cloud, n_fns):
+    out = {"log_cond_likes": lcl, "log_likelihood": lcl.sum(-1),
+           "cloud": cloud}
+    if n_fns:
+        out["functional_paths"] = tuple(fpaths.unbind(0))
+    return out
+
+
+def _model_id(kmodel) -> int:
+    if kmodel.cuda_instance is None:
+        raise ValueError(
+            f"model {kmodel.name!r} has no CUDA instance: on a CUDA tensor "
+            "only the functors of csrc/lw_models.cuh run "
+            f"({sorted(CUDA_LW_MODEL_IDS)}); a model written as Python hooks "
+            "runs on CPU tensors, through the plain version (ROADMAP.md "
+            "section 3, D1)")
+    try:
+        return CUDA_LW_MODEL_IDS[kmodel.cuda_instance]
+    except KeyError:
+        raise ValueError(f"unknown CUDA instance {kmodel.cuda_instance!r}; "
+                         f"valid: {sorted(CUDA_LW_MODEL_IDS)}") from None
+
+
+def _host_floats(values, width):
+    """A float32 host array of ``width`` (zero-padded), passed by pointer
+    and copied into the kernel's argument block."""
+    arr = (ctypes.c_float * width)()
+    for k, v in enumerate(values):
+        arr[k] = float(v)
+    return arr
+
+
+def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
+                  num_particles=512, delta=0.99, resample_every=1,
+                  variant="apf", ess_threshold=0.0, resampler="systematic"):
+    """Run ``num_filters`` whole-sequence Liu-West filters of ``kmodel``
+    in one launch.
+
+    seed: (2,) int64 Philox key words on the device of ``ys``, or a Python
+    int; ys: (T,) or (T, dim_obs) float32; zs: (T,) or (T, dim_cov)
+    covariates, required iff the model has them.  ``num_particles`` is a
+    multiple of 32 in [32, 1024].  ``variant``: "apf" or "sisr";
+    ``ess_threshold > 0`` resamples a filter when its ESS falls below
+    that fraction of N, else every ``resample_every`` steps.
+
+    Returns ``log_cond_likes`` (F, T), ``log_likelihood`` (F,), ``cloud``
+    (F, S + 1 + P, N) with rows [state x S, logw, theta_trans x P] (decode
+    with :func:`lw_cloud_params` / :func:`lw_cloud_weights` /
+    :func:`lw_cloud_states`) and, for a model with functionals,
+    ``functional_paths``: a tuple of (F, T) self-normalised filtered
+    means.
+
+    Launches the kernel for CUDA tensors (raising for a model without a
+    CUDA instance) and runs :func:`lw_megakernel_reference` for CPU
+    tensors.
+    """
+    seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
+                             num_particles, resample_every, variant,
+                             ess_threshold, resampler)
+    if ys.device.type == "cpu":
+        return lw_megakernel_reference(kmodel, seed, ys, zs, num_filters,
+                                       num_particles, delta, resample_every,
+                                       variant, ess_threshold)
+    if ys.device.type != "cuda":
+        raise ValueError(f"lw_megakernel: unsupported device {ys.device}")
+    model_id = _model_id(kmodel)
+    bounds = kmodel.prior_bounds
+    if bounds is None or len(bounds) != kmodel.num_params:
+        raise ValueError(f"model {kmodel.name!r}: the CUDA instance needs "
+                         "one (lo, hi) prior bound per parameter")
+    lib = _cuda.library()
+    f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
+    dev = ys.device
+    n_fns = len(kmodel.functionals or ())
+    lcl = torch.empty((f, t_len), dtype=torch.float32, device=dev)
+    fpaths = torch.empty((n_fns, f, t_len), dtype=torch.float32, device=dev)
+    cloud = torch.empty((f, kmodel.tile_rows, n), dtype=torch.float32,
+                        device=dev)
+    lo, scale = _prior_box(bounds)
+    err = lib.ssme_lw_megakernel(
+        model_id, seed.data_ptr(), ys.data_ptr(),
+        None if zs is None else zs.data_ptr(), f, t_len, n,
+        int(variant == "apf"), int(resample_every),
+        float(ess_threshold) * n if ess_threshold > 0.0 else 0.0,
+        _host_floats(_coefficients(delta), 3),
+        _host_floats(lo, _MAX_PARAMS), _host_floats(scale, _MAX_PARAMS),
+        _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS),
+        lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
+        cloud.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, "ssme_lw_megakernel")
+    lw_megakernel.launches += 1
+    return _result(lcl, fpaths, cloud, n_fns)
+
+
+lw_megakernel.launches = 0
+
+
+def lw_cloud_params(kmodel: LWKernelModel, cloud):
+    """(F, S + 1 + P, N) kernel cloud -> (F, N, P) constrained parameter
+    particles.  Plain means are valid right after a resample (uniform
+    weights); combine with :func:`lw_cloud_weights` otherwise."""
+    th0 = kmodel.num_state + 1
+    th = cloud[:, th0:th0 + kmodel.num_params, :]
+    return torch.stack([_to_constrained(c, th[:, i])
+                        for i, c in enumerate(kmodel.transform_codes)],
+                       dim=-1)
+
+
+def lw_cloud_weights(kmodel: LWKernelModel, cloud):
+    """(F, S + 1 + P, N) -> (F, N) normalised particle weights."""
+    lw = cloud[:, kmodel.num_state, :]
+    w = torch.exp(lw - torch.amax(lw, dim=-1, keepdim=True))
+    return w / w.sum(-1, keepdim=True)
+
+
+def lw_cloud_states(kmodel: LWKernelModel, cloud):
+    """(F, S + 1 + P, N) -> (F, S, N) state particle rows."""
+    return cloud[:, :kmodel.num_state, :]
+
+
+def lw_kernel_sim_future_obs(kmodel: LWKernelModel, model, cloud, gen,
+                             num_steps: int, delta: float = 0.99,
+                             variant: str = "apf", last_obs=None):
+    """Future simulation from a kernel run's final cloud, on the host
+    side: decodes the cloud and continues with
+    :meth:`ssme_tpu_torch.filters.LiuWestFilter.sim_future_obs` of
+    ``model`` (the matching state-space model, supplying ``sample_f``,
+    ``sample_g`` and the transforms).  ``last_obs`` is required for a
+    covariate model.  The cloud's carried weights are ignored, as the
+    reference simulators continue from the raw particle set: under
+    every-step resampling the final cloud is uniform.
+
+    Returns (F, num_steps, N, dim_obs).
+    """
+    from ssme_tpu_torch.filters.liu_west import LiuWestFilter
+
+    n = cloud.shape[-1]
+    states = lw_cloud_states(kmodel, cloud).transpose(1, 2)       # (F, N, S)
+    th0 = kmodel.num_state + 1
+    trans = cloud[:, th0:th0 + kmodel.num_params, :].transpose(1, 2)
+    filt = LiuWestFilter(model, num_particles=n, delta=delta,
+                         variant=variant)
+    return filt.sim_future_obs(gen, states.contiguous(), trans.contiguous(),
+                               num_steps, last_obs=last_obs)
+
+
+# ---------------------------------------------------------------------------
+# Built-in Liu-West kernel models, memoised as in JAX
+# ---------------------------------------------------------------------------
+
+def _prior_box(prior_bounds):
+    """float32 (lo, hi - lo) of a box, as the kernel and the hook use."""
+    lo = [float(torch.tensor(b[0], dtype=torch.float32))
+          for b in prior_bounds]
+    scale = [float(torch.tensor(b[1], dtype=torch.float32)
+                   - torch.tensor(b[0], dtype=torch.float32))
+             for b in prior_bounds]
+    return lo, scale
+
+
+def _uniform_box_prior(prior_bounds):
+    """``sample_prior(rng, shape)`` drawing each parameter from an
+    independent uniform box: lo + (hi - lo) u with the kernel's prior
+    uniforms."""
+    lo, scale = _prior_box(prior_bounds)
+
+    def sample_prior(rng, shape):
+        u = rng.uniform((len(lo),) + tuple(shape))
+        return torch.stack([lo[i] + scale[i] * u[i] for i in range(len(lo))])
+
+    return sample_prior
+
+
+@functools.lru_cache(maxsize=None)
+def svol_leverage_lw_kernel_model(prior_bounds=None) -> LWKernelModel:
+    """SVOL with leverage as an LW kernel model: parameters (phi, mu,
+    sigma, rho), transforms {logit, null, log, twice_fisher}, covariate z
+    = the lagged observation; the transition mean clamped to +-40 as in
+    the model.  CUDA instance ``SvolLeverageLW``."""
+    from ssme_tpu_torch.models.svol_leverage import (DEFAULT_PRIOR_BOUNDS,
+                                                     STATE_CLAMP)
+    if prior_bounds is None:
+        prior_bounds = DEFAULT_PRIOR_BOUNDS
+
+    def mean(cp, x, z):
+        phi, mu, sig, rho = cp[0], cp[1], cp[2], cp[3]
+        return torch.clamp(mu + phi * (x - mu)
+                           + z[0] * rho * sig * torch.exp(-0.5 * x),
+                           -STATE_CLAMP, STATE_CLAMP)
+
+    def init(rng, cp, y, shape):
+        phi, sig = cp[0], cp[2]
+        sd0 = sig / torch.sqrt(1.0 - phi * phi)
+        return (rng.normal(shape) * sd0,)
+
+    def propagate(rng, cp, state, y, z):
+        (x,) = state
+        sd = cp[2] * torch.sqrt(1.0 - cp[3] * cp[3])
+        return (mean(cp, x, z) + sd * rng.normal(x.shape),)
+
+    def prop_mu(cp, state, y, z):
+        return (mean(cp, state[0], z),)
+
+    def log_weight(cp, state, y, z):
+        # y ~ N(0, e^{x/2}), parameter-free
+        (x,) = state
+        zz = y[0] / torch.exp(0.5 * x)
+        return -_prng.HALF_LOG_2PI - 0.5 * x - 0.5 * zz * zz
+
+    return LWKernelModel(
+        num_params=4,
+        transform_codes=("logit", "null", "log", "twice_fisher"),
+        sample_prior=_uniform_box_prior(prior_bounds),
+        init=init, propagate=propagate, log_weight=log_weight,
+        prop_mu=prop_mu, dim_cov=1, name="svol_leverage_lw",
+        cuda_instance="svol_leverage_lw", prior_bounds=tuple(prior_bounds))
+
+
+@functools.lru_cache(maxsize=None)
+def svol_t_lw_kernel_model(
+        nu: float = 5.0,
+        prior_bounds=((0.5, 2.0), (0.6, 0.99), (0.05, 1.0)),
+) -> LWKernelModel:
+    """Student-t observation SVOL: joint estimation of (beta, phi, sigma)
+    at a fixed dof ``nu``, transforms {log, twice_fisher, log}, the
+    filtered mean log-volatility as its functional.  The t constant c_nu
+    is computed in double on the host.  CUDA instance ``SvolTLW``, which
+    takes (c_nu, nu, (nu + 1) / 2) as call-time arguments."""
+    nu = float(nu)
+    c_nu = (math.lgamma(0.5 * (nu + 1.0)) - math.lgamma(0.5 * nu)
+            - 0.5 * math.log(nu * math.pi))
+    half_nu1 = 0.5 * (nu + 1.0)
+
+    def init(rng, cp, y, shape):
+        phi, sig = cp[1], cp[2]
+        return (rng.normal(shape) * (sig / torch.sqrt(1.0 - phi * phi)),)
+
+    def propagate(rng, cp, state, y, z):
+        (x,) = state
+        return (cp[1] * x + cp[2] * rng.normal(x.shape),)
+
+    def prop_mu(cp, state, y, z):
+        return (cp[1] * state[0],)
+
+    def log_weight(cp, state, y, z):
+        beta = cp[0]
+        (x,) = state
+        zval = (y[0] / beta) * torch.exp(-0.5 * x)
+        return (c_nu - torch.log(beta) - 0.5 * x
+                - half_nu1 * torch.log1p(zval * zval / nu))
+
+    return LWKernelModel(
+        num_params=3,
+        transform_codes=("log", "twice_fisher", "log"),
+        sample_prior=_uniform_box_prior(prior_bounds),
+        init=init, propagate=propagate, log_weight=log_weight,
+        prop_mu=prop_mu,
+        functionals=(lambda cp, state: state[0],),
+        name="svol_t_lw", cuda_instance="svol_t_lw",
+        prior_bounds=tuple(prior_bounds), cuda_args=(c_nu, nu, half_nu1))
+
+
+__all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
+           "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
+           "lw_kernel_sim_future_obs", "svol_leverage_lw_kernel_model",
+           "svol_t_lw_kernel_model", "CUDA_LW_MODEL_IDS",
+           "MAX_LW_KERNEL_PARTICLES"]

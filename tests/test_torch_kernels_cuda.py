@@ -16,6 +16,8 @@ import torch
 from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import _prng, _select
 from ssme_tpu_torch.ops import filter_megakernel as fm
+from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_filter,
                                                    svol_filter_reference)
 
@@ -145,3 +147,67 @@ def test_megakernel_launch_counter_and_errors(dev):
     with pytest.raises(ValueError, match="no CUDA instance"):
         fm.filter_megakernel(custom, 1, params, ys, zs, num_particles=64)
     assert fm.filter_megakernel.launches == before + 1
+
+
+def _lw_instance(name, ys):
+    if name == "svol_leverage_lw":
+        return (lwm.svol_leverage_lw_kernel_model(),
+                lagged_covariates(ys)[:, 0].contiguous())
+    return lwm.svol_t_lw_kernel_model(), None
+
+
+@pytest.mark.parametrize("name", ["svol_leverage_lw", "svol_t_lw"])
+def test_lw_megakernel_matches_plain_without_resampling(dev, name):
+    """The Liu-West kernel against its plain version on the same bits:
+    SISR with a gate that never fires, so no selection runs and only
+    float32 rounding separates them."""
+    ys = _ys(300, 10).to(dev)
+    km, zs = _lw_instance(name, ys)
+    kw = dict(num_filters=16, num_particles=256, variant="sisr",
+              ess_threshold=0.5 / 256)
+    got = lwm.lw_megakernel(km, 9, ys, zs, **kw)
+    want = lwm.lw_megakernel_reference(km, 9, ys, zs, **kw)
+    torch.testing.assert_close(got["log_likelihood"],
+                               want["log_likelihood"], rtol=0, atol=2e-3)
+    s = km.num_state
+    torch.testing.assert_close(got["cloud"][:, :s], want["cloud"][:, :s],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["cloud"][:, s + 1:],
+                               want["cloud"][:, s + 1:], rtol=0, atol=1e-3)
+    torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                               lwm.lw_cloud_weights(km, want["cloud"]),
+                               rtol=0, atol=1e-3)
+    for a, b in zip(got.get("functional_paths", ()),
+                    want.get("functional_paths", ())):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+def test_svol_leverage_lw_is_the_k3_instance_bit_for_bit(dev):
+    ys = _ys(300, 11).to(dev)
+    km, zs = _lw_instance("svol_leverage_lw", ys)
+    a = k4.svol_leverage_lw(5, ys, num_filters=8, num_particles=256)
+    b = lwm.lw_megakernel(km, 5, ys, zs, num_filters=8, num_particles=256)
+    assert torch.equal(a["log_cond_likes"], b["log_cond_likes"])
+    assert torch.equal(a["cloud"], b["cloud"])
+
+
+def test_lw_launch_counters_and_errors(dev):
+    ys = _ys(20, 3).to(dev)
+    km, zs = _lw_instance("svol_leverage_lw", ys)
+    before = (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches)
+    k4.svol_leverage_lw(1, ys, num_filters=2, num_particles=64)
+    assert (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches) == (
+        before[0] + 1, before[1] + 1)
+    custom = lwm.LWKernelModel(
+        num_params=4, transform_codes=km.transform_codes,
+        sample_prior=km.sample_prior, init=km.init, propagate=km.propagate,
+        log_weight=km.log_weight, prop_mu=km.prop_mu, dim_cov=1,
+        name="custom")
+    with pytest.raises(ValueError, match="no CUDA instance"):
+        lwm.lw_megakernel(custom, 1, ys, zs, num_particles=64)
+    with pytest.raises(ValueError, match="not ported"):
+        lwm.lw_megakernel(km, 1, ys, zs, num_particles=64,
+                          resampler="metropolis")
+    with pytest.raises(ValueError):      # covariates on another device
+        lwm.lw_megakernel(km, 1, ys, zs.cpu(), num_particles=64)
+    assert lwm.lw_megakernel.launches == before[0] + 1

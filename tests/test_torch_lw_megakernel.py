@@ -1,0 +1,402 @@
+"""The port's Liu-West kernel module (``ops/liu_west_megakernel.py``, K3,
+and ``ops/svol_leverage_lw_kernel.py``, K4) against the JAX package, on
+the CPU through the kernel's plain version."""
+
+import math
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ssme_tpu.ops.liu_west_megakernel as jlwm
+import ssme_tpu.ops.svol_leverage_lw_kernel as jk4
+from ssme_tpu.filters import LiuWestFilter as JaxLiuWestFilter
+from ssme_tpu.models import svol_leverage as jlev
+from ssme_tpu_torch.models import svol_leverage as lev
+from ssme_tpu_torch.ops import _prng
+from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "ssme_tpu_torch", "csrc")
+INSTANCES = {"svol_leverage_lw": (lwm.svol_leverage_lw_kernel_model,
+                                  jlwm.svol_leverage_lw_kernel_model),
+             "svol_t_lw": (lwm.svol_t_lw_kernel_model,
+                           jlwm.svol_t_lw_kernel_model)}
+
+
+def _leverage_data(t_len, seed):
+    rng = np.random.default_rng(seed)
+    phi, mu, sigma, rho = 0.95, -0.1, 0.3, -0.6
+    x, y_prev, ys = 0.0, 0.0, np.empty(t_len, np.float32)
+    for t in range(t_len):
+        x = (mu + phi * (x - mu) + y_prev * rho * sigma * math.exp(-x / 2)
+             + sigma * math.sqrt(1 - rho * rho) * rng.normal())
+        y_prev = math.exp(x / 2) * rng.normal()
+        ys[t] = y_prev
+    return ys, np.concatenate([[0.0], ys[:-1]]).astype(np.float32)
+
+
+def _run(km, seed, ys, zs=None, **kw):
+    return lwm.lw_megakernel(km, seed, torch.from_numpy(ys),
+                             None if zs is None else torch.from_numpy(zs),
+                             **kw)
+
+
+class _StubRng:
+    """Hands out the same numpy normals and uniforms to either package."""
+
+    HALF_LOG_2PI = _prng.HALF_LOG_2PI
+
+    def __init__(self, wrap, seed):
+        self._wrap, self._rng = wrap, np.random.default_rng(seed)
+
+    def normal(self, shape):
+        return self._wrap(self._rng.normal(size=shape).astype(np.float32))
+
+    def uniform(self, shape):
+        return self._wrap(self._rng.uniform(size=shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(INSTANCES))
+def test_instance_hooks_match_jax(name):
+    """Every hook of each instance on the same inputs and the same random
+    numbers, (P, 1, n) here against (P, n) in JAX, to 1e-6."""
+    tmodel, jmodel = INSTANCES[name]
+    tk, jk = tmodel(), jmodel()
+    n = 64
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1, n)).astype(np.float32)
+    x[0, :2] = [-60.0, 45.0]                      # the clamp binds
+    y, z = np.float32(0.7), np.float32(-2.5)
+    ty, tz = (torch.tensor(y),), (torch.tensor(z),)
+    jy, jz = (jnp.float32(y),), (jnp.float32(z),)
+
+    def close(got, want):
+        np.testing.assert_allclose(np.asarray(got).reshape(-1),
+                                   np.asarray(want).reshape(-1), rtol=1e-6,
+                                   atol=1e-6)
+
+    cp_t = tk.sample_prior(_StubRng(torch.from_numpy, 1), (1, n))
+    cp_j = jk.sample_prior(_StubRng(jnp.asarray, 1), n)
+    close(cp_t, cp_j)
+    cp = np.asarray(cp_j)
+    tcp, jcp = torch.from_numpy(cp.copy())[:, None], jnp.asarray(cp)
+    close(tk.transform(tcp), jk.transform(jcp))
+    close(tk.constrain(tk.transform(tcp)), jk.constrain(jk.transform(jcp)))
+    close(tk.init(_StubRng(torch.from_numpy, 2), tcp, ty, (1, n))[0],
+          jk.init(_StubRng(jnp.asarray, 2), jcp, jy, n)[0])
+    tx, jx = (torch.from_numpy(x),), (jnp.asarray(x),)
+    close(tk.propagate(_StubRng(torch.from_numpy, 4), tcp, tx, ty, tz)[0],
+          jk.propagate(_StubRng(jnp.asarray, 4), jcp, jx, jy, jz)[0])
+    close(tk.prop_mu(tcp, tx, ty, tz)[0], jk.prop_mu(jcp, jx, jy, jz)[0])
+    close(tk.log_weight(tcp, tx, ty, tz), jk.log_weight(jcp, jx, jy, jz))
+    for th, jh in zip(tk.functionals or (), jk.functionals or ()):
+        close(th(tcp, tx), jh(jcp, jx))
+    assert tk.num_params == jk.num_params
+    assert tk.transform_codes == jk.transform_codes
+    assert (tk.num_state, tk.dim_obs, tk.dim_cov) == (
+        jk.num_state, jk.dim_obs, jk.dim_cov)
+
+
+@pytest.mark.parametrize("code", ["null", "log", "logit", "twice_fisher"])
+def test_transform_maps_match_jax(code):
+    rng = np.random.default_rng(5)
+    p = rng.uniform(0.02, 0.98, 200).astype(np.float32)
+    z = rng.normal(size=200).astype(np.float32) * 3
+    np.testing.assert_allclose(
+        lwm._to_transformed(code, torch.from_numpy(p)).numpy(),
+        np.asarray(jlwm._to_transformed(code, jnp.asarray(p))), rtol=1e-6,
+        atol=1e-6)
+    np.testing.assert_allclose(
+        lwm._to_constrained(code, torch.from_numpy(z)).numpy(),
+        np.asarray(jlwm._to_constrained(code, jnp.asarray(z))), rtol=1e-6,
+        atol=1e-6)
+    with pytest.raises(ValueError, match="unknown transform code"):
+        lwm._to_transformed("exp", torch.ones(2))
+
+
+def test_floored_cholesky_matches_the_formula():
+    """The unrolled Cholesky of h^2 G: numpy's factor for an SPD G, and the
+    1e-9 diagonal floor (JAX's formula) for a singular one."""
+    rng = np.random.default_rng(6)
+    a = rng.normal(size=(4, 4))
+    g = (a @ a.T + 0.1 * np.eye(4)).astype(np.float32)
+    h2 = 0.0101
+    rows = [[torch.tensor([[g[i, j]]]) for j in range(4)] for i in range(4)]
+    lmat = lwm._cholesky(rows, h2, 4)
+    got = np.array([[float(lmat[i][j]) if j <= i else 0.0 for j in range(4)]
+                    for i in range(4)])
+    np.testing.assert_allclose(got, np.linalg.cholesky(h2 * g.astype(
+        np.float64)), rtol=1e-5, atol=1e-7)
+    zero = [[torch.zeros(1, 1) for _ in range(4)] for _ in range(4)]
+    lz = lwm._cholesky(zero, h2, 4)
+    for i in range(4):
+        assert float(lz[i][i]) == pytest.approx(math.sqrt(1e-9), rel=1e-6)
+        for j in range(i):
+            assert float(lz[i][j]) == 0.0
+
+
+@pytest.mark.parametrize("variant", ["apf", "sisr"])
+def test_plain_kernel_matches_jax_generic_filter_in_distribution(variant):
+    """F=32 filters, N=256, T=100 of simulated leverage data: the plain K3
+    and JAX's generic filter (systematic joint resampling) within 4
+    combined standard errors.  The APF first stages differ (JAX's generic
+    filter selects by multinomial sampling, the kernel systematically);
+    at T=100 that does not show, at T=200 it does (4-5 nats, under the
+    JAX package's own 8-nat bound for the pair)."""
+    ys, zs = _leverage_data(100, 1)
+    f = 32
+    jf = JaxLiuWestFilter(jlev.make_model(), 256, variant=variant,
+                          resampler="systematic")
+    want = np.asarray(jax.jit(jax.vmap(lambda key: jf.run(
+        key, jnp.asarray(ys[:, None]), jnp.asarray(zs[:, None]))
+        .log_likelihood))(jax.random.split(jax.random.key(0), f)),
+        np.float64)
+    out = _run(lwm.svol_leverage_lw_kernel_model(), 0, ys, zs, num_filters=f,
+               num_particles=256, variant=variant)
+    got = out["log_likelihood"].double().numpy()
+    assert np.isfinite(got).all()
+    se = math.sqrt(got.var(ddof=1) / f + want.var(ddof=1) / f)
+    assert abs(got.mean() - want.mean()) < 4 * se, (got.mean(), want.mean())
+    # lcl sums to the total
+    np.testing.assert_allclose(out["log_cond_likes"].sum(-1).numpy(),
+                               out["log_likelihood"].numpy(), rtol=1e-6)
+    params = lwm.lw_cloud_params(lwm.svol_leverage_lw_kernel_model(),
+                                 out["cloud"])
+    phi, mu, sigma, rho = params.unbind(-1)
+    assert ((phi > 0) & (phi < 1)).all() and (sigma > 0).all()
+    assert ((rho > -1) & (rho < 1)).all()
+
+
+def test_decoders_match_jax_on_the_same_cloud():
+    """The factory's and the leverage kernel's decoders against JAX's on
+    one cloud, the JAX cloud carrying its two zero pad rows."""
+    rng = np.random.default_rng(7)
+    cloud = rng.normal(size=(3, 6, 128)).astype(np.float32)
+    cloud[:, 1] *= 5
+    padded = np.concatenate([cloud, np.zeros((3, 2, 128), np.float32)], 1)
+    km, jkm = (lwm.svol_leverage_lw_kernel_model(),
+               jlwm.svol_leverage_lw_kernel_model())
+    tc, jc = torch.from_numpy(cloud), jnp.asarray(padded)
+    for got, want in (
+            (lwm.lw_cloud_params(km, tc), jlwm.lw_cloud_params(jkm, jc)),
+            (lwm.lw_cloud_weights(km, tc), jlwm.lw_cloud_weights(jkm, jc)),
+            (lwm.lw_cloud_states(km, tc), jlwm.lw_cloud_states(jkm, jc)),
+            (k4.lw_cloud_params(tc), jk4.lw_cloud_params(jc)),
+            (k4.lw_cloud_weights(tc), jk4.lw_cloud_weights(jc))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("t_len,kw,resampled", [
+    (1, dict(), True),                        # t = 0 resamples at rs = 1
+    (1, dict(resample_every=2), False),
+    (3, dict(resample_every=3), True),        # (t + 1) % 3 == 0 at t = 2
+    (4, dict(resample_every=3), False),
+    (5, dict(ess_threshold=1.0), True),       # ESS < N whenever unequal
+    (5, dict(ess_threshold=0.5 / 128), False),  # ESS >= 1: never fires
+])
+def test_resample_schedules(t_len, kw, resampled):
+    """The joint resample leaves the cloud's log-weights at 0; without it
+    they are the step's log-weights less their maximum."""
+    ys, zs = _leverage_data(t_len, 8)
+    for variant in ("apf", "sisr"):
+        out = _run(lwm.svol_leverage_lw_kernel_model(), 3, ys, zs,
+                   num_filters=2, num_particles=128, variant=variant, **kw)
+        lw = out["cloud"][:, 1]
+        assert torch.equal(lw == 0, torch.ones_like(lw, dtype=bool)) \
+            == resampled
+        assert torch.equal(lw.amax(-1), torch.zeros(2))
+
+
+def test_svol_t_instance_and_its_functional_path():
+    km = lwm.svol_t_lw_kernel_model(nu=5.0)
+    rng = np.random.default_rng(9)
+    ys = (0.3 * rng.normal(size=20)).astype(np.float32)
+    for variant in ("apf", "sisr"):
+        out = _run(km, 7, ys, num_filters=2, num_particles=128,
+                   variant=variant, resample_every=4)
+        assert out["log_cond_likes"].shape == (2, 20)
+        assert torch.isfinite(out["log_cond_likes"]).all()
+        np.testing.assert_allclose(out["log_cond_likes"].sum(-1).numpy(),
+                                   out["log_likelihood"].numpy(), rtol=1e-6)
+        assert out["cloud"].shape == (2, 5, 128)
+        (path,) = out["functional_paths"]
+        assert path.shape == (2, 20) and torch.isfinite(path).all()
+        beta, phi, sigma = lwm.lw_cloud_params(km, out["cloud"]).unbind(-1)
+        assert (beta > 0).all() and (sigma > 0).all()
+        assert ((phi > -1) & (phi < 1)).all()
+        w = lwm.lw_cloud_weights(km, out["cloud"])
+        np.testing.assert_allclose(w.sum(-1).numpy(), 1.0, rtol=1e-5)
+    # the filtered mean of x against its definition on the final step:
+    # sum w x / sum w under the final (pre-resample) weights is not kept,
+    # but with a schedule that never resamples the cloud's weights are them
+    out = _run(km, 8, ys, num_filters=2, num_particles=128, variant="sisr",
+               ess_threshold=0.5 / 128)
+    w = lwm.lw_cloud_weights(km, out["cloud"])
+    x = lwm.lw_cloud_states(km, out["cloud"])[:, 0]
+    np.testing.assert_allclose(out["functional_paths"][0][:, -1].numpy(),
+                               (w * x).sum(-1).numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_constant_functional_is_exactly_42_with_a_cpu_only_model():
+    base = lwm.svol_t_lw_kernel_model(nu=5.0)
+    km = lwm.LWKernelModel(
+        num_params=base.num_params, transform_codes=base.transform_codes,
+        sample_prior=base.sample_prior, init=base.init,
+        propagate=base.propagate, log_weight=base.log_weight,
+        prop_mu=base.prop_mu,
+        functionals=(lambda cp, st: torch.full_like(st[0], 42.0),),
+        name="svol_t_lw_const42")
+    ys = (0.3 * np.random.default_rng(4).normal(size=20)).astype(np.float32)
+    out = _run(km, 17, ys, num_filters=2, num_particles=128)
+    np.testing.assert_allclose(out["functional_paths"][0].numpy(), 42.0,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="no CUDA instance"):
+        lwm._model_id(km)
+
+
+def test_validation_errors():
+    km = lwm.svol_t_lw_kernel_model(nu=5.0)
+    ys = torch.ones(8)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        lwm.lw_megakernel(km, 0, ys, num_particles=100)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        lwm.lw_megakernel(km, 0, ys, num_particles=2048)
+    with pytest.raises(ValueError, match="dim_cov=0"):
+        lwm.lw_megakernel(km, 0, ys, zs=torch.ones(8, 1), num_particles=128)
+    km_lev = lwm.svol_leverage_lw_kernel_model()
+    with pytest.raises(ValueError, match="needs covariates"):
+        lwm.lw_megakernel(km_lev, 0, ys, num_particles=128)
+    no_look = lwm.LWKernelModel(
+        num_params=1, transform_codes=("null",),
+        sample_prior=lambda rng, shape: rng.uniform((1,) + shape),
+        init=lambda rng, cp, y, shape: (rng.normal(shape),),
+        propagate=lambda rng, cp, st, y, z: st,
+        log_weight=lambda cp, st, y, z: torch.zeros_like(st[0]))
+    with pytest.raises(ValueError, match="prop_mu"):
+        lwm.lw_megakernel(no_look, 0, ys, num_particles=128)
+    assert torch.isfinite(lwm.lw_megakernel(
+        no_look, 0, ys, num_particles=128, variant="sisr")[
+        "log_likelihood"]).all()
+    for kw, msg in ((dict(variant="bad"), "variant"),
+                    (dict(resample_every=0), "resample_every"),
+                    (dict(resampler="metropolis"), "not ported"),
+                    (dict(resampler="rejection"), "not ported"),
+                    (dict(resampler="bad"), "unknown resampler"),
+                    (dict(num_filters=0), "num_filters")):
+        with pytest.raises(ValueError, match=msg):
+            lwm.lw_megakernel(km, 0, ys, num_particles=128, **kw)
+    with pytest.raises(ValueError, match="transform_codes"):
+        lwm.LWKernelModel(num_params=2, transform_codes=("null",),
+                          sample_prior=None, init=None, propagate=None,
+                          log_weight=None)
+    with pytest.raises(ValueError, match="unknown transform code"):
+        lwm.LWKernelModel(num_params=1, transform_codes=("exp",),
+                          sample_prior=None, init=None, propagate=None,
+                          log_weight=None)
+    with pytest.raises(ValueError, match="together"):
+        lwm.LWKernelModel(num_params=1, transform_codes=("null",),
+                          sample_prior=None, init=None, propagate=None,
+                          log_weight=None, sample_q=lambda *a: None)
+
+
+@pytest.mark.parametrize("variant", ["apf", "sisr"])
+def test_leverage_wrapper_is_the_k3_instance(variant):
+    """K4's wrapper equals the K3 instance on lagged covariates, bit for
+    bit (the Pallas pair's bit-compatibility)."""
+    ys, zs = _leverage_data(40, 10)
+    a = k4.svol_leverage_lw(13, torch.from_numpy(ys), num_filters=2,
+                            num_particles=128, variant=variant)
+    b = _run(lwm.svol_leverage_lw_kernel_model(), 13, ys, zs, num_filters=2,
+             num_particles=128, variant=variant)
+    for key in ("log_cond_likes", "log_likelihood", "cloud"):
+        assert torch.equal(a[key], b[key]), key
+    assert k4.svol_leverage_lw.launches == 0          # plain on the CPU
+    bounds = ((0.5, 0.99), (-1.0, 1.0), (0.05, 0.5), (-0.9, 0.0))
+    c = k4.svol_leverage_lw(13, torch.from_numpy(ys), num_filters=2,
+                            num_particles=128, prior_bounds=bounds)
+    p = k4.lw_cloud_params(c["cloud"])
+    assert (p[..., 2] > 0).all() and torch.isfinite(c["log_likelihood"]).all()
+
+
+def test_sim_future_obs_bridge():
+    ys, zs = _leverage_data(16, 11)
+    km = lwm.svol_leverage_lw_kernel_model()
+    out = _run(km, 3, ys, zs, num_filters=2, num_particles=128)
+    fut = lwm.lw_kernel_sim_future_obs(
+        km, lev.make_model(), out["cloud"], torch.Generator().manual_seed(1),
+        num_steps=4, last_obs=torch.tensor([float(ys[-1])]))
+    assert fut.shape == (2, 4, 128, 1) and torch.isfinite(fut).all()
+    with pytest.raises(ValueError, match="last_obs"):
+        lwm.lw_kernel_sim_future_obs(km, lev.make_model(), out["cloud"],
+                                     torch.Generator(), num_steps=2)
+
+
+def test_prior_uniform_and_select_offset_streams():
+    """Prior uniform k of particle i is word k & 3 of counter (i, k >> 2,
+    b, 2^31); the first-stage offsets use tag 2^31 + 1.  The header holds
+    the same tags."""
+    seed = _prng.seed_words(99)
+    u = _prng.prior_uniforms(seed, torch.arange(3), 64, 6)
+    assert u.shape == (6, 3, 64)
+    assert ((u >= 0) & (u < 1)).all()
+    k0, k1 = seed[0], seed[1]
+    for k, b, i in ((0, 0, 0), (3, 2, 17), (4, 1, 63), (5, 2, 5)):
+        words = _prng.philox4x32_10(torch.tensor(i), torch.tensor(k >> 2),
+                                    torch.tensor(b),
+                                    torch.tensor(_prng.TAG_PRIOR_UNIFORM),
+                                    k0, k1)
+        assert float(u[k, b, i]) == float(
+            _prng.uniform_closed_zero(words[k & 3]))
+    sel = _prng.offsets_steps(seed, torch.arange(3), torch.arange(4),
+                              tag=_prng.TAG_SELECT_OFFSET)
+    res = _prng.offsets_steps(seed, torch.arange(3), torch.arange(4))
+    assert not torch.equal(sel, res)
+    src = open(os.path.join(CSRC, "philox.cuh")).read()
+    tags = {name: int(v, 16) for name, v in re.findall(
+        r"constexpr uint32_t (kTag\w+) = 0x([0-9A-Fa-f]+)u;", src)}
+    assert tags == {"kTagPriorUniform": _prng.TAG_PRIOR_UNIFORM,
+                    "kTagSelectOffset": _prng.TAG_SELECT_OFFSET}
+    with pytest.raises(ValueError):
+        _prng.normal_tag(2 ** 31)
+
+
+def test_model_ids_and_transform_codes_match_the_cuda_header():
+    """The dispatch ids, each functor's traits and its transform codes are
+    written once in csrc/lw_models.cuh; the Python side reads the same."""
+    src = open(os.path.join(CSRC, "lw_models.cuh")).read()
+    ids = {name: int(num) for num, name in re.findall(
+        r"constexpr int kLWModel\w+ = (\d+);\s*// \"(\w+)\"", src)}
+    assert ids == lwm.CUDA_LW_MODEL_IDS
+    names = {f"kTrans{''.join(w.title() for w in c.split('_'))}": c
+             for c in lwm._CODES}
+    codes = {inst: tuple(names[c] for c in re.findall(r"kTrans\w+", body))
+             for inst, body in re.findall(
+                 r"codes\[kNumParams\] = \{\s*// \"(\w+)\"(.*?)\};", src,
+                 re.S)}
+    structs = dict(re.findall(r"struct (\w+LW) \{(.*?)\n\};", src, re.S))
+    cu = open(os.path.join(CSRC, "lw_megakernel.cu")).read()
+    dispatch = dict(re.findall(
+        r"case ssme::(kLWModel\w+):\s*launch<ssme::(\w+)>", cu))
+    assert len(dispatch) == len(ids) == len(codes) == len(structs)
+    for inst, (tmodel, _) in INSTANCES.items():
+        km = tmodel()
+        assert km.cuda_instance == inst
+        assert codes[inst] == km.transform_codes
+        const = re.search(rf"constexpr int (kLWModel\w+) = "
+                          rf"{ids[inst]};", src).group(1)
+        traits = {k: int(v) for k, v in re.findall(
+            r"static constexpr int (k\w+) = (\d+);", structs[dispatch[const]])}
+        assert traits == {"kNumParams": km.num_params,
+                          "kNumState": km.num_state,
+                          "kDimObs": km.dim_obs, "kDimCov": km.dim_cov,
+                          "kNumFunctionals": len(km.functionals or ())}

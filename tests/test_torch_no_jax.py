@@ -41,6 +41,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.examples.estimate_univ_svol",
             "ssme_tpu_torch.examples.estimate_svol_leverage",
             "ssme_tpu_torch.examples.swarm_forecast",
+            "ssme_tpu_torch.examples.liu_west_leverage",
+            "ssme_tpu_torch.filters.liu_west",
+            "ssme_tpu_torch.ops.liu_west_megakernel",
+            "ssme_tpu_torch.ops.svol_leverage_lw_kernel",
             "ssme_tpu_torch.ops.svol_filter_kernel",
             "ssme_tpu_torch.ops.filter_megakernel",
             "ssme_tpu_torch.models.svol_leverage",

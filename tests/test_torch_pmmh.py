@@ -322,3 +322,17 @@ def test_cli_device_cuda_without_a_card_raises(tmp_path):
         cli.main([str(data), str(tmp_path / "s"), str(tmp_path / "m"), "2",
                   "1", "--device", "cuda"])
     assert not (tmp_path / "s").exists()
+
+
+def test_cli_default_device_is_cuda_and_raises_without_a_card(tmp_path):
+    """No silent CPU run: without --device the CLI asks for the card."""
+    from ssme_tpu_torch.examples import estimate_univ_svol as cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    data = tmp_path / "ys.csv"
+    np.savetxt(data, _spy_like(10, 6), delimiter=",")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([str(data), str(tmp_path / "s"), str(tmp_path / "m"), "2",
+                  "1"])
+    assert not (tmp_path / "s").exists()

@@ -215,7 +215,8 @@ def test_cli_keys_match_the_jax_cli(tmp_path, capsys):
         rows = read_params_csv(str(tmp_path / "s.csv"), 4)
         assert rows.shape == (8 * 2, 4) and np.isfinite(rows).all()
     with pytest.raises(SystemExit):
-        cli.main(common + ["--engine", "generic", "--gate-stride", "8"])
+        cli.main(common + ["--engine", "generic", "--gate-stride", "8",
+                           "--device", "cpu"])
 
 
 def test_cli_device_cuda_without_a_card_raises(tmp_path):
@@ -225,3 +226,14 @@ def test_cli_device_cuda_without_a_card_raises(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--datafile", _data_file(tmp_path), "--device", "cuda"])
+
+
+def test_cli_default_device_is_cuda_and_raises_without_a_card(tmp_path):
+    """No silent CPU run: without --device the CLI asks for the card."""
+    from ssme_tpu_torch.examples import estimate_svol_leverage as cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--datafile", _data_file(tmp_path), "--iters", "2",
+                  "--particles", "64"])

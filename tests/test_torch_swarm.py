@@ -267,3 +267,14 @@ def test_cli_checks_its_options(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([data, samples, "--device", "cuda"])
+
+
+def test_cli_default_device_is_cuda_and_raises_without_a_card(tmp_path):
+    """No silent CPU run: without --device the CLI asks for the card."""
+    from ssme_tpu_torch.examples import swarm_forecast as cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    data, samples = _cli_inputs(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([data, samples, "--model", "svol_leverage"])
