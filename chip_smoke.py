@@ -9,9 +9,12 @@ its paths through the port's own entry points, over the full SPY series
 chains x R=4 replicates x N=512 particles) through the SVOL filter
 kernel, adaptive PMMH on SVOL with leverage at its tuned size (C=64 x
 R=2 x N=512) through the generic filter kernel, the kernel swarm
-forecast (32 parameter draws x N=1024) from that posterior, and
-Liu-West joint state + parameter filtering of SVOL with leverage (F=64
-filters x N=512) through the Liu-West kernel.  Phases, one line each:
+forecast (32 parameter draws x N=1024) from that posterior, Liu-West
+joint state + parameter filtering of SVOL with leverage (F=64 filters x
+N=512) through the Liu-West kernel, and adaptive PMMH on Student-t SVOL
+at the flagship size through the generic filter kernel, whose other
+model families (Poisson AR, factor SVOL) and APF mode are held to the
+JAX package's filters.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts;
@@ -51,7 +54,26 @@ filters x N=512) through the Liu-West kernel.  Phases, one line each:
             kernel's cloud;
 16. lw-cli  ``ssme_tpu_torch.examples.liu_west_leverage`` on the card,
             both engines, against the JAX package's float32 results in
-            ``data/spy_liu_west_jax.json``; exactly one kernel launch.
+            ``data/spy_liu_west_jax.json``; exactly one kernel launch;
+17. megakernel-families-sis  the generic kernel's svol_t, poisson_ar and
+            factor_svol (4 and 5 assets) instances against the plain
+            version with a gate that never fires (identical bits), and
+            its APF mode for svol, svol_leverage, svol_t and poisson_ar
+            (B=32, T=64: step 0 equal, most per-step lcls equal, the
+            totals' errors printed);
+18. families-full  svol_t and svol APF over SPY (B=256), poisson_ar
+            bootstrap and APF (B=128, T=3084) and factor_svol with 4 assets
+            (B=32, T=500), N=512: kernel and plain means within 4 combined
+            standard errors, and the kernel within 4 of the JAX package's
+            float32 filters in ``data/k2_families_jax.json`` (factor_svol
+            also of its float64 filter); times;
+19. pmmh-svol_t  ``AdaptivePMMH`` on Student-t SVOL through
+            ``megakernel_log_like`` (C=64 x R=4 x N=512, SPY), 30 iterations
+            per gate stride, launches = iterations + 1, no host
+            synchronisation;
+20. large-n ``megakernel_log_like`` above the kernel's 1024 particles: the
+            generic bank with ``model=``, no kernel launch; without it, an
+            error.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -81,7 +103,8 @@ from ssme_tpu_torch.examples import liu_west_leverage as lw_cli  # noqa: E402
 from ssme_tpu_torch.inference import (AdaptivePMMH,  # noqa: E402
                                       forecast_from_cloud)
 from ssme_tpu_torch.io import ParamSampler, read_data  # noqa: E402
-from ssme_tpu_torch.models import svol, svol_leverage  # noqa: E402
+from ssme_tpu_torch.models import (factor_svol, svol,  # noqa: E402
+                                   svol_leverage, svol_t)
 from ssme_tpu_torch.ops import _cuda, _prng, _select  # noqa: E402
 from ssme_tpu_torch.ops import filter_megakernel as fmk  # noqa: E402
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm  # noqa: E402
@@ -113,6 +136,16 @@ LW_RUNS = {"apf": ("svol_leverage_lw", dict(variant="apf")),
            "sisr": ("svol_leverage_lw", dict(variant="sisr")),
            "svol_t-apf": ("svol_t_lw", dict(variant="apf"))}
 
+# the generic kernel's other families (phases 17-20): the JAX package's
+# float32 yardsticks (scripts/k2_families_jax.py) and the points they are at
+FAMILIES_JSON = os.path.join(ROOT, "data", "k2_families_jax.json")
+SVOL_T_POINT = (0.868, 0.975, 0.064, 10.0)
+POISSON_POINT = (0.9, 1.0, 0.3)
+# svol's chain start with log nu = log 10 appended
+SVOL_T_START = tuple(svol.START_TRANS_THETA) + (math.log(10.0),)
+APF_B, APF_T = 32, 64
+FACTOR_B = 32
+
 # the least time of a kernel's work: the larger of its bytes over the HBM
 # rate and its operations over the float32 rate outside the tensor cores
 # (H100 SXM data sheet; integer and special-
@@ -136,6 +169,23 @@ STEP_OPS = {
     # resample (scan, search, 5 gathers) 15
     "lw_megakernel": 5 * NORMAL_OPS + 36 + 8 + 28 + 12 + 18 + 20 + 20 + 14
                      + 8 + 15,
+    # the generic kernel's other instances (bootstrap): svol_t's weight
+    # adds a divide, a log1p and two multiplies to svol's (10)
+    "filter_megakernel/svol_t": NORMAL_OPS + 2 + 10 + 8,
+    # transition mean (sub, fma) + fma 3; weight (mul, exp, 2 sub) 4
+    "filter_megakernel/poisson_ar": NORMAL_OPS + 3 + 4 + 8,
+    # two normals, two transitions (3 each); weight: v1, v2, yy over 4
+    # assets (3 x 4 fma + 4 mul), 2 exp + 2 add, det 2, the quadratic form
+    # 8 + a divide, log + 3 adds, 3 for the result: 36
+    "filter_megakernel/factor_svol_4": 2 * NORMAL_OPS + 6 + 36 + 8,
+    # APF adds per step: the lookahead twice (svol: 1 each), two more
+    # weights (6 each), the first-stage add and exp/max 2, and the
+    # selection (scan, 9-step search, gather) 20
+    "filter_megakernel/svol/apf": NORMAL_OPS + 2 + 6 + 8 + 2 * 1 + 2 * 6
+                                  + 2 + 20,
+    # poisson_ar: lookahead 2 each, weights 4 each
+    "filter_megakernel/poisson_ar/apf": NORMAL_OPS + 3 + 4 + 8 + 2 * 2
+                                        + 2 * 4 + 2 + 20,
 }
 
 
@@ -402,6 +452,33 @@ def _instances(zs):
             ("svol_leverage", fmk.svol_leverage_kernel_model(), zs)]
 
 
+def _compare_sis(name, km, rows, ys, zs, g, errs):
+    """Kernel against plain on identical bits, a gate that never fires:
+    totals, zero patterns, functional means, the cloud and its weights;
+    records the totals' max abs error in ``errs`` and returns the
+    kernel's totals."""
+    kw = dict(num_particles=N, ess_threshold=1e-6, gate_stride=g,
+              return_cloud=True)
+    tot, lcl, fm, cloud, clw = fmk.filter_megakernel(km, 7, rows, ys, zs,
+                                                     **kw)
+    tot_p, lcl_p, fm_p, cloud_p, clw_p = fmk.filter_megakernel_reference(
+        km, 7, rows, ys, zs, **kw)
+    # float32 throughout; fused multiply-adds and another reduction order
+    # put a few ulp into each step (see phase 5)
+    torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=1e-3,
+                               msg=f"{name} g={g}: totals")
+    require(torch.equal(lcl != 0, lcl_p != 0), f"{name} g={g}: zero pattern")
+    torch.testing.assert_close(fm, fm_p, rtol=1e-3, atol=1e-3,
+                               msg=f"{name} g={g}: functional means")
+    for leaf, (a, b) in enumerate(zip(cloud, cloud_p)):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3,
+                                   msg=f"{name} g={g}: cloud leaf {leaf}")
+    torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p), rtol=1e-3,
+                               atol=1e-3, msg=f"{name} g={g}: weights")
+    errs[f"{name}/g{g}"] = float((tot - tot_p).abs().max())
+    return tot
+
+
 def phase_megakernel_sis(dev, ys_all):
     """No resampling: identical bits through identical recursions."""
     ys = ys_all[:512, 0].contiguous()
@@ -413,29 +490,10 @@ def phase_megakernel_sis(dev, ys_all):
         "svol_leverage": torch.tensor(
             [LEV_POINTS["start"]] * half + [LEV_POINTS["posterior"]] * half,
             device=dev)}
-    errs, k1_errs = [], []
+    errs, k1_errs = {}, []
     for name, km, z in _instances(zs):
         for g in (1, 8):
-            kw = dict(num_particles=N, ess_threshold=1e-6, gate_stride=g,
-                      return_cloud=True)
-            tot, lcl, fm, cloud, clw = fmk.filter_megakernel(
-                km, 7, params[name], ys, z, **kw)
-            tot_p, lcl_p, fm_p, cloud_p, clw_p = \
-                fmk.filter_megakernel_reference(km, 7, params[name], ys, z,
-                                                **kw)
-            # float32 throughout; fused multiply-adds and another reduction
-            # order put a few ulp into each step (see phase 5)
-            torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=1e-3)
-            require(torch.equal(lcl != 0, lcl_p != 0),
-                    f"{name} g={g}: zero pattern")
-            torch.testing.assert_close(fm, fm_p, rtol=1e-3, atol=1e-3)
-            torch.testing.assert_close(cloud[0], cloud_p[0], rtol=1e-3,
-                                       atol=1e-3)
-            # the carried log-weights of negligible particles reach -1e9
-            # and beyond, where a relative ulp is large: compare weights
-            torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p),
-                                       rtol=1e-3, atol=1e-3)
-            errs.append(float((tot - tot_p).abs().max()))
+            tot = _compare_sis(name, km, params[name], ys, z, g, errs)
             if name == "svol":
                 tot_k1 = sfk.svol_filter(7, params[name], ys,
                                          num_particles=N, ess_threshold=1e-6,
@@ -445,10 +503,10 @@ def phase_megakernel_sis(dev, ys_all):
                         f"g={g}: svol instance vs svol_filter differ by "
                         f"{k1_errs[-1]:.3e}")
     phase(9, "megakernel-sis", f"B={LB} N={N} T=512 strides 1, 8: totals max"
-          f" abs err {', '.join(f'{e:.3e}' for e in errs)} (svol g1, g8, "
-          f"leverage g1, g8); cloud and weights within 1e-3; svol instance "
-          f"vs svol_filter {k1_errs[0]:.3e}, {k1_errs[1]:.3e}")
-    return max(errs)
+          f" abs err {', '.join(f'{e:.3e}' for e in errs.values())} (svol "
+          f"g1, g8, leverage g1, g8); cloud and weights within 1e-3; svol "
+          f"instance vs svol_filter {k1_errs[0]:.3e}, {k1_errs[1]:.3e}")
+    return max(errs.values())
 
 
 def phase_megakernel_full(dev, ys_all, ident):
@@ -815,6 +873,227 @@ def phase_lw_cli(ident):
     return launches[0]
 
 
+def _families(dev):
+    """The JAX yardsticks and the series of phases 17-18."""
+    with open(FAMILIES_JSON) as f:
+        ref = json.load(f)
+    counts = fmk.poisson_obs_rows(torch.tensor(ref["poisson_ar_counts"]))
+    fys = torch.tensor(ref["factor_svol_ys"], dtype=torch.float32)
+    fparams = torch.tensor(ref["factor_svol_params"], dtype=torch.float32)
+    return (ref, counts.to(dev).contiguous(), fys.to(dev).contiguous(),
+            fparams)
+
+
+def _factor5(dev):
+    """Parameters and a T=500 series of the port's 5-asset factor SVOL,
+    both from a seeded generator."""
+    gen = torch.Generator().manual_seed(17)
+    params = factor_svol.make_model(5, 2).sample_prior(gen)
+    _, ys = factor_svol.simulate(gen, params, 500, 5, 2)
+    return params, ys.to(dev).contiguous()
+
+
+def phase_families_sis(dev, ys_all):
+    ref, counts, fys, fparams = _families(dev)
+    ys = ys_all[:512, 0].contiguous()
+    half = LB // 2
+    f5_params, f5_ys = _factor5(dev)
+    cases = [
+        ("svol_t", fmk.svol_t_kernel_model(), fmk.svol_t_param_rows(
+            torch.tensor([SVOL_T_POINT] * half
+                         + [(1.0, 0.9, 0.05, 4.0)] * half)).to(dev), ys),
+        ("poisson_ar", fmk.poisson_ar_kernel_model(), torch.tensor(
+            [POISSON_POINT] * half + [(0.8, 0.5, 0.4)] * half, device=dev),
+         counts[:512].contiguous()),
+        ("factor_svol_4", fmk.factor_svol_kernel_model(4),
+         fparams.expand(LB, -1).contiguous().to(dev), fys),
+        ("factor_svol_5", fmk.factor_svol_kernel_model(5),
+         f5_params.expand(LB, -1).contiguous().to(dev), f5_ys)]
+    errs = {}
+    for name, km, rows, y in cases:
+        for g in (1, 8):
+            _compare_sis(name, km, rows, y, None, g, errs)
+    # APF: identical bits; after the first selection the block scan and
+    # torch.cumsum may pick different neighbours at a CDF boundary, so
+    # only step 0 must agree to float tolerance, and most (row, step)
+    # cells: a flip is rare (phase 4), and a row agrees until its first
+    # flip
+    ys_apf = ys_all[:APF_T, 0].contiguous()
+    apf_cases = [
+        ("svol", fmk.svol_kernel_model(),
+         _svol_rows(SVOL_T_POINT[:3], APF_B).to(dev), ys_apf, None),
+        ("svol_leverage", fmk.svol_leverage_kernel_model(),
+         torch.tensor([LEV_POINTS["posterior"]] * APF_B, device=dev), ys_apf,
+         svol_leverage.lagged_covariates(ys_apf)),
+        ("svol_t", fmk.svol_t_kernel_model(), fmk.svol_t_param_rows(
+            torch.tensor([SVOL_T_POINT] * APF_B)).to(dev), ys_apf, None),
+        ("poisson_ar", fmk.poisson_ar_kernel_model(),
+         torch.tensor([POISSON_POINT] * APF_B, device=dev),
+         counts[:APF_T].contiguous(), None)]
+    apf_errs = {}
+    for name, km, rows, y, z in apf_cases:
+        kw = dict(num_particles=N, mode="apf")
+        tot, lcl, _ = fmk.filter_megakernel(km, 9, rows, y, z, **kw)
+        tot_p, lcl_p, _ = fmk.filter_megakernel_reference(km, 9, rows, y, z,
+                                                          **kw)
+        torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5,
+                                   atol=1e-4, msg=f"apf {name}: step 0")
+        require(bool(torch.isfinite(tot).all())
+                and bool(torch.isfinite(tot_p).all()),
+                f"apf {name}: non-finite totals")
+        agree = float(((lcl - lcl_p).abs() <= 1e-3).float().mean())
+        require(agree >= 0.5, f"apf {name}: only {agree:.3f} of the lcl "
+                "cells agree within 1e-3")
+        apf_errs[name] = (float((lcl[:, 0] - lcl_p[:, 0]).abs().max()),
+                          float((tot - tot_p).abs().max()), agree)
+    phase(17, "megakernel-families-sis", f"B={LB} N={N} T=512 (factor T=500)"
+          " strides 1, 8, gate never fires: totals max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; cloud and weights within 1e-3 | APF B={APF_B} T={APF_T}: "
+          + ", ".join(f"{k} step 0 {a:.3e} totals {b:.3e} cells within "
+                      f"1e-3 {c:.4f}" for k, (a, b, c) in apf_errs.items()))
+    return max(errs.values())
+
+
+def phase_families_full(dev, ys_all, ident):
+    ref, counts, fys, fparams = _families(dev)
+    ys = ys_all[:, 0].contiguous()
+    f = ref["filters"]
+    runs = {
+        "svol_t": (fmk.svol_t_kernel_model(), fmk.svol_t_param_rows(
+            torch.tensor([SVOL_T_POINT] * B)), ys, "bootstrap",
+            [("JAX", ref["svol_t_bootstrap"])]),
+        "svol/apf": (fmk.svol_kernel_model(), _svol_rows(SVOL_T_POINT[:3], B),
+                     ys, "apf",
+                     [("JAX systematic first stage",
+                       ref["svol_apf"]["first_stage"]["systematic"])]),
+        "poisson_ar": (fmk.poisson_ar_kernel_model(),
+                       torch.tensor([POISSON_POINT] * LB), counts,
+                       "bootstrap", [("JAX", ref["poisson_ar_bootstrap"])]),
+        "poisson_ar/apf": (fmk.poisson_ar_kernel_model(),
+                           torch.tensor([POISSON_POINT] * LB), counts, "apf",
+                           [("JAX systematic first stage",
+                             ref["poisson_ar_apf"]["first_stage"]
+                             ["systematic"])]),
+        # F2: the float32 kernel against the float64 ground truth
+        "factor_svol_4": (fmk.factor_svol_kernel_model(4),
+                          fparams.expand(FACTOR_B, -1), fys, "bootstrap",
+                          [("JAX f32", ref["factor_svol_f32"]),
+                           ("JAX f64 (F2)", ref["factor_svol_f64"])]),
+    }
+    results = {}
+    for name, (km, rows, y, mode, yardsticks) in runs.items():
+        rows = rows.contiguous().to(dev)
+        b = rows.shape[0]
+        kw = dict(num_particles=N, ess_threshold=1.0, mode=mode)
+        before = fmk.filter_megakernel.launches
+        tot = fmk.filter_megakernel(km, 11, rows, y, **kw)[0]
+        launches = fmk.filter_megakernel.launches - before
+        out_p, plain_ms = event_ms(lambda: fmk.filter_megakernel_reference(
+            km, 12, rows, y, **kw))
+        tot_p = out_p[0]
+        require(bool(torch.isfinite(tot).all())
+                and bool(torch.isfinite(tot_p).all()), f"{name}: NaN totals")
+        mean, sd = float(tot.mean()), float(tot.std())
+        se = math.sqrt(float(tot.var()) / b + float(tot_p.var()) / b)
+        d = abs(mean - float(tot_p.mean()))
+        require(d <= 4 * se, f"{name}: kernel {mean:.3f} vs plain "
+                f"{float(tot_p.mean()):.3f}, {d:.3f} > 4 SE {4 * se:.3f}")
+        line = (f"  {name}: kernel {mean:.4f} sd {sd:.4f}, plain "
+                f"{float(tot_p.mean()):.4f} (4 SE {4 * se:.4f})")
+        for label, jx in yardsticks:
+            se_j = math.hypot(sd / math.sqrt(b), jx["sd"] / math.sqrt(f))
+            d_j = abs(mean - jx["mean"])
+            require(d_j <= 4 * se_j, f"{name}: kernel {mean:.3f} vs {label} "
+                    f"{jx['mean']:.3f}, {d_j:.3f} > 4 SE {4 * se_j:.3f}")
+            line += f"; {label} {jx['mean']:.4f} (4 SE {4 * se_j:.4f})"
+        print(line, flush=True)
+        ms = cuda_ms(lambda: fmk.filter_megakernel(km, 11, rows, y, **kw), 5)
+        t_len, d_obs = y.shape[0], km.dim_obs
+        bnd = bound(f"filter_megakernel/{name}", b, N, t_len, 4 * (t_len * d_obs + b * km.num_params)
+                    + 16, 4 * b * (2 * t_len + 1))
+        results[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                         "bound_by": bnd[1], "rows": b, "T": t_len,
+                         "check_launches": launches, "mean": mean,
+                         "sd": sd}
+    phase(18, "families-full", f"N={N}: " + "; ".join(
+        f"{k} B={v['rows']} T={v['T']} kernel {v['ms']:.4f} ms, plain "
+        f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+        for k, v in results.items()) + f" ({ident})")
+    return results
+
+
+def phase_pmmh_svol_t(dev, ys_all, ident):
+    ys = ys_all
+    model = svol_t.make_model()
+    props_per_run = ITERS * C * R * N * ys.shape[0]   # init not timed
+    # the counts start at 0 just before this path and are read just after
+    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    rates = {}
+    for g in (1, 8):
+        before = fmk.filter_megakernel.launches
+        pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=R,
+                            t0=150, t1=1000,
+                            batched_log_like=fmk.megakernel_log_like(
+                                fmk.svol_t_kernel_model(), N, R,
+                                constrain=fmk.svol_t_param_rows,
+                                ess_threshold=0.5, gate_stride=g))
+        state = pmmh.init(0, SVOL_T_START, ys, num_chains=C)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            res = pmmh.run_from(state, ITERS, ys)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fmk.filter_megakernel.launches - before
+        require(count == ITERS + 1,
+                f"g={g}: {count} kernel launches, want {ITERS + 1}")
+        require(bool(torch.isfinite(state.log_like).all())
+                and bool(torch.isfinite(res.log_likes).all()),
+                f"g={g}: non-finite log-likelihoods")
+        n_acc = int(res.accepted.sum())
+        require(n_acc >= 1, f"g={g}: no proposal accepted")
+        rates[g] = props_per_run / secs
+        print(f"  g={g}: {count} launches, {n_acc} accepts, init mean "
+              f"log-likelihood {float(state.log_like.mean()):.4f}, "
+              f"{secs:.4f} s, {rates[g]:.6e} props/s on {ident}", flush=True)
+    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
+    launches = fmk.filter_megakernel.launches
+    phase(19, "pmmh-svol_t", f"C={C} R={R} N={N} T={ys.shape[0]} {ITERS} "
+          f"iters: " + "; ".join(f"g{g} {r:.6e} props/s"
+                                 for g, r in rates.items()) + f" ({ident})")
+    return launches
+
+
+def phase_large_n(dev, ys_all, ident):
+    model = svol_t.make_model()
+    km = fmk.svol_t_kernel_model()
+    params = model.transform.constrain(torch.tensor(SVOL_T_START)).expand(
+        2, 4).contiguous().to(dev)
+    before = fmk.filter_megakernel.launches
+    ll = fmk.megakernel_log_like(km, 2048, 2, constrain=fmk.svol_t_param_rows,
+                                 model=model)
+    out, ms = event_ms(lambda: ll(torch.Generator(device=dev).manual_seed(6),
+                                  params, ys_all))
+    require(out.shape == (2,) and bool(torch.isfinite(out).all()),
+            f"large-N bridge: {out}")
+    require(fmk.filter_megakernel.launches == before,
+            "the large-N bridge launched the kernel")
+    refused = False
+    try:
+        fmk.megakernel_log_like(km, 2048, 2)
+    except ValueError:
+        refused = True
+    require(refused, "N=2048 without model= did not raise")
+    phase(20, "large-n", f"N=2048 R=2 C=2 T={ys_all.shape[0]} through the "
+          f"generic bank: {', '.join(f'{v:.4f}' for v in out.tolist())}, "
+          f"{ms:.3f} ms, no kernel launch; without model= it raises "
+          f"({ident})")
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
@@ -838,6 +1117,10 @@ def main():
     lw_errs = phase_lw_sis(dev, ys)
     lw_times, k4_ms = phase_lw_full(dev, ys, ident)
     lw_launches = phase_lw_cli(ident)
+    fam_err = phase_families_sis(dev, ys)
+    fam = phase_families_full(dev, ys, ident)
+    svol_t_launches = phase_pmmh_svol_t(dev, ys, ident)
+    phase_large_n(dev, ys, ident)
 
     t_len = ys.shape[0]
     k_ms, p_ms = times["adaptive"]
@@ -870,8 +1153,8 @@ def main():
         "route": "cuda",
         "source": "ssme_tpu_torch/csrc/filter_megakernel.cu",
         "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
-        "launches": k2_launches + swarm_launches,
-        "max_abs_err": k2_err,
+        "launches": k2_launches + swarm_launches + svol_t_launches,
+        "max_abs_err": max(k2_err, fam_err),
         "ms": k2_ms,
         "plain_ms": k2_plain,
         "bound_ms": k2_bound[0],
@@ -881,6 +1164,10 @@ def main():
                          for s, (k, p) in k2_times.items()},
         "swarm_ms": swarm_times[0],
         "swarm_plain_ms": swarm_times[1],
+        "per_instance": {k: v for k, v in fam.items() if "/apf" not in k},
+        "apf": {k: v for k, v in fam.items() if "/apf" in k},
+        "main_path_launches": {"svol_leverage": k2_launches + swarm_launches,
+                               "svol_t": svol_t_launches},
     }, {
         "name": "lw_megakernel",
         "route": "cuda",

@@ -19,7 +19,8 @@ constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
 // fourth counter word: which stream a draw belongs to
 constexpr uint32_t kTagNormal = 0u;  // normal draw 0: init / propagate
-constexpr uint32_t kTagOffset = 1u;  // systematic resampling offset
+constexpr uint32_t kTagOffset = 1u;  // systematic resampling offset (the
+                                     // first stage in K2's APF mode)
 constexpr uint32_t kTagChain = 2u;   // host-side chain seeds, never here
                                      // normal draw k >= 1: kTagChain + k
 constexpr uint32_t kTagPriorUniform = 0x80000000u;  // Liu-West t = 0 prior

@@ -8,8 +8,10 @@ CPU tensors; on a CUDA tensor it never falls back.
 # the function filter_megakernel stays in its module, which it would
 # shadow here (as in ssme_tpu.ops)
 from ssme_tpu_torch.ops.filter_megakernel import (
-    KernelModel, filter_megakernel_reference, megakernel_log_like,
-    megakernel_swarm_evidence, svol_kernel_model, svol_leverage_kernel_model)
+    KernelModel, factor_svol_kernel_model, filter_megakernel_reference,
+    megakernel_log_like, megakernel_swarm_evidence, poisson_ar_kernel_model,
+    poisson_obs_rows, svol_kernel_model, svol_leverage_kernel_model,
+    svol_t_kernel_model, svol_t_param_rows)
 # the factory's decoders take the kernel model first, so they are aliased
 # and do not shadow the leverage kernel's lw_cloud_params/_weights below
 from ssme_tpu_torch.ops.liu_west_megakernel import (
@@ -34,6 +36,8 @@ __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
            "filter_megakernel_reference",
            "megakernel_log_like", "megakernel_swarm_evidence",
            "svol_kernel_model", "svol_leverage_kernel_model",
+           "factor_svol_kernel_model", "poisson_ar_kernel_model",
+           "poisson_obs_rows", "svol_t_kernel_model", "svol_t_param_rows",
            "LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_factory_cloud_params", "lw_factory_cloud_weights",
            "lw_factory_cloud_states", "lw_kernel_sim_future_obs",

@@ -30,10 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # model id, seed, params, ys, zs, B, T, N, ess_limit, always,
+    # model id, apf, seed, params, ys, zs, B, T, N, ess_limit, always,
     # gate_stride, total, lcl, fmean, cloud, cloud_lw, stream
-    "ssme_filter_megakernel": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                               _P, _P, _P, _P, _P, _P],
+    "ssme_filter_megakernel": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                               _I, _P, _P, _P, _P, _P, _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
     # coefs, prior_lo, prior_scale, model_args (host arrays), lcl, fpaths,
     # cloud, stream

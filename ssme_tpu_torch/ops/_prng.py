@@ -14,7 +14,9 @@ The mapping (the only place it is written down):
   - 0: normal draw 0 of a step, the init / propagate normals (the only
     draw of the SVOL kernel, so the generic kernel's svol instance
     consumes exactly its bits);
-  - 1: the resampling offset (counter (0, t, b, 1));
+  - 1: the resampling offset (counter (0, t, b, 1)); in the generic
+    filter kernel's APF mode, which has no other resample, the
+    first-stage selection offset of step t;
   - 2: not drawn by the filters (``inference/pmmh.py::chain_generators``
     seeds chains with counter (c, 0, 0, 2) under the run's seed);
   - 2 + k: normal draw k >= 1 of a step, for model hooks that draw more

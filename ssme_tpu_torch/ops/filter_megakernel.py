@@ -1,34 +1,37 @@
-"""Generic whole-sequence bootstrap filter bank over model hooks: the CUDA
-template kernel and its plain PyTorch version.
+"""Generic whole-sequence filter bank over model hooks: the CUDA template
+kernel and its plain PyTorch version.
 
-Replaces the bootstrap mode of
-``ssme_tpu/ops/filter_megakernel.py::filter_megakernel``.  A
+Replaces ``ssme_tpu/ops/filter_megakernel.py::filter_megakernel``.  A
 :class:`KernelModel` supplies, over (B, N) particle blocks,
 
 - ``init(rng, p, y, z, shape) -> state``        the time-1 draw
 - ``propagate(rng, p, state, y, z) -> state``   the transition draw
 - ``log_weight(p, state, y, z) -> (B, N)``      the observation density
+- optional ``prop_mu(p, state, y, z) -> state`` the auxiliary-PF lookahead
+  (required by ``mode="apf"``)
 - optional ``functional(p, state) -> (B, N)``   whose filtered mean is
-  emitted per step (default: the first state leaf)
+  emitted per step (default: the first state leaf), or a vector
+  ``functionals`` of them, one output path each
 
 with ``p`` the (B, num_params) constrained parameter rows, ``y``/``z``
 tuples of the step's observation and covariate scalars, ``state`` a
-tuple of ``num_state`` (B, N) leaves and ``rng.normal(shape)`` the
-kernel's Philox normals of the current step (``ops/_prng.py``: draw 0 on
-the first call of a hook, draw 1 on the second, ...).
+tuple of ``num_state`` (B, N) leaves (resampled together) and
+``rng.normal(shape)`` the kernel's Philox normals of the current step
+(``ops/_prng.py``: draw 0 on the first call of a hook, draw 1 on the
+second, ...).
 
 The kernel is ``csrc/filter_megakernel.cu``, one template over the model
 functors of ``csrc/kernel_models.cuh``; its header comment gives the
-step recursion, the layout and the intended divergences from the Pallas
-kernel.  A hook written in Python cannot be compiled into it: on a CUDA
-tensor only a model whose ``cuda_instance`` names a functor there runs,
-and any other model raises.  On a CPU tensor every model runs through
-:func:`filter_megakernel_reference`, which calls the hooks step by step
-with the kernel's random bits.
+step recursion of both modes, the layout and the intended divergences
+from the Pallas kernel.  A hook written in Python cannot be compiled into
+it: on a CUDA tensor only a model whose ``cuda_instance`` names a functor
+there runs, with that functor's single functional, and any other model,
+or one with vector ``functionals``, raises.  On a CPU tensor every model
+runs through :func:`filter_megakernel_reference`, which calls the hooks
+step by step with the kernel's random bits.
 
-Not ported yet (ROADMAP.md section 2, K2): ``mode="apf"``, the vector
-``functionals``, the other instances (factor_svol, poisson_ar, svol_t),
-the large-N bridge ``model=`` and the metropolis / rejection resamplers.
+Not ported yet (ROADMAP.md section 2, item 1): the metropolis and
+rejection resamplers.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from typing import Callable
 
 import torch
 
+from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
 from ssme_tpu_torch.ops._select import (MAX_PARTICLES, check_particles,
@@ -50,10 +54,13 @@ from ssme_tpu_torch.utils import logmeanexp
 
 # the dispatch table of csrc/kernel_models.cuh (same names, same numbers;
 # tests/test_torch_megakernel.py parses the header and compares)
-CUDA_MODEL_IDS = {"svol": 0, "svol_leverage": 1}
-
-_NOT_PORTED = ("is not ported to the PyTorch/CUDA package yet "
-               "(ROADMAP.md section 2, item 1: K2 remainder)")
+CUDA_MODEL_IDS = {"svol": 0, "svol_leverage": 1, "svol_t": 2,
+                  "poisson_ar": 3, "factor_svol_3": 4, "factor_svol_4": 5,
+                  "factor_svol_5": 6}
+# the asset counts the factor-SVOL functor is compiled for
+FACTOR_ASSET_COUNTS = tuple(sorted(
+    int(name.rsplit("_", 1)[1]) for name in CUDA_MODEL_IDS
+    if name.startswith("factor_svol_")))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -73,19 +80,24 @@ class KernelModel:
     dim_obs: int = 1
     dim_cov: int = 0
     functional: Callable = None   # default: first state leaf
-    functionals: tuple = None     # vector functionals: not ported
+    # one per-step filtered-mean path per entry; overrides ``functional``
+    functionals: tuple = None
+    prop_mu: Callable = None      # APF lookahead; required for mode="apf"
     name: str = "kernel_model"
     cuda_instance: str = None
 
-    def functional_fn(self):
-        return self.functional or (lambda p, state: state[0])
+    @property
+    def functional_list(self):
+        if self.functionals is not None:
+            return tuple(self.functionals)
+        return (self.functional or (lambda p, state: state[0]),)
 
 
 class _PlainRng:
     """The ``rng`` the plain version hands to the hooks: ``normal(shape)``
     returns the (B, N) Philox normals the kernel draws at the current
     step, draw 0 on a hook's first call, draw 1 on its second, and so on.
-    Draw 0 and the resampling offsets are drawn for blocks of steps."""
+    Normals and resampling offsets are drawn for blocks of steps."""
 
     HALF_LOG_2PI = _prng.HALF_LOG_2PI
 
@@ -106,24 +118,20 @@ class _PlainRng:
         if self._start is None or not (
                 self._start <= t < self._start + self._span):
             self._start = t
-            steps = torch.arange(t, min(t + self._span, self._t_len),
-                                 device=self._seed.device)
-            self._normals = _prng.normals_steps(self._seed, self._rows,
-                                                steps, self._n)
+            self._steps = torch.arange(t, min(t + self._span, self._t_len),
+                                       device=self._seed.device)
+            self._normals = {}
             self._offsets = _prng.offsets_steps(self._seed, self._rows,
-                                                steps)
+                                                self._steps)
 
     def normal(self, shape):
         draw, t = self._draw, self.t
         self._draw += 1
-        if draw == 0:
-            self._fill(t)
-            z = self._normals[t - self._start]
-        else:
-            z = _prng.normals_steps(
-                self._seed, self._rows,
-                torch.arange(t, t + 1, device=self._seed.device), self._n,
-                draw=draw)[0]
+        self._fill(t)
+        if draw not in self._normals:
+            self._normals[draw] = _prng.normals_steps(
+                self._seed, self._rows, self._steps, self._n, draw=draw)
+        z = self._normals[draw][t - self._start]
         if tuple(shape) != tuple(z.shape):
             raise ValueError(f"rng.normal({tuple(shape)}): the kernel draws "
                              f"one normal per particle, {tuple(z.shape)}")
@@ -155,17 +163,16 @@ def _as_rows(name, v, t_len, width, dev):
 
 def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
               gate_stride, mode, resampler):
-    if mode != "bootstrap":
-        raise ValueError(f"mode={mode!r}: only the bootstrap mode runs; "
-                         f"the auxiliary-PF mode {_NOT_PORTED}")
+    if mode not in ("bootstrap", "apf"):
+        raise ValueError(f"mode must be 'bootstrap' or 'apf', got {mode!r}")
+    if mode == "apf" and kmodel.prop_mu is None:
+        raise ValueError(f"model {kmodel.name!r} has no prop_mu hook "
+                         "(required for the auxiliary-PF mode)")
     if resampler != "systematic":
         raise ValueError(f"resampler={resampler!r} is not ported to the "
                          "PyTorch/CUDA package yet (ROADMAP.md section 2, "
-                         "item 2); the systematic selection has no "
+                         "item 1); the systematic selection has no "
                          "particle cap below the kernel's 1024")
-    if kmodel.functionals is not None:
-        raise ValueError(f"model {kmodel.name!r}: vector functionals "
-                         f"{_NOT_PORTED}")
     if not isinstance(params, torch.Tensor) or params.ndim != 2 \
             or params.shape[1] != kmodel.num_params or params.shape[0] < 1:
         raise ValueError(f"params must be a (B, {kmodel.num_params}) tensor "
@@ -187,11 +194,12 @@ def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
     check_particles(int(num_particles))
     if int(gate_stride) != gate_stride or gate_stride < 1:
         raise ValueError("gate_stride must be a positive integer")
-    if gate_stride > 1 and ess_threshold >= 1.0:
+    if gate_stride > 1 and (mode != "bootstrap" or ess_threshold >= 1.0):
         raise ValueError(
-            "gate_stride > 1 accumulates weights between ESS checks; the "
-            "every-step schedule (ess_threshold >= 1) requires "
-            "gate_stride=1")
+            "gate_stride > 1 accumulates weights between ESS checks: it "
+            "applies to the ESS-adaptive bootstrap mode only (APF selects "
+            "every step; the every-step schedule, ess_threshold >= 1, "
+            "requires gate_stride=1)")
     return seed, ys, zs
 
 
@@ -214,46 +222,81 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
                                 mode="bootstrap", resampler="systematic"):
     """Plain PyTorch version of :func:`filter_megakernel`, callable on
     either device and with any :class:`KernelModel`; consumes the
-    kernel's Philox bits step by step."""
+    kernel's Philox bits step by step.
+
+    The APF mode is JAX's ``apf_step``: first-stage weights lw +
+    log g(lookahead), a systematic selection of (state, lookahead) on
+    them with the step's resampling offset (tag 1, which the bootstrap
+    resample would use), the lookahead density re-evaluated at the
+    selected points, the transition, second-stage weights log g(x') -
+    log g(lookahead), and lcl = [LSE(fsw) - LSE(lw)] + [LSE(w') - log N].
+    """
     seed, ys, zs = _validate(kmodel, seed, params, ys, zs, num_particles,
                              ess_threshold, gate_stride, mode, resampler)
     n, g = int(num_particles), int(gate_stride)
     b, t_len = params.shape[0], ys.shape[0]
     dev = params.device
     log_n = math.log(float(n))
+    apf = mode == "apf"
     always = ess_threshold >= 1.0
     ess_limit = float(ess_threshold) * n
-    functional = kmodel.functional_fn()
+    fns = kmodel.functional_list
     rng = _PlainRng(seed, torch.arange(b, device=dev), n, t_len)
 
     lcl = torch.zeros((b, t_len), dtype=torch.float32, device=dev)
-    fmean = torch.zeros_like(lcl)
+    fpaths = torch.zeros((len(fns), b, t_len), dtype=torch.float32,
+                         device=dev)
     carry = torch.full((b, 1), log_n, dtype=torch.float32, device=dev)
     s_last = s2_last = torch.ones_like(carry)
-    for t in range(t_len):
-        y = tuple(ys[t].unbind())
-        z = () if zs is None else tuple(zs[t].unbind())
-        if t == 0:
-            state = tuple(kmodel.init(rng.at(0), params, y, z, (b, n)))
-            lw = torch.zeros((b, n), dtype=torch.float32, device=dev)
-            wn = torch.ones_like(lw)
-        else:
-            if g == 1:
-                fire = True if always else s_last * s_last / s2_last < \
-                    ess_limit
-                state, lw, carry = _resample_rows(wn, rng.offsets(t), state,
-                                                  lw, carry, fire, log_n)
-            state = tuple(kmodel.propagate(rng.at(t), params, state, y, z))
-        lw = lw + kmodel.log_weight(params, state, y, z)
-        if not (g == 1 or t % g == g - 1 or t == t_len - 1):
-            continue
+
+    def weigh(t, state, lw):
+        """Max, normalised weights and their sums; writes the means."""
         m = torch.amax(lw, dim=-1, keepdim=True)
         wn = torch.exp(lw - m)
         s = wn.sum(-1, keepdim=True)
-        s2 = (wn * wn).sum(-1, keepdim=True)
-        lcl[:, t] = ((m + torch.log(s)) - carry)[:, 0]
-        fmean[:, t] = ((functional(params, state) * wn).sum(-1, keepdim=True)
-                       / s)[:, 0]
+        for k, fn in enumerate(fns):
+            fpaths[k, :, t] = ((fn(params, state) * wn).sum(-1, keepdim=True)
+                               / s)[:, 0]
+        return m, wn, s, (wn * wn).sum(-1, keepdim=True)
+
+    for t in range(t_len):
+        y = tuple(ys[t].unbind())
+        z = () if zs is None else tuple(zs[t].unbind())
+        if apf and t > 0:
+            look = tuple(kmodel.prop_mu(params, state, y, z))
+            fsw = lw + kmodel.log_weight(params, look, y, z)
+            m_fs = torch.amax(fsw, dim=-1, keepdim=True)
+            w_fs = torch.exp(fsw - m_fs)
+            lse_fs = m_fs + torch.log(w_fs.sum(-1, keepdim=True))
+            picked, _ = systematic_select_reference(
+                w_fs, torch.stack(state + look), rng.offsets(t))
+            picked = tuple(picked)
+            lg_look = kmodel.log_weight(params, picked[kmodel.num_state:], y,
+                                        z)
+            state = tuple(kmodel.propagate(
+                rng.at(t), params, picked[:kmodel.num_state], y, z))
+            lw = kmodel.log_weight(params, state, y, z) - lg_look
+            m, wn, s, s2 = weigh(t, state, lw)
+            lcl[:, t] = (((lse_fs - carry) + (m + torch.log(s)))
+                         - log_n)[:, 0]
+        else:
+            if t == 0:
+                state = tuple(kmodel.init(rng.at(0), params, y, z, (b, n)))
+                lw = torch.zeros((b, n), dtype=torch.float32, device=dev)
+                wn = torch.ones_like(lw)
+            else:
+                if g == 1:
+                    fire = True if always else s_last * s_last / s2_last < \
+                        ess_limit
+                    state, lw, carry = _resample_rows(
+                        wn, rng.offsets(t), state, lw, carry, fire, log_n)
+                state = tuple(kmodel.propagate(rng.at(t), params, state, y,
+                                               z))
+            lw = lw + kmodel.log_weight(params, state, y, z)
+            if not (g == 1 or t % g == g - 1 or t == t_len - 1):
+                continue
+            m, wn, s, s2 = weigh(t, state, lw)
+            lcl[:, t] = ((m + torch.log(s)) - carry)[:, 0]
         lw = lw - m
         carry = torch.log(s)
         s_last, s2_last = s, s2
@@ -261,6 +304,7 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
             state, lw, carry = _resample_rows(wn, rng.offsets(t), state, lw,
                                               carry, s * s / s2 < ess_limit,
                                               log_n)
+    fmean = fpaths[0] if len(fns) == 1 else tuple(fpaths.unbind(0))
     if return_cloud:
         return lcl.sum(-1), lcl, fmean, state, lw
     return lcl.sum(-1), lcl, fmean
@@ -274,45 +318,60 @@ def _model_id(kmodel) -> int:
             f"({sorted(CUDA_MODEL_IDS)}); a model written as Python hooks "
             "runs on CPU tensors, through the plain version (ROADMAP.md "
             "section 3, D1)")
+    if kmodel.functionals is not None:
+        raise ValueError(
+            f"model {kmodel.name!r}: vector functionals run on CUDA tensors "
+            "only as a functor's own, and the functors of "
+            "csrc/kernel_models.cuh have one each; a model with "
+            "functionals runs on CPU tensors (ROADMAP.md section 3, D1)")
     try:
         return CUDA_MODEL_IDS[kmodel.cuda_instance]
     except KeyError:
-        raise ValueError(f"unknown CUDA instance {kmodel.cuda_instance!r}; "
-                         f"valid: {sorted(CUDA_MODEL_IDS)}") from None
+        raise ValueError(
+            f"unknown CUDA instance {kmodel.cuda_instance!r}; valid: "
+            f"{sorted(CUDA_MODEL_IDS)} (the factor-SVOL functor is compiled "
+            f"for {', '.join(map(str, FACTOR_ASSET_COUNTS))} assets)"
+        ) from None
 
 
 def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
                       ess_threshold=1.0, gate_stride=1, return_cloud=False,
                       mode="bootstrap", resampler="systematic"):
-    """B whole-sequence bootstrap filters of ``kmodel`` in one launch.
+    """B whole-sequence particle filters of ``kmodel`` in one launch.
 
     seed: (2,) int64 Philox key words on the params' device, or a Python
     int; params: (B, num_params) float32 constrained rows; ys: (T,) or
     (T, dim_obs); zs: (T,) or (T, dim_cov) covariates, required iff the
     model has them.  ``num_particles`` is a multiple of 32 in [32, 1024].
-    Returns (total (B,), lcl (B, T), fmean (B, T)): total = sum_t
-    log p(y_t | y_{1:t-1}); fmean the filtered mean of the model's
-    functional.  ``return_cloud`` appends (cloud, cloud_log_weights): a
-    tuple of ``num_state`` (B, N) leaves after the last observation and
+    Returns (total (B,), lcl (B, T), fmean): total = sum_t
+    log p(y_t | y_{1:t-1}); fmean the (B, T) filtered mean of the model's
+    functional, or a tuple of one (B, T) path per entry of a vector
+    ``functionals``.  ``return_cloud`` appends (cloud, cloud_log_weights):
+    a tuple of ``num_state`` (B, N) leaves after the last observation and
     the (B, N) max-normalised carried log-weights.
 
-    ess_threshold: resample when a row's ESS falls below this fraction of
-    N (1.0 = every step).  gate_stride g > 1 (ESS-adaptive schedules
-    only): weights accumulate between checks at t = g-1 (mod g) and
-    t = T-1; lcl and fmean are zero off those columns and sum(lcl) stays
-    the exact evidence.
+    mode: "bootstrap" (propagate through the transition, weight by the
+    observation density) or "apf" (Pitt-Shephard auxiliary PF through
+    the model's ``prop_mu``: a first-stage selection every step;
+    ``ess_threshold`` is ignored and ``gate_stride`` must be 1).
+
+    ess_threshold (bootstrap): resample when a row's ESS falls below this
+    fraction of N (1.0 = every step).  gate_stride g > 1 (ESS-adaptive
+    bootstrap only): weights accumulate between checks at t = g-1 (mod g)
+    and t = T-1; lcl and fmean are zero off those columns and sum(lcl)
+    stays the exact evidence.
 
     Launches the kernel for CUDA tensors (raising for a model without a
-    CUDA instance) and runs :func:`filter_megakernel_reference` for CPU
-    tensors.  Only ``mode="bootstrap"`` and ``resampler="systematic"``
-    are ported; the others raise.
+    CUDA instance, or with vector functionals) and runs
+    :func:`filter_megakernel_reference` for CPU tensors.  Only
+    ``resampler="systematic"`` is ported; the others raise.
     """
     seed, ys, zs = _validate(kmodel, seed, params, ys, zs, num_particles,
                              ess_threshold, gate_stride, mode, resampler)
     if params.device.type == "cpu":
         return filter_megakernel_reference(kmodel, seed, params, ys, zs,
                                            num_particles, ess_threshold,
-                                           gate_stride, return_cloud)
+                                           gate_stride, return_cloud, mode)
     if params.device.type != "cuda":
         raise ValueError(f"filter_megakernel: unsupported device "
                          f"{params.device}")
@@ -329,8 +388,8 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
                             device=dev)
         cloud_lw = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = lib.ssme_filter_megakernel(
-        model_id, seed.data_ptr(), params.data_ptr(), ys.data_ptr(),
-        None if zs is None else zs.data_ptr(), b, t_len, n,
+        model_id, int(mode == "apf"), seed.data_ptr(), params.data_ptr(),
+        ys.data_ptr(), None if zs is None else zs.data_ptr(), b, t_len, n,
         float(ess_threshold) * n, int(ess_threshold >= 1.0),
         int(gate_stride), total.data_ptr(), lcl.data_ptr(),
         fmean.data_ptr(), None if cloud is None else cloud.data_ptr(),
@@ -348,7 +407,7 @@ filter_megakernel.launches = 0
 
 def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
                         constrain=None, ess_threshold: float = 0.5,
-                        gate_stride: int = 1):
+                        gate_stride: int = 1, model=None):
     """PMMH ``batched_log_like`` hook for a kernel model: all chains x
     replicates in ONE launch.
 
@@ -358,13 +417,26 @@ def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
     reduced by a per-chain log-mean-exp.  The two seed words are drawn on
     the device with ``gen``, so the host never waits.  No padding rows:
     the ESS gate is per row.
+
+    Large-N bridge: above the kernel's 1024 particles, pass the matching
+    ``StateSpaceModel`` as ``model`` and the hook is the generic bank
+    ``filters.bootstrap.replicated_log_like_fn`` at the same particle
+    count, replicates and ESS gate; it takes the PMMH's parameters as
+    they are (``constrain`` and ``gate_stride`` are kernel plumbing and
+    unused there).  Without ``model`` it raises.
     """
-    if num_particles > MAX_PARTICLES:
-        raise ValueError(
-            f"num_particles={num_particles} exceeds the kernel's "
-            f"{MAX_PARTICLES}; the large-N bridge to the generic bank "
-            f"(model=) {_NOT_PORTED}")
     r = num_replicates
+    if num_particles > MAX_PARTICLES:
+        if model is None:
+            raise ValueError(
+                f"num_particles={num_particles} exceeds the kernel's "
+                f"{MAX_PARTICLES}; pass the matching StateSpaceModel as "
+                "model= to run the generic filter bank instead (the "
+                "large-N bridge)")
+        return replicated_log_like_fn(
+            model, num_particles, r,
+            ess_threshold=None if ess_threshold >= 1.0
+            else float(ess_threshold))
 
     def ll(gen, params, ys, zs=None):
         c = params.shape[0]
@@ -392,22 +464,25 @@ def megakernel_swarm_evidence(kmodel, seed, param_draws, ys, zs=None,
 
     Returns the JAX keys: ``log_cond_like`` (T,) = logmeanexp over models,
     ``mean_log_cond_like`` (T,) = the arithmetic mean of logs,
-    ``per_model_log_cond_likes`` (M, T), ``functional_path`` (T,) and
-    ``functional_paths`` (a one-element tuple); with ``return_cloud`` also
+    ``per_model_log_cond_likes`` (M, T), ``functional_paths`` (one (T,)
+    swarm-averaged path per functional of the model) and
+    ``functional_path``, the first of them; with ``return_cloud`` also
     ``final_cloud`` (tuple of ``num_state`` (M, N)) and
     ``final_log_weights`` (M, N), the input of
     :func:`ssme_tpu_torch.inference.swarm.forecast_from_cloud`.  With
     ``gate_stride > 1`` the per-model lcls coarsen to per-check block
-    sums (totals unchanged) and the functional path is zero off the check
-    columns.
+    sums (totals unchanged) and the functional paths are zero off the
+    check columns.
     """
     outs = filter_megakernel(kmodel, seed, param_draws.contiguous(), ys, zs,
                              num_particles=num_particles,
                              ess_threshold=ess_threshold,
                              return_cloud=return_cloud,
                              gate_stride=gate_stride)
-    _, lcls, fmean = outs[:3]
-    paths = (fmean.mean(0),)
+    _, lcls, fmeans = outs[:3]
+    if not isinstance(fmeans, tuple):
+        fmeans = (fmeans,)
+    paths = tuple(f.mean(0) for f in fmeans)
     result = {
         "log_cond_like": logmeanexp(lcls, dim=0),
         "mean_log_cond_like": lcls.mean(0),
@@ -447,8 +522,12 @@ def svol_kernel_model() -> KernelModel:
         return ((-_prng.HALF_LOG_2PI - torch.log(beta)) - 0.5 * x
                 - 0.5 * zval * zval)
 
+    def prop_mu(p, state, y, z):
+        # APF lookahead = the transition mean
+        return (p[:, 1:2] * state[0],)
+
     return KernelModel(num_params=3, init=init, propagate=propagate,
-                       log_weight=log_weight, name="svol",
+                       log_weight=log_weight, prop_mu=prop_mu, name="svol",
                        cuda_instance="svol")
 
 
@@ -456,51 +535,201 @@ def svol_kernel_model() -> KernelModel:
 svol_kernel_rows = _kernel_rows
 
 
+def _leverage_mean(p, x, z):
+    phi, mu, sigma, rho = p[:, 0:1], p[:, 1:2], p[:, 2:3], p[:, 3:4]
+    return torch.clamp(mu + phi * (x - mu)
+                       + z[0] * rho * sigma * torch.exp(-0.5 * x),
+                       -STATE_CLAMP, STATE_CLAMP)
+
+
 @functools.lru_cache(maxsize=None)
 def svol_leverage_kernel_model() -> KernelModel:
     """SVOL with leverage (``models/svol_leverage.py``); rows (phi, mu,
     sigma, rho); covariate z = the lagged observation.  The transition
-    mean is clamped to +-STATE_CLAMP, as in the model.  CUDA instance
-    ``SvolLeverageModel``."""
+    mean is clamped to +-STATE_CLAMP, as in the model, in the transition
+    and in the lookahead.  CUDA instance ``SvolLeverageModel``."""
 
     def init(rng, p, y, z, shape):
         phi, sigma = p[:, 0:1], p[:, 2:3]
         return (rng.normal(shape) * (sigma / torch.sqrt(1.0 - phi * phi)),)
 
     def propagate(rng, p, state, y, z):
-        phi, mu, sigma, rho = p[:, 0:1], p[:, 1:2], p[:, 2:3], p[:, 3:4]
+        sigma, rho = p[:, 2:3], p[:, 3:4]
         (x,) = state
-        mean = torch.clamp(mu + phi * (x - mu)
-                           + z[0] * rho * sigma * torch.exp(-0.5 * x),
-                           -STATE_CLAMP, STATE_CLAMP)
         sd = sigma * torch.sqrt(1.0 - rho * rho)
-        return (mean + sd * rng.normal(x.shape),)
+        return (_leverage_mean(p, x, z) + sd * rng.normal(x.shape),)
 
     def log_weight(p, state, y, z):
         (x,) = state
         zval = y[0] * torch.exp(-0.5 * x)
         return -_prng.HALF_LOG_2PI - 0.5 * x - 0.5 * zval * zval
 
+    def prop_mu(p, state, y, z):
+        return (_leverage_mean(p, state[0], z),)
+
     return KernelModel(num_params=4, init=init, propagate=propagate,
-                       log_weight=log_weight, dim_cov=1,
+                       log_weight=log_weight, prop_mu=prop_mu, dim_cov=1,
                        name="svol_leverage", cuda_instance="svol_leverage")
 
 
-def _not_ported(name):
-    def factory(*args, **kwargs):
-        raise ValueError(f"{name}: the {name.removesuffix('_kernel_model')} "
-                         f"instance {_NOT_PORTED}")
-    factory.__name__ = factory.__qualname__ = name
-    return factory
+@functools.lru_cache(maxsize=None)
+def factor_svol_kernel_model(n_assets: int = 5) -> KernelModel:
+    """Multivariate factor SVOL (``models/factor_svol.py``) with k = 2
+    factors as a two-leaf kernel model: the state is (x1, x2), resampled
+    together.  Rows: the model's constrained [phi (2), mu (2), sigma (2),
+    vec(L) (2n, row-major), d (n)].
+
+    The Woodbury density y ~ N(0, L diag(e^x) L' + diag(d)) becomes
+    explicit 2 x 2 formulas per particle: M = diag(e^-x) + A with the
+    per-row A = L' D^-1 L, v = L' D^-1 y and y' D^-1 y, so det and
+    inverse are a handful of elementwise operations.  No ``prop_mu``, as
+    in JAX.  CUDA instance ``FactorSvolModel<n_assets>`` for the counts of
+    :data:`FACTOR_ASSET_COUNTS`; another count runs on CPU tensors only
+    and raises on a CUDA tensor."""
+    na = int(n_assets)
+    num_params = 6 + 2 * na + na
+
+    def unpack(p):
+        phi = (p[:, 0:1], p[:, 1:2])
+        mu = (p[:, 2:3], p[:, 3:4])
+        sigma = (p[:, 4:5], p[:, 5:6])
+        ell = [(p[:, 6 + 2 * i:7 + 2 * i], p[:, 7 + 2 * i:8 + 2 * i])
+               for i in range(na)]
+        d = [p[:, 6 + 2 * na + i:7 + 2 * na + i] for i in range(na)]
+        return phi, mu, sigma, ell, d
+
+    def init(rng, p, y, z, shape):
+        phi, mu, sigma, _, _ = unpack(p)
+        return tuple(mu[j] + rng.normal(shape)
+                     * (sigma[j] / torch.sqrt(1.0 - phi[j] * phi[j]))
+                     for j in range(2))
+
+    def propagate(rng, p, state, y, z):
+        phi, mu, sigma, _, _ = unpack(p)
+        return tuple(mu[j] + phi[j] * (state[j] - mu[j])
+                     + sigma[j] * rng.normal(state[j].shape)
+                     for j in range(2))
+
+    def log_weight(p, state, y, z):
+        _, _, _, ell, d = unpack(p)
+        x1, x2 = state
+        a11 = a12 = a22 = v1 = v2 = yy = sum_log_d = 0.0
+        for i in range(na):
+            l1, l2 = ell[i]
+            dinv = 1.0 / d[i]
+            a11 = a11 + l1 * l1 * dinv
+            a12 = a12 + l1 * l2 * dinv
+            a22 = a22 + l2 * l2 * dinv
+            v1 = v1 + l1 * dinv * y[i]
+            v2 = v2 + l2 * dinv * y[i]
+            yy = yy + y[i] * y[i] * dinv
+            sum_log_d = sum_log_d + torch.log(d[i])
+        m11 = torch.exp(-x1) + a11
+        m22 = torch.exp(-x2) + a22
+        det = m11 * m22 - a12 * a12
+        quad_corr = (m22 * v1 * v1 - 2.0 * a12 * v1 * v2
+                     + m11 * v2 * v2) / det
+        logdet = torch.log(det) + x1 + x2 + sum_log_d
+        return (-na * _prng.HALF_LOG_2PI - 0.5 * logdet
+                - 0.5 * (yy - quad_corr))
+
+    return KernelModel(num_params=num_params, init=init,
+                       propagate=propagate, log_weight=log_weight,
+                       num_state=2, dim_obs=na,
+                       functional=lambda p, state: state[0],
+                       name=f"factor_svol_{na}x2",
+                       cuda_instance=f"factor_svol_{na}")
 
 
-# the JAX package's other instances, with their model families
-factor_svol_kernel_model = _not_ported("factor_svol_kernel_model")
-poisson_ar_kernel_model = _not_ported("poisson_ar_kernel_model")
-svol_t_kernel_model = _not_ported("svol_t_kernel_model")
+@functools.lru_cache(maxsize=None)
+def poisson_ar_kernel_model() -> KernelModel:
+    """Poisson AR(1) counts (``models/poisson_ar.py``); rows (phi, mu,
+    sigma).  log(y!) = gammaln(y + 1) depends on the data only, so it
+    comes in as a second observation column: ``ys`` rows
+    ``[y, gammaln(y + 1)]`` (dim_obs = 2, :func:`poisson_obs_rows`).  CUDA
+    instance ``PoissonArModel``."""
+
+    def init(rng, p, y, z, shape):
+        phi, mu, sigma = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+        return (mu + rng.normal(shape) * (sigma / torch.sqrt(1.0 - phi * phi)),)
+
+    def propagate(rng, p, state, y, z):
+        phi, mu, sigma = p[:, 0:1], p[:, 1:2], p[:, 2:3]
+        (x,) = state
+        return (mu + phi * (x - mu) + sigma * rng.normal(x.shape),)
+
+    def prop_mu(p, state, y, z):
+        phi, mu = p[:, 0:1], p[:, 1:2]
+        return (mu + phi * (state[0] - mu),)
+
+    def log_weight(p, state, y, z):
+        (x,) = state
+        return y[0] * x - torch.exp(x) - y[1]
+
+    return KernelModel(num_params=3, init=init, propagate=propagate,
+                       log_weight=log_weight, prop_mu=prop_mu, dim_obs=2,
+                       name="poisson_ar", cuda_instance="poisson_ar")
+
+
+def poisson_obs_rows(counts):
+    """(T,) counts -> (T, 2) float32 kernel observation rows
+    ``[y, gammaln(y + 1)]`` on the counts' device."""
+    y = torch.as_tensor(counts).to(torch.float32).reshape(-1)
+    return torch.stack([y, torch.lgamma(y + 1.0)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def svol_t_kernel_model() -> KernelModel:
+    """Student-t observation SVOL (``models/svol_t.py``).  The t constant
+    c_nu needs gammaln of the row's nu, so it comes in as a derived
+    parameter column: rows ``[beta, phi, sigma, nu, c_nu]``
+    (:func:`svol_t_param_rows`).  CUDA instance ``SvolTModel``."""
+
+    def init(rng, p, y, z, shape):
+        phi, sigma = p[:, 1:2], p[:, 2:3]
+        return (rng.normal(shape) * (sigma / torch.sqrt(1.0 - phi * phi)),)
+
+    def propagate(rng, p, state, y, z):
+        phi, sigma = p[:, 1:2], p[:, 2:3]
+        (x,) = state
+        return (phi * x + sigma * rng.normal(x.shape),)
+
+    def prop_mu(p, state, y, z):
+        return (p[:, 1:2] * state[0],)
+
+    def log_weight(p, state, y, z):
+        beta, nu, c_nu = p[:, 0:1], p[:, 3:4], p[:, 4:5]
+        (x,) = state
+        zval = (y[0] / beta) * torch.exp(-0.5 * x)
+        return (c_nu - torch.log(beta) - 0.5 * x
+                - 0.5 * (nu + 1.0) * torch.log1p(zval * zval / nu))
+
+    return KernelModel(num_params=5, init=init, propagate=propagate,
+                       log_weight=log_weight, prop_mu=prop_mu,
+                       name="svol_t", cuda_instance="svol_t")
+
+
+def svol_t_param_rows(params):
+    """(B, 4) constrained (beta, phi, ss, nu) rows -> (B, 5) kernel rows
+    ``[beta, phi, sigma, nu, c_nu]`` on the rows' device, with c_nu the t
+    constant of ``rv.t_logpdf``: its nu > 200 asymptotic form is chosen
+    by ``torch.where``, so PMMH can call this every iteration as
+    ``constrain`` without a host read."""
+    p = params.to(torch.float32)
+    beta, phi, ss, nu = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
+    a = 0.5 * nu
+    c_exact = (torch.lgamma(a + 0.5) - torch.lgamma(a)
+               - 0.5 * torch.log(nu * math.pi))
+    c_asym = (0.5 * torch.log(a) - 0.5 * torch.log(nu * math.pi)
+              + torch.log1p(-1.0 / (8.0 * a) + 1.0 / (128.0 * a * a)))
+    c_nu = torch.where(nu > 200.0, c_asym, c_exact)
+    return torch.stack([beta, phi, torch.sqrt(ss), nu, c_nu], dim=-1)
 
 
 __all__ = ["KernelModel", "filter_megakernel", "filter_megakernel_reference",
            "megakernel_log_like", "megakernel_swarm_evidence",
            "svol_kernel_model", "svol_kernel_rows",
-           "svol_leverage_kernel_model", "CUDA_MODEL_IDS"]
+           "svol_leverage_kernel_model", "factor_svol_kernel_model",
+           "poisson_ar_kernel_model", "poisson_obs_rows",
+           "svol_t_kernel_model", "svol_t_param_rows", "CUDA_MODEL_IDS",
+           "FACTOR_ASSET_COUNTS"]

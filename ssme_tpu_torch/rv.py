@@ -1,8 +1,10 @@
-"""Log-density evaluation and MVN sampling.
+"""Log-density evaluation and sampling.
 
-PyTorch counterpart of the parts of ``ssme_tpu/rv.py`` the PMMH main
-path uses.  Every sampler takes an explicit ``torch.Generator``;
-out-of-domain arguments yield ``-inf`` instead of raising.
+PyTorch counterpart of ``ssme_tpu/rv.py``.  Every sampler takes an
+explicit ``torch.Generator``; out-of-domain arguments yield ``-inf``
+instead of raising.  The Gamma and Student-t samplers, which the JAX
+package takes from ``jax.random``, are built here from the generator's
+normals and uniforms.
 """
 
 from __future__ import annotations
@@ -81,10 +83,61 @@ def invgamma_logpdf(x, alpha, beta):
     return torch.where(safe, lp, torch.full_like(lp, -math.inf))
 
 
+def halfnorm_logpdf(x, sigma=1.0):
+    """log half-normal(x; sigma) on [0, inf)."""
+    x = _f32(x)
+    lp = math.log(2.0) + norm_logpdf(x, 0.0, sigma)
+    return torch.where(x >= 0, lp, torch.full_like(lp, -math.inf))
+
+
+def beta_logpdf(x, a, b):
+    """log Beta(x; a, b) on (0, 1)."""
+    x = _f32(x)
+    a, b = _f32(a, x), _f32(b, x)
+    safe = (x > 0) & (x < 1)
+    xs = torch.where(safe, x, torch.full_like(x, 0.5))
+    lp = ((a - 1.0) * torch.log(xs) + (b - 1.0) * torch.log1p(-xs)
+          + torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b))
+    return torch.where(safe, lp, torch.full_like(lp, -math.inf))
+
+
 def twice_fisher(p):
     """z = log((1+p)/(1-p))."""
     p = _f32(p)
     return torch.log1p(p) - torch.log1p(-p)
+
+
+def t_logpdf(x, df, loc=0.0, scale=1.0):
+    """log Student-t density with ``df`` degrees of freedom; -inf where
+    df <= 0 or scale <= 0.
+
+    gammaln((df+1)/2) - gammaln(df/2) cancels catastrophically in float32
+    for large df, so above df = 200 the constant is the asymptotic
+    log[Gamma(a+1/2)/Gamma(a)] ~ 0.5 log a + log1p(-1/(8a) + 1/(128 a^2)),
+    a = df/2, chosen by ``torch.where`` (no host read of df)."""
+    x = _f32(x)
+    df, loc, scale = _f32(df, x), _f32(loc, x), _f32(scale, x)
+    z = (x - loc) / scale
+    a = 0.5 * df
+    const_exact = (torch.lgamma(a + 0.5) - torch.lgamma(a)
+                   - 0.5 * torch.log(df * math.pi))
+    const_asym = (0.5 * torch.log(a) - 0.5 * torch.log(df * math.pi)
+                  + torch.log1p(-1.0 / (8.0 * a) + 1.0 / (128.0 * a * a)))
+    const = torch.where(df > 200.0, const_asym, const_exact)
+    val = const - torch.log(scale) - 0.5 * (df + 1.0) * torch.log1p(
+        z * z / df)
+    return torch.where((df > 0) & (scale > 0), val,
+                       torch.full_like(val, -math.inf))
+
+
+def poisson_logpmf(k, log_rate):
+    """log Poisson(k; rate = e^{log_rate}); -inf for a negative or
+    non-integer k."""
+    k = _f32(k)
+    log_rate = _f32(log_rate, k)
+    val = k * log_rate - torch.exp(log_rate) - torch.lgamma(k + 1.0)
+    ok = (k >= 0) & (k == torch.floor(k))
+    return torch.where(ok, val, torch.full_like(val, -math.inf))
 
 
 def chol_with_jitter(cov, jitter=1e-8):
@@ -118,5 +171,83 @@ def mvn_sample(generator, mean, cov=None, chol=None):
     return mean + torch.matmul(chol, eps[..., None])[..., 0]
 
 
+def mvn_logpdf(x, mean, cov=None, chol=None):
+    """log MVN density over the last axis (triangular solve with the
+    Cholesky factor; no explicit inverse)."""
+    x = _f32(x)
+    mean = _f32(mean, x)
+    if chol is None:
+        chol = chol_with_jitter(cov)
+    d = x.shape[-1]
+    diff = (x - mean)[..., None]
+    chol = chol.expand(diff.shape[:-2] + chol.shape[-2:])
+    sol = torch.linalg.solve_triangular(chol, diff, upper=False)[..., 0]
+    logdet = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    return -0.5 * (sol * sol).sum(-1) - logdet - d * _HALF_LOG_2PI
+
+
+def categorical_from_log_weights(generator, log_weights, shape=None):
+    """Indices drawn proportional to ``exp(log_weights)`` over the last
+    axis, one (default) per weight; ``shape`` is the number of draws per
+    row (an int or a one-element tuple)."""
+    log_weights = _f32(log_weights)
+    n = log_weights.shape[-1]
+    m = n if shape is None else int(shape[-1] if isinstance(
+        shape, tuple) else shape)
+    probs = torch.softmax(log_weights, dim=-1).reshape(-1, n)
+    idx = torch.multinomial(probs, m, replacement=True, generator=generator)
+    return idx.reshape(log_weights.shape[:-1] + (m,))
+
+
+# candidates proposed at once per Gamma draw (see gamma_sample)
+_GAMMA_ROUNDS = 16
+
+
+def gamma_sample(generator, alpha, shape=None):
+    """Gamma(alpha, scale 1) draws from the generator's normals and
+    uniforms (``torch.distributions`` samplers take no generator).
+
+    Marsaglia and Tsang (2000) for shape a = alpha + 1 when alpha < 1
+    (then times U^(1/alpha)), else a = alpha: d = a - 1/3, c = 1/sqrt(9d),
+    v = (1 + c z)^3, accept when log u < z^2/2 + d - d v + d log v.  Each
+    draw proposes ``_GAMMA_ROUNDS`` candidates at once and keeps the first
+    accepted one, so the host never waits on a loop.  Every candidate is
+    accepted with probability > 0.95, so all of them fail with
+    probability < 1e-20; such a draw keeps the last candidate."""
+    alpha = _f32(alpha)
+    shape = alpha.shape if shape is None else tuple(shape)
+    alpha = alpha.expand(shape)
+    kw = dict(generator=generator, dtype=torch.float32, device=alpha.device)
+    boost = alpha < 1.0
+    a = torch.where(boost, alpha + 1.0, alpha)
+    d = a - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    z = torch.randn((_GAMMA_ROUNDS,) + shape, **kw)
+    u = torch.rand((_GAMMA_ROUNDS,) + shape, **kw)
+    v = (1.0 + c * z) ** 3
+    vs = torch.where(v > 0, v, torch.ones_like(v))
+    ok = (v > 0) & (torch.log(u) < 0.5 * z * z + d - d * vs
+                    + d * torch.log(vs))
+    ok[-1] = True
+    first = torch.argmax(ok.to(torch.int8), dim=0, keepdim=True)
+    g = d * torch.gather(vs, 0, first)[0]
+    ub = torch.rand(shape, **kw)
+    return torch.where(boost, g * ub ** (1.0 / alpha), g)
+
+
+def student_t_sample(generator, df, shape=None):
+    """Standard Student-t draws z / sqrt(chi2_df / df), chi2_df =
+    2 Gamma(df / 2)."""
+    df = _f32(df)
+    shape = df.shape if shape is None else tuple(shape)
+    z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=df.device)
+    chi2 = 2.0 * gamma_sample(generator, 0.5 * df.expand(shape))
+    return z / torch.sqrt(chi2 / df)
+
+
 __all__ = ["norm_logpdf", "uniform_logpdf", "box_uniform_logpdf",
-           "invgamma_logpdf", "twice_fisher", "chol_with_jitter", "mvn_sample"]
+           "invgamma_logpdf", "halfnorm_logpdf", "beta_logpdf",
+           "twice_fisher", "t_logpdf", "poisson_logpmf", "chol_with_jitter",
+           "mvn_sample", "mvn_logpdf", "categorical_from_log_weights",
+           "gamma_sample", "student_t_sample"]

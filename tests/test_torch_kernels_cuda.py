@@ -7,12 +7,14 @@ with a card and no JAX:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from ssme_tpu_torch.models import factor_svol
 from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import _prng, _select
 from ssme_tpu_torch.ops import filter_megakernel as fm
@@ -147,6 +149,90 @@ def test_megakernel_launch_counter_and_errors(dev):
     with pytest.raises(ValueError, match="no CUDA instance"):
         fm.filter_megakernel(custom, 1, params, ys, zs, num_particles=64)
     assert fm.filter_megakernel.launches == before + 1
+
+
+def _family(name, dev, ys):
+    """(kernel model, rows, observations) of the svol_t, poisson_ar and
+    factor_svol instances."""
+    if name == "svol_t":
+        return (fm.svol_t_kernel_model(), fm.svol_t_param_rows(torch.tensor(
+            [[0.9, 0.97, 0.06, 8.0]] * 64)).to(dev), ys)
+    if name == "poisson_ar":
+        counts = torch.poisson(torch.exp(ys.cpu()),
+                               generator=torch.Generator().manual_seed(0))
+        return (fm.poisson_ar_kernel_model(),
+                torch.tensor([[0.9, 1.0, 0.3]] * 64, device=dev),
+                fm.poisson_obs_rows(counts).to(dev))
+    na = int(name[-1])
+    gen = torch.Generator().manual_seed(na)
+    params = factor_svol.make_model(na, 2).sample_prior(gen)
+    _, fys = factor_svol.simulate(gen, params, ys.shape[0], na, 2)
+    return (fm.factor_svol_kernel_model(na),
+            params.expand(64, -1).contiguous().to(dev), fys.to(dev))
+
+
+@pytest.mark.parametrize("gate_stride", [1, 8])
+@pytest.mark.parametrize("name", ["svol_t", "poisson_ar", "factor_svol_4",
+                                  "factor_svol_5"])
+def test_new_instances_match_plain_without_resampling(dev, name,
+                                                      gate_stride):
+    ys = _ys(300, 12).to(dev)
+    km, params, obs = _family(name, dev, ys)
+    kw = dict(num_particles=256, ess_threshold=1e-6, gate_stride=gate_stride,
+              return_cloud=True)
+    tot, lcl, fmean, cloud, clw = fm.filter_megakernel(km, 9, params, obs,
+                                                       **kw)
+    tot_p, lcl_p, fmean_p, cloud_p, clw_p = fm.filter_megakernel_reference(
+        km, 9, params, obs, **kw)
+    torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=2e-3)
+    assert torch.equal(lcl != 0, lcl_p != 0)
+    torch.testing.assert_close(fmean, fmean_p, rtol=1e-3, atol=1e-3)
+    for a, b in zip(cloud, cloud_p):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["svol", "svol_leverage", "svol_t",
+                                  "poisson_ar"])
+def test_apf_matches_plain_at_step_zero(dev, name):
+    """APF on the same bits: step 0 (init and weights, no selection yet)
+    to float tolerance; later steps may select another neighbour at a CDF
+    boundary, so most (row, step) cells agree and the totals are
+    finite."""
+    ys = _ys(64, 13).to(dev)
+    if name in ("svol", "svol_leverage"):
+        km, params, zs = _instance(name, dev, ys)
+        obs = ys
+    else:
+        (km, params, obs), zs = _family(name, dev, ys), None
+    tot, lcl, _ = fm.filter_megakernel(km, 3, params, obs, zs,
+                                       num_particles=256, mode="apf")
+    tot_p, lcl_p, _ = fm.filter_megakernel_reference(
+        km, 3, params, obs, zs, num_particles=256, mode="apf")
+    torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4)
+    assert bool(torch.isfinite(tot).all())
+    # a row agrees until its first boundary flip, which is rare
+    assert float(((lcl - lcl_p).abs() <= 1e-3).float().mean()) >= 0.5
+
+
+def test_new_instances_refuse_what_the_card_cannot_run(dev):
+    ys = _ys(20, 2).to(dev)
+    km, params, obs = _family("factor_svol_4", dev, ys)
+    before = fm.filter_megakernel.launches
+    with pytest.raises(ValueError, match="prop_mu"):
+        fm.filter_megakernel(km, 1, params, obs, num_particles=64, mode="apf")
+    six = fm.factor_svol_kernel_model(6)
+    with pytest.raises(ValueError, match="3, 4, 5 assets"):
+        fm.filter_megakernel(six, 1, torch.ones(8, six.num_params,
+                                                device=dev),
+                             torch.zeros(20, 6, device=dev), num_particles=64)
+    vec = dataclasses.replace(fm.svol_kernel_model(),
+                              functionals=(lambda p, st: st[0],) * 2)
+    with pytest.raises(ValueError, match="functor's own"):
+        fm.filter_megakernel(vec, 1, torch.ones(8, 3, device=dev), ys,
+                             num_particles=64)
+    assert fm.filter_megakernel.launches == before
 
 
 def _lw_instance(name, ys):

@@ -7,6 +7,7 @@ model hooks step by step with the CUDA kernel's Philox bits;
 version on a card.
 """
 
+import dataclasses
 import math
 import os
 import re
@@ -195,6 +196,8 @@ def test_wrapper_validation():
     lev, sv = fm.svol_leverage_kernel_model(), fm.svol_kernel_model()
     p, ys, zs = _rows(8), torch.ones(16), torch.ones(16)
     base = dict(kmodel=lev, seed=0, params=p, ys=ys, zs=zs, num_particles=64)
+    no_look = fm.KernelModel(4, lev.init, lev.propagate, lev.log_weight,
+                             dim_cov=1)
     for bad in [dict(params=torch.ones(8, 3)),
                 dict(zs=None), dict(kmodel=sv, params=torch.ones(8, 3)),
                 dict(zs=torch.ones(15)), dict(zs=torch.ones(16, 2)),
@@ -204,22 +207,181 @@ def test_wrapper_validation():
                 dict(seed=torch.zeros(3, dtype=torch.int64)),
                 dict(gate_stride=4, ess_threshold=1.0),
                 dict(gate_stride=0, ess_threshold=0.5),
-                dict(mode="apf"), dict(resampler="metropolis"),
-                dict(kmodel=fm.KernelModel(4, lev.init, lev.propagate,
-                                           lev.log_weight, dim_cov=1,
-                                           functionals=(None,)))]:
+                dict(mode="apf", gate_stride=4, ess_threshold=0.5),
+                dict(mode="apf", kmodel=no_look), dict(mode="smc"),
+                dict(resampler="metropolis"), dict(resampler="rejection")]:
         kw = dict(base)
         kw.update(bad)
         with pytest.raises(ValueError):
             fm.filter_megakernel(**kw)
+    with pytest.raises(ValueError, match="not ported"):
+        fm.filter_megakernel(**dict(base, resampler="metropolis"))
     with pytest.raises(ValueError, match="large-N bridge"):
         fm.megakernel_log_like(lev, 2048, 2)
     with pytest.raises(ValueError, match="no CUDA instance"):
         fm._model_id(_two_draw_model())
-    for factory in (fm.factor_svol_kernel_model, fm.poisson_ar_kernel_model,
-                    fm.svol_t_kernel_model):
-        with pytest.raises(ValueError, match="K2 remainder"):
-            factory()
+    with pytest.raises(ValueError, match="only as a functor's own"):
+        fm._model_id(dataclasses.replace(
+            lev, functionals=(lambda p_, st: st[0],)))
+    with pytest.raises(ValueError, match="3, 4, 5 assets"):
+        fm._model_id(fm.factor_svol_kernel_model(6))
+
+
+def test_apf_mode_runs_every_instance_with_a_lookahead():
+    """mode="apf" on CPU tensors for each instance that has prop_mu (the
+    JAX package's interpret tests), finite totals and sum(lcl) == total;
+    the factor instance has none and raises."""
+    ys = _simulate_leverage(24, seed=3)
+    counts = torch.poisson(torch.full((24,), 3.0),
+                           generator=torch.Generator().manual_seed(0))
+    cases = [(fm.svol_kernel_model(), torch.tensor([[1.0, 0.5, 0.1]] * 8),
+              torch.from_numpy(ys), None),
+             (fm.svol_leverage_kernel_model(), _rows(8),
+              torch.from_numpy(ys), torch.from_numpy(_lagged(ys))),
+             (fm.svol_t_kernel_model(), fm.svol_t_param_rows(
+                 torch.tensor([[1.0, 0.9, 0.04, 5.0]] * 8)),
+              torch.from_numpy(ys), None),
+             (fm.poisson_ar_kernel_model(),
+              torch.tensor([[0.9, 1.0, 0.3]] * 8),
+              fm.poisson_obs_rows(counts), None)]
+    for km, rows, y, z in cases:
+        tot, lcl, fmean = fm.filter_megakernel(km, 5, rows, y, z,
+                                               num_particles=128, mode="apf")
+        assert bool(torch.isfinite(tot).all()), km.name
+        torch.testing.assert_close(lcl.sum(-1), tot, rtol=1e-5, atol=1e-4)
+        assert fmean.shape == lcl.shape == (8, y.shape[0])
+    fac = fm.factor_svol_kernel_model(3)
+    with pytest.raises(ValueError, match="prop_mu"):
+        fm.filter_megakernel(fac, 5, torch.ones(8, fac.num_params),
+                             torch.zeros(10, 3), num_particles=64,
+                             mode="apf")
+
+
+def _law_model(functionals=None):
+    """Deterministic cloud x_i = i / n, identity propagation and
+    lookahead, weights exp(3x) at y = 1 and flat at y = 0 (the law and
+    vector-functional models of JAX's test_filter_megakernel.py)."""
+    n = 256
+
+    def init(rng, p, y, z, shape):
+        i = torch.arange(shape[1], dtype=torch.float32).expand(shape)
+        return (i / float(n),)
+
+    def propagate(rng, p, state, y, z):
+        return state
+
+    def log_weight(p, state, y, z):
+        (x,) = state
+        return torch.where(y[0] > 0.5, 3.0 * x, torch.zeros_like(x))
+
+    return fm.KernelModel(num_params=1, init=init, propagate=propagate,
+                          log_weight=log_weight, functionals=functionals,
+                          prop_mu=lambda p, state, y, z: state, name="law")
+
+
+def _jax_law_model(functionals=None):
+    n = 256
+
+    def init(rng, p, y, z, shape):
+        return (jax.lax.broadcasted_iota(jnp.float32, shape, 1) / float(n),)
+
+    def log_weight(p, state, y, z):
+        (x,) = state
+        return jnp.where(y[0] > 0.5, 3.0 * x, jnp.zeros_like(x))
+
+    return jfm.KernelModel(num_params=1, init=init,
+                           propagate=lambda rng, p, state, y, z: state,
+                           log_weight=log_weight, functionals=functionals,
+                           prop_mu=lambda p, state, y, z: state, name="law")
+
+
+def test_vector_functionals_paths_match_pallas_interpret():
+    """A ``functionals`` vector gets one filtered-mean path each: t = 0
+    against the Pallas kernel in interpret mode to 1e-5 (deterministic
+    cloud), the constant 42 exactly at every step, and t = 1 (after a
+    resample whose offset differs between the PRNGs) within the
+    systematic bound 2/n of the weighted mean."""
+    n = 256
+    fns = (lambda p, st: st[0], lambda p, st: st[0] * st[0],
+           lambda p, st: torch.full_like(st[0], 42.0))
+    jfns = (lambda p, st: st[0], lambda p, st: st[0] * st[0],
+            lambda p, st: jnp.full_like(st[0], 42.0))
+    _, _, fmeans = fm.filter_megakernel(_law_model(fns), 9,
+                                        torch.zeros(8, 1),
+                                        torch.tensor([1.0, 0.0]),
+                                        num_particles=n)
+    _, _, jfmeans = jfm.filter_megakernel(
+        _jax_law_model(jfns), 9, jnp.zeros((8, 1)), jnp.array([1.0, 0.0]),
+        num_particles=n, interpret=True)
+    assert isinstance(fmeans, tuple) and len(fmeans) == 3
+    assert all(f.shape == (8, 2) for f in fmeans)
+    for got, want in zip(fmeans, jfmeans):
+        np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want)[:, 0],
+                                   rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(fmeans[2].numpy(), 42.0, rtol=1e-6)
+    x = np.arange(n) / n
+    w = np.exp(3.0 * x)
+    w /= w.sum()
+    assert np.all(np.abs(fmeans[0][:, 1].numpy() - (w * x).sum()) < 2.0 / n)
+
+
+def test_vector_functionals_swarm_paths():
+    km = fm.KernelModel(
+        num_params=1, init=lambda rng, p, y, z, shape: (torch.zeros(shape),),
+        propagate=lambda rng, p, state, y, z: state,
+        log_weight=lambda p, state, y, z: torch.zeros_like(state[0]),
+        functionals=(lambda p, st: torch.full_like(st[0], 7.0),
+                     lambda p, st: torch.full_like(st[0], 42.0)),
+        name="vecfn_swarm")
+    ev = fm.megakernel_swarm_evidence(km, 3, torch.zeros(12, 1),
+                                      torch.ones(6), num_particles=128)
+    assert len(ev["functional_paths"]) == 2
+    torch.testing.assert_close(ev["functional_paths"][0],
+                               torch.full((6,), 7.0))
+    torch.testing.assert_close(ev["functional_paths"][1],
+                               torch.full((6,), 42.0))
+    torch.testing.assert_close(ev["functional_path"], torch.full((6,), 7.0))
+
+
+def test_apf_identity_lcl_matches_pallas_interpret():
+    """APF with identity propagation and lookahead: the second-stage
+    weights are flat, so every lcl is LSE(lw + log g) - LSE(lw), which
+    the selection (and so the PRNG) cannot change: the plain APF against
+    the Pallas kernel's APF in interpret mode, column by column."""
+    ys = np.array([1.0, 1.0, 0.0], np.float32)
+    _, lcl, _ = fm.filter_megakernel(_law_model(), 9, torch.zeros(8, 1),
+                                     torch.from_numpy(ys),
+                                     num_particles=256, mode="apf")
+    _, jlcl, _ = jfm.filter_megakernel(_jax_law_model(), 9,
+                                       jnp.zeros((8, 1)), jnp.asarray(ys),
+                                       num_particles=256, interpret=True,
+                                       mode="apf")
+    np.testing.assert_allclose(lcl.numpy(), np.asarray(jlcl), rtol=1e-5,
+                               atol=1e-5)
+    # t = 2 weighs nothing: its lcl is exactly 0
+    assert np.allclose(lcl[:, 2].numpy(), 0.0, atol=1e-6)
+
+
+def test_large_n_bridge_is_the_generic_bank():
+    """Above 1024 particles ``model=`` makes the hook the generic bank at
+    the same particles, replicates and ESS gate: equal on one seed."""
+    from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
+    from ssme_tpu_torch.models import svol_t
+    model = svol_t.make_model()
+    ys = torch.from_numpy(_simulate_leverage(20, seed=8))[:, None]
+    params = torch.tensor([[1.0, 0.95, 0.05, 8.0], [0.9, 0.9, 0.1, 5.0]])
+    ll = fm.megakernel_log_like(fm.svol_t_kernel_model(), 2048, 2,
+                                constrain=fm.svol_t_param_rows, model=model)
+    bank = replicated_log_like_fn(model, 2048, 2, ess_threshold=0.5)
+    a = ll(torch.Generator().manual_seed(1), params, ys)
+    b = bank(torch.Generator().manual_seed(1), params, ys)
+    assert a.shape == (2,) and torch.equal(a, b)
+    every = fm.megakernel_log_like(fm.svol_t_kernel_model(), 2048, 1,
+                                   ess_threshold=1.0, model=model)
+    c = every(torch.Generator().manual_seed(1), params, ys)
+    d = replicated_log_like_fn(model, 2048, 1)(
+        torch.Generator().manual_seed(1), params, ys)
+    assert torch.equal(c, d)
 
 
 def test_megakernel_log_like_is_chain_major_and_generator_seeded():
@@ -242,16 +404,24 @@ def test_megakernel_log_like_is_chain_major_and_generator_seeded():
 
 
 def test_instances_are_memoised_and_name_their_cuda_functor():
-    assert fm.svol_kernel_model() is fm.svol_kernel_model()
-    assert fm.svol_leverage_kernel_model() is fm.svol_leverage_kernel_model()
-    for km in (fm.svol_kernel_model(), fm.svol_leverage_kernel_model()):
+    for factory in (fm.svol_kernel_model, fm.svol_leverage_kernel_model,
+                    fm.svol_t_kernel_model, fm.poisson_ar_kernel_model):
+        km = factory()
+        assert factory() is km
         assert km.cuda_instance == km.name
         assert fm._model_id(km) == fm.CUDA_MODEL_IDS[km.name]
+    for na in fm.FACTOR_ASSET_COUNTS:
+        km = fm.factor_svol_kernel_model(na)
+        assert fm.factor_svol_kernel_model(na) is km
+        assert (km.name, km.num_state, km.dim_obs, km.num_params) == (
+            f"factor_svol_{na}x2", 2, na, 6 + 3 * na)
+        assert fm._model_id(km) == fm.CUDA_MODEL_IDS[f"factor_svol_{na}"]
 
 
 def test_model_id_table_matches_the_cuda_header():
     """The dispatch ids and each functor's traits are written once in
-    csrc/kernel_models.cuh; the Python side must read the same."""
+    csrc/kernel_models.cuh; the Python side must read the same, and the
+    C entry point must dispatch every id to its functor."""
     path = os.path.join(ROOT, "ssme_tpu_torch", "csrc", "kernel_models.cuh")
     with open(path) as f:
         src = f.read()
@@ -259,18 +429,37 @@ def test_model_id_table_matches_the_cuda_header():
         r"constexpr int kModel\w+ = (\d+);\s*// \"(\w+)\"", src)}
     assert ids == fm.CUDA_MODEL_IDS
     structs = dict(re.findall(r"struct (\w+Model) \{(.*?)\n\};", src, re.S))
-    traits = {name: {k: int(v) for k, v in re.findall(
-        r"static constexpr int (k\w+) = (\d+);", body)}
-        for name, body in structs.items()}
-    for km, struct in ((fm.svol_kernel_model(), "SvolModel"),
-                       (fm.svol_leverage_kernel_model(),
-                        "SvolLeverageModel")):
-        assert traits[struct] == {
+
+    def traits(struct, n_assets=None):
+        body = structs[struct]
+        out = {k: eval(v, {"kAssets": n_assets}) for k, v in re.findall(
+            r"static constexpr int (k\w+) = ([^;]+);", body)}
+        look = re.search(r"static constexpr bool kHasPropMu = (\w+);", body)
+        out["kHasPropMu"] = look.group(1) == "true"
+        return out
+
+    cases = [(fm.svol_kernel_model(), "SvolModel", None),
+             (fm.svol_leverage_kernel_model(), "SvolLeverageModel", None),
+             (fm.svol_t_kernel_model(), "SvolTModel", None),
+             (fm.poisson_ar_kernel_model(), "PoissonArModel", None)]
+    cases += [(fm.factor_svol_kernel_model(na), "FactorSvolModel", na)
+              for na in fm.FACTOR_ASSET_COUNTS]
+    for km, struct, na in cases:
+        t = traits(struct, na)
+        assert {k: t[k] for k in ("kNumParams", "kNumState", "kDimObs",
+                                  "kDimCov")} == {
             "kNumParams": km.num_params, "kNumState": km.num_state,
-            "kDimObs": km.dim_obs, "kDimCov": km.dim_cov}
-    dispatch = re.findall(r"case ssme::(kModel\w+):\s*launch<ssme::(\w+)>",
-                          src + open(os.path.join(
-                              os.path.dirname(path),
-                              "filter_megakernel.cu")).read())
-    assert sorted(dispatch) == [("kModelSvol", "SvolModel"),
-                                ("kModelSvolLeverage", "SvolLeverageModel")]
+            "kDimObs": km.dim_obs, "kDimCov": km.dim_cov}, struct
+        assert t["kHasPropMu"] == (km.prop_mu is not None), struct
+    with open(os.path.join(os.path.dirname(path),
+                           "filter_megakernel.cu")) as f:
+        dispatch = re.findall(
+            r"case ssme::(kModel\w+):\s*return dispatch<ssme::(\w+(?:<\d+>)?)>",
+            f.read())
+    consts = dict(re.findall(r"constexpr int (kModel\w+) = (\d+);", src))
+    by_id = {int(consts[c]): functor for c, functor in dispatch}
+    want = {0: "SvolModel", 1: "SvolLeverageModel", 2: "SvolTModel",
+            3: "PoissonArModel"}
+    want.update({fm.CUDA_MODEL_IDS[f"factor_svol_{na}"]:
+                 f"FactorSvolModel<{na}>" for na in fm.FACTOR_ASSET_COUNTS})
+    assert by_id == want

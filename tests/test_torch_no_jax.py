@@ -48,6 +48,11 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.ops.svol_filter_kernel",
             "ssme_tpu_torch.ops.filter_megakernel",
             "ssme_tpu_torch.models.svol_leverage",
+            "ssme_tpu_torch.models.svol_t",
+            "ssme_tpu_torch.models.poisson_ar",
+            "ssme_tpu_torch.models.factor_svol",
+            "ssme_tpu_torch.models.lgssm",
+            "ssme_tpu_torch.filters.auxiliary",
             "ssme_tpu_torch.inference.swarm",
             "ssme_tpu_torch.io.checkpoint"} <= set(modules)
     out = subprocess.run(
