@@ -14,7 +14,10 @@ joint state + parameter filtering of SVOL with leverage (F=64 filters x
 N=512) through the Liu-West kernel, and adaptive PMMH on Student-t SVOL
 at the flagship size through the generic filter kernel, whose other
 model families (Poisson AR, factor SVOL) and APF mode are held to the
-JAX package's filters.  Phases, one line each:
+JAX package's filters; then the roll-based Metropolis and rejection
+resamplers of all three filter kernels, adaptive PMMH on SVOL at N=2048
+particles through one generic-kernel launch per iteration, and the fused
+SVOL step kernel.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts;
@@ -73,7 +76,30 @@ JAX package's filters.  Phases, one line each:
             synchronisation;
 20. large-n ``megakernel_log_like`` above the kernel's 1024 particles: the
             generic bank with ``model=``, no kernel launch; without it, an
-            error.
+            error;
+21. roll-sis    ``roll_select`` against the plain law on fixed weights
+            (ancestors equal, both resamplers, N=512 and 2048), and the
+            generic kernel (svol and svol_leverage bootstrap, svol APF;
+            N=512 and 2048), the SVOL kernel and the Liu-West kernel (APF
+            and SISR) under both resamplers against their plain versions
+            (B=32, T=64: step 0 equal, most totals within 2e-3);
+22. roll-full   the generic kernel on SVOL over SPY at ESS 0.5, B=256,
+            N=2048 and 4096: rejection within 4 combined standard errors
+            of the JAX bank in ``data/roll_resamplers_jax.json``,
+            Metropolis (``metropolis_sweeps_for(0.5, T, 0.5)`` sweeps)
+            within that plus its bias envelope; the SVOL kernel (N=512) and
+            the Liu-West kernel (F=64, N=512, APF) under each resampler
+            within 4 of their plain versions at T=256, and over SPY the
+            SVOL kernel's roll runs within 4 of its systematic run (the
+            Liu-West kernel's beside it: its evidence moves with the
+            resampler); times, plain times at T=256;
+23. pmmh-large-n  ``AdaptivePMMH`` on SVOL through ``megakernel_log_like``
+            at N=2048 with ``resampler="rejection"`` (C=64 x R=4, SPY): one
+            kernel launch per iteration, none through the bridge, no host
+            synchronisation; ms per iteration beside phase 20's bridge;
+24. svol-step   the fused SVOL step kernel against its plain version
+            (B=256, N=512), the moments of sigma eps over 8 seeds, its
+            time and bound.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -97,7 +123,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from ssme_tpu_torch.bench import gpu_identity  # noqa: E402
+from ssme_tpu_torch.bench import device_share, gpu_identity  # noqa: E402
 from ssme_tpu_torch.examples import estimate_svol_leverage as lev_cli  # noqa: E402,E501
 from ssme_tpu_torch.examples import liu_west_leverage as lw_cli  # noqa: E402
 from ssme_tpu_torch.inference import (AdaptivePMMH,  # noqa: E402
@@ -109,6 +135,7 @@ from ssme_tpu_torch.ops import _cuda, _prng, _select  # noqa: E402
 from ssme_tpu_torch.ops import filter_megakernel as fmk  # noqa: E402
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm  # noqa: E402
 from ssme_tpu_torch.ops import svol_filter_kernel as sfk  # noqa: E402
+from ssme_tpu_torch.ops import svol_kernel as k5  # noqa: E402
 from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4  # noqa: E402
 from ssme_tpu_torch.utils import logmeanexp  # noqa: E402
 
@@ -146,6 +173,18 @@ SVOL_T_START = tuple(svol.START_TRANS_THETA) + (math.log(10.0),)
 APF_B, APF_T = 32, 64
 FACTOR_B = 32
 
+# the roll resamplers (phases 21-23): the JAX bank's yardstick
+# (scripts/roll_resamplers_jax.py) at phase 6's posterior point, the
+# sizes of the kernel-vs-plain checks, of the full runs and of the PMMH
+ROLL_JSON = os.path.join(ROOT, "data", "roll_resamplers_jax.json")
+ROLL_POINT = (0.9, 0.98, 0.02)
+ROLLS = ("metropolis", "rejection")
+ROLL_B, ROLL_T, ROLL_ITERS = 32, 64, 16
+ROLL_FULL_B, ROLL_PLAIN_T = 256, 256
+ROLL_N = (2048, 4096)
+LARGE_N, LARGE_ITERS = 2048, 10
+STEP_B, STEP_N = 256, 512
+
 # the least time of a kernel's work: the larger of its bytes over the HBM
 # rate and its operations over the float32 rate outside the tensor cores
 # (H100 SXM data sheet; integer and special-
@@ -169,6 +208,8 @@ STEP_OPS = {
     # resample (scan, search, 5 gathers) 15
     "lw_megakernel": 5 * NORMAL_OPS + 36 + 8 + 28 + 12 + 18 + 20 + 20 + 14
                      + 8 + 15,
+    # its svol instance: the SVOL kernel's step
+    "filter_megakernel/svol": NORMAL_OPS + 2 + 6 + 8,
     # the generic kernel's other instances (bootstrap): svol_t's weight
     # adds a divide, a log1p and two multiplies to svol's (10)
     "filter_megakernel/svol_t": NORMAL_OPS + 2 + 10 + 8,
@@ -186,6 +227,9 @@ STEP_OPS = {
     # poisson_ar: lookahead 2 each, weights 4 each
     "filter_megakernel/poisson_ar/apf": NORMAL_OPS + 3 + 4 + 8 + 2 * 2
                                         + 2 * 4 + 2 + 20,
+    # the fused step: a normal, the transition (2), sd (exp, mul), the
+    # divide, log, square and the weight (7)
+    "svol_step": NORMAL_OPS + 2 + 2 + 7,
 }
 
 
@@ -1092,6 +1136,308 @@ def phase_large_n(dev, ys_all, ident):
           f"generic bank: {', '.join(f'{v:.4f}' for v in out.tolist())}, "
           f"{ms:.3f} ms, no kernel launch; without model= it raises "
           f"({ident})")
+    return ms
+
+
+def _agree(name, tot, tot_p, lcl, lcl_p):
+    """Kernel against plain on identical bits under a roll resampler: step
+    0 equal to float tolerance, most rows' totals within 2e-3 (an expf
+    against torch.exp ulp can flip one accept decision, and the row then
+    follows another path); returns the totals' largest error."""
+    torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4,
+                               msg=f"{name}: step 0")
+    require(bool(torch.isfinite(tot).all())
+            and bool(torch.isfinite(tot_p).all()), f"{name}: NaN totals")
+    close = float(((tot - tot_p).abs() <= 2e-3).float().mean())
+    require(close >= 0.75, f"{name}: only {close:.3f} of the rows' totals "
+            "within 2e-3")
+    return float((tot - tot_p).abs().max())
+
+
+def phase_roll_sis(dev, ys_all):
+    rng = np.random.default_rng(21)
+    sel_lines = []
+    for n in (512, 2048):
+        w = torch.as_tensor(rng.gamma(1.0, 1.0, (ROLL_B, n)).astype(
+            np.float32), device=dev)
+        leaves = torch.stack([
+            torch.arange(n, dtype=torch.float32, device=dev).expand(ROLL_B, n),
+            torch.as_tensor(rng.normal(size=(ROLL_B, n)).astype(np.float32),
+                            device=dev)]).contiguous()
+        for r in ROLLS:
+            picked, anc = _select.roll_select(w, leaves, 5, step=7,
+                                              resampler=r,
+                                              metropolis_iters=ROLL_ITERS)
+            want, anc_p = _select.roll_select_reference(
+                w, leaves, 5, step=7, resampler=r,
+                metropolis_iters=ROLL_ITERS)
+            require(torch.equal(anc, anc_p), f"roll_select {r} N={n}: "
+                    "ancestors differ")
+            require(torch.equal(picked, want), f"roll_select {r} N={n}: "
+                    "leaves differ")
+            sel_lines.append(f"{r} N={n}")
+    ys = ys_all[:ROLL_T, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)
+    svol_rows = _svol_rows(ROLL_POINT, ROLL_B).to(dev)
+    lev_rows = torch.tensor([LEV_POINTS["posterior"]] * ROLL_B, device=dev)
+    errs = {}
+    for r in ROLLS:
+        roll = dict(resampler=r, metropolis_iters=ROLL_ITERS)
+        for n in (N, 2048):
+            for name, km, rows, z, mode in (
+                    ("svol", fmk.svol_kernel_model(), svol_rows, None,
+                     "bootstrap"),
+                    ("svol_leverage", fmk.svol_leverage_kernel_model(),
+                     lev_rows, zs, "bootstrap"),
+                    ("svol/apf", fmk.svol_kernel_model(), svol_rows, None,
+                     "apf")):
+                kw = dict(num_particles=n, ess_threshold=1.0, mode=mode,
+                          **roll)
+                tot, lcl, _ = fmk.filter_megakernel(km, 9, rows, ys, z, **kw)
+                tot_p, lcl_p, _ = fmk.filter_megakernel_reference(
+                    km, 9, rows, ys, z, **kw)
+                key = f"K2 {name} {r} N={n}"
+                errs[key] = _agree(key, tot, tot_p, lcl, lcl_p)
+        kw = dict(num_particles=N, ess_threshold=1.0, **roll)
+        tot, lcl, _ = sfk.svol_filter(9, svol_rows, ys, **kw)
+        tot_p, lcl_p, _ = sfk.svol_filter_reference(9, svol_rows, ys, **kw)
+        errs[f"K1 {r}"] = _agree(f"K1 {r}", tot, tot_p, lcl, lcl_p)
+        km, z = _lw_instances(zs[:, 0].contiguous())["svol_leverage_lw"]
+        for variant in ("apf", "sisr"):
+            kw = dict(num_filters=ROLL_B, num_particles=N, variant=variant,
+                      **roll)
+            got = lwm.lw_megakernel(km, 9, ys, z, **kw)
+            want = lwm.lw_megakernel_reference(km, 9, ys, z, **kw)
+            key = f"K3 {variant} {r}"
+            errs[key] = _agree(key, got["log_likelihood"],
+                               want["log_likelihood"], got["log_cond_likes"],
+                               want["log_cond_likes"])
+    phase(21, "roll-sis", f"roll_select ancestors equal ({', '.join(sel_lines)}"
+          f"); B={ROLL_B} T={ROLL_T} {ROLL_ITERS} Metropolis sweeps, totals "
+          "max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return max(errs.values())
+
+
+def _within(name, mean, sd, b, ref_mean, ref_sd, ref_b, slack=0.0):
+    """Require |mean - ref_mean| <= 4 combined standard errors + slack."""
+    se = math.hypot(sd / math.sqrt(b), ref_sd / math.sqrt(ref_b))
+    d = abs(mean - ref_mean)
+    require(d <= 4 * se + slack, f"{name}: {mean:.4f} vs {ref_mean:.4f}, "
+            f"{d:.4f} > 4 SE {4 * se:.4f} + {slack:.4f}")
+    return d, 4 * se + slack
+
+
+def phase_roll_full(dev, ys_all, ident):
+    with open(ROLL_JSON) as f:
+        ref = json.load(f)
+    ys = ys_all[:, 0].contiguous()
+    t_len = ys.shape[0]
+    ys_short = ys[:ROLL_PLAIN_T].contiguous()
+    b = ROLL_FULL_B
+    rows = _svol_rows(ROLL_POINT, b).to(dev)
+    sweeps = _select.metropolis_sweeps_for(0.5, t_len, 0.5)
+    envelope = _select.metropolis_bias_estimate(sweeps, t_len, 0.5)
+    km = fmk.svol_kernel_model()
+    out = {"K2": {}, "K1": {}, "K3": {}, "sweeps": sweeps,
+           "bias_envelope": envelope}
+    for n in ROLL_N:
+        jx = ref[f"n{n}"]
+        for r in ROLLS:
+            kw = dict(num_particles=n, ess_threshold=0.5, resampler=r,
+                      metropolis_iters=sweeps)
+            tot = fmk.filter_megakernel(km, 11, rows, ys, **kw)[0]
+            require(bool(torch.isfinite(tot).all()), f"K2 {r} N={n}: NaN")
+            mean, sd = float(tot.mean()), float(tot.std())
+            d, lim = _within(f"K2 {r} N={n} vs JAX", mean, sd, b, jx["mean"],
+                             jx["sd"], jx["filters"],
+                             envelope if r == "metropolis" else 0.0)
+            ms = cuda_ms(lambda: fmk.filter_megakernel(km, 11, rows, ys, **kw),
+                         3)
+            _, plain_ms = event_ms(lambda: fmk.filter_megakernel_reference(
+                km, 12, rows, ys_short, **kw))
+            out["K2"][f"{r}/N{n}"] = {
+                "ms": ms, "plain_ms": plain_ms, "plain_T": ROLL_PLAIN_T,
+                "mean": mean, "sd": sd, "jax_mean": jx["mean"],
+                "jax_sd": jx["sd"], "diff": d, "limit": lim}
+            print(f"  K2 {r} N={n}: {mean:.4f} sd {sd:.4f} (JAX "
+                  f"{jx['mean']:.4f} sd {jx['sd']:.4f}, |diff| {d:.4f} <= "
+                  f"{lim:.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"at T={ROLL_PLAIN_T}", flush=True)
+    for n in (N, 1024):
+        kw = dict(num_particles=n, ess_threshold=0.5)
+        out["K2"][f"systematic/N{n}"] = {"ms": cuda_ms(
+            lambda: fmk.filter_megakernel(km, 11, rows, ys, **kw), 3)}
+    # the rejection loop's sweeps grow with max w / mean w: at phase 23's
+    # starting point, far from the posterior, the weights are more uneven
+    start_rows = _svol_rows(svol.make_model().transform.constrain(START),
+                            b).to(dev)
+    for r in ROLLS:
+        kw = dict(num_particles=LARGE_N, ess_threshold=0.5, resampler=r,
+                  metropolis_iters=sweeps)
+        out["K2"][f"{r}/N{LARGE_N}/start"] = {"ms": cuda_ms(
+            lambda: fmk.filter_megakernel(km, 11, start_rows, ys, **kw), 3)}
+
+    # K1 and K3: each resampler's kernel against its plain version at
+    # T=256 (other seeds); at full T each roll run beside the same
+    # kernel's systematic run, required within 4 SE for K1 only: Liu-West's
+    # evidence depends on the resampler's offspring variance (the JAX
+    # filter's multinomial first stage sits 82 nats under its systematic
+    # one, data/spy_liu_west_jax.json)
+    lw_km, lw_z = _lw_instances(
+        svol_leverage.lagged_covariates(ys)[:, 0].contiguous())[
+        "svol_leverage_lw"]
+    runs = {
+        "K1": (lambda r, y, seed: sfk.svol_filter(
+            seed, rows, y, num_particles=N, ess_threshold=0.5, resampler=r,
+            metropolis_iters=sweeps)[0],
+            lambda r, y, seed: sfk.svol_filter_reference(
+                seed, rows, y, num_particles=N, ess_threshold=0.5,
+                resampler=r, metropolis_iters=sweeps)[0], b),
+        "K3": (lambda r, y, seed: lwm.lw_megakernel(
+            lw_km, seed, y, lw_z[:y.shape[0]].contiguous(), num_filters=LW_F,
+            num_particles=LW_N, resampler=r,
+            metropolis_iters=sweeps)["log_likelihood"],
+            lambda r, y, seed: lwm.lw_megakernel_reference(
+                lw_km, seed, y, lw_z[:y.shape[0]].contiguous(),
+                num_filters=LW_F, num_particles=LW_N, resampler=r,
+                metropolis_iters=sweeps)["log_likelihood"], LW_F)}
+    for k, (kern, plain, rows_k) in runs.items():
+        base = kern("systematic", ys, 11)
+        for r in ("systematic",) + ROLLS:
+            tot = base if r == "systematic" else kern(r, ys, 11)
+            require(bool(torch.isfinite(tot).all()), f"{k} {r}: NaN")
+            mean, sd = float(tot.mean()), float(tot.std())
+            ms = cuda_ms(lambda: kern(r, ys, 11), 3)
+            tot_p, plain_ms = event_ms(lambda: plain(r, ys_short, 12))
+            short = kern(r, ys_short, 11)
+            d_p, lim_p = _within(f"{k} {r} kernel vs plain at T="
+                                 f"{ROLL_PLAIN_T}", float(short.mean()),
+                                 float(short.std()), rows_k,
+                                 float(tot_p.mean()), float(tot_p.std()),
+                                 rows_k)
+            row = {"ms": ms, "plain_ms": plain_ms, "plain_T": ROLL_PLAIN_T,
+                   "mean": mean, "sd": sd, "short_diff": d_p,
+                   "short_limit": lim_p}
+            line = (f"  {k} {r}: {mean:.4f} sd {sd:.4f}; kernel {ms:.4f} ms,"
+                    f" plain {plain_ms:.4f} ms; at T={ROLL_PLAIN_T} kernel "
+                    f"minus plain {d_p:.4f} (4 SE {lim_p:.4f})")
+            if r != "systematic":
+                se = math.hypot(sd, float(base.std())) / math.sqrt(rows_k)
+                d = mean - float(base.mean())
+                if k == "K1":
+                    _within(f"{k} {r} vs systematic", mean, sd, rows_k,
+                            float(base.mean()), float(base.std()), rows_k)
+                row.update(diff_vs_systematic=d, se=se)
+                line += (f"; minus systematic {d:.4f} (SE {se:.4f})")
+            out[k][r] = row
+            print(line, flush=True)
+    phase(22, "roll-full", f"SPY T={t_len} ESS 0.5, {sweeps} Metropolis "
+          f"sweeps (envelope {envelope:.4f} nats): " + "; ".join(
+              f"K2 {k} {v['ms']:.4f} ms" for k, v in out["K2"].items())
+          + "; " + "; ".join(f"{k} {r} {v['ms']:.4f} ms"
+                             for k in ("K1", "K3")
+                             for r, v in out[k].items()) + f" ({ident})")
+    return out
+
+
+def phase_pmmh_large_n(dev, ys_all, ident, bridge_ms):
+    ys = ys_all
+    model = svol.make_model()
+    props_per_run = LARGE_ITERS * C * R * LARGE_N * ys.shape[0]
+    # the counts start at 0 just before this path and are read just after
+    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    pmmh = AdaptivePMMH(model, num_particles=LARGE_N, num_replicates=R,
+                        t0=150, t1=1000,
+                        batched_log_like=fmk.megakernel_log_like(
+                            fmk.svol_kernel_model(), LARGE_N, R,
+                            constrain=fmk.svol_kernel_rows,
+                            ess_threshold=0.5, resampler="rejection",
+                            model=model))
+    state = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        res = pmmh.run_from(state, LARGE_ITERS, ys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fmk.filter_megakernel.launches
+    require(launches == LARGE_ITERS + 1,
+            f"{launches} kernel launches, want {LARGE_ITERS + 1}")
+    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
+    require(bool(torch.isfinite(state.log_like).all())
+            and bool(torch.isfinite(res.log_likes).all()),
+            "non-finite log-likelihoods")
+    n_acc = int(res.accepted.sum())
+    require(n_acc >= 1, "no proposal accepted")
+    rate = props_per_run / secs
+    ms_iter = secs * 1e3 / LARGE_ITERS
+    # two more iterations under the profiler (not counted above): the
+    # device's busy share and its ms per iteration by kernel
+    busy, top = device_share(lambda: pmmh.run_from(res.final_state, 2, ys),
+                             2)
+    phase(23, "pmmh-large-n", f"C={C} R={R} N={LARGE_N} T={ys.shape[0]} "
+          f"{LARGE_ITERS} iters, rejection: {launches} launches, {n_acc} "
+          f"accepts, init mean log-likelihood "
+          f"{float(state.log_like.mean()):.4f}, {ms_iter:.4f} ms per "
+          f"iteration, {rate:.6e} props/s; device busy share {busy}, device"
+          f" ms per iteration {top}; phase 20's bridge {bridge_ms:.3f} ms "
+          f"for one C=2 x R=2 call at the same N ({ident})")
+    return launches, {"ms_per_iteration": ms_iter, "props_per_s": rate,
+                      "bridge_ms_per_call": bridge_ms, "accepts": n_acc,
+                      "device_busy_share": busy,
+                      "device_ms_per_iteration": top}
+
+
+def phase_svol_step(dev, ident):
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randn((STEP_B, STEP_N), generator=gen).to(dev)
+    lw = torch.randn((STEP_B, STEP_N), generator=gen).to(dev)
+    params = torch.tensor([[1.3, 0.7, 0.2]] * STEP_B, device=dev)
+    y = torch.full((1,), 0.37, device=dev)
+    got = k5.fused_svol_propagate_weight(3, y, params, x, lw)
+    want = k5.fused_svol_propagate_weight_reference(3, y, params, x, lw)
+    # x' = phi x + sigma eps, rounded step by step on both sides, from the
+    # same Philox words: equal up to the libraries' log, sin and cos in eps
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-5)
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    # the op itself is this kernel's path: 8 seeds at y = 0 from x = 0
+    zeros = torch.zeros_like(x)
+    k5.fused_svol_propagate_weight.launches = 0
+    xs = torch.stack([k5.fused_svol_propagate_weight(
+        seed, 0.0, params, zeros, zeros)[0] for seed in range(8)])
+    launches = k5.fused_svol_propagate_weight.launches
+    require(launches == 8, f"{launches} svol_step launches, want 8")
+    mean, sd = float(xs.mean()), float(xs.std())
+    # five standard errors of the mean and of the sd of 0.2 eps
+    se = 0.2 / math.sqrt(xs.numel())
+    require(abs(mean) < 5 * se and abs(sd - 0.2) < 5 * se / math.sqrt(2),
+            f"sigma eps moments: mean {mean:.5f}, sd {sd:.5f} (want 0, 0.2)")
+    require(not torch.equal(xs[0], xs[1]), "two seeds drew the same normals")
+    # events around back-to-back calls time the wrapper (the host enqueue
+    # paces it at this size); the profiler gives the kernel's own time
+    call_ms = cuda_ms(lambda: k5.fused_svol_propagate_weight(
+        3, y, params, x, lw), 200)
+    _, top = device_share(lambda: [k5.fused_svol_propagate_weight(
+        3, y, params, x, lw) for _ in range(50)], 50)
+    require("svol_step_kernel" in top, f"no svol_step_kernel in {top}")
+    ms = top["svol_step_kernel"]
+    plain_ms = cuda_ms(lambda: k5.fused_svol_propagate_weight_reference(
+        3, y, params, x, lw), 20)
+    bnd = bound("svol_step", STEP_B, STEP_N, 1, 8 * STEP_B * STEP_N
+                + 12 * STEP_B + 4 + 16, 8 * STEP_B * STEP_N)
+    phase(24, "svol-step", f"B={STEP_B} N={STEP_N}: kernel vs plain max abs "
+          f"err {err:.3e}; 8 seeds at y=0: mean {mean:.6f}, sd {sd:.6f} "
+          f"(sigma 0.2); kernel {ms:.5f} ms on the device (profiler), "
+          f"{call_ms:.5f} ms per call (events), plain {plain_ms:.5f} ms, "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]}) ({ident})")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
 
 
 def main():
@@ -1120,7 +1466,11 @@ def main():
     fam_err = phase_families_sis(dev, ys)
     fam = phase_families_full(dev, ys, ident)
     svol_t_launches = phase_pmmh_svol_t(dev, ys, ident)
-    phase_large_n(dev, ys, ident)
+    bridge_ms = phase_large_n(dev, ys, ident)
+    roll_err = phase_roll_sis(dev, ys)
+    roll = phase_roll_full(dev, ys, ident)
+    large_launches, large = phase_pmmh_large_n(dev, ys, ident, bridge_ms)
+    step = phase_svol_step(dev, ident)
 
     t_len = ys.shape[0]
     k_ms, p_ms = times["adaptive"]
@@ -1148,13 +1498,15 @@ def main():
         "library_ms": None,
         "ms_parity": times["parity"][0],
         "plain_ms_parity": times["parity"][1],
+        "per_resampler": roll["K1"],
     }, {
         "name": "filter_megakernel",
         "route": "cuda",
         "source": "ssme_tpu_torch/csrc/filter_megakernel.cu",
         "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
-        "launches": k2_launches + swarm_launches + svol_t_launches,
-        "max_abs_err": max(k2_err, fam_err),
+        "launches": (k2_launches + swarm_launches + svol_t_launches
+                     + large_launches),
+        "max_abs_err": max(k2_err, fam_err, roll_err),
         "ms": k2_ms,
         "plain_ms": k2_plain,
         "bound_ms": k2_bound[0],
@@ -1167,7 +1519,11 @@ def main():
         "per_instance": {k: v for k, v in fam.items() if "/apf" not in k},
         "apf": {k: v for k, v in fam.items() if "/apf" in k},
         "main_path_launches": {"svol_leverage": k2_launches + swarm_launches,
-                               "svol_t": svol_t_launches},
+                               "svol_t": svol_t_launches,
+                               "svol/rejection/N2048": large_launches},
+        "per_resampler": dict(roll["K2"], sweeps=roll["sweeps"],
+                              bias_envelope=roll["bias_envelope"]),
+        "pmmh_large_n": large,
     }, {
         "name": "lw_megakernel",
         "route": "cuda",
@@ -1182,6 +1538,7 @@ def main():
         "library_ms": None,
         "per_schedule": {r: {"ms": k, "plain_ms": p}
                          for r, (k, p) in lw_times.items()},
+        "per_resampler": roll["K3"],
     }, {
         "name": "svol_leverage_lw",
         "route": "cuda",
@@ -1195,6 +1552,20 @@ def main():
         "bound_ms": lw_bound[0],
         "bound_by": lw_bound[1],
         "library_ms": None,
+    }, {
+        "name": "svol_step",
+        "route": "cuda",
+        "source": "ssme_tpu_torch/csrc/svol_step.cu",
+        "replaces": "ssme_tpu/ops/svol_kernel.py:83",
+        "launches": step["launches"],
+        "max_abs_err": step["max_abs_err"],
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"],
+        "library_ms": None,
+        "ms_source": "torch.profiler device time per launch",
+        "call_ms": step["call_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

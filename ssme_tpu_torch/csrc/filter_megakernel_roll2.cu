@@ -1,0 +1,8 @@
+// The generic filter kernel's roll-resampler instances at two particles
+// per thread (filter_megakernel.cuh), in a file of their own so that nvcc
+// builds them beside the other kPer in parallel.
+#include "filter_megakernel.cuh"
+
+int ssme_fmk::dispatch_roll2(int model_id, int apf, const Launch& a) {
+  return dispatch_model<true, 2>(model_id, apf, a);
+}

@@ -9,7 +9,9 @@
 // launch; the cloud never leaves the chip.
 //
 // Layout: one CTA per filter, one particle per thread (blockDim = N, a
-// multiple of 32, at most 1024).  The state leaves, the carried
+// multiple of 32, at most 1024; a power of two under the roll resamplers,
+// whose lift to 4096 with kPer particles per thread, as the generic
+// kernel's, is ROADMAP.md section 2's next item).  The state leaves, the carried
 // log-weight and the transformed theta[P] live in registers for all T
 // steps.  Shared memory holds one CDF, one gather buffer reused leaf by
 // leaf, the reduction scratch (32 floats per simultaneous sum), theta_bar
@@ -22,7 +24,12 @@
 // (the moments), one Cholesky on one thread, the first-stage max, scan
 // and (2S + P)-leaf gather (APF), the weights' max and sums, and on a
 // resampling step a scan and an (S + P)-leaf gather: some forty barriers
-// against a few hundred float operations per thread.  The inputs are
+// against a few hundred float operations per thread.  Under a roll
+// resampler (roll_select.cuh: metropolis or rejection, chosen at run time;
+// the family a template parameter, so the systematic instances compile
+// without it) each selection is a sweep loop of Philox draws instead of a
+// scan, the APF first stage takes its LSE from a block sum, and the joint
+// column moves by the same gather.  The inputs are
 // T floats, the outputs (F, T) and the final cloud.
 //
 // Per step it computes what _build_kernel computes:
@@ -34,8 +41,10 @@
 //           = exp(lw); L = chol(h^2 Vt), diagonal floored at 1e-9;
 //           shrunk = a theta + (1 - a) theta_bar;
 //     apf:  lookahead at the pre-shrinkage theta, first-stage weights
-//           lw + log g(y, lookahead; shrunk), systematic selection on them
-//           and a joint gather of (state, lookahead, shrunk);
+//           lw + log g(y, lookahead; shrunk), a selection on them
+//           (systematic with offset tag 2^31 + 1, or a roll resampler on
+//           the first-stage sweep tags) and a joint gather of (state,
+//           lookahead, shrunk);
 //     both: theta' = shrunk_anc + L e (draws 0 .. P-1), the transition
 //           (its normals from draw P on);
 //     apf:  lw' = log g(y, x'; theta') - log g(y, lookahead_anc;
@@ -52,7 +61,8 @@
 //    rows; there is no tile to share it);
 //  - the loop runs to T exactly: no padded steps, no steps_per_cell;
 //  - no (N, N) lt matrix, no compensated_cdf and no tile_seeds: the
-//    selection is the block scan of systematic_select.cuh;
+//    systematic selection is the block scan of systematic_select.cuh, the
+//    roll resamplers carry ancestor indices (roll_select.cuh);
 //  - no zero pad rows in the cloud (a TPU sublane artefact);
 //  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's;
 //  - the log-weights are renormalised by their maximum after every step
@@ -60,13 +70,14 @@
 //    row has maximum 0);
 //  - the hooks are compiled functors, so only the instances of
 //    lw_models.cuh run here; the SISR form's custom proposal (sample_q,
-//    log_fq) and the metropolis / rejection resamplers are not ported.
+//    log_fq) is not ported.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "lw_models.cuh"
 #include "philox.cuh"
+#include "roll_select.cuh"
 #include "systematic_select.cuh"
 
 namespace {
@@ -129,18 +140,20 @@ __device__ __forceinline__ float weigh(const Model& model, float lw,
 
 // the joint (state, theta) resample of one filter, on the resample_every
 // schedule or when its ESS falls below ess_limit; lw = 0 after it
-template <int S, int P>
+template <bool kRoll, int S, int P>
 __device__ __forceinline__ void maybe_resample(
     int t, float wn, float s, float s2, float ess_limit, int resample_every,
-    uint32_t k0, uint32_t k1, uint32_t b, float (&x)[S], float (&th)[P],
-    float& lw, float* cdf, float* buf, float* red) {
+    int resampler, int metropolis_iters, uint32_t k0, uint32_t k1,
+    uint32_t b, float (&x)[S], float (&th)[P], float& lw, float* cdf,
+    float* buf, float* red) {
   const bool fire = ess_limit > 0.0f
                         ? s * s / s2 < ess_limit
                         : (resample_every == 1 ||
                            (t + 1) % resample_every == 0);
   if (!fire) return;
-  const int anc =
-      ssme::systematic_ancestor(wn, ssme::offset_at(k0, k1, t, b), cdf, red);
+  const int anc = ssme::select_ancestor<kRoll>(
+      wn, resampler, metropolis_iters, k0, k1, t, b, ssme::kTagOffset,
+      ssme::kTagRollSweep, cdf, red);
   float v[S + P];
 #pragma unroll
   for (int l = 0; l < S; ++l) v[l] = x[l];
@@ -154,13 +167,13 @@ __device__ __forceinline__ void maybe_resample(
   lw = 0.0f;
 }
 
-template <class Model>
+template <class Model, bool kRoll>
 __global__ void __launch_bounds__(kMaxParticles, 1)
 lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
               const float* __restrict__ zs, int num_steps, int apf,
-              int resample_every, float ess_limit, LWArgs args,
-              float* __restrict__ lcl, float* __restrict__ fpaths,
-              float* __restrict__ cloud) {
+              int resample_every, float ess_limit, int resampler,
+              int metropolis_iters, LWArgs args, float* __restrict__ lcl,
+              float* __restrict__ fpaths, float* __restrict__ cloud) {
   constexpr int P = Model::kNumParams;
   constexpr int S = Model::kNumState;
   constexpr int K = Model::kNumFunctionals;
@@ -220,8 +233,9 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
   float m = weigh(model, lw, cp, x, red, &wn, &s, &s2, &lse, fmean);
   emit(0, lse - log_n);
   lw = lw - m;
-  maybe_resample(0, wn, s, s2, ess_limit, resample_every, k0, k1, b, x, th,
-                 lw, cdf, buf, red);
+  maybe_resample<kRoll>(0, wn, s, s2, ess_limit, resample_every, resampler,
+                        metropolis_iters, k0, k1, b, x, th, lw, cdf, buf,
+                        red);
 
   for (int t = 1; t < num_steps; ++t) {
     load_step<Model>(ys, zs, t, y, z);
@@ -284,10 +298,16 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
       constrain<Model>(shrunk, cp);
       const float lfs = lw + model.log_weight(cp, look, y, z);
       const float mfs = ssme::block_max(lfs, red);
-      const int anc = ssme::systematic_ancestor(
-          expf(lfs - mfs),
-          ssme::offset_at(k0, k1, t, b, ssme::kTagSelectOffset), cdf, red);
-      lse_fs = mfs + logf(cdf[n - 1]);
+      const float wfs = expf(lfs - mfs);
+      if constexpr (kRoll) {
+        float sfs[1] = {wfs};
+        ssme::block_sum<1>(sfs, red);
+        lse_fs = mfs + logf(sfs[0]);
+      }
+      const int anc = ssme::select_ancestor<kRoll>(
+          wfs, resampler, metropolis_iters, k0, k1, t, b,
+          ssme::kTagSelectOffset, ssme::kTagRollSelect, cdf, red);
+      if constexpr (!kRoll) lse_fs = mfs + logf(cdf[n - 1]);
       float g[2 * S + P];
 #pragma unroll
       for (int l = 0; l < S; ++l) {
@@ -335,8 +355,9 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
     m = weigh(model, lw_new, cp, x, red, &wn, &s, &s2, &lse, fmean);
     emit(t, apf ? ((lse_fs - logf(wsum)) + lse) - log_n : lse - logf(wsum));
     lw = lw_new - m;
-    maybe_resample(t, wn, s, s2, ess_limit, resample_every, k0, k1, b, x, th,
-                   lw, cdf, buf, red);
+    maybe_resample<kRoll>(t, wn, s, s2, ess_limit, resample_every,
+                          resampler, metropolis_iters, k0, k1, b, x, th, lw,
+                          cdf, buf, red);
   }
 
   const size_t rows = S + 1 + P;
@@ -348,14 +369,33 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
   for (int k = 0; k < P; ++k) out[(S + 1 + k) * n] = th[k];
 }
 
+// the launch's arguments, as the C entry point receives them
+struct LWLaunch {
+  const int64_t* seed;
+  const float* ys;
+  const float* zs;
+  int num_filters, num_steps, num_particles, apf, resample_every;
+  float ess_limit;
+  int resampler, metropolis_iters;
+  float *lcl, *fpaths, *cloud;
+  cudaStream_t stream;
+};
+
 template <class Model>
-void launch(const int64_t* seed, const float* ys, const float* zs,
-            int num_filters, int num_steps, int num_particles, int apf,
-            int resample_every, float ess_limit, const LWArgs& args,
-            float* lcl, float* fpaths, float* cloud, cudaStream_t stream) {
-  lw_megakernel<Model><<<num_filters, num_particles, 0, stream>>>(
-      seed, ys, zs, num_steps, apf, resample_every, ess_limit, args, lcl,
-      fpaths, cloud);
+void launch(const LWLaunch& a, const LWArgs& args) {
+  if (a.resampler == ssme::kResampleSystematic) {
+    lw_megakernel<Model, false><<<a.num_filters, a.num_particles, 0,
+                                  a.stream>>>(
+        a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
+        a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl, a.fpaths,
+        a.cloud);
+  } else {
+    lw_megakernel<Model, true><<<a.num_filters, a.num_particles, 0,
+                                 a.stream>>>(
+        a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
+        a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl, a.fpaths,
+        a.cloud);
+  }
 }
 
 }  // namespace
@@ -366,6 +406,8 @@ void launch(const int64_t* seed, const float* ys, const float* zs,
 // prior_lo, prior_scale (kMaxParams each) and model_args (kMaxModelArgs)
 // are host arrays, copied into the launch's argument block.  ess_limit > 0
 // gates the resample on ESS < ess_limit, else it follows resample_every.
+// resampler: 0 systematic, 1 metropolis with metropolis_iters sweeps, 2
+// rejection (both on a power-of-two N).
 // The kernel allocates nothing and runs on `stream`.  Returns
 // cudaGetLastError() after the launch, or -1 for an unknown model id.
 extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
@@ -373,6 +415,7 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                                   int num_filters, int num_steps,
                                   int num_particles, int apf,
                                   int resample_every, float ess_limit,
+                                  int resampler, int metropolis_iters,
                                   const float* coefs, const float* prior_lo,
                                   const float* prior_scale,
                                   const float* model_args, float* lcl,
@@ -386,17 +429,16 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
     args.prior_scale[k] = prior_scale[k];
   }
   for (int k = 0; k < kMaxModelArgs; ++k) args.model[k] = model_args[k];
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LWLaunch a{seed, ys, zs, num_filters, num_steps, num_particles,
+                   apf, resample_every, ess_limit, resampler,
+                   metropolis_iters, lcl, fpaths, cloud,
+                   static_cast<cudaStream_t>(stream)};
   switch (model_id) {
     case ssme::kLWModelSvolLeverage:
-      launch<ssme::SvolLeverageLW>(seed, ys, zs, num_filters, num_steps,
-                                   num_particles, apf, resample_every,
-                                   ess_limit, args, lcl, fpaths, cloud, s);
+      launch<ssme::SvolLeverageLW>(a, args);
       break;
     case ssme::kLWModelSvolT:
-      launch<ssme::SvolTLW>(seed, ys, zs, num_filters, num_steps,
-                            num_particles, apf, resample_every, ess_limit,
-                            args, lcl, fpaths, cloud, s);
+      launch<ssme::SvolTLW>(a, args);
       break;
     default:
       return -1;

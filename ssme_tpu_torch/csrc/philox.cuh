@@ -25,6 +25,10 @@ constexpr uint32_t kTagChain = 2u;   // host-side chain seeds, never here
                                      // normal draw k >= 1: kTagChain + k
 constexpr uint32_t kTagPriorUniform = 0x80000000u;  // Liu-West t = 0 prior
 constexpr uint32_t kTagSelectOffset = 0x80000001u;  // Liu-West APF selection
+// roll resamplers (roll_select.cuh): sweep s of a step's resample takes
+// kTagRollSweep + s, of an APF first-stage selection kTagRollSelect + s
+constexpr uint32_t kTagRollSweep = 0xC0000000u;
+constexpr uint32_t kTagRollSelect = 0xE0000000u;
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;  // 2^-24

@@ -5,7 +5,8 @@
 // launch, the particle cloud never leaving the chip.
 //
 // Layout: one CTA per filter row, one particle per thread (blockDim = N,
-// a multiple of 32, at most 1024).  x and the carried log-weight live in
+// a multiple of 32, at most 1024; a power of two under the roll
+// resamplers).  x and the carried log-weight live in
 // registers for all T steps; the CDF and the gather buffer in shared
 // memory; lcl[b, t] and xmean[b, t] are written straight to global
 // memory by thread 0.  __launch_bounds__(1024, 1) caps the kernel at 64
@@ -17,6 +18,11 @@
 // plus a scan and a gather when it resamples) and the transcendentals
 // of one Box-Muller half-pair, one exp for the weight and one for the
 // renormalisation.  The kernel moves about 8 bytes a step per row.
+//
+// Selection: systematic (systematic_select.cuh), or a roll resampler
+// (roll_select.cuh, metropolis or rejection, chosen at run time) on the
+// sweep tags of ops/_prng.py; the family is a template parameter, so the
+// systematic instance compiles without the roll code.
 //
 // Per step it computes exactly what the Pallas kernel computes:
 //   t = 0   x ~ N(0, sigma^2 / (1 - phi^2)), lw = 0, carry = log N;
@@ -43,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "roll_select.cuh"
 #include "systematic_select.cuh"
 
 namespace {
@@ -50,11 +57,13 @@ namespace {
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 constexpr int kMaxParticles = 1024;
 
+template <bool kRoll>
 __global__ void __launch_bounds__(kMaxParticles, 1)
 svol_filter_kernel(const int64_t* __restrict__ seed,
                    const float* __restrict__ params,
                    const float* __restrict__ ys, int num_steps,
                    float ess_limit, int always, int gate_stride,
+                   int resampler, int metropolis_iters,
                    float* __restrict__ total, float* __restrict__ lcl,
                    float* __restrict__ xmean) {
   __shared__ float cdf[kMaxParticles];
@@ -86,9 +95,11 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     if (t > 0) {
       if (gate_stride == 1 &&
           (always || s_last * s_last / s2_last < ess_limit)) {
-        const int anc = ssme::systematic_ancestor(
-            wn, ssme::offset_at(k0, k1, t, b), cdf, red);
-        x = ssme::gather_from(x, anc, buf);
+        x = ssme::gather_from(
+            x, ssme::select_ancestor<kRoll>(wn, resampler, metropolis_iters,
+                                            k0, k1, t, b, ssme::kTagOffset,
+                                            ssme::kTagRollSweep, cdf, red),
+            buf);
         lw = 0.0f;
         carry = log_n;
       }
@@ -120,9 +131,11 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     }
     row_total += step_lcl;
     if (gate_stride > 1 && r.x * r.x / r.z < ess_limit) {
-      const int anc = ssme::systematic_ancestor(
-          wn, ssme::offset_at(k0, k1, t, b), cdf, red);
-      x = ssme::gather_from(x, anc, buf);
+      x = ssme::gather_from(
+          x, ssme::select_ancestor<kRoll>(wn, resampler, metropolis_iters, k0,
+                                          k1, t, b, ssme::kTagOffset,
+                                          ssme::kTagRollSweep, cdf, red),
+          buf);
       lw = 0.0f;
       carry = log_n;
     }
@@ -134,16 +147,25 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
 
 // Plain C entry point (bound with ctypes).  All pointers are device
 // pointers the caller allocated; the kernel allocates nothing and runs
-// on `stream`.  Returns cudaGetLastError() after the launch.
+// on `stream`.  resampler: 0 systematic, 1 metropolis with
+// metropolis_iters sweeps, 2 rejection.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
                                 const float* ys, int num_rows,
                                 int num_steps, int num_particles,
                                 float ess_limit, int always,
-                                int gate_stride, float* total, float* lcl,
-                                float* xmean, void* stream) {
-  svol_filter_kernel<<<num_rows, num_particles, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      seed, params, ys, num_steps, ess_limit, always, gate_stride, total,
-      lcl, xmean);
+                                int gate_stride, int resampler,
+                                int metropolis_iters, float* total,
+                                float* lcl, float* xmean, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (resampler == ssme::kResampleSystematic) {
+    svol_filter_kernel<false><<<num_rows, num_particles, 0, s>>>(
+        seed, params, ys, num_steps, ess_limit, always, gate_stride,
+        resampler, metropolis_iters, total, lcl, xmean);
+  } else {
+    svol_filter_kernel<true><<<num_rows, num_particles, 0, s>>>(
+        seed, params, ys, num_steps, ess_limit, always, gate_stride,
+        resampler, metropolis_iters, total, lcl, xmean);
+  }
   return static_cast<int>(cudaGetLastError());
 }

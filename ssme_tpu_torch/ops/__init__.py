@@ -22,11 +22,15 @@ from ssme_tpu_torch.ops.liu_west_megakernel import (
     lw_cloud_params as lw_factory_cloud_params,
     lw_cloud_states as lw_factory_cloud_states,
     lw_cloud_weights as lw_factory_cloud_weights)
+from ssme_tpu_torch.ops._select import (metropolis_bias_estimate,
+                                        metropolis_sweeps_for, roll_select)
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_batched_log_like,
                                                    svol_filter,
                                                    svol_filter_reference,
                                                    svol_replicated_log_like,
                                                    svol_swarm_evidence)
+from ssme_tpu_torch.ops.svol_kernel import (
+    fused_svol_propagate_weight, fused_svol_propagate_weight_reference)
 from ssme_tpu_torch.ops.svol_leverage_lw_kernel import (lw_cloud_params,
                                                         lw_cloud_weights,
                                                         svol_leverage_lw)
@@ -43,4 +47,7 @@ __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
            "lw_factory_cloud_states", "lw_kernel_sim_future_obs",
            "svol_leverage_lw_kernel_model", "svol_t_lw_kernel_model",
            "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",
-           "svol_leverage_lw", "lw_cloud_params", "lw_cloud_weights"]
+           "svol_leverage_lw", "lw_cloud_params", "lw_cloud_weights",
+           "fused_svol_propagate_weight",
+           "fused_svol_propagate_weight_reference", "roll_select",
+           "metropolis_bias_estimate", "metropolis_sweeps_for"]

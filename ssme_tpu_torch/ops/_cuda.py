@@ -28,25 +28,33 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _SIGNATURES = {
     # model id, apf, seed, params, ys, zs, B, T, N, ess_limit, always,
-    # gate_stride, total, lcl, fmean, cloud, cloud_lw, stream
+    # gate_stride, resampler, metropolis_iters, total, lcl, fmean, cloud,
+    # cloud_lw, stream
     "ssme_filter_megakernel": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                               _I, _P, _P, _P, _P, _P, _P],
+                               _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
-    # coefs, prior_lo, prior_scale, model_args (host arrays), lcl, fpaths,
-    # cloud, stream
-    "ssme_lw_megakernel": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
-                           _P, _P, _P, _P, _P, _P],
+    # resampler, metropolis_iters, coefs, prior_lo, prior_scale,
+    # model_args (host arrays), lcl, fpaths, cloud, stream
+    "ssme_lw_megakernel": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P],
     # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
-    # total, lcl, xmean, stream
-    "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-                         _P],
+    # resampler, metropolis_iters, total, lcl, xmean, stream
+    "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
+                         _P, _P],
     # w, leaves, u0, L, B, N, picked, ancestors, stream
     "ssme_systematic_select": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # w, leaves, seed, step, tag, resampler, metropolis_iters, L, B, N,
+    # picked, ancestors, stream
+    "ssme_roll_select": [_P, _P, _P, _U, _U, _I, _I, _I, _I, _I, _P, _P,
+                         _P],
     # seed, B, N/2, step, bits, u1, u2, normals, offsets, stream
     "ssme_philox_fill": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # seed, y (device pointer or null), y value, params, x, logw, B, N,
+    # x_out, logw_out, stream
+    "ssme_svol_step": [_P, _P, _F, _P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -28,6 +28,15 @@ The mapping (the only place it is written down):
   - 2^31 + 1: the second offset of a Liu-West step, the auxiliary-PF
     first-stage selection (counter (0, t, b, 2^31 + 1)); the joint
     resample after the weights keeps tag 1;
+  - 0xC0000000 + s, s < 4096: sweep s of a step's roll resample (the
+    metropolis and rejection resamplers, ``csrc/roll_select.cuh``): slot
+    j's accept uniform is ``uniform_open_zero`` of word 0 of counter
+    (j, t, b, tag), the row's shift word is word 1 of counter
+    (0, t, b, tag); the shift accumulates modulo 2^32 and slot j proposes
+    particle (j - c) mod N (``roll_sweep_draws``);
+  - 0xE0000000 + s, s < 4096: the same for an auxiliary-PF first-stage
+    selection under a roll resampler (the generic and Liu-West kernels'
+    APF modes);
 - Philox4x32-10 (Salmon et al. 2011; the Random123 constants) gives four
   words (w0, w1, w2, w3);
 - normals: u1 = ((w0 >> 8) + 1) 2^-24 in (0, 1],
@@ -64,6 +73,9 @@ TAG_OFFSET = 1
 TAG_CHAIN = 2
 TAG_PRIOR_UNIFORM = 1 << 31
 TAG_SELECT_OFFSET = (1 << 31) + 1
+TAG_ROLL_SWEEP = 0xC0000000
+TAG_ROLL_SELECT = 0xE0000000
+ROLL_MAX_ITERS = 4096
 TWO_PI = 6.283185307179586
 HALF_LOG_2PI = 0.9189385332046727
 _INV_2_24 = 2.0 ** -24
@@ -171,6 +183,24 @@ def prior_uniforms(seed, rows, num_particles, num_uniforms):
     return u.reshape(-1, rows.shape[0], num_particles)[:num_uniforms]
 
 
+def roll_sweep_draws(seed, rows, step, sweep, num_particles,
+                     tag=TAG_ROLL_SWEEP, count=1):
+    """(shift words (count, len(rows)) int64, accept uniforms (count,
+    len(rows), num_particles) in (0, 1]) of sweeps ``sweep`` ..
+    ``sweep + count - 1`` of a roll selection at step ``step``, stream
+    ``tag`` (the mapping above)."""
+    if not 0 <= sweep <= sweep + count <= ROLL_MAX_ITERS:
+        raise ValueError(f"sweeps must lie in [0, {ROLL_MAX_ITERS}), got "
+                         f"{sweep} + {count}")
+    k0, k1 = _key(seed)
+    j = torch.arange(num_particles, device=seed.device)[None, None, :]
+    b = rows.to(torch.int64)[None, :, None]
+    s = torch.arange(sweep, sweep + count, device=seed.device)[:, None, None]
+    w0, w1, _, _ = philox4x32_10(j, torch.full_like(j, int(step)), b, tag + s,
+                                 k0, k1)
+    return w1[:, :, 0], uniform_open_zero(w0)
+
+
 def offsets(seed, rows, step):
     """Resampling offsets (len(rows),) at one step."""
     steps = torch.tensor([step], device=seed.device)
@@ -237,7 +267,8 @@ def philox_fill(seed, num_rows, num_particles, step):
 philox_fill.launches = 0
 
 __all__ = ["philox4x32_10", "seed_words", "normals_steps", "normal_tag",
-           "offsets", "offsets_steps", "prior_uniforms",
+           "offsets", "offsets_steps", "prior_uniforms", "roll_sweep_draws",
+           "TAG_ROLL_SWEEP", "TAG_ROLL_SELECT", "ROLL_MAX_ITERS",
            "philox_fill", "philox_fill_reference", "uniform_open_zero",
            "uniform_closed_zero", "uniform_offset", "box_muller",
            "TWO_PI", "HALF_LOG_2PI"]

@@ -1,31 +1,86 @@
-"""Systematic ancestor selection that moves all leaves jointly.
+"""Ancestor selection that moves all leaves jointly: systematic, and the
+roll-based Metropolis and rejection resamplers.
 
-Replaces ``ssme_tpu/ops/_select.py::select_leaves_dense``.  The CUDA side
-is ``csrc/systematic_select.cuh`` (inlined by the filter kernel; launched
-alone by :func:`systematic_select`); this module holds its plain PyTorch
-version and that wrapper.
+Replaces ``ssme_tpu/ops/_select.py``: ``select_leaves_dense``
+(systematic), ``metropolis_select_leaves``, ``rejection_select_leaves``
+and the Metropolis sweep budget (``metropolis_bias_estimate``,
+``metropolis_sweeps_for``).  The CUDA sides are
+``csrc/systematic_select.cuh`` and ``csrc/roll_select.cuh`` (inlined by
+the filter kernels; launched alone by :func:`systematic_select` and
+:func:`roll_select`); this module holds their plain PyTorch versions and
+those wrappers.
 
-Law, per row: cdf = inclusive float32 cumulative sum of w, total =
-cdf[-1], points u_j = min((j + u0) * (total / N), total) and ancestor_j =
-the first i with cdf[i] >= u_j, which is the half-open test
+Systematic law, per row: cdf = inclusive float32 cumulative sum of w,
+total = cdf[-1], points u_j = min((j + u0) * (total / N), total) and
+ancestor_j = the first i with cdf[i] >= u_j, which is the half-open test
 cdf[i-1] < u_j <= cdf[i] on the same rounded array (cdf[-1] read as 0).
 The kernel's block scan adds in another order than ``torch.cumsum``, so
 a point within rounding of a CDF boundary can pick the neighbour.
+
+Roll laws (Murray, Lee & Jacob's GPU resamplers, in the TPU's roll form),
+per row of power-of-two N, sweep s drawing a shift word and one uniform
+u in (0, 1] per slot (``draw(s)``; the kernels' draws are
+``_prng.roll_sweep_draws``); the shift accumulates as c (mod 2^32) and
+slot j proposes particle (j - c) mod N:
+
+- metropolis: chain j starts at j; each of ``num_iters`` sweeps accepts
+  the proposal when u * w_cur < w_cand.  Biased at a finite sweep count
+  (:func:`metropolis_bias_estimate`);
+- rejection: sweep 0 proposes j itself, later sweeps (j - c); accept
+  when u * w_max < w_cand; an accepted slot keeps its ancestor; the row
+  runs until every slot has accepted, at most ``max_iters`` sweeps, after
+  which a pending slot keeps itself.  Unbiased: E[offspring of i] =
+  N w_i / sum w.
+
+Both return ancestor indices, and the leaves move once by them: the TPU
+carries values through its rolls, which are exact, so the result is the
+same.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ssme_tpu_torch.ops import _cuda
+from ssme_tpu_torch.ops import _cuda, _prng
 
 MAX_PARTICLES = 1024
+# the roll resamplers' particle cap in the generic filter kernel (K2): a
+# power of two up to 4096, kPer = N / 1024 particles per thread above 1024
+MAX_ROLL_PARTICLES = 4096
+# the resamplers and their codes in the C entry points (roll_select.cuh)
+RESAMPLER_CODES = {"systematic": 0, "metropolis": 1, "rejection": 2}
 
 
-def check_particles(n: int) -> None:
-    if n % 32 or not 32 <= n <= MAX_PARTICLES:
-        raise ValueError(f"num_particles={n} must be a multiple of 32 in "
-                         f"[32, {MAX_PARTICLES}] (one CTA of N threads)")
+def check_resampler(resampler, metropolis_iters=16) -> None:
+    if resampler not in RESAMPLER_CODES:
+        raise ValueError(f"unknown resampler {resampler!r}; valid: "
+                         f"{tuple(RESAMPLER_CODES)}")
+    if resampler == "metropolis" and (
+            int(metropolis_iters) != metropolis_iters
+            or not 1 <= metropolis_iters <= _prng.ROLL_MAX_ITERS):
+        raise ValueError(f"metropolis_iters must be an integer in [1, "
+                         f"{_prng.ROLL_MAX_ITERS}], got {metropolis_iters}")
+
+
+def check_particles(n: int, resampler: str = "systematic",
+                    roll_cap: int = MAX_ROLL_PARTICLES) -> None:
+    """Systematic: a multiple of 32 in [32, 1024] (one CTA of N threads);
+    a roll resampler: a power of two in [32, ``roll_cap``], the kernel's
+    cap (the SVOL and Liu-West kernels take 1024, one particle per
+    thread)."""
+    if resampler == "systematic":
+        if n % 32 or not 32 <= n <= MAX_PARTICLES:
+            raise ValueError(f"num_particles={n} must be a multiple of 32 "
+                             f"in [32, {MAX_PARTICLES}] (one CTA of N "
+                             "threads)")
+        return
+    if n & (n - 1) or not 32 <= n <= roll_cap:
+        lift = ("; the lift to 4096 with several particles per thread, as "
+                "the generic filter kernel has, is ROADMAP.md section 2's "
+                "next item" if roll_cap < MAX_ROLL_PARTICLES else "")
+        raise ValueError(f"num_particles={n}: resampler={resampler!r} needs "
+                         f"a power of two in [32, {roll_cap}] (its roll "
+                         f"decomposition masks the shift to [0, N)){lift}")
 
 
 def systematic_points(w, u0):
@@ -97,6 +152,247 @@ def systematic_select(w, leaves, u0):
 
 systematic_select.launches = 0
 
+
+def _check_pow2(n):
+    if n & (n - 1) or n < 1:
+        raise ValueError(f"the roll resamplers need a power-of-two n, got {n}")
+
+
+# sweeps drawn at once by the plain loops: one Philox call for a block of
+# sweeps costs about what one sweep's call costs
+_SWEEP_BLOCK = 16
+
+
+def metropolis_ancestors(w, draw, num_iters=16):
+    """Ancestors (B, N) int64 of the Metropolis law (module docstring);
+    ``draw(s, k, sub)`` returns the shift words (k, B') and uniforms
+    (k, B', N) of sweeps s .. s+k-1 for the rows ``sub`` (None: every
+    row)."""
+    b, n = w.shape
+    _check_pow2(n)
+    j = torch.arange(n, device=w.device)[None, :]
+    cur = j.expand(b, n).clone()
+    w_cur = w.clone()
+    c = torch.zeros((b, 1), dtype=torch.int64, device=w.device)
+    for s0 in range(0, int(num_iters), _SWEEP_BLOCK):
+        k = min(_SWEEP_BLOCK, int(num_iters) - s0)
+        shifts, us = draw(s0, k, None)
+        for shift, u in zip(shifts, us):
+            c = (c + shift[:, None]) & _prng.MASK32
+            idx = (j - c) & (n - 1)
+            w_cand = torch.gather(w, 1, idx)
+            acc = u * w_cur < w_cand
+            cur = torch.where(acc, idx, cur)
+            w_cur = torch.where(acc, w_cand, w_cur)
+    return cur
+
+
+def rejection_ancestors(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
+    """Ancestors (B, N) int64 of the rejection law (module docstring);
+    ``draw`` as for :func:`metropolis_ancestors`.  Only the rows with a
+    pending slot draw, checked once per block of sweeps (a row whose
+    slots have all accepted no longer changes), and the loop stops at
+    ``max_iters`` sweeps."""
+    b, n = w.shape
+    _check_pow2(n)
+    max_iters = int(max_iters)
+    j = torch.arange(n, device=w.device)[None, :]
+    cur = j.expand(b, n).clone()
+    w_max = torch.amax(w, dim=-1, keepdim=True)
+    _, u = draw(0, 1, None)
+    acc = u[0] * w_max < w
+    c = torch.zeros((b, 1), dtype=torch.int64, device=w.device)
+    for s0 in range(1, max_iters, _SWEEP_BLOCK):
+        sub = (~acc).any(-1).nonzero()[:, 0]
+        if sub.numel() == 0:
+            break
+        k = min(_SWEEP_BLOCK, max_iters - s0)
+        shifts, us = draw(s0, k, sub)
+        c_s, cur_s, acc_s = c[sub], cur[sub], acc[sub]
+        w_s, w_max_s = w[sub], w_max[sub]
+        for shift, u in zip(shifts, us):
+            c_s = (c_s + shift[:, None]) & _prng.MASK32
+            idx = (j - c_s) & (n - 1)
+            take = ~acc_s & (u * w_max_s < torch.gather(w_s, 1, idx))
+            cur_s = torch.where(take, idx, cur_s)
+            acc_s = acc_s | take
+        c[sub], cur[sub], acc[sub] = c_s, cur_s, acc_s
+    return cur
+
+
+def philox_draw(seed, rows, step, num_particles, tag=_prng.TAG_ROLL_SWEEP):
+    """The kernels' ``draw(s, k, sub)``: sweeps s .. s+k-1 of step
+    ``step`` for the filter rows ``rows`` (their Philox row words), or
+    their subset ``sub``."""
+    def draw(s, k, sub):
+        r = rows if sub is None else rows[sub]
+        return _prng.roll_sweep_draws(seed, r, step, s, num_particles, tag,
+                                      count=k)
+    return draw
+
+
+def plain_ancestor_fn(resampler, metropolis_iters, seed, rows, step, n,
+                      u0=None, tag=_prng.TAG_ROLL_SWEEP):
+    """``fn(w, sub) -> ancestors`` of the plain filters at one step: the
+    systematic law with offsets ``u0`` (B,), or a roll law with the
+    kernels' draws of ``step`` on stream ``tag``, for the rows ``sub`` of
+    ``rows`` (None: every row) and their weights ``w``."""
+    if resampler == "systematic":
+        return lambda w, sub: systematic_ancestors(
+            w, u0 if sub is None else u0[sub])
+
+    def fn(w, sub):
+        r = rows if sub is None else rows[sub]
+        return roll_ancestors(resampler, w, philox_draw(seed, r, step, n, tag),
+                              metropolis_iters)
+    return fn
+
+
+def roll_ancestors(resampler, w, draw, metropolis_iters=16):
+    """Ancestors (B, N) int64 of ``resampler`` ("metropolis" or
+    "rejection") on weights ``w`` (B, N)."""
+    if resampler == "metropolis":
+        return metropolis_ancestors(w, draw, metropolis_iters)
+    if resampler == "rejection":
+        return rejection_ancestors(w, draw)
+    raise ValueError(f"not a roll resampler: {resampler!r}")
+
+
+def _move(leaves, anc):
+    return torch.gather(leaves, 2, anc[None].expand_as(leaves))
+
+
+def metropolis_select(w, leaves, draw, num_iters=16):
+    """Plain Metropolis selection of every leaf row of ``leaves`` (L, B, N)
+    by weights ``w`` (B, N): (picked (L, B, N), ancestors (B, N) int32)."""
+    anc = metropolis_ancestors(w, draw, num_iters)
+    return _move(leaves, anc), anc.to(torch.int32)
+
+
+def rejection_select(w, leaves, draw, max_iters=_prng.ROLL_MAX_ITERS):
+    """Plain rejection selection, as :func:`metropolis_select`."""
+    anc = rejection_ancestors(w, draw, max_iters)
+    return _move(leaves, anc), anc.to(torch.int32)
+
+
+def roll_select_reference(w, leaves, seed, step=0, resampler="rejection",
+                          metropolis_iters=16, tag=_prng.TAG_ROLL_SWEEP):
+    """Plain version of :func:`roll_select`."""
+    seed = _prng.seed_words(seed, device=w.device)
+    rows = torch.arange(w.shape[0], device=w.device)
+    anc = roll_ancestors(resampler, w,
+                         philox_draw(seed, rows, step, w.shape[1], tag),
+                         metropolis_iters)
+    return _move(leaves, anc), anc.to(torch.int32)
+
+
+def roll_select(w, leaves, seed, step=0, resampler="rejection",
+                metropolis_iters=16, tag=_prng.TAG_ROLL_SWEEP):
+    """Roll-based selection of every leaf row by per-row weights, with the
+    kernels' Philox draws of step ``step`` on stream ``tag``
+    (``_prng.TAG_ROLL_SWEEP`` or ``TAG_ROLL_SELECT``).
+
+    ``w``: (B, N) nonnegative float32 weights, N a power of two in [32,
+    4096]; ``leaves``: (L, B, N) float32, moved by the same ancestors;
+    ``seed``: (2,) int64 key words on the device of ``w``, or an int.
+    Returns (picked (L, B, N), ancestors (B, N) int32).  Launches the CUDA
+    kernel for CUDA tensors and runs the plain version for CPU tensors.
+    """
+    if resampler not in ("metropolis", "rejection"):
+        raise ValueError(f"roll_select: resampler must be 'metropolis' or "
+                         f"'rejection', got {resampler!r}")
+    check_resampler(resampler, metropolis_iters)
+    if w.ndim != 2 or leaves.ndim != 3 or leaves.shape[1:] != w.shape \
+            or leaves.shape[0] < 1:
+        raise ValueError(f"expected w (B, N) and leaves (L, B, N), got "
+                         f"{tuple(w.shape)} and {tuple(leaves.shape)}")
+    check_particles(w.shape[1], resampler)
+    if tag not in (_prng.TAG_ROLL_SWEEP, _prng.TAG_ROLL_SELECT):
+        raise ValueError("tag must be _prng.TAG_ROLL_SWEEP or "
+                         "_prng.TAG_ROLL_SELECT")
+    if not 0 <= int(step) <= _prng.MASK32:
+        raise ValueError("step must be a 32-bit counter word")
+    for name, t in (("w", w), ("leaves", leaves)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    if leaves.device != w.device:
+        raise ValueError(f"leaves are on {leaves.device}, w on {w.device}")
+    seed = _prng.seed_words(seed, device=w.device)
+    if seed.device != w.device:
+        raise ValueError(f"seed is on {seed.device}, w on {w.device}")
+    if w.device.type == "cpu":
+        return roll_select_reference(w, leaves, seed, step, resampler,
+                                     metropolis_iters, tag)
+    if w.device.type != "cuda":
+        raise ValueError(f"roll_select: unsupported device {w.device}")
+    lib = _cuda.library()
+    num_leaves, b, n = leaves.shape
+    picked = torch.empty_like(leaves)
+    anc = torch.empty((b, n), dtype=torch.int32, device=w.device)
+    err = lib.ssme_roll_select(w.data_ptr(), leaves.data_ptr(),
+                               seed.data_ptr(), int(step), int(tag),
+                               RESAMPLER_CODES[resampler],
+                               int(metropolis_iters), num_leaves, b, n,
+                               picked.data_ptr(), anc.data_ptr(),
+                               _cuda.stream_ptr(w.device))
+    _cuda.check(err, "ssme_roll_select")
+    roll_select.launches += 1
+    return picked, anc
+
+
+roll_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Metropolis sweep budget: the JAX package's fitted envelope
+# (ssme_tpu/ops/_select.py:318-384), its constants unchanged
+# ---------------------------------------------------------------------------
+
+# |bias|(B) <= SAFETY * A_sched * (t_len / 3084) * (B / 8)^-P, fitted on the
+# SPY workload at N=512 (univariate SVOL and SVOL-leverage, both
+# schedules), measured insensitive to N from 512 to 4096
+_METROPOLIS_BIAS_A = {"parity": 5.8, "adaptive": 1.6}
+_METROPOLIS_BIAS_P = 0.73
+_BIAS_FIT_T = 3084.0
+_BIAS_SAFETY = 2.0
+
+
+def metropolis_bias_estimate(num_iters, t_len, ess_threshold=0.5):
+    """Conservative predicted |evidence bias| (nats) of the Metropolis
+    resampler at ``num_iters`` sweeps on a series of ``t_len`` steps: the
+    parity envelope when ``ess_threshold > 0.5``, else the adaptive one."""
+    sched = "parity" if ess_threshold > 0.5 else "adaptive"
+    a = _METROPOLIS_BIAS_A[sched] * _BIAS_SAFETY
+    return (a * (float(t_len) / _BIAS_FIT_T)
+            * (float(num_iters) / 8.0) ** (-_METROPOLIS_BIAS_P))
+
+
+def metropolis_sweeps_for(bias_budget, t_len, ess_threshold=0.5,
+                          max_sweeps=256):
+    """Smallest even sweep count (at least 4) whose predicted evidence
+    bias (:func:`metropolis_bias_estimate`) is within ``bias_budget``
+    nats; raises when it exceeds ``max_sweeps``."""
+    if bias_budget <= 0:
+        raise ValueError("bias_budget must be positive (nats)")
+    sched = "parity" if ess_threshold > 0.5 else "adaptive"
+    a = _METROPOLIS_BIAS_A[sched] * _BIAS_SAFETY
+    b = 8.0 * (a * (float(t_len) / _BIAS_FIT_T)
+               / float(bias_budget)) ** (1.0 / _METROPOLIS_BIAS_P)
+    sweeps = max(4, int(-(-b // 2) * 2))          # round up to even
+    if sweeps > max_sweeps:
+        raise ValueError(
+            f"metropolis bias budget {bias_budget} nats needs ~{sweeps} "
+            f"sweeps (> max_sweeps={max_sweeps}) at T={t_len}, "
+            f"ess_threshold={ess_threshold}: use resampler='rejection' "
+            "(unbiased, same memory profile) or the generic filter bank "
+            "instead")
+    return sweeps
+
+
 __all__ = ["systematic_select", "systematic_select_reference",
            "systematic_ancestors", "systematic_points", "check_particles",
-           "MAX_PARTICLES"]
+           "check_resampler", "roll_select", "roll_select_reference",
+           "roll_ancestors", "plain_ancestor_fn", "metropolis_ancestors", "rejection_ancestors",
+           "metropolis_select", "rejection_select", "philox_draw",
+           "metropolis_bias_estimate", "metropolis_sweeps_for",
+           "MAX_PARTICLES", "MAX_ROLL_PARTICLES", "RESAMPLER_CODES"]

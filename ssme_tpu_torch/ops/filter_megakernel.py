@@ -30,8 +30,11 @@ or one with vector ``functionals``, raises.  On a CPU tensor every model
 runs through :func:`filter_megakernel_reference`, which calls the hooks
 step by step with the kernel's random bits.
 
-Not ported yet (ROADMAP.md section 2, item 1): the metropolis and
-rejection resamplers.
+Selection (``resampler``): "systematic", N a multiple of 32 in [32, 1024]
+(one particle per thread, the JAX package's ``MAX_KERNEL_PARTICLES``), or
+the roll-based "metropolis" and "rejection" resamplers
+(``ops/_select.py``), N a power of two in [32, 4096] (N / 1024 particles
+per thread above 1024, as JAX's ``MAX_METROPOLIS_PARTICLES``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Callable
 
 import torch
@@ -46,10 +50,15 @@ import torch
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
-from ssme_tpu_torch.ops._select import (MAX_PARTICLES, check_particles,
-                                        systematic_select_reference)
+from ssme_tpu_torch.ops._select import (MAX_PARTICLES, MAX_ROLL_PARTICLES,
+                                        RESAMPLER_CODES, check_particles,
+                                        check_resampler,
+                                        metropolis_bias_estimate,
+                                        metropolis_sweeps_for,
+                                        plain_ancestor_fn)
 from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
-                                                   _draw_seed, _kernel_rows)
+                                                   _draw_seed, _kernel_rows,
+                                                   resample_rows)
 from ssme_tpu_torch.utils import logmeanexp
 
 # the dispatch table of csrc/kernel_models.cuh (same names, same numbers;
@@ -162,17 +171,13 @@ def _as_rows(name, v, t_len, width, dev):
 
 
 def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
-              gate_stride, mode, resampler):
+              gate_stride, mode, resampler, metropolis_iters=16):
     if mode not in ("bootstrap", "apf"):
         raise ValueError(f"mode must be 'bootstrap' or 'apf', got {mode!r}")
     if mode == "apf" and kmodel.prop_mu is None:
         raise ValueError(f"model {kmodel.name!r} has no prop_mu hook "
                          "(required for the auxiliary-PF mode)")
-    if resampler != "systematic":
-        raise ValueError(f"resampler={resampler!r} is not ported to the "
-                         "PyTorch/CUDA package yet (ROADMAP.md section 2, "
-                         "item 1); the systematic selection has no "
-                         "particle cap below the kernel's 1024")
+    check_resampler(resampler, metropolis_iters)
     if not isinstance(params, torch.Tensor) or params.ndim != 2 \
             or params.shape[1] != kmodel.num_params or params.shape[0] < 1:
         raise ValueError(f"params must be a (B, {kmodel.num_params}) tensor "
@@ -191,7 +196,7 @@ def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
     seed = _prng.seed_words(seed, device=dev)
     if seed.device != dev:
         raise ValueError(f"seed is on {seed.device}, params on {dev}")
-    check_particles(int(num_particles))
+    check_particles(int(num_particles), resampler)
     if int(gate_stride) != gate_stride or gate_stride < 1:
         raise ValueError("gate_stride must be a positive integer")
     if gate_stride > 1 and (mode != "bootstrap" or ess_threshold >= 1.0):
@@ -203,23 +208,11 @@ def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
     return seed, ys, zs
 
 
-def _resample_rows(wn, u0, state, lw, carry, fire, log_n):
-    """Systematic resample of every leaf of the rows where ``fire`` (a
-    (B, 1) bool tensor, or True for all rows) with offsets ``u0`` (B,)."""
-    picked, _ = systematic_select_reference(wn, torch.stack(state), u0)
-    if fire is True:
-        return (tuple(picked), torch.zeros_like(lw),
-                torch.full_like(carry, log_n))
-    return (tuple(torch.where(fire, new, old)
-                  for new, old in zip(picked, state)),
-            torch.where(fire, torch.zeros_like(lw), lw),
-            torch.where(fire, torch.full_like(carry, log_n), carry))
-
-
 def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
                                 num_particles=512, ess_threshold=1.0,
                                 gate_stride=1, return_cloud=False,
-                                mode="bootstrap", resampler="systematic"):
+                                mode="bootstrap", resampler="systematic",
+                                metropolis_iters=16):
     """Plain PyTorch version of :func:`filter_megakernel`, callable on
     either device and with any :class:`KernelModel`; consumes the
     kernel's Philox bits step by step.
@@ -230,9 +223,14 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
     resample would use), the lookahead density re-evaluated at the
     selected points, the transition, second-stage weights log g(x') -
     log g(lookahead), and lcl = [LSE(fsw) - LSE(lw)] + [LSE(w') - log N].
+    Under a roll resampler the first stage selects on the first-stage
+    sweep tags (``_prng.TAG_ROLL_SELECT``), the resample on
+    ``TAG_ROLL_SWEEP``, and only the firing rows run the sweep loop.
     """
     seed, ys, zs = _validate(kmodel, seed, params, ys, zs, num_particles,
-                             ess_threshold, gate_stride, mode, resampler)
+                             ess_threshold, gate_stride, mode, resampler,
+                             metropolis_iters)
+    roll = resampler != "systematic"
     n, g = int(num_particles), int(gate_stride)
     b, t_len = params.shape[0], ys.shape[0]
     dev = params.device
@@ -241,7 +239,12 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
     always = ess_threshold >= 1.0
     ess_limit = float(ess_threshold) * n
     fns = kmodel.functional_list
-    rng = _PlainRng(seed, torch.arange(b, device=dev), n, t_len)
+    rows = torch.arange(b, device=dev)
+    rng = _PlainRng(seed, rows, n, t_len)
+
+    def ancestors(t, tag=_prng.TAG_ROLL_SWEEP):
+        return plain_ancestor_fn(resampler, metropolis_iters, seed, rows, t,
+                                 n, None if roll else rng.offsets(t), tag)
 
     lcl = torch.zeros((b, t_len), dtype=torch.float32, device=dev)
     fpaths = torch.zeros((len(fns), b, t_len), dtype=torch.float32,
@@ -268,9 +271,8 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
             m_fs = torch.amax(fsw, dim=-1, keepdim=True)
             w_fs = torch.exp(fsw - m_fs)
             lse_fs = m_fs + torch.log(w_fs.sum(-1, keepdim=True))
-            picked, _ = systematic_select_reference(
-                w_fs, torch.stack(state + look), rng.offsets(t))
-            picked = tuple(picked)
+            anc = ancestors(t, _prng.TAG_ROLL_SELECT)(w_fs, None)
+            picked = tuple(torch.gather(v, 1, anc) for v in state + look)
             lg_look = kmodel.log_weight(params, picked[kmodel.num_state:], y,
                                         z)
             state = tuple(kmodel.propagate(
@@ -288,8 +290,8 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
                 if g == 1:
                     fire = True if always else s_last * s_last / s2_last < \
                         ess_limit
-                    state, lw, carry = _resample_rows(
-                        wn, rng.offsets(t), state, lw, carry, fire, log_n)
+                    state, lw, carry = resample_rows(
+                        ancestors(t), wn, state, lw, carry, fire, log_n, roll)
                 state = tuple(kmodel.propagate(rng.at(t), params, state, y,
                                                z))
             lw = lw + kmodel.log_weight(params, state, y, z)
@@ -301,9 +303,9 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
         carry = torch.log(s)
         s_last, s2_last = s, s2
         if g > 1:
-            state, lw, carry = _resample_rows(wn, rng.offsets(t), state, lw,
-                                              carry, s * s / s2 < ess_limit,
-                                              log_n)
+            state, lw, carry = resample_rows(ancestors(t), wn, state, lw,
+                                             carry, s * s / s2 < ess_limit,
+                                             log_n, roll)
     fmean = fpaths[0] if len(fns) == 1 else tuple(fpaths.unbind(0))
     if return_cloud:
         return lcl.sum(-1), lcl, fmean, state, lw
@@ -336,13 +338,18 @@ def _model_id(kmodel) -> int:
 
 def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
                       ess_threshold=1.0, gate_stride=1, return_cloud=False,
-                      mode="bootstrap", resampler="systematic"):
+                      mode="bootstrap", resampler="systematic",
+                      metropolis_iters=16):
     """B whole-sequence particle filters of ``kmodel`` in one launch.
 
     seed: (2,) int64 Philox key words on the params' device, or a Python
     int; params: (B, num_params) float32 constrained rows; ys: (T,) or
     (T, dim_obs); zs: (T,) or (T, dim_cov) covariates, required iff the
-    model has them.  ``num_particles`` is a multiple of 32 in [32, 1024].
+    model has them.  ``num_particles``: a multiple of 32 in [32, 1024]
+    under ``resampler="systematic"``, a power of two in [32, 4096] under
+    "metropolis" (``metropolis_iters`` sweeps per selection; biased at a
+    finite count, ``_select.metropolis_bias_estimate``) or "rejection"
+    (unbiased).
     Returns (total (B,), lcl (B, T), fmean): total = sum_t
     log p(y_t | y_{1:t-1}); fmean the (B, T) filtered mean of the model's
     functional, or a tuple of one (B, T) path per entry of a vector
@@ -363,15 +370,15 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
 
     Launches the kernel for CUDA tensors (raising for a model without a
     CUDA instance, or with vector functionals) and runs
-    :func:`filter_megakernel_reference` for CPU tensors.  Only
-    ``resampler="systematic"`` is ported; the others raise.
+    :func:`filter_megakernel_reference` for CPU tensors.
     """
     seed, ys, zs = _validate(kmodel, seed, params, ys, zs, num_particles,
-                             ess_threshold, gate_stride, mode, resampler)
+                             ess_threshold, gate_stride, mode, resampler,
+                             metropolis_iters)
     if params.device.type == "cpu":
-        return filter_megakernel_reference(kmodel, seed, params, ys, zs,
-                                           num_particles, ess_threshold,
-                                           gate_stride, return_cloud, mode)
+        return filter_megakernel_reference(
+            kmodel, seed, params, ys, zs, num_particles, ess_threshold,
+            gate_stride, return_cloud, mode, resampler, metropolis_iters)
     if params.device.type != "cuda":
         raise ValueError(f"filter_megakernel: unsupported device "
                          f"{params.device}")
@@ -391,7 +398,8 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
         model_id, int(mode == "apf"), seed.data_ptr(), params.data_ptr(),
         ys.data_ptr(), None if zs is None else zs.data_ptr(), b, t_len, n,
         float(ess_threshold) * n, int(ess_threshold >= 1.0),
-        int(gate_stride), total.data_ptr(), lcl.data_ptr(),
+        int(gate_stride), RESAMPLER_CODES[resampler], int(metropolis_iters),
+        total.data_ptr(), lcl.data_ptr(),
         fmean.data_ptr(), None if cloud is None else cloud.data_ptr(),
         None if cloud_lw is None else cloud_lw.data_ptr(),
         _cuda.stream_ptr(dev))
@@ -407,7 +415,10 @@ filter_megakernel.launches = 0
 
 def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
                         constrain=None, ess_threshold: float = 0.5,
-                        gate_stride: int = 1, model=None):
+                        gate_stride: int = 1, model=None,
+                        resampler: str = "systematic",
+                        metropolis_iters: int = None,
+                        metropolis_bias_budget: float = 0.5):
     """PMMH ``batched_log_like`` hook for a kernel model: all chains x
     replicates in ONE launch.
 
@@ -418,25 +429,57 @@ def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
     the device with ``gen``, so the host never waits.  No padding rows:
     the ESS gate is per row.
 
-    Large-N bridge: above the kernel's 1024 particles, pass the matching
+    Cap: 1024 particles under ``resampler="systematic"``, 4096 under the
+    roll resamplers.  Large-N bridge: above the cap, pass the matching
     ``StateSpaceModel`` as ``model`` and the hook is the generic bank
     ``filters.bootstrap.replicated_log_like_fn`` at the same particle
     count, replicates and ESS gate; it takes the PMMH's parameters as
-    they are (``constrain`` and ``gate_stride`` are kernel plumbing and
-    unused there).  Without ``model`` it raises.
+    they are (``constrain``, ``gate_stride`` and the resampler are kernel
+    plumbing and unused there).  Without ``model`` it raises.
+
+    ``resampler="metropolis"`` biases the evidence at a finite sweep
+    count, and the bias depends on theta, so it distorts the
+    pseudo-marginal posterior itself.  As in JAX, ``metropolis_iters=None``
+    takes the sweep count from ``_select.metropolis_sweeps_for`` so that
+    the predicted bias stays within ``metropolis_bias_budget`` nats (it
+    raises when no count within 256 does), and an explicit count whose
+    predicted bias exceeds the budget warns.  "rejection" is unbiased.
     """
     r = num_replicates
-    if num_particles > MAX_PARTICLES:
+    check_resampler(resampler)
+    cap = MAX_PARTICLES if resampler == "systematic" else MAX_ROLL_PARTICLES
+    if num_particles > cap:
         if model is None:
             raise ValueError(
-                f"num_particles={num_particles} exceeds the kernel's "
-                f"{MAX_PARTICLES}; pass the matching StateSpaceModel as "
-                "model= to run the generic filter bank instead (the "
-                "large-N bridge)")
+                f"num_particles={num_particles} exceeds the kernel's cap "
+                f"({cap} under resampler={resampler!r}); pass the matching "
+                "StateSpaceModel as model= to run the generic filter bank "
+                "instead (the large-N bridge), or take "
+                "resampler='rejection' (unbiased, cap "
+                f"{MAX_ROLL_PARTICLES})")
         return replicated_log_like_fn(
             model, num_particles, r,
             ess_threshold=None if ess_threshold >= 1.0
             else float(ess_threshold))
+
+    def sweeps(t_len):
+        if resampler != "metropolis":
+            return 16 if metropolis_iters is None else metropolis_iters
+        if metropolis_iters is None:
+            return metropolis_sweeps_for(metropolis_bias_budget, t_len,
+                                         ess_threshold)
+        est = metropolis_bias_estimate(metropolis_iters, t_len, ess_threshold)
+        if est > metropolis_bias_budget:
+            need = metropolis_sweeps_for(metropolis_bias_budget, t_len,
+                                         ess_threshold, max_sweeps=1 << 20)
+            warnings.warn(
+                f"metropolis_iters={metropolis_iters} predicts ~{est:.2f} "
+                f"nats of theta-dependent evidence bias at T={t_len} (budget "
+                f"{metropolis_bias_budget}); a biased evidence distorts the "
+                f"pseudo-marginal posterior: use metropolis_iters={need}, "
+                "resampler='rejection' (unbiased), or raise the budget "
+                "deliberately", stacklevel=3)
+        return metropolis_iters
 
     def ll(gen, params, ys, zs=None):
         c = params.shape[0]
@@ -447,7 +490,10 @@ def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
                                        rows, ys, zs,
                                        num_particles=num_particles,
                                        ess_threshold=ess_threshold,
-                                       gate_stride=gate_stride)
+                                       gate_stride=gate_stride,
+                                       resampler=resampler,
+                                       metropolis_iters=int(sweeps(
+                                           int(ys.shape[0]))))
         return logmeanexp(vals.reshape(c, r), dim=-1)
 
     return ll
@@ -457,7 +503,9 @@ def megakernel_swarm_evidence(kmodel, seed, param_draws, ys, zs=None,
                               num_particles: int = 512,
                               ess_threshold: float = 1.0,
                               return_cloud: bool = False,
-                              gate_stride: int = 1):
+                              gate_stride: int = 1,
+                              resampler: str = "systematic",
+                              metropolis_iters: int = 16):
     """Swarm conditional evidence for a kernel model: one filter per
     parameter draw (the kernel's row axis), per-step aggregation across
     models.
@@ -472,13 +520,15 @@ def megakernel_swarm_evidence(kmodel, seed, param_draws, ys, zs=None,
     :func:`ssme_tpu_torch.inference.swarm.forecast_from_cloud`.  With
     ``gate_stride > 1`` the per-model lcls coarsen to per-check block
     sums (totals unchanged) and the functional paths are zero off the
-    check columns.
+    check columns.  ``resampler`` and ``metropolis_iters`` as in
+    :func:`filter_megakernel`.
     """
     outs = filter_megakernel(kmodel, seed, param_draws.contiguous(), ys, zs,
                              num_particles=num_particles,
                              ess_threshold=ess_threshold,
                              return_cloud=return_cloud,
-                             gate_stride=gate_stride)
+                             gate_stride=gate_stride, resampler=resampler,
+                             metropolis_iters=metropolis_iters)
     _, lcls, fmeans = outs[:3]
     if not isinstance(fmeans, tuple):
         fmeans = (fmeans,)

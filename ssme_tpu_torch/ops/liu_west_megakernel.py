@@ -35,8 +35,12 @@ draws of theta (``ops/_prng.py``).
 The kernel is ``csrc/lw_megakernel.cu``, one template over the functors of
 ``csrc/lw_models.cuh``; its header comment gives the layout and the
 intended divergences from the Pallas kernel.  On a CUDA tensor only a
-model whose ``cuda_instance`` names a functor there runs, and only the
-systematic resampler; anything else raises.  On a CPU tensor every model
+model whose ``cuda_instance`` names a functor there runs; anything else
+raises.  Selection (``resampler``): "systematic", or the roll-based
+"metropolis" and "rejection" resamplers (``ops/_select.py``) at a
+power-of-two N up to 1024, moving the joint (state, logw, theta) column
+by one ancestor index; their lift to 4096 is ROADMAP.md section 2's next
+item.  On a CPU tensor every model
 runs through :func:`lw_megakernel_reference`, which calls the hooks step
 by step with the kernel's random bits.  The carried log-weights are
 renormalised by their maximum after every step (the conditional
@@ -56,10 +60,11 @@ from typing import Callable
 import torch
 
 from ssme_tpu_torch.ops import _cuda, _prng
-from ssme_tpu_torch.ops._select import (check_particles,
-                                        systematic_points)
+from ssme_tpu_torch.ops._select import (RESAMPLER_CODES, check_particles,
+                                        check_resampler, plain_ancestor_fn)
 from ssme_tpu_torch.ops.filter_megakernel import _as_rows
-from ssme_tpu_torch.ops.svol_filter_kernel import _BLOCK_ELEMENTS
+from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
+                                                   resample_rows)
 
 # the dispatch table of csrc/lw_models.cuh (same names, same numbers;
 # tests/test_torch_lw_megakernel.py parses the header and compares)
@@ -230,7 +235,8 @@ class _PlainRng:
 
 
 def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
-              resample_every, variant, ess_threshold, resampler):
+              resample_every, variant, ess_threshold, resampler,
+              metropolis_iters=16):
     if not isinstance(ys, torch.Tensor):
         raise ValueError("ys must be a tensor")
     dev = ys.device
@@ -246,14 +252,9 @@ def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
             f"model {kmodel.name!r} has dim_cov=0 but covariates zs were "
             "supplied: build the kernel model with dim_cov set if the "
             "model should see them")
-    check_particles(int(num_particles))
-    if resampler not in ("systematic", "metropolis", "rejection"):
-        raise ValueError(f"unknown resampler {resampler!r}")
-    if resampler != "systematic":
-        raise ValueError(f"resampler={resampler!r} is not ported to the "
-                         "PyTorch/CUDA package yet (ROADMAP.md section 2, "
-                         "item 2); the systematic selection has no "
-                         "particle cap below the kernel's 1024")
+    check_resampler(resampler, metropolis_iters)
+    check_particles(int(num_particles), resampler,
+                    roll_cap=MAX_LW_KERNEL_PARTICLES)
     if variant not in ("apf", "sisr"):
         raise ValueError("variant must be 'apf' or 'sisr'")
     if variant == "apf" and kmodel.prop_mu is None:
@@ -293,13 +294,6 @@ def _cholesky(gram, h2, p):
     return lmat
 
 
-def _select(w, u0):
-    """Systematic ancestors (F, N) and the weight totals (F, 1)."""
-    cdf, u = systematic_points(w, u0)
-    anc = torch.searchsorted(cdf.contiguous(), u.contiguous(), side="left")
-    return torch.clamp(anc, max=w.shape[-1] - 1), cdf[:, -1:]
-
-
 def _gather(leaves, anc):
     return tuple(torch.gather(v, 1, anc) for v in leaves)
 
@@ -307,13 +301,16 @@ def _gather(leaves, anc):
 def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
                             num_particles=512, delta=0.99, resample_every=1,
                             variant="apf", ess_threshold=0.0,
-                            resampler="systematic"):
+                            resampler="systematic", metropolis_iters=16):
     """Plain PyTorch version of :func:`lw_megakernel`, callable on either
     device and with any :class:`LWKernelModel`; consumes the kernel's
-    Philox bits step by step."""
+    Philox bits step by step.  Under a roll resampler the APF first stage
+    selects on ``_prng.TAG_ROLL_SELECT``, the joint resample on
+    ``TAG_ROLL_SWEEP``, and only the firing filters run the sweep loop."""
     seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
                              num_particles, resample_every, variant,
-                             ess_threshold, resampler)
+                             ess_threshold, resampler, metropolis_iters)
+    roll = resampler != "systematic"
     f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
     p, s_rows = kmodel.num_params, kmodel.num_state
     dev = ys.device
@@ -322,7 +319,8 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
     ess_limit = float(ess_threshold) * n
     fns = tuple(kmodel.functionals or ())
     apf = variant == "apf"
-    rng = _PlainRng(seed, torch.arange(f, device=dev), n, t_len, p)
+    filters = torch.arange(f, device=dev)
+    rng = _PlainRng(seed, filters, n, t_len, p)
     lcl = torch.zeros((f, t_len), dtype=torch.float32, device=dev)
     fpaths = torch.zeros((len(fns), f, t_len), dtype=torch.float32,
                          device=dev)
@@ -348,15 +346,12 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
             fire = True
         else:
             return state, th, lw
-        anc, _ = _select(wn, rng.resample_offsets(t))
-        picked = _gather(state + tuple(th.unbind()), anc)
-        if fire is True:
-            return (picked[:s_rows], torch.stack(picked[s_rows:]),
-                    torch.zeros_like(lw))
-        return (tuple(torch.where(fire, new, old)
-                      for new, old in zip(picked[:s_rows], state)),
-                torch.where(fire, torch.stack(picked[s_rows:]), th),
-                torch.where(fire, torch.zeros_like(lw), lw))
+        ancestors = plain_ancestor_fn(
+            resampler, metropolis_iters, seed, filters, t, n,
+            None if roll else rng.resample_offsets(t))
+        picked, lw, _ = resample_rows(ancestors, wn, state + tuple(th.unbind()),
+                                      lw, None, fire, 0.0, roll)
+        return picked[:s_rows], torch.stack(picked[s_rows:]), lw
 
     # t = 0: the prior draw, the init draw, the first weights
     y, z = obs_at(0)
@@ -385,7 +380,14 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
             look = tuple(kmodel.prop_mu(kmodel.constrain(th), state, y, z))
             lfs = lw + kmodel.log_weight(kmodel.constrain(shrunk), look, y, z)
             mfs = torch.amax(lfs, dim=-1, keepdim=True)
-            anc, total = _select(torch.exp(lfs - mfs), rng.select_offsets(t))
+            wfs = torch.exp(lfs - mfs)
+            anc = plain_ancestor_fn(
+                resampler, metropolis_iters, seed, filters, t, n,
+                None if roll else rng.select_offsets(t),
+                _prng.TAG_ROLL_SELECT)(wfs, None)
+            # systematic: the CDF's last entry, as the kernel's scan total
+            total = (wfs.sum(-1, keepdim=True) if roll
+                     else torch.cumsum(wfs, dim=-1)[:, -1:])
             lse_fs = mfs + torch.log(total)
             picked = _gather(state + look + tuple(shrunk.unbind()), anc)
             state_anc = picked[:s_rows]
@@ -461,14 +463,17 @@ def _host_floats(values, width):
 
 def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
                   num_particles=512, delta=0.99, resample_every=1,
-                  variant="apf", ess_threshold=0.0, resampler="systematic"):
+                  variant="apf", ess_threshold=0.0, resampler="systematic",
+                  metropolis_iters=16):
     """Run ``num_filters`` whole-sequence Liu-West filters of ``kmodel``
     in one launch.
 
     seed: (2,) int64 Philox key words on the device of ``ys``, or a Python
     int; ys: (T,) or (T, dim_obs) float32; zs: (T,) or (T, dim_cov)
     covariates, required iff the model has them.  ``num_particles`` is a
-    multiple of 32 in [32, 1024].  ``variant``: "apf" or "sisr";
+    multiple of 32 in [32, 1024] under ``resampler="systematic"``, a power
+    of two in [32, 1024] under "metropolis" (``metropolis_iters`` sweeps
+    per selection) or "rejection".  ``variant``: "apf" or "sisr";
     ``ess_threshold > 0`` resamples a filter when its ESS falls below
     that fraction of N, else every ``resample_every`` steps.
 
@@ -485,11 +490,12 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     """
     seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
                              num_particles, resample_every, variant,
-                             ess_threshold, resampler)
+                             ess_threshold, resampler, metropolis_iters)
     if ys.device.type == "cpu":
         return lw_megakernel_reference(kmodel, seed, ys, zs, num_filters,
                                        num_particles, delta, resample_every,
-                                       variant, ess_threshold)
+                                       variant, ess_threshold, resampler,
+                                       metropolis_iters)
     if ys.device.type != "cuda":
         raise ValueError(f"lw_megakernel: unsupported device {ys.device}")
     model_id = _model_id(kmodel)
@@ -511,6 +517,7 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
         None if zs is None else zs.data_ptr(), f, t_len, n,
         int(variant == "apf"), int(resample_every),
         float(ess_threshold) * n if ess_threshold > 0.0 else 0.0,
+        RESAMPLER_CODES[resampler], int(metropolis_iters),
         _host_floats(_coefficients(delta), 3),
         _host_floats(lo, _MAX_PARAMS), _host_floats(scale, _MAX_PARAMS),
         _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS),

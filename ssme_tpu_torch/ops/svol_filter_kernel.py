@@ -10,6 +10,9 @@ step with plain tensor operations and the same Philox bits
 
 :func:`svol_filter` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; on a CUDA tensor it never falls back.
+Selection: systematic, or the roll-based ``"metropolis"`` and
+``"rejection"`` resamplers (``ops/_select.py``) at a power-of-two N up to
+1024; their lift to 4096 is ROADMAP.md section 2's next item.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ import math
 import torch
 
 from ssme_tpu_torch.ops import _cuda, _prng
-from ssme_tpu_torch.ops._select import (check_particles,
-                                        systematic_select_reference)
+from ssme_tpu_torch.ops._select import (MAX_PARTICLES, RESAMPLER_CODES,
+                                        check_particles, check_resampler,
+                                        plain_ancestor_fn)
 from ssme_tpu_torch.utils import logmeanexp
 
 
-def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride):
+def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride,
+              resampler="systematic", metropolis_iters=16):
     if not isinstance(params, torch.Tensor) or params.ndim != 2 \
             or params.shape[1] != 3 or params.shape[0] < 1:
         raise ValueError("params must be a (B, 3) tensor of "
@@ -46,7 +51,8 @@ def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride):
             raise ValueError(f"{name} is on {t.device}, params on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    check_particles(int(num_particles))
+    check_resampler(resampler, metropolis_iters)
+    check_particles(int(num_particles), resampler, roll_cap=MAX_PARTICLES)
     if int(gate_stride) != gate_stride or gate_stride < 1:
         raise ValueError("gate_stride must be a positive integer")
     if gate_stride > 1 and ess_threshold >= 1.0:
@@ -57,15 +63,40 @@ def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride):
     return seed, ys
 
 
-def _resample_rows(wn, u0, x, lw, carry, fire, log_n):
-    """Systematic resample of the rows where ``fire`` (a (B, 1) bool
-    tensor, or True for all rows) with offsets ``u0`` (B,)."""
-    picked, _ = systematic_select_reference(wn, x[None], u0)
-    if fire is True:
-        return picked[0], torch.zeros_like(lw), torch.full_like(carry, log_n)
-    return (torch.where(fire, picked[0], x),
-            torch.where(fire, torch.zeros_like(lw), lw),
-            torch.where(fire, torch.full_like(carry, log_n), carry))
+def resample_rows(ancestors, wn, leaves, lw, carry, fire, log_n,
+                  subset=False):
+    """Resample every leaf (a tuple of (B, N)) of the rows where ``fire``
+    (a (B, 1) bool tensor, or True for all rows) by ``ancestors(w, sub)``
+    (``_select.plain_ancestor_fn``); lw resets to 0 and the carried
+    log-sum (B, 1), if not None, to log N.  With ``subset`` only the
+    firing rows select (the roll laws' sweep loops), else every row
+    selects and ``torch.where`` keeps the others."""
+    if fire is True or not subset:
+        anc = ancestors(wn, None)
+        picked = tuple(torch.gather(v, 1, anc) for v in leaves)
+        if fire is True:
+            return (picked, torch.zeros_like(lw),
+                    None if carry is None else torch.full_like(carry, log_n))
+        return (tuple(torch.where(fire, new, old)
+                      for new, old in zip(picked, leaves)),
+                torch.where(fire, torch.zeros_like(lw), lw),
+                None if carry is None else
+                torch.where(fire, torch.full_like(carry, log_n), carry))
+    sub = fire[:, 0].nonzero()[:, 0]
+    if sub.numel() == 0:
+        return leaves, lw, carry
+    anc = ancestors(wn[sub], sub)
+    out = []
+    for v in leaves:
+        v = v.clone()
+        v[sub] = torch.gather(v[sub], 1, anc)
+        out.append(v)
+    lw = lw.clone()
+    lw[sub] = 0.0
+    if carry is not None:
+        carry = carry.clone()
+        carry[sub] = log_n
+    return tuple(out), lw, carry
 
 
 # elements of Philox output the plain version draws at once (a block of
@@ -74,11 +105,13 @@ _BLOCK_ELEMENTS = 1 << 22
 
 
 def svol_filter_reference(seed, params, ys, num_particles=512,
-                          ess_threshold=1.0, gate_stride=1):
+                          ess_threshold=1.0, gate_stride=1,
+                          resampler="systematic", metropolis_iters=16):
     """Plain PyTorch version of :func:`svol_filter`, callable on either
     device; consumes the kernel's Philox bits step by step."""
     seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
-                         gate_stride)
+                         gate_stride, resampler, metropolis_iters)
+    roll = resampler != "systematic"
     n, g = int(num_particles), int(gate_stride)
     b, t_len = params.shape[0], ys.shape[0]
     rows = torch.arange(b, device=params.device)
@@ -106,8 +139,10 @@ def svol_filter_reference(seed, params, ys, num_particles=512,
         else:
             if g == 1:
                 fire = True if always else s_last * s_last / s2_last < ess_limit
-                x, lw, carry = _resample_rows(wn, u0[t % block], x, lw,
-                                              carry, fire, log_n)
+                (x,), lw, carry = resample_rows(
+                    plain_ancestor_fn(resampler, metropolis_iters, seed, rows,
+                                      t, n, u0[t % block]),
+                    wn, (x,), lw, carry, fire, log_n, roll)
             x = phi * x + sigma * eps[t % block]
         z = (ys[t] / beta) * torch.exp(-0.5 * x)
         lw = lw + ((c0 - 0.5 * x) - 0.5 * z * z)
@@ -123,13 +158,15 @@ def svol_filter_reference(seed, params, ys, num_particles=512,
         carry = torch.log(s)
         s_last, s2_last = s, s2
         if g > 1:
-            x, lw, carry = _resample_rows(wn, u0[t % block], x, lw, carry,
-                                          s * s / s2 < ess_limit, log_n)
+            (x,), lw, carry = resample_rows(
+                plain_ancestor_fn(resampler, metropolis_iters, seed, rows, t,
+                                  n, u0[t % block]),
+                wn, (x,), lw, carry, s * s / s2 < ess_limit, log_n, roll)
     return lcl.sum(-1), lcl, xmean
 
 
 def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
-                gate_stride=1):
+                gate_stride=1, resampler="systematic", metropolis_iters=16):
     """B whole-sequence SVOL bootstrap filters in one launch.
 
     seed: (2,) int64 Philox key words on the params' device, or a Python
@@ -144,12 +181,18 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
     only): weights accumulate between checks at t = g-1 (mod g) and
     t = T-1; lcl and xmean are zero off those columns and sum(lcl) stays
     the exact evidence.
+
+    resampler: "systematic" (N a multiple of 32 in [32, 1024]),
+    "metropolis" (``metropolis_iters`` sweeps; biased at a finite count,
+    ``_select.metropolis_bias_estimate``) or "rejection" (unbiased), both
+    at a power-of-two N in [32, 1024].
     """
     seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
-                         gate_stride)
+                         gate_stride, resampler, metropolis_iters)
     if params.device.type == "cpu":
         return svol_filter_reference(seed, params, ys, num_particles,
-                                     ess_threshold, gate_stride)
+                                     ess_threshold, gate_stride, resampler,
+                                     metropolis_iters)
     if params.device.type != "cuda":
         raise ValueError(f"svol_filter: unsupported device {params.device}")
     lib = _cuda.library()
@@ -161,7 +204,8 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
     err = lib.ssme_svol_filter(
         seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len,
         int(num_particles), float(ess_threshold) * int(num_particles),
-        int(ess_threshold >= 1.0), int(gate_stride), total.data_ptr(),
+        int(ess_threshold >= 1.0), int(gate_stride),
+        RESAMPLER_CODES[resampler], int(metropolis_iters), total.data_ptr(),
         lcl.data_ptr(), xmean.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, "ssme_svol_filter")
     svol_filter.launches += 1

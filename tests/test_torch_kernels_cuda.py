@@ -19,6 +19,7 @@ from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import _prng, _select
 from ssme_tpu_torch.ops import filter_megakernel as fm
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+from ssme_tpu_torch.ops import svol_kernel as k5
 from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_filter,
                                                    svol_filter_reference)
@@ -291,9 +292,108 @@ def test_lw_launch_counters_and_errors(dev):
         name="custom")
     with pytest.raises(ValueError, match="no CUDA instance"):
         lwm.lw_megakernel(custom, 1, ys, zs, num_particles=64)
-    with pytest.raises(ValueError, match="not ported"):
-        lwm.lw_megakernel(km, 1, ys, zs, num_particles=64,
+    with pytest.raises(ValueError, match="power of two"):
+        lwm.lw_megakernel(km, 1, ys, zs, num_particles=96,
                           resampler="metropolis")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        lwm.lw_megakernel(km, 1, ys, zs, num_particles=2048,
+                          resampler="rejection")
     with pytest.raises(ValueError):      # covariates on another device
         lwm.lw_megakernel(km, 1, ys, zs.cpu(), num_particles=64)
     assert lwm.lw_megakernel.launches == before[0] + 1
+
+
+@pytest.mark.parametrize("n", [512, 2048, 4096])
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_roll_select_equals_plain(dev, resampler, n):
+    """Identical Philox draws and weights: the roll laws compare one
+    rounded product with a weight, so the ancestors are equal exactly."""
+    rng = np.random.default_rng(n)
+    w = torch.as_tensor(rng.gamma(0.5, 1.0, (16, n)).astype(np.float32),
+                        device=dev)
+    leaves = torch.as_tensor(rng.normal(size=(2, 16, n)).astype(np.float32),
+                             device=dev)
+    before = _select.roll_select.launches
+    for tag in (_prng.TAG_ROLL_SWEEP, _prng.TAG_ROLL_SELECT):
+        got = _select.roll_select(w, leaves, 4, step=9, resampler=resampler,
+                                  metropolis_iters=24, tag=tag)
+        want = _select.roll_select_reference(w, leaves, 4, step=9,
+                                             resampler=resampler,
+                                             metropolis_iters=24, tag=tag)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+    assert _select.roll_select.launches == before + 2
+
+
+def test_megakernel_rejection_at_2048_is_finite_and_deterministic(dev):
+    ys = _ys(200, 4).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 32, device=dev)
+    kw = dict(num_particles=2048, ess_threshold=0.5, resampler="rejection")
+    km = fm.svol_kernel_model()
+    a = fm.filter_megakernel(km, 6, params, ys, **kw)
+    b = fm.filter_megakernel(km, 6, params, ys, **kw)
+    c = fm.filter_megakernel(km, 7, params, ys, **kw)
+    assert torch.isfinite(a[0]).all() and torch.isfinite(a[1]).all()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0], c[0])
+    cloud = fm.filter_megakernel(km, 6, params, ys, return_cloud=True,
+                                 **kw)
+    assert torch.equal(cloud[0], a[0])
+    assert cloud[3][0].shape == (32, 2048)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fm.filter_megakernel(km, 6, params, ys, num_particles=2048)
+
+
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_roll_filters_match_plain(dev, resampler):
+    """K1, K2 (bootstrap, APF, N=512 and 2048) and K3 under a roll
+    resampler against their plain versions on identical bits: step 0
+    equal, most rows' totals within 2e-3 (an exp ulp can flip one accept
+    decision)."""
+    ys = _ys(48, 5).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    roll = dict(resampler=resampler, metropolis_iters=16)
+    runs = []
+    for n in (512, 2048):
+        for mode in ("bootstrap", "apf"):
+            kw = dict(num_particles=n, mode=mode, **roll)
+            runs.append((fm.filter_megakernel(fm.svol_kernel_model(), 2,
+                                              params, ys, **kw)[:2],
+                         fm.filter_megakernel_reference(
+                             fm.svol_kernel_model(), 2, params, ys,
+                             **kw)[:2]))
+    runs.append((svol_filter(2, params, ys, num_particles=512, **roll)[:2],
+                 svol_filter_reference(2, params, ys, num_particles=512,
+                                       **roll)[:2]))
+    km, zs = _lw_instance("svol_leverage_lw", ys)
+    for variant in ("apf", "sisr"):
+        kw = dict(num_filters=16, num_particles=512, variant=variant, **roll)
+        a = lwm.lw_megakernel(km, 2, ys, zs, **kw)
+        b = lwm.lw_megakernel_reference(km, 2, ys, zs, **kw)
+        runs.append(((a["log_likelihood"], a["log_cond_likes"]),
+                     (b["log_likelihood"], b["log_cond_likes"])))
+    for (tot, lcl), (tot_p, lcl_p) in runs:
+        torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5,
+                                   atol=1e-4)
+        assert torch.isfinite(tot).all()
+        assert float(((tot - tot_p).abs() <= 2e-3).float().mean()) >= 0.75
+
+
+def test_svol_step_equals_plain(dev):
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(64, 512)).astype(np.float32),
+                        device=dev)
+    lw = torch.as_tensor(rng.normal(size=(64, 512)).astype(np.float32),
+                         device=dev)
+    params = torch.tensor([[1.3, 0.7, 0.2]] * 64, device=dev)
+    before = k5.fused_svol_propagate_weight.launches
+    for y in (0.37, torch.full((1,), 0.37, device=dev)):
+        got = k5.fused_svol_propagate_weight(5, y, params, x, lw)
+        want = k5.fused_svol_propagate_weight_reference(5, y, params, x, lw)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-5)
+    assert k5.fused_svol_propagate_weight.launches == before + 2
+    with pytest.raises(ValueError):
+        k5.fused_svol_propagate_weight(5, 0.0, params, x[:, :511], lw)
+

@@ -289,12 +289,17 @@ def test_validation_errors():
         "log_likelihood"]).all()
     for kw, msg in ((dict(variant="bad"), "variant"),
                     (dict(resample_every=0), "resample_every"),
-                    (dict(resampler="metropolis"), "not ported"),
-                    (dict(resampler="rejection"), "not ported"),
+                    (dict(resampler="metropolis", num_particles=96),
+                     "power of two"),
+                    (dict(resampler="rejection", num_particles=2048),
+                     "ROADMAP"),
+                    (dict(resampler="metropolis", metropolis_iters=0),
+                     "metropolis_iters"),
                     (dict(resampler="bad"), "unknown resampler"),
                     (dict(num_filters=0), "num_filters")):
         with pytest.raises(ValueError, match=msg):
-            lwm.lw_megakernel(km, 0, ys, num_particles=128, **kw)
+            lwm.lw_megakernel(km, 0, ys, **dict(dict(num_particles=128),
+                                                **kw))
     with pytest.raises(ValueError, match="transform_codes"):
         lwm.LWKernelModel(num_params=2, transform_codes=("null",),
                           sample_prior=None, init=None, propagate=None,
@@ -365,7 +370,16 @@ def test_prior_uniform_and_select_offset_streams():
     tags = {name: int(v, 16) for name, v in re.findall(
         r"constexpr uint32_t (kTag\w+) = 0x([0-9A-Fa-f]+)u;", src)}
     assert tags == {"kTagPriorUniform": _prng.TAG_PRIOR_UNIFORM,
-                    "kTagSelectOffset": _prng.TAG_SELECT_OFFSET}
+                    "kTagSelectOffset": _prng.TAG_SELECT_OFFSET,
+                    "kTagRollSweep": _prng.TAG_ROLL_SWEEP,
+                    "kTagRollSelect": _prng.TAG_ROLL_SELECT}
+    # the roll resamplers' sweep tags stay clear of every other stream
+    roll = [range(t, t + _prng.ROLL_MAX_ITERS)
+            for t in (_prng.TAG_ROLL_SWEEP, _prng.TAG_ROLL_SELECT)]
+    for tag in (0, 1, 2, _prng.normal_tag(2 ** 31 - 3),
+                _prng.TAG_PRIOR_UNIFORM, _prng.TAG_SELECT_OFFSET):
+        assert all(tag not in r for r in roll)
+    assert roll[0][-1] < roll[1][0] and roll[1][-1] < 2 ** 32
     with pytest.raises(ValueError):
         _prng.normal_tag(2 ** 31)
 
@@ -400,3 +414,29 @@ def test_model_ids_and_transform_codes_match_the_cuda_header():
                           "kNumState": km.num_state,
                           "kDimObs": km.dim_obs, "kDimCov": km.dim_cov,
                           "kNumFunctionals": len(km.functionals or ())}
+
+
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_roll_resamplers_match_jax_generic_filter_in_distribution(resampler):
+    """F=32 filters, N=256, T=64, APF: the plain K3 under each roll
+    resampler (first stage and joint resample) against JAX's generic
+    filter with systematic joint resampling, within 4 combined standard
+    errors (Metropolis, 32 sweeps: plus its bias envelope)."""
+    from ssme_tpu_torch.ops._select import metropolis_bias_estimate
+    ys, zs = _leverage_data(64, 2)
+    f, iters = 32, 32
+    jf = JaxLiuWestFilter(jlev.make_model(), 256, variant="apf",
+                          resampler="systematic")
+    want = np.asarray(jax.jit(jax.vmap(lambda key: jf.run(
+        key, jnp.asarray(ys[:, None]), jnp.asarray(zs[:, None]))
+        .log_likelihood))(jax.random.split(jax.random.key(1), f)),
+        np.float64)
+    out = _run(lwm.svol_leverage_lw_kernel_model(), 3, ys, zs, num_filters=f,
+               num_particles=256, resampler=resampler, metropolis_iters=iters)
+    got = out["log_likelihood"].double().numpy()
+    assert np.isfinite(got).all()
+    se = math.sqrt(got.var(ddof=1) / f + want.var(ddof=1) / f)
+    slack = (metropolis_bias_estimate(iters, 64, 1.0)
+             if resampler == "metropolis" else 0.0)
+    assert abs(got.mean() - want.mean()) <= 4 * se + slack
+

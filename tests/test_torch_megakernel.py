@@ -209,13 +209,21 @@ def test_wrapper_validation():
                 dict(gate_stride=0, ess_threshold=0.5),
                 dict(mode="apf", gate_stride=4, ess_threshold=0.5),
                 dict(mode="apf", kmodel=no_look), dict(mode="smc"),
-                dict(resampler="metropolis"), dict(resampler="rejection")]:
+                dict(resampler="metropolis", num_particles=96),
+                dict(resampler="rejection", num_particles=8192),
+                dict(resampler="rejection", num_particles=16),
+                dict(resampler="metropolis", metropolis_iters=0),
+                dict(resampler="multinomial")]:
         kw = dict(base)
         kw.update(bad)
         with pytest.raises(ValueError):
             fm.filter_megakernel(**kw)
-    with pytest.raises(ValueError, match="not ported"):
-        fm.filter_megakernel(**dict(base, resampler="metropolis"))
+    with pytest.raises(ValueError, match="power of two"):
+        fm.filter_megakernel(**dict(base, resampler="metropolis",
+                                    num_particles=96))
+    for resampler in ("metropolis", "rejection"):
+        tot, _, _ = fm.filter_megakernel(**dict(base, resampler=resampler))
+        assert torch.isfinite(tot).all()
     with pytest.raises(ValueError, match="large-N bridge"):
         fm.megakernel_log_like(lev, 2048, 2)
     with pytest.raises(ValueError, match="no CUDA instance"):
@@ -452,9 +460,9 @@ def test_model_id_table_matches_the_cuda_header():
             "kDimObs": km.dim_obs, "kDimCov": km.dim_cov}, struct
         assert t["kHasPropMu"] == (km.prop_mu is not None), struct
     with open(os.path.join(os.path.dirname(path),
-                           "filter_megakernel.cu")) as f:
+                           "filter_megakernel.cuh")) as f:
         dispatch = re.findall(
-            r"case ssme::(kModel\w+):\s*return dispatch<ssme::(\w+(?:<\d+>)?)>",
+            r"case ssme::(kModel\w+):\s*return dispatch<ssme::(\w+(?:<\d+>)?),",
             f.read())
     consts = dict(re.findall(r"constexpr int (kModel\w+) = (\d+);", src))
     by_id = {int(consts[c]): functor for c, functor in dispatch}
@@ -463,3 +471,156 @@ def test_model_id_table_matches_the_cuda_header():
     want.update({fm.CUDA_MODEL_IDS[f"factor_svol_{na}"]:
                  f"FactorSvolModel<{na}>" for na in fm.FACTOR_ASSET_COUNTS})
     assert by_id == want
+
+
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+@pytest.mark.parametrize("mode", ["bootstrap", "apf"])
+def test_roll_resamplers_match_jax_filters_in_distribution(mode, resampler):
+    """32 rows, N=256, T=64: the plain kernel under each roll resampler
+    against the JAX package's generic filters on the same series within 4
+    combined standard errors (Metropolis: plus its bias envelope at its
+    32 sweeps) -- the leverage bootstrap at ESS 0.5 against the JAX bank
+    at ESS 0.5, SVOL's APF against JAX's AuxiliaryParticleFilter."""
+    from ssme_tpu.filters import AuxiliaryParticleFilter as JaxAPF
+    from ssme_tpu.models import svol as jsvol
+    from ssme_tpu_torch.ops._select import metropolis_bias_estimate
+    rows, n, t_len, iters = 32, 256, 64, 32
+    ys = _simulate_leverage(t_len, seed=12)
+    keys = jax.random.split(jax.random.key(2), rows)
+    if mode == "bootstrap":
+        bank = jax_bank(jlev.make_model(), n, 1, ess_threshold=0.5)
+        want = np.asarray(bank(keys[0], jnp.tile(jnp.asarray(THETA),
+                                                 (rows, 1)),
+                               jnp.asarray(ys)[:, None],
+                               jnp.asarray(_lagged(ys))[:, None]))
+        km, p, zs, ess = (fm.svol_leverage_kernel_model(), _rows(rows),
+                          torch.from_numpy(_lagged(ys)), 0.5)
+    else:
+        theta = (1.0, 0.9, 0.05)
+        japf = JaxAPF(jsvol.make_model(), n)
+        want = np.asarray(jax.vmap(lambda k: japf.run(
+            k, jnp.asarray(theta), jnp.asarray(ys)[:, None])
+            .log_likelihood)(keys))
+        km, zs, ess = fm.svol_kernel_model(), None, 1.0
+        p = fm.svol_kernel_rows(torch.tensor([theta] * rows))
+    got, _, _ = fm.filter_megakernel(km, 5, p, torch.from_numpy(ys), zs,
+                                     num_particles=n, ess_threshold=ess,
+                                     mode=mode, resampler=resampler,
+                                     metropolis_iters=iters)
+    got = got.double().numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    se = math.sqrt(got.var(ddof=1) / rows + want.var(ddof=1) / rows)
+    slack = (metropolis_bias_estimate(iters, t_len, ess)
+             if resampler == "metropolis" else 0.0)
+    assert abs(got.mean() - want.mean()) <= 4 * se + slack
+
+
+def test_megakernel_log_like_roll_caps_and_sweep_budget():
+    """JAX's cap logic: up to 4096 particles a roll resampler stays in
+    the kernel (here its plain version, one call per iteration), above it
+    ``model=`` takes the bridge; metropolis_iters=None takes the budget's
+    sweep count, and an explicit count over budget warns with JAX's
+    numbers."""
+    import warnings
+
+    from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
+    from ssme_tpu_torch.models import svol
+    from ssme_tpu_torch.ops import _select
+    ys = torch.from_numpy(_simulate_leverage(12, seed=9))
+    params = torch.tensor([[1.0, 0.9, 0.05]])
+    km, model = fm.svol_kernel_model(), svol.make_model()
+
+    def gen():
+        return torch.Generator().manual_seed(3)
+
+    def direct(n, resampler, iters):
+        seed = torch.randint(0, 2 ** 32, (2,), generator=gen(),
+                             dtype=torch.int64)
+        return fm.filter_megakernel(
+            km, seed, fm.svol_kernel_rows(params).contiguous(), ys,
+            num_particles=n, ess_threshold=0.5, resampler=resampler,
+            metropolis_iters=iters)[0]
+
+    for n in (2048, 4096):
+        ll = fm.megakernel_log_like(km, n, 1, constrain=fm.svol_kernel_rows,
+                                    resampler="rejection", model=model)
+        torch.testing.assert_close(ll(gen(), params, ys),
+                                   direct(n, "rejection", 16), rtol=0,
+                                   atol=1e-6)
+    sweeps = _select.metropolis_sweeps_for(0.5, 12, 0.5)
+    ll = fm.megakernel_log_like(km, 2048, 1, constrain=fm.svol_kernel_rows,
+                                resampler="metropolis")
+    torch.testing.assert_close(ll(gen(), params, ys),
+                               direct(2048, "metropolis", sweeps), rtol=0,
+                               atol=1e-6)
+    bridge = fm.megakernel_log_like(km, 8192, 1, resampler="rejection",
+                                    model=model)
+    assert torch.equal(bridge(gen(), params, ys[:, None]),
+                       replicated_log_like_fn(model, 8192, 1,
+                                              ess_threshold=0.5)(
+                           gen(), params, ys[:, None]))
+    for kw in (dict(num_particles=8192, resampler="rejection"),
+               dict(num_particles=2048),
+               dict(num_particles=512, resampler="multinomial")):
+        n = kw.pop("num_particles")
+        with pytest.raises(ValueError):
+            fm.megakernel_log_like(km, n, 1, **kw)
+    est = _select.metropolis_bias_estimate(4, 12, 0.5)
+    need = _select.metropolis_sweeps_for(0.01, 12, 0.5, max_sweeps=1 << 20)
+    over = fm.megakernel_log_like(km, 64, 1, constrain=fm.svol_kernel_rows,
+                                  resampler="metropolis", metropolis_iters=4,
+                                  metropolis_bias_budget=0.01)
+    with pytest.warns(UserWarning, match=re.escape(
+            f"metropolis_iters=4 predicts ~{est:.2f} nats of theta-dependent"
+            f" evidence bias at T=12 (budget 0.01)")) as rec:
+        over(gen(), params, ys)
+    assert f"metropolis_iters={need}" in str(rec[0].message)
+    within = fm.megakernel_log_like(km, 64, 1, constrain=fm.svol_kernel_rows,
+                                    resampler="metropolis",
+                                    metropolis_iters=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert torch.isfinite(within(gen(), params, ys)).all()
+    impossible = fm.megakernel_log_like(km, 64, 1, resampler="metropolis",
+                                        metropolis_bias_budget=1e-6)
+    with pytest.raises(ValueError, match="rejection"):
+        impossible(gen(), fm.svol_kernel_rows(params), ys)
+
+
+def test_cpu_tensors_hand_the_resampler_to_the_plain_versions():
+    """On a CPU tensor every wrapper passes ``resampler`` and
+    ``metropolis_iters`` on to its plain version."""
+    from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+    from ssme_tpu_torch.ops.svol_filter_kernel import svol_filter
+    ys = torch.from_numpy(_simulate_leverage(24, seed=4))
+    zs = torch.from_numpy(_lagged(ys.numpy()))
+    p = _rows(4)
+    km = fm.svol_leverage_kernel_model()
+    svol_rows = fm.svol_kernel_rows(torch.tensor([[1.0, 0.9, 0.05]] * 4))
+    lkm = lwm.svol_leverage_lw_kernel_model()
+    for resampler in ("metropolis", "rejection"):
+        roll = dict(resampler=resampler, metropolis_iters=6)
+        cases = [
+            (lambda **kw: fm.filter_megakernel(km, 1, p, ys, zs,
+                                               num_particles=64, **kw)[0],
+             lambda **kw: fm.filter_megakernel_reference(
+                 km, 1, p, ys, zs, num_particles=64, **kw)[0]),
+            (lambda **kw: fm.megakernel_swarm_evidence(
+                km, 1, p, ys, zs, num_particles=64,
+                **kw)["per_model_log_cond_likes"],
+             lambda **kw: fm.filter_megakernel_reference(
+                 km, 1, p, ys, zs, num_particles=64, **kw)[1]),
+            (lambda **kw: svol_filter(1, svol_rows, ys, num_particles=64,
+                                      **kw)[0],
+             lambda **kw: svol_filter_reference(1, svol_rows, ys,
+                                                num_particles=64, **kw)[0]),
+            (lambda **kw: lwm.lw_megakernel(lkm, 1, ys, zs, num_filters=2,
+                                            num_particles=64,
+                                            **kw)["log_likelihood"],
+             lambda **kw: lwm.lw_megakernel_reference(
+                 lkm, 1, ys, zs, num_filters=2, num_particles=64,
+                 **kw)["log_likelihood"])]
+        for wrapper, plain in cases:
+            got = wrapper(**roll)
+            assert torch.equal(got, plain(**roll))
+            assert not torch.equal(got, plain())

@@ -46,6 +46,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.ops.liu_west_megakernel",
             "ssme_tpu_torch.ops.svol_leverage_lw_kernel",
             "ssme_tpu_torch.ops.svol_filter_kernel",
+            "ssme_tpu_torch.ops.svol_kernel",
+            "ssme_tpu_torch.ops._select",
+            "ssme_tpu_torch.ops._prng",
             "ssme_tpu_torch.ops.filter_megakernel",
             "ssme_tpu_torch.models.svol_leverage",
             "ssme_tpu_torch.models.svol_t",

@@ -136,3 +136,33 @@ def test_batched_hook_is_chain_major_and_seeded_by_the_generator():
     assert a.shape == (3,) and torch.equal(a, b)
     assert abs(float(a[0] - a[1])) < 2.0 and float(a[2]) < float(a[0]) - 5
 
+
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_roll_resamplers_match_jax_bank_in_distribution(resampler):
+    """32 rows, N=256, T=64 simulated SVOL at ESS 0.5: the plain K1 under
+    each roll resampler within 4 combined standard errors of the JAX bank
+    (Metropolis, 32 sweeps: plus its bias envelope); above 1024 particles
+    the roll options raise and name the cap lift's ROADMAP item."""
+    from ssme_tpu_torch.ops._select import metropolis_bias_estimate
+    rows, n, iters = 32, 256, 32
+    ys = _simulate_svol(64, seed=3)
+    bank = jax_bank(jsvol.make_model(), n, 1, ess_threshold=0.5)
+    want = np.asarray(bank(jax.random.key(4),
+                           jnp.tile(jnp.asarray(THETA), (rows, 1)),
+                           jnp.asarray(ys)[:, None]))
+    got, _, _ = svol_filter(6, _kernel_rows(rows), torch.from_numpy(ys),
+                            num_particles=n, ess_threshold=0.5,
+                            resampler=resampler, metropolis_iters=iters)
+    got = got.double().numpy()
+    assert np.isfinite(got).all()
+    se = math.sqrt(got.var(ddof=1) / rows + want.var(ddof=1) / rows)
+    slack = (metropolis_bias_estimate(iters, 64, 0.5)
+             if resampler == "metropolis" else 0.0)
+    assert abs(got.mean() - want.mean()) <= 4 * se + slack
+    with pytest.raises(ValueError, match="ROADMAP"):
+        svol_filter(6, _kernel_rows(8), torch.from_numpy(ys),
+                    num_particles=2048, resampler=resampler)
+    with pytest.raises(ValueError, match="power of two"):
+        svol_filter(6, _kernel_rows(8), torch.from_numpy(ys),
+                    num_particles=384, resampler=resampler)
+
