@@ -1,117 +1,20 @@
-// Whole-sequence Liu-West filter bank for Hopper: one template kernel over
-// model functors (lw_models.cuh).
+// The Liu-West kernel at one particle per thread: the C entry point and
+// the instances of every model under the systematic selection and, up to
+// 1024 particles, the roll resamplers.  lw_megakernel.cuh has the layout,
+// the step recursion and the divergences from the Pallas kernel;
+// lw_megakernel_roll.cu the roll instances above 1024 particles.
 //
-// Replaces ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel (the Pallas
-// body _build_kernel) and, through its svol_leverage_lw instance,
-// ssme_tpu/ops/svol_leverage_lw_kernel.py::svol_leverage_lw_pallas, to
-// which that instance is bit-compatible in JAX.  F filters, each on a
-// joint (state, theta) cloud of N particles, over T observations in ONE
-// launch; the cloud never leaves the chip.
-//
-// Layout: one CTA per filter, one particle per thread (blockDim = N, a
-// multiple of 32, at most 1024; a power of two under the roll resamplers,
-// whose lift to 4096 with kPer particles per thread, as the generic
-// kernel's, is ROADMAP.md section 2's next item).  The state leaves, the carried
-// log-weight and the transformed theta[P] live in registers for all T
-// steps.  Shared memory holds one CDF, one gather buffer reused leaf by
-// leaf, the reduction scratch (32 floats per simultaneous sum), theta_bar
-// and the P x P Cholesky factor, which thread 0 computes once per step
-// from the block sums.  ys (T, dim_obs) and zs (T, dim_cov) are read row-major from
-// global memory.  __launch_bounds__(1024, 1) caps a thread at 64 registers.
-//
-// What bounds it: per-step latency of block barriers, not bytes.  Each of
-// the T sequential steps costs a (1 + P)-way and a P(P+1)/2-way block sum
-// (the moments), one Cholesky on one thread, the first-stage max, scan
-// and (2S + P)-leaf gather (APF), the weights' max and sums, and on a
-// resampling step a scan and an (S + P)-leaf gather: some forty barriers
-// against a few hundred float operations per thread.  Under a roll
-// resampler (roll_select.cuh: metropolis or rejection, chosen at run time;
-// the family a template parameter, so the systematic instances compile
-// without it) each selection is a sweep loop of Philox draws instead of a
-// scan, the APF first stage takes its LSE from a block sum, and the joint
-// column moves by the same gather.  The inputs are
-// T floats, the outputs (F, T) and the final cloud.
-//
-// Per step it computes what _build_kernel computes:
-//   t = 0   prior draw (uniform box, lo + (hi - lo) u), transform, init,
-//           lw = log g, lcl = LSE(lw) - log N, functionals, then the
-//           resample schedule;
-//   t > 0   theta_bar = sum w theta / sum w and Vt = sum w (theta -
-//           theta_bar)(theta - theta_bar)' / sum w, in two passes, with w
-//           = exp(lw); L = chol(h^2 Vt), diagonal floored at 1e-9;
-//           shrunk = a theta + (1 - a) theta_bar;
-//     apf:  lookahead at the pre-shrinkage theta, first-stage weights
-//           lw + log g(y, lookahead; shrunk), a selection on them
-//           (systematic with offset tag 2^31 + 1, or a roll resampler on
-//           the first-stage sweep tags) and a joint gather of (state,
-//           lookahead, shrunk);
-//     both: theta' = shrunk_anc + L e (draws 0 .. P-1), the transition
-//           (its normals from draw P on);
-//     apf:  lw' = log g(y, x'; theta') - log g(y, lookahead_anc;
-//           shrunk_anc), lcl = LSE(fsw) - LSE(lw) + LSE(lw') - log N;
-//     sisr: lw' = lw + log g(y, x'; theta'), lcl = LSE(lw') - LSE(lw);
-//   then    functionals under the normalised weights, lw' renormalised by
-//           its maximum, and the joint (state, theta) resample on the
-//           resample_every schedule or when ESS < ess_limit, lw' = 0.
-//   Outputs: lcl (F, T), the functional paths (K, F, T), the final cloud
-//   (F, S + 1 + P, N) rows [state x S, logw, theta x P].
-//
-// Intended divergences from the Pallas kernel:
-//  - the ESS gate is per filter (as the Pallas kernel's one-filter grid
-//    rows; there is no tile to share it);
-//  - the loop runs to T exactly: no padded steps, no steps_per_cell;
-//  - no (N, N) lt matrix, no compensated_cdf and no tile_seeds: the
-//    systematic selection is the block scan of systematic_select.cuh, the
-//    roll resamplers carry ancestor indices (roll_select.cuh);
-//  - no zero pad rows in the cloud (a TPU sublane artefact);
-//  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's;
-//  - the log-weights are renormalised by their maximum after every step
-//    (the conditional likelihoods are unchanged; the cloud's log-weight
-//    row has maximum 0);
-//  - the hooks are compiled functors, so only the instances of
-//    lw_models.cuh run here; the SISR form's custom proposal (sample_q,
-//    log_fq) is not ported.
-#include <cstdint>
+// This kernel keeps its own code, apart from the kPer one of
+// lw_megakernel_roll.cu: instantiated at kPer = 1, that template computed
+// svol_t_lw with other float roundings (measured on the H100 against this
+// kernel), and the instances here must repeat their results bit for bit.  Per
+// step it gathers the APF ancestors' state, lookahead and shrunk theta
+// (2S + P leaves) where the kPer kernel gathers state and theta and
+// recomputes the other two.
+#include "lw_megakernel.cuh"
 
-#include <cuda_runtime.h>
-
-#include "lw_models.cuh"
-#include "philox.cuh"
-#include "roll_select.cuh"
-#include "systematic_select.cuh"
-
+namespace ssme_lw {
 namespace {
-
-constexpr int kMaxParticles = 1024;
-constexpr int kMaxParams = 8;
-constexpr int kMaxModelArgs = 4;
-constexpr float kEpsChol = 1e-9f;
-
-// call-time arguments, passed by value
-struct LWArgs {
-  float a, one_minus_a, h2;     // kernel shrinkage, from delta on the host
-  float prior_lo[kMaxParams];   // uniform prior box lo, hi - lo (float32)
-  float prior_scale[kMaxParams];
-  float model[kMaxModelArgs];   // the functor's constants
-};
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-template <class Model>
-__device__ __forceinline__ void load_step(const float* ys, const float* zs,
-                                          int t, float* y, float* z) {
-#pragma unroll
-  for (int j = 0; j < Model::kDimObs; ++j) y[j] = ys[t * Model::kDimObs + j];
-#pragma unroll
-  for (int j = 0; j < Model::kDimCov; ++j) z[j] = zs[t * Model::kDimCov + j];
-}
-
-template <class Model>
-__device__ __forceinline__ void constrain(const float* th, float* cp) {
-#pragma unroll
-  for (int k = 0; k < Model::kNumParams; ++k)
-    cp[k] = ssme::to_constrained(Model::code(k), th[k]);
-}
 
 // the max of lw, then the block sums of w = exp(lw - max) (*wn, this
 // thread's), of each functional times w and of w^2: *s, the functional
@@ -168,7 +71,7 @@ __device__ __forceinline__ void maybe_resample(
 }
 
 template <class Model, bool kRoll>
-__global__ void __launch_bounds__(kMaxParticles, 1)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
               const float* __restrict__ zs, int num_steps, int apf,
               int resample_every, float ess_limit, int resampler,
@@ -179,8 +82,8 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
   constexpr int K = Model::kNumFunctionals;
   constexpr int kGram = P * (P + 1) / 2;
   constexpr int kSums = cmax(cmax(1 + P, kGram), K + 2);
-  __shared__ float cdf[kMaxParticles];
-  __shared__ float buf[kMaxParticles];
+  __shared__ float cdf[kMaxThreads];
+  __shared__ float buf[kMaxThreads];
   __shared__ float red[32 * kSums];
   __shared__ float chol[P * P];
   __shared__ float tbar[P];
@@ -338,18 +241,32 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
       for (int r = k; r < P; ++r) th[r] = th[r] + chol[r * P + k] * e;
     }
     constrain<Model>(th, cp);
+    float lw_new;
     {
       ssme::StepRng rng{k0, k1, i, static_cast<uint32_t>(t), b,
                         static_cast<uint32_t>(P)};
-      model.propagate(rng, cp, x, y, z);
+      if constexpr (Model::kHasProposal) {
+        if (apf) {
+          model.propagate(rng, cp, x, y, z);
+        } else {
+          // the SISR form's own proposal and its log f - log q
+          float x_anc[S];
+#pragma unroll
+          for (int l = 0; l < S; ++l) x_anc[l] = x[l];
+          model.sample_q(rng, cp, x_anc, y, z, x);
+          lw_new = lw + (model.log_weight(cp, x, y, z) +
+                         model.log_fq(cp, x, x_anc, y, z));
+        }
+      } else {
+        model.propagate(rng, cp, x, y, z);
+      }
     }
-    float lw_new;
     if (apf) {
       float cpa[P];
       constrain<Model>(shrunk, cpa);
       lw_new = model.log_weight(cp, x, y, z) -
                model.log_weight(cpa, look, y, z);
-    } else {
+    } else if constexpr (!Model::kHasProposal) {
       lw_new = lw + model.log_weight(cp, x, y, z);
     }
     m = weigh(model, lw_new, cp, x, red, &wn, &s, &s2, &lse, fmean);
@@ -369,36 +286,27 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
   for (int k = 0; k < P; ++k) out[(S + 1 + k) * n] = th[k];
 }
 
-// the launch's arguments, as the C entry point receives them
-struct LWLaunch {
-  const int64_t* seed;
-  const float* ys;
-  const float* zs;
-  int num_filters, num_steps, num_particles, apf, resample_every;
-  float ess_limit;
-  int resampler, metropolis_iters;
-  float *lcl, *fpaths, *cloud;
-  cudaStream_t stream;
+template <class Model>
+struct RunOne {
+  static int go(const LWLaunch& a, const LWArgs& args) {
+    if (a.resampler == ssme::kResampleSystematic)
+      lw_megakernel<Model, false><<<a.num_filters, a.num_particles, 0,
+                                    a.stream>>>(
+          a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
+          a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl,
+          a.fpaths, a.cloud);
+    else
+      lw_megakernel<Model, true><<<a.num_filters, a.num_particles, 0,
+                                   a.stream>>>(
+          a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
+          a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl,
+          a.fpaths, a.cloud);
+    return static_cast<int>(cudaGetLastError());
+  }
 };
 
-template <class Model>
-void launch(const LWLaunch& a, const LWArgs& args) {
-  if (a.resampler == ssme::kResampleSystematic) {
-    lw_megakernel<Model, false><<<a.num_filters, a.num_particles, 0,
-                                  a.stream>>>(
-        a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
-        a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl, a.fpaths,
-        a.cloud);
-  } else {
-    lw_megakernel<Model, true><<<a.num_filters, a.num_particles, 0,
-                                 a.stream>>>(
-        a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
-        a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl, a.fpaths,
-        a.cloud);
-  }
-}
-
 }  // namespace
+}  // namespace ssme_lw
 
 // Plain C entry point (bound with ctypes).  seed, ys, zs, lcl, fpaths and
 // cloud are device pointers the caller allocated (zs null without
@@ -406,10 +314,11 @@ void launch(const LWLaunch& a, const LWArgs& args) {
 // prior_lo, prior_scale (kMaxParams each) and model_args (kMaxModelArgs)
 // are host arrays, copied into the launch's argument block.  ess_limit > 0
 // gates the resample on ESS < ess_limit, else it follows resample_every.
-// resampler: 0 systematic, 1 metropolis with metropolis_iters sweeps, 2
-// rejection (both on a power-of-two N).
-// The kernel allocates nothing and runs on `stream`.  Returns
-// cudaGetLastError() after the launch, or -1 for an unknown model id.
+// resampler: 0 systematic (N a multiple of 32 up to 1024), 1 metropolis
+// with metropolis_iters sweeps, 2 rejection (both on a power-of-two N up
+// to 4096).  The kernel allocates nothing and runs on `stream`.  Returns
+// cudaGetLastError() after the launch, -1 for an unknown model id, or -3
+// for a particle count the resampler does not take.
 extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                                   const float* ys, const float* zs,
                                   int num_filters, int num_steps,
@@ -420,6 +329,7 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                                   const float* prior_scale,
                                   const float* model_args, float* lcl,
                                   float* fpaths, float* cloud, void* stream) {
+  using namespace ssme_lw;
   LWArgs args;
   args.a = coefs[0];
   args.one_minus_a = coefs[1];
@@ -433,15 +343,8 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                    apf, resample_every, ess_limit, resampler,
                    metropolis_iters, lcl, fpaths, cloud,
                    static_cast<cudaStream_t>(stream)};
-  switch (model_id) {
-    case ssme::kLWModelSvolLeverage:
-      launch<ssme::SvolLeverageLW>(a, args);
-      break;
-    case ssme::kLWModelSvolT:
-      launch<ssme::SvolTLW>(a, args);
-      break;
-    default:
-      return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_particles <= kMaxThreads)
+    return dispatch_model<RunOne>(model_id, a, args);
+  if (resampler == ssme::kResampleSystematic) return -3;
+  return dispatch_roll_large(model_id, a, args);
 }

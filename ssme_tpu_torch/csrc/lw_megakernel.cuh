@@ -1,0 +1,168 @@
+// Whole-sequence Liu-West filter bank for Hopper: template kernels over
+// model functors (lw_models.cuh) and the selection family, at one
+// particle per thread and at kPer particles per thread.
+//
+// Replaces ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel (the Pallas
+// body _build_kernel) and, through its svol_leverage_lw instance,
+// ssme_tpu/ops/svol_leverage_lw_kernel.py::svol_leverage_lw_pallas, to
+// which that instance is bit-compatible in JAX.  F filters, each on a
+// joint (state, theta) cloud of N particles, over T observations in ONE
+// launch; the cloud never leaves the chip.  lw_megakernel.cu holds the C
+// entry point and the kernel at one particle per thread,
+// lw_megakernel_roll.cu the kernel of the roll resamplers above 1024
+// particles, so that nvcc builds the two in parallel.
+//
+// Layout: one CTA per filter and kPer particles per thread (particle j =
+// p * blockDim + threadIdx.x; the Philox counters are keyed by j, so the
+// plain version's bits hold at every kPer).  The systematic selection and
+// every N up to 1024 run one particle per thread (blockDim = N, a multiple
+// of 32; a power of two under the roll resamplers; lw_megakernel.cu).
+// Above 1024 the roll resamplers take a power of two up to 4096 (JAX's
+// MAX_LW_METROPOLIS_PARTICLES) with blockDim = 1024 and kPer = N / 1024,
+// 2 or 4 particles per thread, as in the generic kernel
+// (lw_megakernel_roll.cu).  Each particle keeps its state, theta[P] and
+// its log-weight in registers for all T steps, and at the 64 registers of
+// __launch_bounds__(1024, 1) ptxas spills: some 200 bytes a thread at
+// kPer = 2 and 500-1000 at kPer = 4 (PERF.md; chip_smoke.py phase 2
+// prints them).  The other design, blockDim = 512 with 4 or 8 particles
+// per thread at 128 registers, spilled no less in a bring-up build, and
+// ran no faster, so the kernel keeps the generic kernel's.  Shared memory
+// holds the CDF (the roll resamplers' weights) and one gather buffer of N
+// floats each (32 KB at 4096), the reduction scratch (32 floats per
+// simultaneous sum), theta_bar and the P x P Cholesky factor, which thread
+// 0 computes once per step from the block sums.  ys (T, dim_obs) and zs
+// (T, dim_cov) are read row-major from global memory.
+//
+// What bounds it: per-step latency of block barriers, not bytes.  Each of
+// the T sequential steps costs a (1 + P)-way and a P(P+1)/2-way block sum
+// (the moments), one Cholesky on one thread, the first-stage max, scan
+// and (2S + P)-leaf gather (APF; S + P above 1024), the weights' max and
+// sums, and on a
+// resampling step a scan and an (S + P)-leaf gather: some forty barriers
+// against a few hundred float operations per thread.  Under a roll
+// resampler (roll_select.cuh: metropolis or rejection, chosen at run
+// time; the family a template parameter, so the systematic instances
+// compile without it) each selection is a sweep loop of Philox draws
+// instead of a scan, and the APF first stage takes its LSE from a block
+// sum.  The inputs are T floats, the outputs (F, T) and the final cloud.
+//
+// Per step it computes what _build_kernel computes:
+//   t = 0   prior draw (uniform box, lo + (hi - lo) u), transform, init,
+//           lw = log g, lcl = LSE(lw) - log N, functionals, then the
+//           resample schedule;
+//   t > 0   theta_bar = sum w theta / sum w and Vt = sum w (theta -
+//           theta_bar)(theta - theta_bar)' / sum w, in two passes, with w
+//           = exp(lw); L = chol(h^2 Vt), diagonal floored at 1e-9;
+//           shrunk = a theta + (1 - a) theta_bar;
+//     apf:  lookahead at the pre-shrinkage theta, first-stage weights
+//           lw + log g(y, lookahead; shrunk), a selection on them
+//           (systematic with offset tag 2^31 + 1, or a roll resampler on
+//           the first-stage sweep tags) and a joint gather of (state,
+//           lookahead, shrunk) (above 1024 particles: of state and theta,
+//           the ancestor's lookahead and shrunk theta recomputed from
+//           them, which holds fewer values per particle across the
+//           selection);
+//     both: theta' = shrunk_anc + L e (draws 0 .. P-1), the transition
+//           (its normals from draw P on) or, under sisr with a functor
+//           that has a proposal (kHasProposal), sample_q;
+//     apf:  lw' = log g(y, x'; theta') - log g(y, lookahead_anc;
+//           shrunk_anc), lcl = LSE(fsw) - LSE(lw) + LSE(lw') - log N;
+//     sisr: lw' = lw + log g(y, x'; theta') (+ log_fq(x', x_anc), the
+//           proposal's log f - log q), lcl = LSE(lw') - LSE(lw);
+//   then    functionals under the normalised weights, lw' renormalised by
+//           its maximum, and the joint (state, theta) resample on the
+//           resample_every schedule or when ESS < ess_limit, lw' = 0.
+//   Outputs: lcl (F, T), the functional paths (K, F, T), the final cloud
+//   (F, S + 1 + P, N) rows [state x S, logw, theta x P].
+//
+// Intended divergences from the Pallas kernel:
+//  - the ESS gate is per filter (as the Pallas kernel's one-filter grid
+//    rows; there is no tile to share it);
+//  - the loop runs to T exactly: no padded steps, no steps_per_cell;
+//  - no (N, N) lt matrix, no compensated_cdf and no tile_seeds: the
+//    systematic selection is the block scan of systematic_select.cuh, the
+//    roll resamplers carry ancestor indices (roll_select.cuh);
+//  - no zero pad rows in the cloud (a TPU sublane artefact);
+//  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's;
+//  - the log-weights are renormalised by their maximum after every step
+//    (the conditional likelihoods are unchanged; the cloud's log-weight
+//    row has maximum 0);
+//  - the hooks are compiled functors, so only the instances of
+//    lw_models.cuh run here (the SISR proposal too: a functor's sample_q
+//    and log_fq, not any Python hook).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "lw_models.cuh"
+#include "philox.cuh"
+#include "roll_select.cuh"
+#include "systematic_select.cuh"
+
+namespace ssme_lw {
+
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxParams = 8;
+constexpr int kMaxModelArgs = 4;
+constexpr float kEpsChol = 1e-9f;
+
+// call-time arguments, passed by value
+struct LWArgs {
+  float a, one_minus_a, h2;     // kernel shrinkage, from delta on the host
+  float prior_lo[kMaxParams];   // uniform prior box lo, hi - lo (float32)
+  float prior_scale[kMaxParams];
+  float model[kMaxModelArgs];   // the functor's constants
+};
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <class Model>
+__device__ __forceinline__ void load_step(const float* ys, const float* zs,
+                                          int t, float* y, float* z) {
+#pragma unroll
+  for (int j = 0; j < Model::kDimObs; ++j) y[j] = ys[t * Model::kDimObs + j];
+#pragma unroll
+  for (int j = 0; j < Model::kDimCov; ++j) z[j] = zs[t * Model::kDimCov + j];
+}
+
+template <class Model>
+__device__ __forceinline__ void constrain(const float* th, float* cp) {
+#pragma unroll
+  for (int k = 0; k < Model::kNumParams; ++k)
+    cp[k] = ssme::to_constrained(Model::code(k), th[k]);
+}
+
+// the launch's arguments, as the C entry point receives them
+struct LWLaunch {
+  const int64_t* seed;
+  const float* ys;
+  const float* zs;
+  int num_filters, num_steps, num_particles, apf, resample_every;
+  float ess_limit;
+  int resampler, metropolis_iters;
+  float *lcl, *fpaths, *cloud;
+  cudaStream_t stream;
+};
+
+// Run<Model>::go for every model id; -1 for an unknown one
+template <template <class> class Run>
+int dispatch_model(int model_id, const LWLaunch& a, const LWArgs& args) {
+  switch (model_id) {
+    case ssme::kLWModelSvolLeverage:
+      return Run<ssme::SvolLeverageLW>::go(a, args);
+    case ssme::kLWModelSvolT:
+      return Run<ssme::SvolTLW>::go(a, args);
+    case ssme::kLWModelSvolLeverageQ:
+      return Run<ssme::SvolLeverageQLW>::go(a, args);
+    default:
+      return -1;
+  }
+}
+
+// the roll instances above 1024 particles (lw_megakernel_roll.cu): -3 for
+// a particle count they do not take
+int dispatch_roll_large(int model_id, const LWLaunch& a, const LWArgs& args);
+
+}  // namespace ssme_lw

@@ -14,6 +14,10 @@
 //   prop_mu    (cp, x, y, z, out)          APF lookahead
 //   log_weight (cp, x, y, z) -> float      log g(y | x)
 //   functional (k, cp, x) -> float         whose filtered mean is emitted
+// and, where kHasProposal is true, the SISR form's own proposal (JAX's
+// optional LWKernelModel.sample_q / log_fq; APF never uses them):
+//   sample_q   (rng, cp, x_anc, y, z, x_out)  draw x_out from q
+//   log_fq     (cp, x_new, x_anc, y, z) -> float   log f - log q
 // Unlike the bootstrap kernel's functors the parameters are per particle:
 // each hook takes that particle's constrained cp[kNumParams].  The rng
 // hands out the step's normals from draw kNumParams on (draws 0 .. P-1 are
@@ -31,6 +35,7 @@ namespace ssme {
 // same numbers under the quoted names; a CPU test parses these lines.
 constexpr int kLWModelSvolLeverage = 0;  // "svol_leverage_lw"
 constexpr int kLWModelSvolT = 1;         // "svol_t_lw"
+constexpr int kLWModelSvolLeverageQ = 2;  // "svol_leverage_lw_q"
 
 // transform codes (ssme_tpu_torch/transforms.py numbering)
 constexpr int kTransNull = 0;
@@ -68,6 +73,7 @@ struct SvolLeverageLW {
   static constexpr int kDimObs = 1;
   static constexpr int kDimCov = 1;
   static constexpr int kNumFunctionals = 0;
+  static constexpr bool kHasProposal = false;
   __host__ __device__ static constexpr int code(int k) {
     constexpr int codes[kNumParams] = {  // "svol_leverage_lw"
         kTransLogit, kTransNull, kTransLog, kTransTwiceFisher};
@@ -114,6 +120,7 @@ struct SvolTLW {
   static constexpr int kDimObs = 1;
   static constexpr int kDimCov = 0;
   static constexpr int kNumFunctionals = 1;
+  static constexpr bool kHasProposal = false;
   __host__ __device__ static constexpr int code(int k) {
     constexpr int codes[kNumParams] = {  // "svol_t_lw"
         kTransLog, kTransTwiceFisher, kTransLog};
@@ -146,6 +153,68 @@ struct SvolTLW {
   // the filtered mean log-volatility
   __device__ float functional(int, const float*, const float* x) const {
     return x[0];
+  }
+};
+
+// SvolLeverageLW with a SISR proposal of its own: the transition widened by
+// a call-time factor kappa, x' ~ N(mean_f, (kappa sd)^2) with sd = sigma
+// sqrt(1 - rho^2), and log_fq the log ratio of the two normal densities.
+// The test vehicle of the kernel's sample_q / log_fq path (no JAX instance
+// sets those hooks).  At kappa = 1 its draws, weights and evidence are the
+// plain SISR path's bit for bit.  args: (kappa).
+struct SvolLeverageQLW {
+  static constexpr int kNumParams = 4;
+  static constexpr int kNumState = 1;
+  static constexpr int kDimObs = 1;
+  static constexpr int kDimCov = 1;
+  static constexpr int kNumFunctionals = 0;
+  static constexpr bool kHasProposal = true;
+  __host__ __device__ static constexpr int code(int k) {
+    constexpr int codes[kNumParams] = {  // "svol_leverage_lw_q"
+        kTransLogit, kTransNull, kTransLog, kTransTwiceFisher};
+    return codes[k];
+  }
+
+  SvolLeverageLW base;
+  float kappa;
+
+  __device__ explicit SvolLeverageQLW(const float* args)
+      : base(args), kappa(args[0]) {}
+
+  __device__ void init(StepRng& rng, const float* cp, const float* y,
+                       const float* z, float* x) const {
+    base.init(rng, cp, y, z, x);
+  }
+  __device__ void propagate(StepRng& rng, const float* cp, float* x,
+                            const float* y, const float* z) const {
+    base.propagate(rng, cp, x, y, z);
+  }
+  __device__ void prop_mu(const float* cp, const float* x, const float* y,
+                          const float* z, float* out) const {
+    base.prop_mu(cp, x, y, z, out);
+  }
+  __device__ float log_weight(const float* cp, const float* x,
+                              const float* y, const float* z) const {
+    return base.log_weight(cp, x, y, z);
+  }
+  __device__ float functional(int, const float*, const float*) const {
+    return 0.0f;
+  }
+  __device__ void sample_q(StepRng& rng, const float* cp, const float* x_anc,
+                           const float*, const float* z, float* x) const {
+    const float m = SvolLeverageLW::mean(cp, x_anc[0], z);
+    const float sd = cp[2] * sqrtf(1.0f - cp[3] * cp[3]);
+    x[0] = m + (kappa * sd) * rng.normal();
+  }
+  __device__ float log_fq(const float* cp, const float* x_new,
+                          const float* x_anc, const float*,
+                          const float* z) const {
+    const float d = x_new[0] - SvolLeverageLW::mean(cp, x_anc[0], z);
+    const float sd = cp[2] * sqrtf(1.0f - cp[3] * cp[3]);
+    const float sq = kappa * sd;
+    const float ef = d / sd;
+    const float eq = d / sq;
+    return (-logf(sd) - 0.5f * ef * ef) - (-logf(sq) - 0.5f * eq * eq);
   }
 };
 

@@ -4,14 +4,25 @@
 // Pallas kernel body _make_kernel): B filters over T observations in ONE
 // launch, the particle cloud never leaving the chip.
 //
-// Layout: one CTA per filter row, one particle per thread (blockDim = N,
-// a multiple of 32, at most 1024; a power of two under the roll
-// resamplers).  x and the carried log-weight live in
-// registers for all T steps; the CDF and the gather buffer in shared
-// memory; lcl[b, t] and xmean[b, t] are written straight to global
-// memory by thread 0.  __launch_bounds__(1024, 1) caps the kernel at 64
-// registers a thread, so two 512-thread CTAs share an SM and B = 256
-// rows fit the H100's 132 SMs in one wave.
+// Layout: one CTA per filter row and kPer particles per thread, a
+// template parameter: kPer = 1 up to N = 1024 (blockDim = N, a multiple of
+// 32), then kPer = 2 up to 2048 and 4 up to 4096 (blockDim = N / kPer, N a
+// multiple of 128 as in the Pallas kernel), N a power of two under the
+// roll resamplers.  Particle j = p * blockDim + threadIdx.x, so loads and
+// the Philox counters (keyed by j) are the plain version's at every kPer,
+// and the reductions first fold a thread's kPer values.  This is the
+// generic kernel's design (filter_megakernel.cuh): every barrier stays in
+// one CTA.  x and the carried log-weight live in registers for all T
+// steps; the CDF (the roll resamplers' weights) and the gather buffer of
+// N floats each in static shared memory, 32 KB at 4096, which is the cap:
+// above it the 48 KB of static shared memory would need an opt-in, and
+// the generic bank (filters/bootstrap.py) takes larger N.  Above 1024 the
+// systematic selection scans kPer contiguous weights per thread
+// (systematic_select.cuh::systematic_ancestors_per).  lcl[b, t] and
+// xmean[b, t] are written straight to global memory by thread 0.
+// __launch_bounds__(1024, 1) caps the kernel at 64 registers a thread, so
+// two 512-thread CTAs share an SM and B = 256 rows fit the H100's 132 SMs
+// in one wave.
 //
 // What bounds it: per-step latency, not bytes.  Each of the T sequential
 // steps costs block barriers (one max and one three-way sum reduction,
@@ -22,7 +33,7 @@
 // Selection: systematic (systematic_select.cuh), or a roll resampler
 // (roll_select.cuh, metropolis or rejection, chosen at run time) on the
 // sweep tags of ops/_prng.py; the family is a template parameter, so the
-// systematic instance compiles without the roll code.
+// systematic instances compile without the roll code.
 //
 // Per step it computes exactly what the Pallas kernel computes:
 //   t = 0   x ~ N(0, sigma^2 / (1 - phi^2)), lw = 0, carry = log N;
@@ -55,10 +66,30 @@
 namespace {
 
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
-constexpr int kMaxParticles = 1024;
+constexpr int kMaxThreads = 1024;
 
-template <bool kRoll>
-__global__ void __launch_bounds__(kMaxParticles, 1)
+// the ancestors of this thread's kPer particles on weights wn, the state
+// moved by them: systematic with the step's offset, or the roll resampler
+// on the sweep tags
+template <bool kRoll, int kPer>
+__device__ __forceinline__ void resample(const float (&wn)[kPer],
+                                         float (&x)[kPer][1], int resampler,
+                                         int metropolis_iters, uint32_t k0,
+                                         uint32_t k1, uint32_t t, uint32_t b,
+                                         float* cdf, float* buf, float* red) {
+  int anc[kPer];
+  if constexpr (kRoll) {
+    ssme::roll_ancestors<kPer>(resampler, metropolis_iters, wn, cdf, red, k0,
+                               k1, t, b, ssme::kTagRollSweep, anc);
+  } else {
+    ssme::systematic_ancestors_per<kPer>(
+        wn, ssme::offset_at(k0, k1, t, b, ssme::kTagOffset), cdf, red, anc);
+  }
+  ssme::gather_leaves_per<1, kPer>(x, anc, buf);
+}
+
+template <bool kRoll, int kPer>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 svol_filter_kernel(const int64_t* __restrict__ seed,
                    const float* __restrict__ params,
                    const float* __restrict__ ys, int num_steps,
@@ -66,27 +97,34 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
                    int resampler, int metropolis_iters,
                    float* __restrict__ total, float* __restrict__ lcl,
                    float* __restrict__ xmean) {
-  __shared__ float cdf[kMaxParticles];
-  __shared__ float buf[kMaxParticles];
+  __shared__ float cdf[kMaxThreads * kPer];
+  __shared__ float buf[kMaxThreads * kPer];
   __shared__ float red[3 * 32];
 
   const uint32_t b = blockIdx.x;
   const uint32_t i = threadIdx.x;
+  const uint32_t bd = blockDim.x;
   const uint32_t k0 = static_cast<uint32_t>(seed[0]);
   const uint32_t k1 = static_cast<uint32_t>(seed[1]);
   const float beta = params[3 * b];
   const float phi = params[3 * b + 1];
   const float sigma = params[3 * b + 2];
-  const float log_n = logf(static_cast<float>(blockDim.x));
+  const float log_n = logf(static_cast<float>(bd * kPer));
   const float c0 = -kHalfLog2Pi - logf(beta);
   float* lcl_row = lcl + static_cast<size_t>(b) * num_steps;
   float* xmean_row = xmean + static_cast<size_t>(b) * num_steps;
 
-  float x = ssme::normal_at(k0, k1, i, 0u, b) *
-            (sigma / sqrtf(1.0f - phi * phi));
-  float lw = 0.0f;
+  float x[kPer][1];
+  float lw[kPer];
+  float wn[kPer];             // exp(lw) after the last check
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    x[p][0] = ssme::normal_at(k0, k1, p * bd + i, 0u, b) *
+              (sigma / sqrtf(1.0f - phi * phi));
+    lw[p] = 0.0f;
+    wn[p] = 1.0f;
+  }
   float carry = log_n;
-  float wn = 1.0f;            // exp(lw) after the last check
   float s_last = 1.0f;        // sum and sum of squares of wn at that check
   float s2_last = 1.0f;
   float row_total = 0.0f;
@@ -95,18 +133,22 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     if (t > 0) {
       if (gate_stride == 1 &&
           (always || s_last * s_last / s2_last < ess_limit)) {
-        x = ssme::gather_from(
-            x, ssme::select_ancestor<kRoll>(wn, resampler, metropolis_iters,
-                                            k0, k1, t, b, ssme::kTagOffset,
-                                            ssme::kTagRollSweep, cdf, red),
-            buf);
-        lw = 0.0f;
+        resample<kRoll, kPer>(wn, x, resampler, metropolis_iters, k0, k1, t,
+                              b, cdf, buf, red);
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
         carry = log_n;
       }
-      x = phi * x + sigma * ssme::normal_at(k0, k1, i, t, b);
+#pragma unroll
+      for (int p = 0; p < kPer; ++p)
+        x[p][0] = phi * x[p][0] +
+                  sigma * ssme::normal_at(k0, k1, p * bd + i, t, b);
     }
-    const float z = (ys[t] / beta) * expf(-0.5f * x);
-    lw = lw + ((c0 - 0.5f * x) - 0.5f * z * z);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const float z = (ys[t] / beta) * expf(-0.5f * x[p][0]);
+      lw[p] = lw[p] + ((c0 - 0.5f * x[p][0]) - 0.5f * z * z);
+    }
 
     const bool check = gate_stride == 1 || t % gate_stride == gate_stride - 1
                        || t == num_steps - 1;
@@ -117,11 +159,23 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
       }
       continue;
     }
-    const float m = ssme::block_max(lw, red);
-    wn = expf(lw - m);
-    const float3 r = ssme::block_sum3(wn, x * wn, wn * wn, red);
+    float m_loc = lw[0];
+#pragma unroll
+    for (int p = 1; p < kPer; ++p) m_loc = fmaxf(m_loc, lw[p]);
+    const float m = ssme::block_max(m_loc, red);
+    wn[0] = expf(lw[0] - m);
+    float s0 = wn[0], s1 = x[0][0] * wn[0], s2 = wn[0] * wn[0];
+#pragma unroll
+    for (int p = 1; p < kPer; ++p) {
+      wn[p] = expf(lw[p] - m);
+      s0 += wn[p];
+      s1 += x[p][0] * wn[p];
+      s2 += wn[p] * wn[p];
+    }
+    const float3 r = ssme::block_sum3(s0, s1, s2, red);
     const float step_lcl = (m + logf(r.x)) - carry;
-    lw = lw - m;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) lw[p] = lw[p] - m;
     carry = logf(r.x);
     s_last = r.x;
     s2_last = r.z;
@@ -131,16 +185,34 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     }
     row_total += step_lcl;
     if (gate_stride > 1 && r.x * r.x / r.z < ess_limit) {
-      x = ssme::gather_from(
-          x, ssme::select_ancestor<kRoll>(wn, resampler, metropolis_iters, k0,
-                                          k1, t, b, ssme::kTagOffset,
-                                          ssme::kTagRollSweep, cdf, red),
-          buf);
-      lw = 0.0f;
+      resample<kRoll, kPer>(wn, x, resampler, metropolis_iters, k0, k1, t, b,
+                            cdf, buf, red);
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
       carry = log_n;
     }
   }
   if (i == 0) total[b] = row_total;
+}
+
+template <bool kRoll>
+int launch(int kper, const int64_t* seed, const float* params,
+           const float* ys, int num_rows, int num_steps, int num_particles,
+           float ess_limit, int always, int gate_stride, int resampler,
+           int metropolis_iters, float* total, float* lcl, float* xmean,
+           cudaStream_t s) {
+#define SSME_SVOL_LAUNCH(K)                                                  \
+  svol_filter_kernel<kRoll, K><<<num_rows, num_particles / K, 0, s>>>(       \
+      seed, params, ys, num_steps, ess_limit, always, gate_stride,          \
+      resampler, metropolis_iters, total, lcl, xmean)
+  switch (kper) {
+    case 1: SSME_SVOL_LAUNCH(1); break;
+    case 2: SSME_SVOL_LAUNCH(2); break;
+    case 4: SSME_SVOL_LAUNCH(4); break;
+    default: return -3;
+  }
+#undef SSME_SVOL_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -148,8 +220,11 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
 // Plain C entry point (bound with ctypes).  All pointers are device
 // pointers the caller allocated; the kernel allocates nothing and runs
 // on `stream`.  resampler: 0 systematic, 1 metropolis with
-// metropolis_iters sweeps, 2 rejection.  Returns cudaGetLastError() after
-// the launch.
+// metropolis_iters sweeps, 2 rejection.  num_particles: a multiple of 32
+// up to 1024 (one particle per thread), a multiple of 128 up to 2048 (two)
+// or 4096 (four), a power of two under the roll resamplers.  Returns
+// cudaGetLastError() after the launch, or -3 for a particle count it does
+// not take.
 extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
                                 const float* ys, int num_rows,
                                 int num_steps, int num_particles,
@@ -158,14 +233,18 @@ extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
                                 int metropolis_iters, float* total,
                                 float* lcl, float* xmean, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resampler == ssme::kResampleSystematic) {
-    svol_filter_kernel<false><<<num_rows, num_particles, 0, s>>>(
-        seed, params, ys, num_steps, ess_limit, always, gate_stride,
-        resampler, metropolis_iters, total, lcl, xmean);
-  } else {
-    svol_filter_kernel<true><<<num_rows, num_particles, 0, s>>>(
-        seed, params, ys, num_steps, ess_limit, always, gate_stride,
-        resampler, metropolis_iters, total, lcl, xmean);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int kper = num_particles <= kMaxThreads       ? 1
+                   : num_particles <= 2 * kMaxThreads ? 2
+                                                      : 4;
+  if (num_particles > 4 * kMaxThreads || num_particles % (32 * kper))
+    return -3;
+  return resampler == ssme::kResampleSystematic
+             ? launch<false>(kper, seed, params, ys, num_rows, num_steps,
+                             num_particles, ess_limit, always, gate_stride,
+                             resampler, metropolis_iters, total, lcl, xmean,
+                             s)
+             : launch<true>(kper, seed, params, ys, num_rows, num_steps,
+                            num_particles, ess_limit, always, gate_stride,
+                            resampler, metropolis_iters, total, lcl, xmean,
+                            s);
 }

@@ -15,9 +15,11 @@ from ssme_tpu_torch.ops.filter_megakernel import (
 # the factory's decoders take the kernel model first, so they are aliased
 # and do not shadow the leverage kernel's lw_cloud_params/_weights below
 from ssme_tpu_torch.ops.liu_west_megakernel import (
-    CUDA_LW_MODEL_IDS, MAX_LW_KERNEL_PARTICLES, LWKernelModel,
+    CUDA_LW_MODEL_IDS, MAX_LW_KERNEL_PARTICLES, MAX_LW_METROPOLIS_PARTICLES,
+    LWKernelModel,
     lw_kernel_sim_future_obs, lw_megakernel, lw_megakernel_reference,
-    svol_leverage_lw_kernel_model, svol_t_lw_kernel_model)
+    svol_leverage_lw_kernel_model, svol_leverage_lw_q_kernel_model,
+    svol_t_lw_kernel_model)
 from ssme_tpu_torch.ops.liu_west_megakernel import (
     lw_cloud_params as lw_factory_cloud_params,
     lw_cloud_states as lw_factory_cloud_states,
@@ -45,8 +47,9 @@ __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
            "LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_factory_cloud_params", "lw_factory_cloud_weights",
            "lw_factory_cloud_states", "lw_kernel_sim_future_obs",
-           "svol_leverage_lw_kernel_model", "svol_t_lw_kernel_model",
-           "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",
+           "svol_leverage_lw_kernel_model", "svol_leverage_lw_q_kernel_model",
+           "svol_t_lw_kernel_model", "CUDA_LW_MODEL_IDS",
+           "MAX_LW_KERNEL_PARTICLES", "MAX_LW_METROPOLIS_PARTICLES",
            "svol_leverage_lw", "lw_cloud_params", "lw_cloud_weights",
            "fused_svol_propagate_weight",
            "fused_svol_propagate_weight_reference", "roll_select",

@@ -15,7 +15,9 @@ total = cdf[-1], points u_j = min((j + u0) * (total / N), total) and
 ancestor_j = the first i with cdf[i] >= u_j, which is the half-open test
 cdf[i-1] < u_j <= cdf[i] on the same rounded array (cdf[-1] read as 0).
 The kernel's block scan adds in another order than ``torch.cumsum``, so
-a point within rounding of a CDF boundary can pick the neighbour.
+a point within rounding of a CDF boundary can pick the neighbour (above
+1024 particles the SVOL kernel scans kPer contiguous weights per thread,
+``csrc/systematic_select.cuh::systematic_ancestors_per``).
 
 Roll laws (Murray, Lee & Jacob's GPU resamplers, in the TPU's roll form),
 per row of power-of-two N, sweep s drawing a shift word and one uniform
@@ -44,8 +46,10 @@ import torch
 from ssme_tpu_torch.ops import _cuda, _prng
 
 MAX_PARTICLES = 1024
-# the roll resamplers' particle cap in the generic filter kernel (K2): a
-# power of two up to 4096, kPer = N / 1024 particles per thread above 1024
+# the roll resamplers' particle cap in the filter kernels: a power of two
+# up to 4096, kPer particles per thread above 1024 (and the SVOL kernel's
+# cap under every resampler: its systematic selection scans kPer weights
+# per thread there)
 MAX_ROLL_PARTICLES = 4096
 # the resamplers and their codes in the C entry points (roll_select.cuh)
 RESAMPLER_CODES = {"systematic": 0, "metropolis": 1, "rejection": 2}
@@ -63,24 +67,29 @@ def check_resampler(resampler, metropolis_iters=16) -> None:
 
 
 def check_particles(n: int, resampler: str = "systematic",
-                    roll_cap: int = MAX_ROLL_PARTICLES) -> None:
-    """Systematic: a multiple of 32 in [32, 1024] (one CTA of N threads);
-    a roll resampler: a power of two in [32, ``roll_cap``], the kernel's
-    cap (the SVOL and Liu-West kernels take 1024, one particle per
-    thread)."""
+                    roll_cap: int = MAX_ROLL_PARTICLES,
+                    systematic_cap: int = MAX_PARTICLES,
+                    beyond: str = "") -> None:
+    """Systematic: a multiple of 32 in [32, 1024] (one CTA of N threads)
+    and, up to ``systematic_cap`` above that, a multiple of 128 (the SVOL
+    kernel, kPer particles per thread); a roll resampler: a power of two
+    in [32, ``roll_cap``].  ``beyond``: the advice appended when ``n``
+    exceeds the resampler's cap."""
+    cap = systematic_cap if resampler == "systematic" else roll_cap
+    tail = f"; {beyond}" if beyond and n > cap else ""
     if resampler == "systematic":
-        if n % 32 or not 32 <= n <= MAX_PARTICLES:
-            raise ValueError(f"num_particles={n} must be a multiple of 32 "
-                             f"in [32, {MAX_PARTICLES}] (one CTA of N "
-                             "threads)")
-        return
+        if (32 <= n <= MAX_PARTICLES and n % 32 == 0) or (
+                MAX_PARTICLES < n <= systematic_cap and n % 128 == 0):
+            return
+        above = (f", or a multiple of 128 up to {systematic_cap}"
+                 if systematic_cap > MAX_PARTICLES else "")
+        raise ValueError(f"num_particles={n} must be a multiple of 32 in "
+                         f"[32, {MAX_PARTICLES}] (one CTA of N threads)"
+                         f"{above}{tail}")
     if n & (n - 1) or not 32 <= n <= roll_cap:
-        lift = ("; the lift to 4096 with several particles per thread, as "
-                "the generic filter kernel has, is ROADMAP.md section 2's "
-                "next item" if roll_cap < MAX_ROLL_PARTICLES else "")
         raise ValueError(f"num_particles={n}: resampler={resampler!r} needs "
                          f"a power of two in [32, {roll_cap}] (its roll "
-                         f"decomposition masks the shift to [0, N)){lift}")
+                         f"decomposition masks the shift to [0, N)){tail}")
 
 
 def systematic_points(w, u0):
@@ -114,7 +123,7 @@ def _validate(w, leaves, u0):
     if leaves.shape[1:] != (b, n) or u0.shape[0] != b or leaves.shape[0] < 1:
         raise ValueError(f"shape mismatch: w {tuple(w.shape)}, leaves "
                          f"{tuple(leaves.shape)}, u0 {tuple(u0.shape)}")
-    check_particles(n)
+    check_particles(n, systematic_cap=MAX_ROLL_PARTICLES)
     for name, t in (("w", w), ("leaves", leaves), ("u0", u0)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
@@ -127,8 +136,10 @@ def _validate(w, leaves, u0):
 def systematic_select(w, leaves, u0):
     """Systematic selection of every leaf row by per-row weights.
 
-    ``w``: (B, N) nonnegative float32 weights; ``leaves``: (L, B, N)
-    float32, moved by the same ancestors; ``u0``: (B,) offsets in (0, 1).
+    ``w``: (B, N) nonnegative float32 weights, N a multiple of 32 up to
+    1024 or of 128 up to 4096 (the SVOL kernel's kPer layout);
+    ``leaves``: (L, B, N) float32, moved by the same ancestors; ``u0``:
+    (B,) offsets in (0, 1).
     Returns (picked (L, B, N), ancestors (B, N) int32).  Launches the CUDA
     kernel for CUDA tensors and runs the plain version for CPU tensors.
     """

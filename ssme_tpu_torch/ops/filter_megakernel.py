@@ -414,7 +414,7 @@ filter_megakernel.launches = 0
 
 
 def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
-                        constrain=None, ess_threshold: float = 0.5,
+                        constrain=None, ess_threshold: float = 0.5, *,
                         gate_stride: int = 1, model=None,
                         resampler: str = "systematic",
                         metropolis_iters: int = None,
@@ -427,7 +427,9 @@ def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
     sigma).  Rows are chain-major (row c*R + r is replicate r of chain c),
     reduced by a per-chain log-mean-exp.  The two seed words are drawn on
     the device with ``gen``, so the host never waits.  No padding rows:
-    the ESS gate is per row.
+    the ESS gate is per row.  Every parameter after ``ess_threshold`` is
+    keyword-only: JAX's sixth positional parameter is ``model``, the
+    port's order differs, so a positional call raises ``TypeError``.
 
     Cap: 1024 particles under ``resampler="systematic"``, 4096 under the
     roll resamplers.  Large-N bridge: above the cap, pass the matching

@@ -32,15 +32,17 @@ and ``rng.normal(shape)`` the kernel's Philox normals of the step: a
 hook's draw j is normal draw P + j, since draws 0 .. P-1 are the kernel
 draws of theta (``ops/_prng.py``).
 
-The kernel is ``csrc/lw_megakernel.cu``, one template over the functors of
-``csrc/lw_models.cuh``; its header comment gives the layout and the
+The kernel is ``csrc/lw_megakernel.cuh``, one template over the functors
+of ``csrc/lw_models.cuh``; its header comment gives the layout and the
 intended divergences from the Pallas kernel.  On a CUDA tensor only a
-model whose ``cuda_instance`` names a functor there runs; anything else
-raises.  Selection (``resampler``): "systematic", or the roll-based
-"metropolis" and "rejection" resamplers (``ops/_select.py``) at a
-power-of-two N up to 1024, moving the joint (state, logw, theta) column
-by one ancestor index; their lift to 4096 is ROADMAP.md section 2's next
-item.  On a CPU tensor every model
+model whose ``cuda_instance`` names a functor there runs (a custom SISR
+proposal too: the functor's, ``svol_leverage_lw_q_kernel_model``);
+anything else raises.  Selection (``resampler``): "systematic" at N up
+to 1024 (``MAX_LW_KERNEL_PARTICLES``), or the roll-based "metropolis" and
+"rejection" resamplers (``ops/_select.py``) at a power-of-two N up to
+4096 (``MAX_LW_METROPOLIS_PARTICLES``, several particles per thread
+above 1024), moving the joint (state, logw, theta) column by one
+ancestor index.  On a CPU tensor every model
 runs through :func:`lw_megakernel_reference`, which calls the hooks step
 by step with the kernel's random bits.  The carried log-weights are
 renormalised by their maximum after every step (the conditional
@@ -68,10 +70,16 @@ from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
 
 # the dispatch table of csrc/lw_models.cuh (same names, same numbers;
 # tests/test_torch_lw_megakernel.py parses the header and compares)
-CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1}
+CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1,
+                     "svol_leverage_lw_q": 2}
+# the instances whose functor has a SISR proposal (kHasProposal)
+_CUDA_LW_PROPOSALS = frozenset({"svol_leverage_lw_q"})
 
-# one CTA of N threads per filter
+# the systematic selection: one CTA of N threads per filter (JAX's cap)
 MAX_LW_KERNEL_PARTICLES = 1024
+# the roll resamplers: a power of two up to this, several particles per
+# thread above 1024 (JAX's name and cap)
+MAX_LW_METROPOLIS_PARTICLES = 4096
 
 _EPS_CHOL = 1e-9
 _CODES = ("null", "log", "logit", "twice_fisher")
@@ -253,8 +261,16 @@ def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
             "supplied: build the kernel model with dim_cov set if the "
             "model should see them")
     check_resampler(resampler, metropolis_iters)
-    check_particles(int(num_particles), resampler,
-                    roll_cap=MAX_LW_KERNEL_PARTICLES)
+    n = int(num_particles)
+    beyond = (f"above {MAX_LW_KERNEL_PARTICLES} use resampler='metropolis' "
+              "(sweep-dependent evidence bias, _select."
+              "metropolis_bias_estimate) or 'rejection', cap "
+              f"{MAX_LW_METROPOLIS_PARTICLES}, or the generic filter "
+              "(filters.LiuWestFilter)" if resampler == "systematic" else
+              f"num_particles={n} exceeds the metropolis cap "
+              f"{MAX_LW_METROPOLIS_PARTICLES}; use filters.LiuWestFilter")
+    check_particles(n, resampler, roll_cap=MAX_LW_METROPOLIS_PARTICLES,
+                    beyond=beyond)
     if variant not in ("apf", "sisr"):
         raise ValueError("variant must be 'apf' or 'sisr'")
     if variant == "apf" and kmodel.prop_mu is None:
@@ -446,10 +462,18 @@ def _model_id(kmodel) -> int:
             "runs on CPU tensors, through the plain version (ROADMAP.md "
             "section 3, D1)")
     try:
-        return CUDA_LW_MODEL_IDS[kmodel.cuda_instance]
+        model_id = CUDA_LW_MODEL_IDS[kmodel.cuda_instance]
     except KeyError:
         raise ValueError(f"unknown CUDA instance {kmodel.cuda_instance!r}; "
                          f"valid: {sorted(CUDA_LW_MODEL_IDS)}") from None
+    if (kmodel.sample_q is not None) != (
+            kmodel.cuda_instance in _CUDA_LW_PROPOSALS):
+        raise ValueError(
+            f"model {kmodel.name!r}: its sample_q / log_fq hooks and the "
+            f"functor {kmodel.cuda_instance!r} disagree on a SISR proposal; "
+            "on a CUDA tensor the functor's proposal runs, never a Python "
+            f"hook (proposal functors: {sorted(_CUDA_LW_PROPOSALS)})")
+    return model_id
 
 
 def _host_floats(values, width):
@@ -472,7 +496,7 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     int; ys: (T,) or (T, dim_obs) float32; zs: (T,) or (T, dim_cov)
     covariates, required iff the model has them.  ``num_particles`` is a
     multiple of 32 in [32, 1024] under ``resampler="systematic"``, a power
-    of two in [32, 1024] under "metropolis" (``metropolis_iters`` sweeps
+    of two in [32, 4096] under "metropolis" (``metropolis_iters`` sweeps
     per selection) or "rejection".  ``variant``: "apf" or "sisr";
     ``ess_threshold > 0`` resamples a filter when its ESS falls below
     that fraction of N, else every ``resample_every`` steps.
@@ -653,6 +677,45 @@ def svol_leverage_lw_kernel_model(prior_bounds=None) -> LWKernelModel:
 
 
 @functools.lru_cache(maxsize=None)
+def svol_leverage_lw_q_kernel_model(kappa: float = 1.5,
+                                    prior_bounds=None) -> LWKernelModel:
+    """SVOL with leverage with a SISR proposal of its own: the transition
+    widened by ``kappa``, x' ~ N(mean_f, (kappa sd)^2) with sd = sigma
+    sqrt(1 - rho^2), and ``log_fq`` = log f - log q of the two normal
+    densities (the evidence stays unbiased).  No JAX instance sets
+    ``sample_q`` / ``log_fq``; this one is the test vehicle of the
+    kernel's path for them, the same hooks run by the plain version and by
+    JAX's ``lw_megakernel``.  At kappa = 1 it is the leverage model's SISR
+    path bit for bit.  CUDA instance ``SvolLeverageQLW``, which takes
+    kappa as a call-time argument; APF ignores the proposal, as in JAX."""
+    base = svol_leverage_lw_kernel_model(prior_bounds)
+    kappa = float(kappa)
+    if not kappa > 0.0:
+        raise ValueError(f"kappa must be positive, got {kappa}")
+
+    def mean_sd(cp, state, y, z):
+        """The transition's mean (the lookahead) and sd."""
+        return (base.prop_mu(cp, state, y, z)[0],
+                cp[2] * torch.sqrt(1.0 - cp[3] * cp[3]))
+
+    def sample_q(rng, cp, state, y, z):
+        m, sd = mean_sd(cp, state, y, z)
+        return (m + (kappa * sd) * rng.normal(state[0].shape),)
+
+    def log_fq(cp, new_state, state, y, z):
+        m, sd = mean_sd(cp, state, y, z)
+        d = new_state[0] - m
+        sq = kappa * sd
+        ef, eq = d / sd, d / sq
+        return (-torch.log(sd) - 0.5 * ef * ef) - (-torch.log(sq)
+                                                   - 0.5 * eq * eq)
+
+    return dataclasses.replace(
+        base, sample_q=sample_q, log_fq=log_fq, name="svol_leverage_lw_q",
+        cuda_instance="svol_leverage_lw_q", cuda_args=(kappa,))
+
+
+@functools.lru_cache(maxsize=None)
 def svol_t_lw_kernel_model(
         nu: float = 5.0,
         prior_bounds=((0.5, 2.0), (0.6, 0.99), (0.05, 1.0)),
@@ -699,5 +762,6 @@ def svol_t_lw_kernel_model(
 __all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
            "lw_kernel_sim_future_obs", "svol_leverage_lw_kernel_model",
-           "svol_t_lw_kernel_model", "CUDA_LW_MODEL_IDS",
-           "MAX_LW_KERNEL_PARTICLES"]
+           "svol_leverage_lw_q_kernel_model", "svol_t_lw_kernel_model",
+           "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",
+           "MAX_LW_METROPOLIS_PARTICLES"]

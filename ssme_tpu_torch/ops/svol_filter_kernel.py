@@ -11,8 +11,10 @@ step with plain tensor operations and the same Philox bits
 :func:`svol_filter` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; on a CUDA tensor it never falls back.
 Selection: systematic, or the roll-based ``"metropolis"`` and
-``"rejection"`` resamplers (``ops/_select.py``) at a power-of-two N up to
-1024; their lift to 4096 is ROADMAP.md section 2's next item.
+``"rejection"`` resamplers (``ops/_select.py``, a power-of-two N), to
+4096 particles under each (kPer = 2 or 4 particles per thread above
+1024); above 4096 it raises and points to the generic bank of
+``filters/bootstrap.py``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,16 @@ import math
 import torch
 
 from ssme_tpu_torch.ops import _cuda, _prng
-from ssme_tpu_torch.ops._select import (MAX_PARTICLES, RESAMPLER_CODES,
+from ssme_tpu_torch.ops._select import (MAX_ROLL_PARTICLES, RESAMPLER_CODES,
                                         check_particles, check_resampler,
                                         plain_ancestor_fn)
 from ssme_tpu_torch.utils import logmeanexp
+
+
+# above the cap the two buffers of N floats would pass the 48 KB of static
+# shared memory (csrc/svol_filter.cu); JAX's kernel has no cap in code
+_BEYOND = ("above 4096 particles run the generic bank, "
+           "ssme_tpu_torch.filters.bootstrap.replicated_log_like_fn")
 
 
 def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride,
@@ -52,7 +60,8 @@ def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     check_resampler(resampler, metropolis_iters)
-    check_particles(int(num_particles), resampler, roll_cap=MAX_PARTICLES)
+    check_particles(int(num_particles), resampler,
+                    systematic_cap=MAX_ROLL_PARTICLES, beyond=_BEYOND)
     if int(gate_stride) != gate_stride or gate_stride < 1:
         raise ValueError("gate_stride must be a positive integer")
     if gate_stride > 1 and ess_threshold >= 1.0:
@@ -182,10 +191,9 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
     t = T-1; lcl and xmean are zero off those columns and sum(lcl) stays
     the exact evidence.
 
-    resampler: "systematic" (N a multiple of 32 in [32, 1024]),
-    "metropolis" (``metropolis_iters`` sweeps; biased at a finite count,
-    ``_select.metropolis_bias_estimate``) or "rejection" (unbiased), both
-    at a power-of-two N in [32, 1024].
+    resampler: "systematic", "metropolis" (``metropolis_iters`` sweeps;
+    biased at a finite count, ``_select.metropolis_bias_estimate``) or
+    "rejection" (unbiased), both at a power-of-two N in [32, 4096].
     """
     seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
                          gate_stride, resampler, metropolis_iters)

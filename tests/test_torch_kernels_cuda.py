@@ -295,9 +295,11 @@ def test_lw_launch_counters_and_errors(dev):
     with pytest.raises(ValueError, match="power of two"):
         lwm.lw_megakernel(km, 1, ys, zs, num_particles=96,
                           resampler="metropolis")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        lwm.lw_megakernel(km, 1, ys, zs, num_particles=2048,
+    with pytest.raises(ValueError, match="metropolis cap 4096"):
+        lwm.lw_megakernel(km, 1, ys, zs, num_particles=8192,
                           resampler="rejection")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        lwm.lw_megakernel(km, 1, ys, zs, num_particles=2048)
     with pytest.raises(ValueError):      # covariates on another device
         lwm.lw_megakernel(km, 1, ys, zs.cpu(), num_particles=64)
     assert lwm.lw_megakernel.launches == before[0] + 1
@@ -397,3 +399,115 @@ def test_svol_step_equals_plain(dev):
     with pytest.raises(ValueError):
         k5.fused_svol_propagate_weight(5, 0.0, params, x[:, :511], lw)
 
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_systematic_select_kper_matches_plain_away_from_boundaries(dev, n):
+    """The standalone systematic selection at kPer = N / 1024 (the SVOL
+    kernel's layout above 1024): ancestors equal but where a point lies
+    within rounding of a CDF boundary (another scan order)."""
+    rng = np.random.default_rng(n)
+    w = torch.as_tensor(rng.gamma(1.0, 1.0, (16, n)).astype(np.float32),
+                        device=dev)
+    leaves = torch.as_tensor(rng.normal(size=(1, 16, n)).astype(np.float32),
+                             device=dev)
+    u0 = torch.full((16,), 0.37, device=dev)
+    picked, anc = _select.systematic_select(w, leaves, u0)
+    _, anc_p = _select.systematic_select_reference(w, leaves, u0)
+    assert float((anc != anc_p).float().mean()) < 0.01
+    assert torch.equal(picked, torch.gather(
+        leaves, 2, anc.long()[None].expand_as(leaves)))
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("resampler", ["systematic", "metropolis",
+                                       "rejection"])
+def test_svol_filter_kper_matches_plain(dev, resampler, n):
+    """K1 at kPer 2 and 4 on identical bits: with a gate that never fires
+    the totals to float tolerance; every step, step 0 equal and most rows
+    within 2e-3 (the systematic rows part at a boundary flip, so only
+    their first selection's step is held)."""
+    ys = _ys(48, 6).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    kw = dict(num_particles=n, resampler=resampler, metropolis_iters=16)
+    a = svol_filter(3, params, ys, ess_threshold=1e-6, **kw)[0]
+    b = svol_filter_reference(3, params, ys, ess_threshold=1e-6, **kw)[0]
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    tot, lcl, _ = svol_filter(3, params, ys, ess_threshold=1.0, **kw)
+    tot_p, lcl_p, _ = svol_filter_reference(3, params, ys, ess_threshold=1.0,
+                                            **kw)
+    torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4)
+    assert torch.isfinite(tot).all()
+    a, b = (lcl[:, 1], lcl_p[:, 1]) if resampler == "systematic" else (
+        tot, tot_p)
+    assert float(((a - b).abs() <= 2e-3).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_lw_megakernel_kper_matches_plain(dev, resampler, n):
+    """K3 at kPer 2 and 4: SISR with a gate that never fires equal to float
+    tolerance; APF every step, step 0 equal and most filters' totals within
+    2e-3."""
+    ys = _ys(40, 7).to(dev)
+    km, zs = _lw_instance("svol_leverage_lw", ys)
+    kw = dict(num_filters=8, num_particles=n, resampler=resampler,
+              metropolis_iters=16)
+    sis = dict(variant="sisr", ess_threshold=0.5 / n)
+    got = lwm.lw_megakernel(km, 4, ys, zs, **kw, **sis)
+    want = lwm.lw_megakernel_reference(km, 4, ys, zs, **kw, **sis)
+    torch.testing.assert_close(got["log_likelihood"], want["log_likelihood"],
+                               rtol=0, atol=2e-3)
+    torch.testing.assert_close(got["cloud"][:, 2:], want["cloud"][:, 2:],
+                               rtol=0, atol=1e-3)
+    got = lwm.lw_megakernel(km, 4, ys, zs, **kw)
+    want = lwm.lw_megakernel_reference(km, 4, ys, zs, **kw)
+    torch.testing.assert_close(got["log_cond_likes"][:, 0],
+                               want["log_cond_likes"][:, 0], rtol=1e-5,
+                               atol=1e-4)
+    assert torch.isfinite(got["log_likelihood"]).all()
+    close = (got["log_likelihood"] - want["log_likelihood"]).abs() <= 2e-3
+    assert float(close.float().mean()) >= 0.75
+
+
+@pytest.mark.parametrize("n", [512, 2048])
+def test_svol_leverage_lw_q_matches_plain(dev, n):
+    """The custom SISR proposal on the card (kappa 1.5) against its plain
+    version on identical bits, a gate that never fires; at kappa 1 the
+    leverage instance's SISR bit for bit."""
+    ys = _ys(200, 8).to(dev)
+    _, zs = _lw_instance("svol_leverage_lw", ys)
+    kq = lwm.svol_leverage_lw_q_kernel_model(1.5)
+    resampler = "systematic" if n <= 1024 else "rejection"
+    kw = dict(num_filters=8, num_particles=n, variant="sisr",
+              ess_threshold=0.5 / n, resampler=resampler)
+    got = lwm.lw_megakernel(kq, 9, ys, zs, **kw)
+    want = lwm.lw_megakernel_reference(kq, 9, ys, zs, **kw)
+    torch.testing.assert_close(got["log_likelihood"], want["log_likelihood"],
+                               rtol=0, atol=2e-3)
+    torch.testing.assert_close(got["cloud"][:, :1], want["cloud"][:, :1],
+                               rtol=0, atol=1e-3)
+    one = lwm.lw_megakernel(lwm.svol_leverage_lw_q_kernel_model(1.0), 9, ys,
+                            zs, **kw)
+    base = lwm.lw_megakernel(lwm.svol_leverage_lw_kernel_model(), 9, ys, zs,
+                             **kw)
+    assert torch.equal(one["log_cond_likes"], base["log_cond_likes"])
+    assert torch.equal(one["cloud"], base["cloud"])
+
+
+def test_ragged_tail_at_t131_on_the_card(dev):
+    """H2: the SVOL and generic kernels at T=131 (131 mod 128 = 3 < 8) and
+    gate_stride 8 against their own stride-1 runs, with a gate that never
+    fires: equal totals, and the last check column is 130."""
+    ys = _ys(131, 4).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 8, device=dev)
+    kw = dict(num_particles=64, ess_threshold=1e-6)
+    km = fm.svol_kernel_model()
+    for run in (lambda g: svol_filter(5, params, ys, gate_stride=g, **kw),
+                lambda g: fm.filter_megakernel(km, 5, params, ys,
+                                               gate_stride=g, **kw)):
+        tot1 = run(1)[0]
+        tot8, lcl8, _ = run(8)
+        torch.testing.assert_close(tot8, tot1, rtol=2e-4, atol=2e-4)
+        cols = sorted(set(torch.nonzero(lcl8)[:, 1].tolist()))
+        assert cols == list(range(7, 131, 8)) + [130]

@@ -269,7 +269,8 @@ def test_validation_errors():
     ys = torch.ones(8)
     with pytest.raises(ValueError, match="multiple of 32"):
         lwm.lw_megakernel(km, 0, ys, num_particles=100)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match="multiple of 32.*above 1024 use "
+                       "resampler='metropolis'"):
         lwm.lw_megakernel(km, 0, ys, num_particles=2048)
     with pytest.raises(ValueError, match="dim_cov=0"):
         lwm.lw_megakernel(km, 0, ys, zs=torch.ones(8, 1), num_particles=128)
@@ -291,8 +292,9 @@ def test_validation_errors():
                     (dict(resample_every=0), "resample_every"),
                     (dict(resampler="metropolis", num_particles=96),
                      "power of two"),
-                    (dict(resampler="rejection", num_particles=2048),
-                     "ROADMAP"),
+                    (dict(resampler="rejection", num_particles=8192),
+                     "exceeds the metropolis cap 4096; use "
+                     "filters.LiuWestFilter"),
                     (dict(resampler="metropolis", metropolis_iters=0),
                      "metropolis_iters"),
                     (dict(resampler="bad"), "unknown resampler"),
@@ -398,11 +400,14 @@ def test_model_ids_and_transform_codes_match_the_cuda_header():
                  r"codes\[kNumParams\] = \{\s*// \"(\w+)\"(.*?)\};", src,
                  re.S)}
     structs = dict(re.findall(r"struct (\w+LW) \{(.*?)\n\};", src, re.S))
-    cu = open(os.path.join(CSRC, "lw_megakernel.cu")).read()
+    cuh = open(os.path.join(CSRC, "lw_megakernel.cuh")).read()
     dispatch = dict(re.findall(
-        r"case ssme::(kLWModel\w+):\s*launch<ssme::(\w+)>", cu))
+        r"case ssme::(kLWModel\w+):\s*return Run<ssme::(\w+)>::go", cuh))
     assert len(dispatch) == len(ids) == len(codes) == len(structs)
-    for inst, (tmodel, _) in INSTANCES.items():
+    factories = {inst: tmodel for inst, (tmodel, _) in INSTANCES.items()}
+    factories["svol_leverage_lw_q"] = lwm.svol_leverage_lw_q_kernel_model
+    assert set(factories) == set(ids)
+    for inst, tmodel in factories.items():
         km = tmodel()
         assert km.cuda_instance == inst
         assert codes[inst] == km.transform_codes
@@ -414,6 +419,9 @@ def test_model_ids_and_transform_codes_match_the_cuda_header():
                           "kNumState": km.num_state,
                           "kDimObs": km.dim_obs, "kDimCov": km.dim_cov,
                           "kNumFunctionals": len(km.functionals or ())}
+        proposal = re.search(r"static constexpr bool kHasProposal = "
+                             r"(true|false);", structs[dispatch[const]])
+        assert (proposal.group(1) == "true") == (km.sample_q is not None)
 
 
 @pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
@@ -440,3 +448,126 @@ def test_roll_resamplers_match_jax_generic_filter_in_distribution(resampler):
              if resampler == "metropolis" else 0.0)
     assert abs(got.mean() - want.mean()) <= 4 * se + slack
 
+
+def test_plain_kernel_at_2048_matches_jax_generic_filter_under_rejection():
+    """F=8 filters, N=2048 (the kernel's two particles per thread), T=40,
+    APF: the plain K3 under the rejection resampler within 4 combined
+    standard errors of JAX's generic LiuWestFilter."""
+    ys, zs = _leverage_data(40, 12)
+    f, n = 8, 2048
+    jf = JaxLiuWestFilter(jlev.make_model(), n, variant="apf",
+                          resampler="systematic")
+    want = np.asarray(jax.jit(jax.vmap(lambda key: jf.run(
+        key, jnp.asarray(ys[:, None]), jnp.asarray(zs[:, None]))
+        .log_likelihood))(jax.random.split(jax.random.key(2), f)),
+        np.float64)
+    out = _run(lwm.svol_leverage_lw_kernel_model(), 5, ys, zs, num_filters=f,
+               num_particles=n, resampler="rejection")
+    got = out["log_likelihood"].double().numpy()
+    assert np.isfinite(got).all()
+    se = math.sqrt(got.var(ddof=1) / f + want.var(ddof=1) / f)
+    assert abs(got.mean() - want.mean()) <= 4 * se
+
+
+def _jax_q_hooks(kappa):
+    """The svol_leverage_lw_q proposal written for JAX's lw_megakernel."""
+    clamp = jlev.STATE_CLAMP
+
+    def mean_sd(cp, x, z):
+        phi, mu, sig, rho = cp[0:1], cp[1:2], cp[2:3], cp[3:4]
+        m = jnp.clip(mu + phi * (x - mu) + z[0] * rho * sig
+                     * jnp.exp(-0.5 * x), -clamp, clamp)
+        return m, sig * jnp.sqrt(1.0 - rho * rho)
+
+    def sample_q(rng, cp, state, y, z):
+        m, sd = mean_sd(cp, state[0], z)
+        return (m + (kappa * sd) * rng.normal(state[0].shape),)
+
+    def log_fq(cp, new_state, state, y, z):
+        m, sd = mean_sd(cp, state[0], z)
+        d = new_state[0] - m
+        sq = kappa * sd
+        ef, eq = d / sd, d / sq
+        return (-jnp.log(sd) - 0.5 * ef * ef) - (-jnp.log(sq)
+                                                 - 0.5 * eq * eq)
+
+    return sample_q, log_fq
+
+
+def test_q_instance_hooks_match_jax_and_run_in_jax_lw_megakernel():
+    """The svol_leverage_lw_q hooks against the same proposal written for
+    JAX, on the same inputs and numbers to 1e-6; JAX's lw_megakernel built
+    with them runs its SISR form (interpret mode, as
+    tests/test_lw_megakernel.py runs the kernels; its random bits are a
+    stub there, so the numbers are not compared), and so does the port's
+    plain version."""
+    import dataclasses
+    kappa = 1.5
+    tk = lwm.svol_leverage_lw_q_kernel_model(kappa)
+    sample_q, log_fq = _jax_q_hooks(kappa)
+    jk = dataclasses.replace(jlwm.svol_leverage_lw_kernel_model(),
+                             sample_q=sample_q, log_fq=log_fq,
+                             name="svol_leverage_lw_q")
+    n = 64
+    rng = np.random.default_rng(13)
+    cp = np.stack([rng.uniform(0.5, 0.99, n), rng.uniform(-1, 1, n),
+                   rng.uniform(0.05, 0.5, n),
+                   rng.uniform(-0.9, 0.0, n)]).astype(np.float32)
+    x = rng.normal(size=(1, n)).astype(np.float32)
+    x[0, :2] = [-60.0, 45.0]                      # the clamp binds
+    z = np.float32(-1.3)
+    tcp, jcp = torch.from_numpy(cp)[:, None], jnp.asarray(cp)
+    tz, jz = (torch.tensor(z),), (jnp.float32(z),)
+    tx, jx = (torch.from_numpy(x),), (jnp.asarray(x),)
+    got = tk.sample_q(_StubRng(torch.from_numpy, 3), tcp, tx, None, tz)[0]
+    want = jk.sample_q(_StubRng(jnp.asarray, 3), jcp, jx, None, jz)[0]
+    np.testing.assert_allclose(got.numpy().reshape(-1),
+                               np.asarray(want).reshape(-1), rtol=1e-6,
+                               atol=1e-6)
+    new = (got,), (jnp.asarray(got.numpy()),)
+    np.testing.assert_allclose(
+        tk.log_fq(tcp, new[0], tx, None, tz).numpy().reshape(-1),
+        np.asarray(jk.log_fq(jcp, new[1], jx, None, jz)).reshape(-1),
+        rtol=1e-5, atol=1e-5)
+    ys, zs = _leverage_data(16, 14)
+    out = jlwm.lw_megakernel(jk, 3, jnp.asarray(ys), jnp.asarray(zs),
+                             num_filters=1, num_particles=128,
+                             variant="sisr", interpret=True)
+    assert np.isfinite(np.asarray(out["log_cond_likes"])).all()
+    port = _run(tk, 3, ys, zs, num_filters=2, num_particles=128,
+                variant="sisr")
+    assert port["log_cond_likes"].shape == (2, 16)
+    assert torch.isfinite(port["log_likelihood"]).all()
+
+
+def test_q_instance_at_kappa_one_is_the_sisr_path_and_unbiased_above():
+    """At kappa 1 the proposal is the transition and log f - log q = 0: the
+    plain K3 equals the leverage instance's SISR run bit for bit; at kappa
+    1.5 its evidence lies within 4 combined standard errors of that
+    run's (the proposal's correction keeps it unbiased); APF ignores the
+    proposal, as in JAX; the CUDA model checks."""
+    ys, zs = _leverage_data(50, 15)
+    base = lwm.svol_leverage_lw_kernel_model()
+    kw = dict(num_filters=16, num_particles=256, variant="sisr")
+    a = _run(lwm.svol_leverage_lw_q_kernel_model(1.0), 4, ys, zs, **kw)
+    b = _run(base, 4, ys, zs, **kw)
+    for key in ("log_cond_likes", "cloud"):
+        assert torch.equal(a[key], b[key]), key
+    c = _run(lwm.svol_leverage_lw_q_kernel_model(1.5), 5, ys, zs, **kw)
+    got, want = (c["log_likelihood"].double().numpy(),
+                 b["log_likelihood"].double().numpy())
+    se = math.sqrt(got.var(ddof=1) / 16 + want.var(ddof=1) / 16)
+    assert abs(got.mean() - want.mean()) <= 4 * se
+    apf = dict(num_filters=2, num_particles=128, variant="apf")
+    assert torch.equal(
+        _run(lwm.svol_leverage_lw_q_kernel_model(1.5), 6, ys, zs, **apf)[
+            "log_cond_likes"],
+        _run(base, 6, ys, zs, **apf)["log_cond_likes"])
+    import dataclasses
+    q = lwm.svol_leverage_lw_q_kernel_model()
+    hooked = dataclasses.replace(base, sample_q=q.sample_q, log_fq=q.log_fq)
+    with pytest.raises(ValueError, match="disagree on a SISR proposal"):
+        lwm._model_id(hooked)
+    assert lwm._model_id(lwm.svol_leverage_lw_q_kernel_model()) == 2
+    with pytest.raises(ValueError, match="kappa"):
+        lwm.svol_leverage_lw_q_kernel_model(0.0)

@@ -624,3 +624,28 @@ def test_cpu_tensors_hand_the_resampler_to_the_plain_versions():
             got = wrapper(**roll)
             assert torch.equal(got, plain(**roll))
             assert not torch.equal(got, plain())
+
+
+def test_log_like_hook_takes_keywords_after_ess_threshold():
+    """F-P6: JAX's sixth positional parameter of ``megakernel_log_like`` is
+    ``model``, the port's is keyword-only, so a JAX-style positional call
+    raises TypeError; the keyword call computes what it computed before:
+    one launch of every chain x replicate row on the generator's seed
+    words, reduced by a per-chain log-mean-exp."""
+    from ssme_tpu_torch.models import svol
+    from ssme_tpu_torch.utils import logmeanexp
+    km = fm.svol_kernel_model()
+    with pytest.raises(TypeError):
+        fm.megakernel_log_like(km, 64, 2, fm.svol_kernel_rows, 0.5,
+                               svol.make_model())
+    ys = torch.from_numpy(_simulate_leverage(30, seed=9))
+    params = torch.tensor([[1.0, 0.9, 0.05], [0.9, 0.95, 0.02]])
+    ll = fm.megakernel_log_like(km, 64, 2, fm.svol_kernel_rows, 0.5,
+                                gate_stride=4)
+    got = ll(torch.Generator().manual_seed(3), params, ys)
+    seed = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(3))
+    rows = fm.svol_kernel_rows(params).repeat_interleave(2, 0).contiguous()
+    tot = fm.filter_megakernel(km, seed, rows, ys, num_particles=64,
+                               ess_threshold=0.5, gate_stride=4)[0]
+    assert torch.equal(got, logmeanexp(tot.reshape(2, 2), dim=-1))

@@ -20,11 +20,17 @@ sys.path.insert(0, {root!r})
 for name in {modules!r}:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for path in {scripts!r}:
+    spec = importlib.util.spec_from_file_location("script", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m == "ssme_tpu"
              or m.startswith("ssme_tpu.") or m.startswith("jax."))
 assert not bad, bad
-print("imported", len({modules!r}) + 1)
+print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
+# the port's own scripts (the JAX yardstick scripts import JAX by design)
+SCRIPTS = [os.path.join(ROOT, "scripts", "k3_roll_fullsize.py")]
 
 
 def _port_modules():
@@ -42,6 +48,8 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.examples.estimate_svol_leverage",
             "ssme_tpu_torch.examples.swarm_forecast",
             "ssme_tpu_torch.examples.liu_west_leverage",
+            "ssme_tpu_torch.examples.spy_flagship",
+            "ssme_tpu_torch.examples.accuracy_gate",
             "ssme_tpu_torch.filters.liu_west",
             "ssme_tpu_torch.ops.liu_west_megakernel",
             "ssme_tpu_torch.ops.svol_leverage_lw_kernel",
@@ -59,7 +67,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.inference.swarm",
             "ssme_tpu_torch.io.checkpoint"} <= set(modules)
     out = subprocess.run(
-        [sys.executable, "-c", _SCRIPT.format(root=ROOT, modules=modules)],
+        [sys.executable, "-c", _SCRIPT.format(root=ROOT, modules=modules,
+                                               scripts=SCRIPTS)],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == f"imported {len(modules) + 1}"
+    assert out.stdout.strip() == \
+        f"imported {len(modules) + 1 + len(SCRIPTS)}"

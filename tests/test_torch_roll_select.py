@@ -244,8 +244,14 @@ def test_power_of_two_and_argument_checks():
     with pytest.raises(ValueError, match="multiple of 32"):
         sel.check_particles(2048)
     sel.check_particles(4096, "rejection")
-    with pytest.raises(ValueError, match=r"\[32, 1024\].*ROADMAP"):
-        sel.check_particles(2048, "metropolis", roll_cap=1024)
+    with pytest.raises(ValueError, match=r"\[32, 1024\].*the advice"):
+        sel.check_particles(2048, "metropolis", roll_cap=1024,
+                            beyond="the advice")
+    # the SVOL kernel's systematic cap: multiples of 128 up to 4096
+    sel.check_particles(1152, systematic_cap=4096)
+    for n in (1100, 8192):
+        with pytest.raises(ValueError, match="multiple of 128 up to 4096"):
+            sel.check_particles(n, systematic_cap=4096)
 
 
 @pytest.mark.parametrize("ess", [0.5, 0.9, 1.0])

@@ -115,7 +115,8 @@ def test_ragged_tail_at_t131_keeps_every_step():
 def test_wrapper_validation():
     p, ys = _kernel_rows(8), torch.ones(16)
     for bad in [dict(params=torch.ones(8, 2)),
-                dict(num_particles=100), dict(num_particles=2048),
+                dict(num_particles=100), dict(num_particles=8192),
+                dict(num_particles=1100),
                 dict(params=p.double()), dict(ys=torch.ones(16, 2)),
                 dict(params=torch.ones(3, 8).T),
                 dict(seed=torch.zeros(3, dtype=torch.int64)),
@@ -141,8 +142,8 @@ def test_batched_hook_is_chain_major_and_seeded_by_the_generator():
 def test_roll_resamplers_match_jax_bank_in_distribution(resampler):
     """32 rows, N=256, T=64 simulated SVOL at ESS 0.5: the plain K1 under
     each roll resampler within 4 combined standard errors of the JAX bank
-    (Metropolis, 32 sweeps: plus its bias envelope); above 1024 particles
-    the roll options raise and name the cap lift's ROADMAP item."""
+    (Metropolis, 32 sweeps: plus its bias envelope); above 4096 particles
+    the roll options raise and point to the generic bank."""
     from ssme_tpu_torch.ops._select import metropolis_bias_estimate
     rows, n, iters = 32, 256, 32
     ys = _simulate_svol(64, seed=3)
@@ -159,10 +160,48 @@ def test_roll_resamplers_match_jax_bank_in_distribution(resampler):
     slack = (metropolis_bias_estimate(iters, 64, 0.5)
              if resampler == "metropolis" else 0.0)
     assert abs(got.mean() - want.mean()) <= 4 * se + slack
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="replicated_log_like_fn"):
         svol_filter(6, _kernel_rows(8), torch.from_numpy(ys),
-                    num_particles=2048, resampler=resampler)
+                    num_particles=8192, resampler=resampler)
     with pytest.raises(ValueError, match="power of two"):
         svol_filter(6, _kernel_rows(8), torch.from_numpy(ys),
                     num_particles=384, resampler=resampler)
 
+
+@pytest.mark.parametrize("resampler", ["systematic", "rejection"])
+def test_kper_counts_match_jax_bank_in_distribution(resampler):
+    """16 rows, N=2048 (the kernel's two particles per thread), T=40
+    simulated SVOL at ESS 0.5: the plain K1 within 4 combined standard
+    errors of the JAX bank (``BootstrapFilter``, systematic)."""
+    rows, n = 16, 2048
+    ys = _simulate_svol(40, seed=7)
+    bank = jax_bank(jsvol.make_model(), n, 1, ess_threshold=0.5)
+    want = np.asarray(bank(jax.random.key(5),
+                           jnp.tile(jnp.asarray(THETA), (rows, 1)),
+                           jnp.asarray(ys)[:, None]))
+    got, _, _ = svol_filter(8, _kernel_rows(rows), torch.from_numpy(ys),
+                            num_particles=n, ess_threshold=0.5,
+                            resampler=resampler)
+    got = got.double().numpy()
+    assert np.isfinite(got).all()
+    se = math.sqrt(got.var(ddof=1) / rows + want.var(ddof=1) / rows)
+    assert abs(got.mean() - want.mean()) <= 4 * se
+
+
+def test_particle_caps_and_their_texts():
+    """Up to 1024 a multiple of 32, above it a multiple of 128 to 4096 (a
+    power of two under the roll resamplers); above 4096 the error points
+    to the generic bank."""
+    p, ys = _kernel_rows(2), torch.ones(4)
+    for n, resampler in ((1152, "systematic"), (4096, "systematic"),
+                         (4096, "metropolis")):
+        tot, _, _ = svol_filter(0, p, ys, num_particles=n,
+                                resampler=resampler)
+        assert torch.isfinite(tot).all()
+    for n, resampler, msg in (
+            (1056, "systematic", "multiple of 128 up to 4096"),
+            (4224, "systematic", "generic bank"),
+            (3072, "rejection", "power of two in \\[32, 4096\\]"),
+            (8192, "metropolis", "generic bank")):
+        with pytest.raises(ValueError, match=msg):
+            svol_filter(0, p, ys, num_particles=n, resampler=resampler)
