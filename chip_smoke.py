@@ -22,13 +22,24 @@ particles, adaptive PMMH on SVOL at N=2048 through one SVOL-kernel
 launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
-2. build    nvcc build of the kernels, with ptxas' register counts;
+2. build    nvcc build of the kernels, with ptxas' register counts; every
+            instance of the systematic SVOL kernel spills nothing;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
-4. select   the selection kernel against the plain selection law;
+4. select   the standalone selection kernel at N=512 in both layouts (one
+            slot per thread, the generic and Liu-West kernels'; kPer
+            neighbouring slots, the SVOL kernel's), and in the SVOL
+            kernel's at N=32, 96 and 1024, on random, dominant and
+            zero-run weights: ancestors bit for bit those of the kernel's
+            own search and walk (the plain model) on the CDF it returns,
+            the leaves moved by them, and against the plain law;
 5. filter   the filter kernel against the plain filter with a gate that
             never fires (identical random bits, no resampling);
 6. filter   full size, both schedules, two parameter points: kernel and
-            plain means within 4 combined standard errors; times;
+            plain means within 4 combined standard errors; times at B=256
+            and at the flagship CLI's B=128; clock64 cycles of a step's
+            parts, and at every N of the systematic kernel's instances the
+            barriers a step crossed and the layout it ran (``step_spans``:
+            the barriers must be those its source note states);
 7. pmmh     ``AdaptivePMMH`` + ``svol_batched_log_like``, a warm-up window
             then a timed one of 30 iterations per schedule; the kernel's
             launch count must rise by exactly iterations + 1 per run, and
@@ -102,9 +113,10 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 24. svol-step   the fused SVOL step kernel against its plain version
             (B=256, N=512), the moments of sigma eps over 8 seeds, its
             time and bound;
-25. k1-large-sis    the SVOL kernel at N=2048 and 4096 (2 and 4 particles
-            per thread): the standalone systematic selection against the
-            plain law (phase 4's check), and the filter under each
+25. k1-large-sis    the SVOL kernel at N=2048 and 4096 (8 particles per
+            thread, 2 and 4 under the roll resamplers): the standalone
+            systematic selection in its layout (phase 4's checks), and the
+            filter under each
             resampler against its plain version on identical bits (B=32,
             T=64: no selection, then every step: step 0 equal, 90% of the
             totals within 2e-3 under the roll resamplers, of step 1's lcl
@@ -215,6 +227,13 @@ STEP_B, STEP_N = 256, 512
 K3_SIS_F, K3_LARGE_T = 16, 128
 Q_KAPPA = 1.5
 FLAGSHIP_ITERS = 500
+# instances of the systematic SVOL kernel (csrc/svol_filter_sys.cu
+# launch_for: kPer 2 and 4 at up to 256 threads, 8 at up to 256 and 512,
+# each also instrumented)
+K1_INSTANCES = 8
+# N at which phase 6 reads the systematic kernel's record: each of its
+# instances
+K1_RECORD_N = (32, N, 1024) + ROLL_N
 
 # the least time of a kernel's work: the larger of its bytes over the HBM
 # rate and its operations over the float32 rate outside the tensor cores
@@ -224,8 +243,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # operations per particle and step, counted from the sources; a normal is
 # half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
-# adds = 100) plus its half of Box-Muller (~12): 56.  Resampling inside a
-# gated schedule depends on the data and is left out (a lower bound).
+# adds = 100) plus its half of Box-Muller (~12): 56, which is what the
+# systematic SVOL kernel computes (one call per pair of particles); the
+# SVOL kernel's roll family, the generic and the Liu-West kernels still
+# make one call per particle.  Resampling inside a gated schedule depends
+# on the data and is left out (a lower bound).
 NORMAL_OPS = 56
 STEP_OPS = {
     # normal, phi x + sigma e, the weight (exp, 2 mul, fma), max/exp/3 sums
@@ -327,13 +349,45 @@ def phase_device():
     return ident
 
 
+def _k1_instances(ptxas):
+    """{instance: (registers, spill store bytes, spill load bytes)} of the
+    systematic SVOL kernel from ptxas' -v lines, in their order."""
+    out, name, spill = {}, None, None
+    for ln in ptxas:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if "svol_filter_sys_kernel" in m.group(1) \
+                else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name and spill is None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name and spill:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
+            key = (f"kper{t.group(1)}/threads{t.group(2)}"
+                   + ("/spans" if t.group(3) == "1" else "")) if t else name
+            out[key] = (int(m.group(1)),) + spill
+            name = spill = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.build_info
+    ptxas = info.get("ptxas", [])
+    k1 = _k1_instances(ptxas)
+    require(len(k1) == K1_INSTANCES, f"ptxas reports {len(k1)} instances of "
+            f"the systematic SVOL kernel, want {K1_INSTANCES}: {k1}")
+    spilled = {k: v for k, v in k1.items() if v[1] or v[2]}
+    require(not spilled, f"systematic SVOL kernel instances spill: {spilled}")
     phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
-          f"{info.get('seconds', 0.0):.3f} s) "
-          + " | ".join(info.get("ptxas", [])))
+          f"{info.get('seconds', 0.0):.3f} s); systematic SVOL kernel "
+          "(registers, spill stores, spill loads): " + ", ".join(
+              f"{k} {v}" for k, v in k1.items()) + " | " + " | ".join(ptxas))
+    return k1
 
 
 def phase_philox(dev):
@@ -354,28 +408,54 @@ def phase_philox(dev):
           f"bitwise equal; normals max abs err {err:.3e}")
 
 
-def _systematic_agreement(dev, rng, rows, n):
-    """The selection kernel against the plain law on gamma weights (rows,
-    n): the ids leaf is the ancestors, the values leaf moves by them, under
-    1% of the slots differ, each within 1e-5 of the total of a CDF
-    boundary; returns (differing slots, their share, the worst distance)."""
-    w = torch.as_tensor(rng.gamma(1.0, 1.0, (rows, n)).astype(np.float32),
-                        device=dev)
+def _weights(rng, rows, n, case):
+    """Selection weights (rows, n): gamma, or one dominant particle per
+    row over weights of 1e-12, or gamma with three long zero runs."""
+    w = rng.gamma(1.0, 1.0, (rows, n)).astype(np.float32)
+    if case == "dominant":
+        w *= np.float32(1e-12)
+        w[np.arange(rows), rng.integers(0, n, rows)] = 1.0
+    elif case == "zero_runs":
+        for r in range(rows):
+            for _ in range(3):
+                a = rng.integers(0, n)
+                w[r, a:a + rng.integers(n // 8, n // 2)] = 0.0
+    return w
+
+
+def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
+    """The standalone selection kernel at ``kper`` slots per thread on
+    ``case`` weights (rows, n): its ancestors are bit for bit those of the
+    plain model of its search and walk (``systematic_ancestors_walk``) on
+    the CDF it returns, which never falls at kper > 1 (row_select.cuh);
+    the ids leaf is the ancestors and the values leaf moves by them; under
+    1% of the slots differ from the plain law (torch.cumsum), each within
+    1e-5 of the total of a CDF boundary.  Returns (differing slots, their
+    share, the worst distance)."""
+    w = torch.as_tensor(_weights(rng, rows, n, case), device=dev)
     ids = torch.arange(n, dtype=torch.float32, device=dev).expand(rows, n)
     vals = torch.as_tensor(rng.normal(size=(rows, n)).astype(np.float32),
                            device=dev)
     leaves = torch.stack([ids, vals]).contiguous()
     u0 = _prng.offsets(_prng.seed_words(5, device=dev),
                        torch.arange(rows, device=dev), 1)
-    picked, anc = _select.systematic_select(w, leaves, u0)
+    picked, anc, cdf_k = _select.systematic_select(w, leaves, u0, kper=kper,
+                                                   return_cdf=True)
     _, anc_plain = _select.systematic_select_reference(w, leaves, u0)
     anc, anc_plain = anc.long(), anc_plain.long()
-    require(torch.equal(picked[0].long(), anc), "ids leaf != ancestors")
+    tag = f"N={n} kper={kper} {case}"
+    require(torch.equal(anc, _select.systematic_ancestors_walk(
+        cdf_k, u0, kper)), f"{tag}: ancestors differ from the search and "
+            "walk on the kernel's CDF")
+    if kper > 1:
+        require(bool((cdf_k[:, 1:] >= cdf_k[:, :-1]).all()),
+                f"{tag}: the CDF falls")
+    require(torch.equal(picked[0].long(), anc), f"{tag}: ids leaf != ancestors")
     require(torch.equal(picked[1], torch.gather(vals, 1, anc)),
-            "values leaf not moved by the same ancestors")
+            f"{tag}: values leaf not moved by the same ancestors")
     diff = anc != anc_plain
     frac = float(diff.float().mean())
-    require(frac < 0.01, f"N={n}: {frac:.4%} of ancestor slots disagree")
+    require(frac < 0.01, f"{tag}: {frac:.4%} of ancestor slots disagree")
     # every disagreement must sit within 1e-5 * total of a CDF boundary
     # between the two ancestors chosen (float64 CDF and points)
     w64 = w.double()
@@ -388,17 +468,37 @@ def _systematic_agreement(dev, rng, rows, n):
         lo, hi = sorted((int(anc[b_, j]), int(anc_plain[b_, j])))
         gap = float((cdf[b_, lo:hi] - u[b_, j]).abs().min() / total[b_, 0])
         worst = max(worst, gap)
-        require(gap <= 1e-5, f"N={n} row {b_} slot {j}: disagreement "
+        require(gap <= 1e-5, f"{tag} row {b_} slot {j}: disagreement "
                 f"{gap:.2e} of the total away from a boundary")
     return int(diff.sum()), frac, worst
 
 
+# (N, kPer) of phase 4: the one-slot layout, and the SVOL kernel's at N=512,
+# at the partial warps of N=32 and 96, and at 1024
+SELECT_LAYOUTS = ((N, 1), (N, 2), (32, 2), (96, 2), (1024, 4))
+SELECT_CASES = ("random", "dominant", "zero_runs")
+
+
+def _select_checks(dev, rng, rows, layouts):
+    """_systematic_agreement at each (N, kPer) and weight case: the
+    summary strings."""
+    out = []
+    for n, kper in layouts:
+        for case in SELECT_CASES:
+            ndiff, frac, worst = _systematic_agreement(dev, rng, rows, n,
+                                                       kper, case)
+            if case == "random" or ndiff:
+                out.append(f"N={n} kPer {kper} {case}: {ndiff} slots "
+                           f"({frac:.5%}) off the plain law, worst "
+                           f"{worst:.2e}")
+    return out
+
+
 def phase_select(dev):
-    ndiff, frac, worst = _systematic_agreement(dev, np.random.default_rng(4),
-                                               B, N)
-    phase(4, "select", f"B={B} N={N}: {ndiff} of {B * N} slots "
-          f"differ ({frac:.5%}), worst boundary distance {worst:.2e} total;"
-          " leaves move jointly")
+    sel = _select_checks(dev, np.random.default_rng(4), B, SELECT_LAYOUTS)
+    phase(4, "select", f"B={B}, {len(SELECT_LAYOUTS) * len(SELECT_CASES)} "
+          "cases, ancestors bit for bit the search and walk on the kernel's "
+          "CDF; " + "; ".join(sel) + "; leaves move jointly")
 
 
 def phase_filter_sis(dev, ys_all):
@@ -427,7 +527,7 @@ def phase_filter_sis(dev, ys_all):
 def phase_filter_full(dev, ys):
     points = {"start": svol.make_model().transform.constrain(START),
               "posterior": torch.tensor([0.9, 0.98, 0.02])}
-    times = {}
+    times, spans = {}, {}
     plain_start = {}
     for sched, (ess, g) in SCHEDULES.items():
         for pname, theta in points.items():
@@ -444,17 +544,50 @@ def phase_filter_full(dev, ys):
                     f" > 4 SE {4 * se:.3f}")
             if pname == "start":
                 plain_start[sched] = tot_p
+                half = params[:B // 2].contiguous()
                 times[sched] = (
                     cuda_ms(lambda: sfk.svol_filter(11, params, ys, **kw), 5),
                     cuda_ms(lambda: sfk.svol_filter_reference(
-                        12, params, ys, **kw), 1))
+                        12, params, ys, **kw), 1),
+                    cuda_ms(lambda: sfk.svol_filter(11, half, ys, **kw), 5))
+                spans[sched] = sfk.step_spans(11, params, ys, **kw)
             print(f"  {sched}/{pname}: kernel mean {float(tot.mean()):.4f} "
                   f"plain mean {float(tot_p.mean()):.4f} (4 SE "
                   f"{4 * se:.4f})", flush=True)
+    # the barriers and layout of every instance, read on the card
+    start = svol.make_model().transform.constrain(START)
+    params = torch.stack([start[0], start[1], torch.sqrt(start[2])]).to(
+        dev).expand(B, 3).contiguous()
+    layout = {}
+    for n in K1_RECORD_N:
+        for sched, (ess, g) in SCHEDULES.items():
+            rec = sfk.step_spans(11, params, ys[:512].contiguous(), n, ess, g)
+            _require_barriers(f"N={n} {sched}", rec)
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    for sched, sp in spans.items():
+        _require_barriers(f"N={N} {sched} over SPY", sp)
     phase(6, "filter-full", f"B={B} N={N} T={ys.shape[0]}: " + "; ".join(
-        f"{s} kernel {k:.4f} ms, plain {p:.4f} ms"
-        for s, (k, p) in times.items()))
-    return times, plain_start
+        f"{s} kernel {k:.4f} ms (B={B // 2}: {h:.4f} ms), plain {p:.4f} ms"
+        for s, (k, p, h) in times.items()) + "; clock64 cycles a step by "
+        "part (thread 0 of each row, mean): " + "; ".join(
+            f"{s} " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                sp["cycles_per_step"].items())
+            + f" ({sp['checks']:.0f} checks, {sp['resamples']:.0f} "
+            "resamples)" for s, sp in spans.items())
+        + "; barriers a step (resample, check, other) " + "; ".join(
+            f"{s} {sp['barriers_per_step']}" for s, sp in spans.items())
+        + "; layout (kPer, threads) " + ", ".join(
+            f"N={n} ({v['kper']}, {v['threads']})" for n, v in layout.items()))
+    return times, plain_start, spans, layout
+
+
+def _require_barriers(tag, rec):
+    """The barriers a step of each kind crossed on the card are those the
+    systematic kernel's source note states (sfk.BARRIERS_PER_STEP)."""
+    for kind, want in sfk.BARRIERS_PER_STEP.items():
+        got = rec["barriers_per_step"][kind]
+        require(got is None or got == want, f"K1 {tag}: {got} barriers a "
+                f"{kind} step, the source note states {want}")
 
 
 def phase_pmmh(dev, ys, ident, plain_start):
@@ -1496,14 +1629,12 @@ def phase_svol_step(dev, ident):
 
 
 def phase_k1_large_sis(dev, ys_all):
-    """K1 above 1024 particles (kPer 2 and 4) on identical bits: the
+    """K1 above 1024 particles (kPer 8 systematic, 2 and 4 under the roll
+    resamplers) on identical bits: the
     standalone systematic selection against the plain law, and the filter
     under each resampler against its plain version."""
-    rng = np.random.default_rng(25)
-    sel = []
-    for n in ROLL_N:
-        ndiff, frac, worst = _systematic_agreement(dev, rng, ROLL_B, n)
-        sel.append(f"N={n} {ndiff} slots ({frac:.5%}), worst {worst:.2e}")
+    sel = _select_checks(dev, np.random.default_rng(25), ROLL_B,
+                         [(n, 8) for n in ROLL_N])
     ys = ys_all[:ROLL_T, 0].contiguous()
     rows = _svol_rows(ROLL_POINT, ROLL_B).to(dev)
     errs, plain, sys_close = {}, {}, {}
@@ -1545,7 +1676,7 @@ def phase_k1_large_sis(dev, ys_all):
     return max(errs.values()), plain
 
 
-def phase_k1_large_full(dev, ys_all, ident, plain):
+def phase_k1_large_full(dev, ys_all, ident, plain, layout):
     """K1 at N=2048 and 4096 over SPY (B=256, ESS 0.5) against the JAX
     bank of data/roll_resamplers_jax.json; times by CUDA events."""
     with open(ROLL_JSON) as f:
@@ -1573,7 +1704,10 @@ def phase_k1_large_full(dev, ys_all, ident, plain):
             key = f"{r}/N{n}"
             out[key] = {"ms": ms, "plain_ms": plain[key], "plain_B": ROLL_B,
                         "plain_T": ROLL_T, "bound_ms": bnd[0],
-                        "bound_by": bnd[1], "kper": n // 1024, "mean": mean,
+                        "bound_by": bnd[1],
+                        "kper": (layout[str(n)]["kper"]
+                                 if r == "systematic" else n // 1024),
+                        "mean": mean,
                         "sd": sd, "jax_mean": jx["mean"], "diff": d,
                         "limit": lim}
             print(f"  K1 {key}: {mean:.4f} sd {sd:.4f} (JAX {jx['mean']:.4f}"
@@ -1683,7 +1817,7 @@ def phase_k3_large(dev, ys_all, ident):
 
 
 def phase_pmmh_large_n_k1(dev, ys_all, ident):
-    """SVOL PMMH at N=2048 through K1 systematic (kPer 2): one launch per
+    """SVOL PMMH at N=2048 through K1 systematic (kPer 8): one launch per
     iteration, no host synchronisation; beside phase 23's K2 rejection."""
     ys = ys_all
     model = svol.make_model()
@@ -1778,14 +1912,14 @@ def phase_flagship_cli(dev, ident):
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
-    phase_build()
+    k1_ptxas = phase_build()
     phase_philox(dev)
     phase_select(dev)
     ys = torch.as_tensor(read_data(os.path.join(ROOT, "data",
                                                 "spy_returns.csv"),
                                    num_cols=1), device=dev)
     sis_err = phase_filter_sis(dev, ys)
-    times, plain_start = phase_filter_full(dev, ys)
+    times, plain_start, k1_spans, k1_layout = phase_filter_full(dev, ys)
     launches, _ = phase_pmmh(dev, ys, ident, plain_start)
     phase_cli()
     k2_err = phase_megakernel_sis(dev, ys)
@@ -1807,13 +1941,13 @@ def main():
     large_launches, large = phase_pmmh_large_n(dev, ys, ident, bridge_ms)
     step = phase_svol_step(dev, ident)
     k1_large_err, k1_plain = phase_k1_large_sis(dev, ys)
-    k1_large = phase_k1_large_full(dev, ys, ident, k1_plain)
+    k1_large = phase_k1_large_full(dev, ys, ident, k1_plain, k1_layout)
     k3_large_err, k3_large, lw_q = phase_k3_large(dev, ys, ident)
     k1_pmmh_launches, k1_pmmh = phase_pmmh_large_n_k1(dev, ys, ident)
     flagship_launches = phase_flagship_cli(dev, ident)
 
     t_len = ys.shape[0]
-    k_ms, p_ms = times["adaptive"]
+    k_ms, p_ms, _ = times["adaptive"]
     k2_ms, k2_plain = k2_times["svol_leverage/tuned"]
     lw_ms, lw_plain = lw_times["apf"]
     # bytes: inputs read once (series, covariates, parameter rows, seed),
@@ -1827,7 +1961,8 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "svol_filter",
         "route": "cuda",
-        "source": "ssme_tpu_torch/csrc/svol_filter.cu",
+        "source": "ssme_tpu_torch/csrc/svol_filter_sys.cu",
+        "roll_source": "ssme_tpu_torch/csrc/svol_filter.cu",
         "replaces": "ssme_tpu/ops/svol_filter_kernel.py:317",
         "launches": launches + k1_pmmh_launches + flagship_launches,
         "main_path_launches": {"pmmh": launches,
@@ -1841,6 +1976,13 @@ def main():
         "library_ms": None,
         "ms_parity": times["parity"][0],
         "plain_ms_parity": times["parity"][1],
+        "ms_b128": {s: v[2] for s, v in times.items()},
+        "layout": k1_layout,
+        "barriers_per_step": {s: sp["barriers_per_step"]
+                              for s, sp in k1_spans.items()},
+        "clock64_spans": k1_spans,
+        "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
+                              v)) for k, v in k1_ptxas.items()},
         "per_resampler": roll["K1"],
         "per_kper": k1_large,
         "pmmh_large_n": k1_pmmh,

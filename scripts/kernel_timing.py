@@ -1,0 +1,244 @@
+#!/usr/bin/env python
+"""Times of the filter kernels and of the paths that run them, on one
+card, as one JSON line.
+
+    python scripts/kernel_timing.py [ROOT] [--label NAME] [--reps 10]
+                                    [--k1] [--k2] [--paths] [--bits]
+
+ROOT (default: this checkout) is the tree whose ``ssme_tpu_torch`` is
+imported, so that two trees can be timed in turns within one call on one
+card, e.g. a parent commit unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists: parent, change, change, parent.  Each kernel
+time is the mean over ``--reps`` launches after one warm-up, by CUDA
+events, over all of ``data/spy_returns.csv``.
+
+- ``--k1`` (with ``--k2``, the default when neither is given): the SVOL
+  filter kernel (K1) at B=256 and B=128 rows, N=512, at svol's chain
+  start (as ``chip_smoke.py`` phase 6) and at the SPY posterior (the
+  accuracy gate's means), parity (every step) and adaptive (ESS 0.5,
+  checks every 8 steps); B=256 at N=2048 and 4096, systematic, ESS 0.5,
+  at (0.9, 0.98, 0.02), as phase 26; where the tree has them, the
+  instrumented record of a step (``step_spans``) at N=512, both
+  schedules, and at N=2048, ESS 0.5;
+- ``--k2``: the generic filter kernel (K2), SVOL-leverage at its tuned
+  and parity schedules (B=128, N=512) and, where the tree has them,
+  svol_t bootstrap and svol APF and bootstrap (B=256, N=512);
+- ``--paths``: adaptive PMMH at N=2048 (C=64 x R=4, 10 iterations, ms per
+  iteration, phase 28) and the ``spy_flagship`` CLI for 500 iterations
+  per schedule (wall seconds, phase 29);
+- ``--bits``: sha256 prefixes of the outputs of K1 under the roll
+  resamplers, K2 and K3 on fixed inputs, to show two trees compute the
+  same bits there.
+
+Needs a CUDA card; imports no JAX.
+"""
+
+import argparse
+import contextlib
+import hashlib
+import io
+import json
+import math
+import os
+import sys
+import tempfile
+import time
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("root", nargs="?", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    p.add_argument("--label", default=None)
+    p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--k1", action="store_true")
+    p.add_argument("--k2", action="store_true")
+    p.add_argument("--paths", action="store_true")
+    p.add_argument("--bits", action="store_true")
+    args = p.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    import ssme_tpu_torch
+    from ssme_tpu_torch.bench import gpu_identity
+    from ssme_tpu_torch.io import read_data
+
+    if not ssme_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f"imported {ssme_tpu_torch.__file__}, not from "
+                           f"{root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: kernel_timing runs on the card "
+                           "only")
+    dev = torch.device("cuda")
+    ys = torch.as_tensor(read_data(os.path.join(root, "data",
+                                                "spy_returns.csv"),
+                                   num_cols=1), device=dev)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.reps
+
+    out = {"tree": args.label or root, "device": torch.cuda.get_device_name(0),
+           "nvidia_smi": gpu_identity(), "reps": args.reps}
+    both = not (args.k1 or args.k2)
+    if args.k1 or both:
+        out.update(_k1(torch, ys[:, 0].contiguous(), dev, ms))
+    if args.k2 or both:
+        out["k2_ms"] = _k2(torch, ys[:, 0].contiguous(), dev, ms)
+    if args.paths:
+        out.update(_paths(ys, dev))
+    if args.bits:
+        out["bits"] = _bits(torch, ys[:, 0].contiguous(), dev)
+    print(json.dumps(out), flush=True)
+
+
+def _k1(torch, ys, dev, ms):
+    """K1 ms per launch and, where the tree has it, its step record."""
+    from ssme_tpu_torch.models import svol
+    from ssme_tpu_torch.ops import svol_filter_kernel as sfk
+
+    def rows(theta, b):
+        row = torch.tensor([float(theta[0]), float(theta[1]),
+                            math.sqrt(float(theta[2]))], device=dev)
+        return row.expand(b, 3).contiguous()
+
+    schedules = {"parity": (1.0, 1), "adaptive": (0.5, 8)}
+    start = svol.make_model().transform.constrain(
+        torch.tensor(svol.START_TRANS_THETA))
+    posterior = (0.846, 0.9747, 0.0652)    # data/torch_accuracy_gate*.json
+    k1 = {}
+    for b in (256, 128):
+        for point, theta in (("", start), ("/posterior", posterior)):
+            params = rows(theta, b)
+            for sched, (ess, g) in schedules.items():
+                k1[f"B{b}/N512/{sched}{point}"] = ms(
+                    lambda: sfk.svol_filter(11, params, ys, num_particles=512,
+                                            ess_threshold=ess, gate_stride=g))
+    params = rows((0.9, 0.98, 0.02), 256)
+    for n in (2048, 4096):
+        k1[f"B256/N{n}/ess0.5"] = ms(lambda: sfk.svol_filter(
+            11, params, ys, num_particles=n, ess_threshold=0.5))
+    out = {"k1_ms": k1}
+    if hasattr(sfk, "step_spans"):
+        out["spans"] = {f"N512/{sched}": sfk.step_spans(
+            11, rows(start, 256), ys, 512, ess, g)
+            for sched, (ess, g) in schedules.items()}
+        out["spans"]["N2048/ess0.5"] = sfk.step_spans(
+            11, rows((0.9, 0.98, 0.02), 256), ys, 2048, 0.5)
+    return out
+
+
+def _k2(torch, ys, dev, ms):
+    """K2 ms per launch at the leverage path's and the families' shapes."""
+    from ssme_tpu_torch.models import svol_leverage
+    from ssme_tpu_torch.ops import filter_megakernel as fmk
+
+    out = {}
+    lev = fmk.svol_leverage_kernel_model()
+    zs = svol_leverage.lagged_covariates(ys)
+    rows = torch.tensor([(0.95, -0.1, 0.3, -0.7)] * 128, device=dev)
+    for name, ess in (("leverage_tuned", 0.5), ("leverage_parity", 1.0)):
+        out[name] = ms(lambda: fmk.filter_megakernel(
+            lev, 11, rows, ys, zs, num_particles=512, ess_threshold=ess))
+    if hasattr(fmk, "svol_t_param_rows"):
+        svt = fmk.svol_t_param_rows(torch.tensor(
+            [(0.868, 0.975, 0.064, 10.0)] * 256)).to(dev)
+        out["svol_t_parity"] = ms(lambda: fmk.filter_megakernel(
+            fmk.svol_t_kernel_model(), 11, svt, ys, num_particles=512))
+        srows = fmk.svol_kernel_rows(torch.tensor(
+            [(0.868, 0.975, 0.064)] * 256)).to(dev).contiguous()
+        for mode in ("apf", "bootstrap"):
+            out[f"svol_{mode}"] = ms(lambda: fmk.filter_megakernel(
+                fmk.svol_kernel_model(), 11, srows, ys, num_particles=512,
+                mode=mode))
+    return out
+
+
+def _paths(ys, dev):
+    """Phase 28's PMMH at N=2048 and phase 29's flagship CLI."""
+    import torch
+
+    from ssme_tpu_torch.examples import spy_flagship
+    from ssme_tpu_torch.inference import AdaptivePMMH
+    from ssme_tpu_torch.models import svol
+    from ssme_tpu_torch.ops import svol_filter_kernel as sfk
+
+    iters = 10
+    pmmh = AdaptivePMMH(svol.make_model(), num_particles=2048,
+                        num_replicates=4, t0=150, t1=1000,
+                        batched_log_like=sfk.svol_batched_log_like(
+                            2048, 4, ess_threshold=0.5))
+    state = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmmh.run_from(state, iters, ys)
+    torch.cuda.synchronize()
+    res = {"pmmh_n2048_ms_per_iteration":
+           (time.perf_counter() - t0) * 1e3 / iters, "flagship_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ess in (1.0, 0.5):
+            argv = ["--iters", "500", "--burn", "250", "--chunk", "250",
+                    "--ess", str(ess), "--tag", f"timing_ess{ess}",
+                    "--out-dir", tmp, "--device", dev.type]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                spy_flagship.main(argv)
+            res["flagship_s"][f"ess{ess}"] = time.perf_counter() - t0
+    return res
+
+
+def _bits(torch, ys, dev):
+    """sha256 prefixes of K1 roll, K2 and K3 outputs on fixed inputs."""
+    from ssme_tpu_torch.models.svol_leverage import lagged_covariates
+    from ssme_tpu_torch.ops import filter_megakernel as fmk
+    from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+    from ssme_tpu_torch.ops import svol_filter_kernel as sfk
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    ys = ys[:512].contiguous()
+    zs = lagged_covariates(ys)
+    rows = torch.tensor([[0.9, 0.98, math.sqrt(0.02)]] * 64, device=dev)
+    lev = torch.tensor([[0.958, -0.080, 0.311, -0.751]] * 64, device=dev)
+    out = {}
+    for r in ("metropolis", "rejection"):
+        for n in (512, 2048):
+            out[f"K1/{r}/N{n}"] = digest(*sfk.svol_filter(
+                3, rows, ys, num_particles=n, ess_threshold=0.5,
+                resampler=r, metropolis_iters=16))
+    for r in ("systematic", "rejection"):
+        for name, km, p, z, mode in (
+                ("svol", fmk.svol_kernel_model(), rows, None, "bootstrap"),
+                ("svol_leverage", fmk.svol_leverage_kernel_model(), lev, zs,
+                 "bootstrap"),
+                ("svol", fmk.svol_kernel_model(), rows, None, "apf")):
+            out[f"K2/{name}/{mode}/{r}"] = digest(*fmk.filter_megakernel(
+                km, 3, p, ys, z, num_particles=512, mode=mode,
+                resampler=r)[:2])
+    km = lwm.svol_leverage_lw_kernel_model()
+    for r in ("systematic", "rejection"):
+        for variant in ("apf", "sisr"):
+            o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
+                                  num_filters=16, num_particles=512,
+                                  variant=variant, resampler=r)
+            out[f"K3/{variant}/{r}"] = digest(o["log_cond_likes"], o["cloud"])
+    return out
+
+
+if __name__ == "__main__":
+    main()

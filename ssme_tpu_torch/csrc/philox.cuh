@@ -86,6 +86,16 @@ __device__ __forceinline__ float normal_at(uint32_t k0, uint32_t k1,
   return (i & 1u) ? z.y : z.x;
 }
 
+// both normals of pair k of row b at step t, draw 0: (particle 2k,
+// particle 2k+1) = (r cos a, r sin a), the bits normal_at gives each of
+// them, from one Philox call and one Box-Muller
+__device__ __forceinline__ float2 normal_pair_at(uint32_t k0, uint32_t k1,
+                                                 uint32_t k, uint32_t t,
+                                                 uint32_t b) {
+  const uint4 w = philox4x32_10(make_uint4(k, t, b, kTagNormal), k0, k1);
+  return box_muller(w.x, w.y);
+}
+
 __device__ __forceinline__ float offset_at(uint32_t k0, uint32_t k1,
                                            uint32_t t, uint32_t b,
                                            uint32_t tag = kTagOffset) {

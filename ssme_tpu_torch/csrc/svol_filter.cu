@@ -1,39 +1,38 @@
-// Whole-sequence univariate-SVOL bootstrap filter bank for Hopper.
+// Whole-sequence univariate-SVOL bootstrap filter bank for Hopper under
+// the roll resamplers.
 //
 // Replaces ssme_tpu/ops/svol_filter_kernel.py::svol_filter_pallas (the
-// Pallas kernel body _make_kernel): B filters over T observations in ONE
-// launch, the particle cloud never leaving the chip.
+// Pallas kernel body _make_kernel) under resampler="metropolis" and
+// "rejection": B filters over T observations in ONE launch, the particle
+// cloud never leaving the chip.  Systematic selection runs in
+// svol_filter_sys.cu, laid out for Hopper; this file keeps the roll
+// family's kernel.
 //
 // Layout: one CTA per filter row and kPer particles per thread, a
-// template parameter: kPer = 1 up to N = 1024 (blockDim = N, a multiple of
-// 32), then kPer = 2 up to 2048 and 4 up to 4096 (blockDim = N / kPer, N a
-// multiple of 128 as in the Pallas kernel), N a power of two under the
-// roll resamplers.  Particle j = p * blockDim + threadIdx.x, so loads and
-// the Philox counters (keyed by j) are the plain version's at every kPer,
-// and the reductions first fold a thread's kPer values.  This is the
-// generic kernel's design (filter_megakernel.cuh): every barrier stays in
-// one CTA.  x and the carried log-weight live in registers for all T
-// steps; the CDF (the roll resamplers' weights) and the gather buffer of
-// N floats each in static shared memory, 32 KB at 4096, which is the cap:
-// above it the 48 KB of static shared memory would need an opt-in, and
-// the generic bank (filters/bootstrap.py) takes larger N.  Above 1024 the
-// systematic selection scans kPer contiguous weights per thread
-// (systematic_select.cuh::systematic_ancestors_per).  lcl[b, t] and
-// xmean[b, t] are written straight to global memory by thread 0.
-// __launch_bounds__(1024, 1) caps the kernel at 64 registers a thread, so
-// two 512-thread CTAs share an SM and B = 256 rows fit the H100's 132 SMs
-// in one wave.
+// template parameter: kPer = 1 up to N = 1024 (blockDim = N, a power of
+// two), then kPer = 2 up to 2048 and 4 up to 4096 (blockDim = N / kPer).
+// Particle j = p * blockDim + threadIdx.x, so loads and the Philox
+// counters (keyed by j) are the plain version's at every kPer, and the
+// reductions first fold a thread's kPer values.  This is the generic
+// kernel's design (filter_megakernel.cuh): every barrier stays in one
+// CTA.  x and the carried log-weight live in registers for all T steps;
+// the row's weights and the gather buffer of N floats each in static
+// shared memory, 32 KB at 4096, which is the cap: above it the 48 KB of
+// static shared memory would need an opt-in, and the generic bank
+// (filters/bootstrap.py) takes larger N.  lcl[b, t] and xmean[b, t] are
+// written straight to global memory by thread 0.  __launch_bounds__(1024,
+// 1) caps the kernel at 64 registers a thread, so two 512-thread CTAs
+// share an SM and B = 256 rows fit the H100's 132 SMs in one wave.
 //
 // What bounds it: per-step latency, not bytes.  Each of the T sequential
 // steps costs block barriers (one max and one three-way sum reduction,
-// plus a scan and a gather when it resamples) and the transcendentals
-// of one Box-Muller half-pair, one exp for the weight and one for the
-// renormalisation.  The kernel moves about 8 bytes a step per row.
+// plus the resampler's sweeps and a gather when it resamples) and the
+// transcendentals of one Box-Muller half-pair, one exp for the weight and
+// one for the renormalisation.  The kernel moves about 8 bytes a step per
+// row.
 //
-// Selection: systematic (systematic_select.cuh), or a roll resampler
-// (roll_select.cuh, metropolis or rejection, chosen at run time) on the
-// sweep tags of ops/_prng.py; the family is a template parameter, so the
-// systematic instances compile without the roll code.
+// Selection: the roll resamplers (roll_select.cuh, metropolis or
+// rejection, chosen at run time) on the sweep tags of ops/_prng.py.
 //
 // Per step it computes exactly what the Pallas kernel computes:
 //   t = 0   x ~ N(0, sigma^2 / (1 - phi^2)), lw = 0, carry = log N;
@@ -61,34 +60,27 @@
 
 #include "philox.cuh"
 #include "roll_select.cuh"
-#include "systematic_select.cuh"
 
 namespace {
 
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 constexpr int kMaxThreads = 1024;
 
-// the ancestors of this thread's kPer particles on weights wn, the state
-// moved by them: systematic with the step's offset, or the roll resampler
-// on the sweep tags
-template <bool kRoll, int kPer>
+// the ancestors of this thread's kPer particles on weights wn under the
+// roll resampler on the sweep tags, the state moved by them
+template <int kPer>
 __device__ __forceinline__ void resample(const float (&wn)[kPer],
                                          float (&x)[kPer][1], int resampler,
                                          int metropolis_iters, uint32_t k0,
                                          uint32_t k1, uint32_t t, uint32_t b,
                                          float* cdf, float* buf, float* red) {
   int anc[kPer];
-  if constexpr (kRoll) {
-    ssme::roll_ancestors<kPer>(resampler, metropolis_iters, wn, cdf, red, k0,
-                               k1, t, b, ssme::kTagRollSweep, anc);
-  } else {
-    ssme::systematic_ancestors_per<kPer>(
-        wn, ssme::offset_at(k0, k1, t, b, ssme::kTagOffset), cdf, red, anc);
-  }
+  ssme::roll_ancestors<kPer>(resampler, metropolis_iters, wn, cdf, red, k0,
+                             k1, t, b, ssme::kTagRollSweep, anc);
   ssme::gather_leaves_per<1, kPer>(x, anc, buf);
 }
 
-template <bool kRoll, int kPer>
+template <int kPer>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 svol_filter_kernel(const int64_t* __restrict__ seed,
                    const float* __restrict__ params,
@@ -133,8 +125,8 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     if (t > 0) {
       if (gate_stride == 1 &&
           (always || s_last * s_last / s2_last < ess_limit)) {
-        resample<kRoll, kPer>(wn, x, resampler, metropolis_iters, k0, k1, t,
-                              b, cdf, buf, red);
+        resample<kPer>(wn, x, resampler, metropolis_iters, k0, k1, t, b,
+                       cdf, buf, red);
 #pragma unroll
         for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
         carry = log_n;
@@ -185,8 +177,8 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
     }
     row_total += step_lcl;
     if (gate_stride > 1 && r.x * r.x / r.z < ess_limit) {
-      resample<kRoll, kPer>(wn, x, resampler, metropolis_iters, k0, k1, t, b,
-                            cdf, buf, red);
+      resample<kPer>(wn, x, resampler, metropolis_iters, k0, k1, t, b, cdf,
+                     buf, red);
 #pragma unroll
       for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
       carry = log_n;
@@ -195,14 +187,13 @@ svol_filter_kernel(const int64_t* __restrict__ seed,
   if (i == 0) total[b] = row_total;
 }
 
-template <bool kRoll>
 int launch(int kper, const int64_t* seed, const float* params,
            const float* ys, int num_rows, int num_steps, int num_particles,
            float ess_limit, int always, int gate_stride, int resampler,
            int metropolis_iters, float* total, float* lcl, float* xmean,
            cudaStream_t s) {
 #define SSME_SVOL_LAUNCH(K)                                                  \
-  svol_filter_kernel<kRoll, K><<<num_rows, num_particles / K, 0, s>>>(       \
+  svol_filter_kernel<K><<<num_rows, num_particles / K, 0, s>>>(             \
       seed, params, ys, num_steps, ess_limit, always, gate_stride,          \
       resampler, metropolis_iters, total, lcl, xmean)
   switch (kper) {
@@ -219,12 +210,11 @@ int launch(int kper, const int64_t* seed, const float* params,
 
 // Plain C entry point (bound with ctypes).  All pointers are device
 // pointers the caller allocated; the kernel allocates nothing and runs
-// on `stream`.  resampler: 0 systematic, 1 metropolis with
-// metropolis_iters sweeps, 2 rejection.  num_particles: a multiple of 32
-// up to 1024 (one particle per thread), a multiple of 128 up to 2048 (two)
-// or 4096 (four), a power of two under the roll resamplers.  Returns
-// cudaGetLastError() after the launch, or -3 for a particle count it does
-// not take.
+// on `stream`.  resampler: 1 metropolis with metropolis_iters sweeps, 2
+// rejection (systematic selection is ssme_svol_filter_sys's).
+// num_particles: a power of two, one particle per thread up to 1024, two
+// up to 2048, four up to 4096.  Returns cudaGetLastError() after the
+// launch, or -3 for a particle count or resampler it does not take.
 extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
                                 const float* ys, int num_rows,
                                 int num_steps, int num_particles,
@@ -236,15 +226,10 @@ extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,
   const int kper = num_particles <= kMaxThreads       ? 1
                    : num_particles <= 2 * kMaxThreads ? 2
                                                       : 4;
-  if (num_particles > 4 * kMaxThreads || num_particles % (32 * kper))
+  if (resampler == ssme::kResampleSystematic ||
+      num_particles > 4 * kMaxThreads || num_particles % (32 * kper))
     return -3;
-  return resampler == ssme::kResampleSystematic
-             ? launch<false>(kper, seed, params, ys, num_rows, num_steps,
-                             num_particles, ess_limit, always, gate_stride,
-                             resampler, metropolis_iters, total, lcl, xmean,
-                             s)
-             : launch<true>(kper, seed, params, ys, num_rows, num_steps,
-                            num_particles, ess_limit, always, gate_stride,
-                            resampler, metropolis_iters, total, lcl, xmean,
-                            s);
+  return launch(kper, seed, params, ys, num_rows, num_steps, num_particles,
+                ess_limit, always, gate_stride, resampler, metropolis_iters,
+                total, lcl, xmean, s);
 }

@@ -1,92 +1,155 @@
-// Standalone launch of the systematic selection device code that the SVOL
-// filter kernel inlines (systematic_select.cuh), so the card can check
-// the selection law against the plain PyTorch version on identical
-// inputs.  Replaces ssme_tpu/ops/_select.py::select_leaves_dense.
+// Standalone launch of the systematic selection device code that the
+// filter kernels inline, so the card can check it against the plain
+// PyTorch version on identical inputs.  Replaces
+// ssme_tpu/ops/_select.py::select_leaves_dense.
 //
-// One CTA per row and kPer slots per thread, as in the SVOL kernel: one up
-// to 1024 particles, then 2 up to 2048 and 4 up to 4096 (slot j = p *
-// blockDim + threadIdx.x); every leaf moves by the same ancestors.  Bound
-// by barrier latency like the filter's resample step.
+// One CTA per row.  kPer = 1: one slot per thread (blockDim = N, up to
+// 1024), the block scan and per-slot search of systematic_select.cuh that
+// the generic and Liu-West kernels run.  kPer = 2, 4 or 8: kPer
+// neighbouring slots per thread, the SVOL kernel's layout (blockDim = N /
+// kPer rounded up to a warp), its CDF, search-then-walk and padded gather
+// buffer from row_select.cuh.  Every leaf moves by the same ancestors; the
+// CDF the ancestors were found on can be written out.  Bound by barrier
+// latency like the filters' resample step.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "roll_select.cuh"
+#include "row_select.cuh"
 #include "systematic_select.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxParticles = 4096;
 
-template <int kPer>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-systematic_select_kernel(const float* __restrict__ w,
-                         const float* __restrict__ leaves,
-                         const float* __restrict__ u0, int num_leaves,
-                         int num_rows, float* __restrict__ picked,
-                         int32_t* __restrict__ ancestors) {
-  __shared__ float cdf[kMaxThreads * kPer];
-  __shared__ float buf[kMaxThreads * kPer];
-  __shared__ float red[3 * 32];
+block_select_kernel(const float* __restrict__ w,
+                    const float* __restrict__ leaves,
+                    const float* __restrict__ u0, int num_leaves,
+                    int num_rows, float* __restrict__ picked,
+                    int32_t* __restrict__ ancestors,
+                    float* __restrict__ cdf_out) {
+  __shared__ float cdf[kMaxThreads];
+  __shared__ float buf[kMaxThreads];
+  __shared__ float red[32];
 
-  const int b = blockIdx.x;
-  const int bd = blockDim.x;
-  const size_t row = static_cast<size_t>(b) * bd * kPer;
-  float wv[kPer];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) wv[p] = w[row + p * bd + threadIdx.x];
-  int anc[kPer];
-  ssme::systematic_ancestors_per<kPer>(wv, u0[b], cdf, red, anc);
-#pragma unroll
-  for (int p = 0; p < kPer; ++p)
-    ancestors[row + p * bd + threadIdx.x] = anc[p];
+  const int n = blockDim.x;
+  const int i = threadIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const int anc = ssme::systematic_ancestor(w[row + i], u0[blockIdx.x], cdf,
+                                            red);
+  ancestors[row + i] = anc;
+  if (cdf_out) cdf_out[row + i] = cdf[i];
   for (int l = 0; l < num_leaves; ++l) {
-    const size_t at = static_cast<size_t>(l) * num_rows * bd * kPer + row;
-    float v[kPer][1];
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) v[p][0] = leaves[at + p * bd + threadIdx.x];
-    ssme::gather_leaves_per<1, kPer>(v, anc, buf);
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) picked[at + p * bd + threadIdx.x] = v[p][0];
+    const size_t at = static_cast<size_t>(l) * num_rows * n + row;
+    picked[at + i] = ssme::gather_from(leaves[at + i], anc, buf);
   }
 }
 
 template <int kPer>
-void launch(const float* w, const float* leaves, const float* u0,
-            int num_leaves, int num_rows, int num_particles, float* picked,
-            int32_t* ancestors, cudaStream_t stream) {
-  systematic_select_kernel<kPer><<<num_rows, num_particles / kPer, 0,
-                                   stream>>>(w, leaves, u0, num_leaves,
-                                             num_rows, picked, ancestors);
+__global__ void __launch_bounds__(kMaxThreads, 1)
+row_select_kernel(const float* __restrict__ w,
+                  const float* __restrict__ leaves,
+                  const float* __restrict__ u0, int num_leaves,
+                  int num_rows, int n, float* __restrict__ picked,
+                  int32_t* __restrict__ ancestors,
+                  float* __restrict__ cdf_out) {
+  __shared__ float cdf[ssme::padded_size(kMaxParticles)];
+  __shared__ float buf[ssme::padded_size(kMaxParticles)];
+  __shared__ float4 sum_part[32];
+
+  const int j0 = kPer * threadIdx.x;
+  const bool active = j0 < n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t plane = static_cast<size_t>(num_rows) * n;
+  float wv[kPer], x[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    wv[p] = active ? w[row + j0 + p] : 0.0f;
+    x[p] = active ? leaves[row + j0 + p] : 0.0f;
+  }
+  const float warp_last = ssme::warp_cdf<kPer>(wv, active);
+  float sum[1] = {0.0f};
+  float base = 0.0f, total = 0.0f;
+  ssme::row_sums<1, true>(sum, warp_last, sum_part, base, total);
+  ssme::row_stage<kPer>(wv, base, x, active, cdf, buf);
+  __syncthreads();
+  int anc[kPer];
+  ssme::systematic_walk<kPer>(u0[blockIdx.x], total, n, cdf, anc);
+  for (int l = 0; l < num_leaves; ++l) {
+    if (l > 0) {
+      __syncthreads();  // every read of the previous leaf is done
+      if (active) {
+#pragma unroll
+        for (int p = 0; p < kPer; ++p)
+          buf[ssme::padded(j0 + p)] = leaves[l * plane + row + j0 + p];
+      }
+      __syncthreads();
+    }
+    ssme::row_gather<kPer>(x, anc, buf);
+    if (active) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) picked[l * plane + row + j0 + p] = x[p];
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    ancestors[row + j0 + p] = anc[p];
+    if (cdf_out) cdf_out[row + j0 + p] = cdf[ssme::padded(j0 + p)];
+  }
+}
+
+template <int kPer>
+void launch_row(const float* w, const float* leaves, const float* u0,
+                int num_leaves, int num_rows, int n, int threads,
+                float* picked, int32_t* ancestors, float* cdf_out,
+                cudaStream_t stream) {
+  row_select_kernel<kPer><<<num_rows, threads, 0, stream>>>(
+      w, leaves, u0, num_leaves, num_rows, n, picked, ancestors, cdf_out);
 }
 
 }  // namespace
 
-// -3 for a particle count it does not take (a multiple of 32 up to 1024,
-// of 128 up to 4096)
+// kper: 1 (the block scan, N a multiple of 32 up to 1024) or 2, 4, 8 (the
+// SVOL kernel's layout, N a multiple of 32 up to 1024 or of 128 up to
+// 4096, at most 1024 threads).  cdf_out: null, or float[B * N] for the
+// inclusive CDF.  -3 for a shape it does not take.
 extern "C" int ssme_systematic_select(const float* w, const float* leaves,
                                       const float* u0, int num_leaves,
                                       int num_rows, int num_particles,
-                                      float* picked, int32_t* ancestors,
+                                      int kper, float* picked,
+                                      int32_t* ancestors, float* cdf_out,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int kper = num_particles <= kMaxThreads       ? 1
-                   : num_particles <= 2 * kMaxThreads ? 2
-                                                      : 4;
-  if (num_particles > 4 * kMaxThreads || num_particles % (32 * kper))
+  const int n = num_particles;
+  if (n < 32 || n % 32 || n > kMaxParticles || (n > kMaxThreads && n % 128))
     return -3;
+  if (kper == 1) {
+    if (n > kMaxThreads) return -3;
+    block_select_kernel<<<num_rows, n, 0, s>>>(w, leaves, u0, num_leaves,
+                                               num_rows, picked, ancestors,
+                                               cdf_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int threads = kper > 0 ? (n / kper + 31) / 32 * 32 : 0;
+  if (threads < 32 || threads > kMaxThreads) return -3;
   switch (kper) {
-    case 1:
-      launch<1>(w, leaves, u0, num_leaves, num_rows, num_particles, picked,
-                ancestors, s);
-      break;
     case 2:
-      launch<2>(w, leaves, u0, num_leaves, num_rows, num_particles, picked,
-                ancestors, s);
+      launch_row<2>(w, leaves, u0, num_leaves, num_rows, n, threads, picked,
+                    ancestors, cdf_out, s);
+      break;
+    case 4:
+      launch_row<4>(w, leaves, u0, num_leaves, num_rows, n, threads, picked,
+                    ancestors, cdf_out, s);
+      break;
+    case 8:
+      launch_row<8>(w, leaves, u0, num_leaves, num_rows, n, threads, picked,
+                    ancestors, cdf_out, s);
       break;
     default:
-      launch<4>(w, leaves, u0, num_leaves, num_rows, num_particles, picked,
-                ancestors, s);
+      return -3;
   }
   return static_cast<int>(cudaGetLastError());
 }

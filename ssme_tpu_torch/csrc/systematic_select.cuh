@@ -1,7 +1,7 @@
 // Block-wide reductions, scan and systematic ancestor selection for one
 // CTA per filter row and one particle per thread (blockDim.x = N, a
-// multiple of 32, at most 1024), or kPer particles per thread
-// (systematic_ancestors_per, the SVOL kernel above 1024 particles).
+// multiple of 32, at most 1024): the generic and Liu-West filter kernels'
+// (the SVOL kernel's, kPer particles per thread, are in row_select.cuh).
 // Replaces select_leaves_dense of ssme_tpu/ops/_select.py.
 //
 // The TPU builds the CDF and the gather as dense (n, n) one-hot matmuls
@@ -115,81 +115,6 @@ __device__ __forceinline__ int systematic_ancestor(float w, float u0,
     if (cdf[mid] < u) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-
-// exclusive scan of one value per thread: the sum of the values of the
-// threads before this one (red: shared float[32])
-__device__ __forceinline__ float block_exclusive_scan(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(kFullMask, v, o);
-    if (lane >= o) v += y;
-  }
-  float ex = __shfl_up_sync(kFullMask, v, 1);
-  if (lane == 0) ex = 0.0f;
-  __syncthreads();
-  if (lane == 31) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < nw ? red[lane] : 0.0f;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(kFullMask, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < nw) red[lane] = s;
-  }
-  __syncthreads();
-  return warp > 0 ? ex + red[warp - 1] : ex;
-}
-
-// Ancestors of this thread's kPer slots (slot j = p * blockDim.x +
-// threadIdx.x, one weight w[p] each, n = kPer * blockDim.x).  At kPer = 1
-// this is systematic_ancestor.  Above, the weights go to cdf in particle
-// order, each thread scans its kPer contiguous entries serially and adds
-// the exclusive block scan of the threads' sums, and each slot searches
-// the n entries with the rules above (the exclusive CDF is the rounded
-// neighbour; u_j = min((j + u0) * (total / n), total)).  cdf: shared
-// float[n], searched by slower threads until the caller's next barrier.
-template <int kPer>
-__device__ __forceinline__ void systematic_ancestors_per(
-    const float (&w)[kPer], float u0, float* cdf, float* red,
-    int (&anc)[kPer]) {
-  if constexpr (kPer == 1) {
-    anc[0] = systematic_ancestor(w[0], u0, cdf, red);
-  } else {
-    const int bd = blockDim.x;
-    const int n = bd * kPer;
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) cdf[p * bd + threadIdx.x] = w[p];
-    __syncthreads();
-    float run[kPer];
-    float* mine = cdf + threadIdx.x * kPer;
-    run[0] = mine[0];
-#pragma unroll
-    for (int q = 1; q < kPer; ++q) run[q] = run[q - 1] + mine[q];
-    // its barriers order every read of cdf above before the writes below
-    const float before = block_exclusive_scan(run[kPer - 1], red);
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) mine[q] = before + run[q];
-    __syncthreads();
-    const float total = cdf[n - 1];
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) {
-      const int j = p * bd + threadIdx.x;
-      const float u = fminf((static_cast<float>(j) + u0) *
-                                (total / static_cast<float>(n)),
-                            total);
-      int lo = 0, hi = n - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (cdf[mid] < u) lo = mid + 1; else hi = mid;
-      }
-      anc[p] = lo;
-    }
-  }
 }
 
 // value of thread `anc` (one value per thread); buf must not alias cdf,

@@ -4,7 +4,8 @@ The sources in ``ssme_tpu_torch/csrc/`` expose a plain C interface.  At
 first use each ``.cu`` file is compiled by its own ``nvcc`` for
 ``sm_90a``, all of them at once, and the objects are linked into one
 shared library under ``ssme_tpu_torch/_build/`` whose name carries a hash
-of the sources, loaded with ``ctypes``.  Nothing here runs at import time:
+of the sources, loaded with ``ctypes``; ptxas' register and spill lines
+are kept beside it (``build_info["ptxas"]``).  Nothing here runs at import time:
 a machine without ``nvcc`` or a card can import every module, and only a
 call on a CUDA tensor reaches :func:`library`, which raises if the build
 fails.
@@ -44,8 +45,12 @@ _SIGNATURES = {
     # resampler, metropolis_iters, total, lcl, xmean, stream
     "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
                          _P, _P],
-    # w, leaves, u0, L, B, N, picked, ancestors, stream
-    "ssme_systematic_select": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # seed, params, ys, B, T, N, ess_limit, always, gate_stride, total,
+    # lcl, xmean, spans (or null), stream
+    "ssme_svol_filter_sys": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
+                             _P, _P],
+    # w, leaves, u0, L, B, N, kper, picked, ancestors, cdf (or null), stream
+    "ssme_systematic_select": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # w, leaves, seed, step, tag, resampler, metropolis_iters, L, B, N,
     # picked, ancestors, stream
     "ssme_roll_select": [_P, _P, _P, _U, _U, _I, _I, _I, _I, _I, _P, _P,
@@ -127,11 +132,12 @@ def _build(path: str) -> None:
         _run([("link", subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        ptxas = [ln for log in logs for ln in log.splitlines()
+                 if "registers" in ln or "Compiling" in ln or "spill" in ln]
+        with open(path + ".ptxas", "w") as f:
+            f.write("\n".join(ptxas))
         os.replace(lib, path)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas=[ln for log in logs for ln in log.splitlines()
-                             if "registers" in ln or "Compiling" in ln
-                             or "spill" in ln])
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
 
 
 def library() -> ctypes.CDLL:
@@ -146,6 +152,8 @@ def library() -> ctypes.CDLL:
             _build(path)
         else:
             build_info.setdefault("seconds", 0.0)
+            with open(path + ".ptxas") as f:
+                build_info.setdefault("ptxas", f.read().splitlines())
         lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

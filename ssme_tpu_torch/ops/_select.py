@@ -5,19 +5,21 @@ Replaces ``ssme_tpu/ops/_select.py``: ``select_leaves_dense``
 (systematic), ``metropolis_select_leaves``, ``rejection_select_leaves``
 and the Metropolis sweep budget (``metropolis_bias_estimate``,
 ``metropolis_sweeps_for``).  The CUDA sides are
-``csrc/systematic_select.cuh`` and ``csrc/roll_select.cuh`` (inlined by
-the filter kernels; launched alone by :func:`systematic_select` and
-:func:`roll_select`); this module holds their plain PyTorch versions and
-those wrappers.
+``csrc/systematic_select.cuh``, ``csrc/row_select.cuh`` and
+``csrc/roll_select.cuh`` (inlined by the filter kernels; launched alone
+by :func:`systematic_select` and :func:`roll_select`); this module holds
+their plain PyTorch versions and those wrappers.
 
 Systematic law, per row: cdf = inclusive float32 cumulative sum of w,
 total = cdf[-1], points u_j = min((j + u0) * (total / N), total) and
 ancestor_j = the first i with cdf[i] >= u_j, which is the half-open test
 cdf[i-1] < u_j <= cdf[i] on the same rounded array (cdf[-1] read as 0).
-The kernel's block scan adds in another order than ``torch.cumsum``, so
-a point within rounding of a CDF boundary can pick the neighbour (above
-1024 particles the SVOL kernel scans kPer contiguous weights per thread,
-``csrc/systematic_select.cuh::systematic_ancestors_per``).
+The kernels' block scans add in another order than ``torch.cumsum``, so
+a point within rounding of a CDF boundary can pick the neighbour.  The
+SVOL kernel (``csrc/row_select.cuh``) gives each thread kPer neighbouring
+slots: it searches for the first and walks forward over the rest
+(:func:`systematic_ancestors_walk`, its plain model, which equals the
+search on a CDF that never falls).
 
 Roll laws (Murray, Lee & Jacob's GPU resamplers, in the TPU's roll form),
 per row of power-of-two N, sweep s drawing a shift word and one uniform
@@ -92,14 +94,18 @@ def check_particles(n: int, resampler: str = "systematic",
                          f"decomposition masks the shift to [0, N)){tail}")
 
 
+def _points(cdf, u0):
+    """Clamped systematic points (B, N) on an inclusive CDF (B, N)."""
+    n = cdf.shape[-1]
+    total = cdf[:, -1:]
+    j = torch.arange(n, dtype=cdf.dtype, device=cdf.device)[None, :]
+    return torch.minimum((j + u0[:, None]) * (total / n), total)
+
+
 def systematic_points(w, u0):
     """Inclusive CDF (B, N) and clamped systematic points (B, N)."""
-    n = w.shape[-1]
     cdf = torch.cumsum(w, dim=-1)
-    total = cdf[:, -1:]
-    j = torch.arange(n, dtype=w.dtype, device=w.device)[None, :]
-    u = torch.minimum((j + u0[:, None]) * (total / n), total)
-    return cdf, u
+    return cdf, _points(cdf, u0)
 
 
 def systematic_ancestors(w, u0):
@@ -107,6 +113,54 @@ def systematic_ancestors(w, u0):
     cdf, u = systematic_points(w, u0)
     idx = torch.searchsorted(cdf.contiguous(), u.contiguous(), side="left")
     return torch.clamp(idx, max=w.shape[-1] - 1)
+
+
+def _lower_bound(cdf, lo, hi, u):
+    """Per element, the first a in [lo, hi] with cdf[a] >= u, given
+    cdf[hi] >= u: the kernel's binary search, all rows at once."""
+    while True:
+        go = lo < hi
+        if not bool(go.any()):
+            return lo
+        mid = (lo + hi) // 2
+        below = torch.gather(cdf, 1, mid) < u
+        lo = torch.where(go & below, mid + 1, lo)
+        hi = torch.where(go & ~below, mid, hi)
+
+
+def systematic_ancestors_walk(cdf, u0, kper):
+    """Ancestors (B, N) int64 as the SVOL kernel finds them
+    (``csrc/row_select.cuh::systematic_walk``) on an inclusive CDF (B, N):
+    thread i takes slots kper * i .. kper * i + kper - 1, searches for the
+    first and walks forward over the rest, galloping (1, 2, 4, ...
+    entries past the last ancestor, then a binary search in the last
+    step).  Points and total are :func:`systematic_ancestors`' (total =
+    cdf[:, -1]); on a CDF that never falls the ancestors equal its."""
+    b, n = cdf.shape
+    if kper < 1 or n % kper:
+        raise ValueError(f"kper={kper} must divide N={n}")
+    u = _points(cdf, u0).reshape(b, n // kper, kper)
+    last = torch.full((b, n // kper), n - 1, dtype=torch.int64,
+                      device=cdf.device)
+    a = _lower_bound(cdf, torch.zeros_like(last), last, u[..., 0])
+    out = [a]
+    for p in range(1, kper):
+        up = u[..., p]
+        need = torch.gather(cdf, 1, a) < up
+        lo = torch.minimum(a + 1, last)
+        span = torch.ones_like(a)
+        while True:
+            probe = lo + span - 1
+            go = need & (probe < n - 1)
+            go &= torch.gather(cdf, 1, torch.minimum(probe, last)) < up
+            if not bool(go.any()):
+                break
+            lo = torch.where(go, lo + span, lo)
+            span = torch.where(go, span * 2, span)
+        found = _lower_bound(cdf, lo, torch.minimum(lo + span - 1, last), up)
+        a = torch.where(need, found, a)
+        out.append(a)
+    return torch.stack(out, dim=-1).reshape(b, n)
 
 
 def systematic_select_reference(w, leaves, u0):
@@ -133,32 +187,56 @@ def _validate(w, leaves, u0):
             raise ValueError(f"{name} must be contiguous")
 
 
-def systematic_select(w, leaves, u0):
+def _select_kper(n, kper):
+    """The layout the standalone kernel runs at ``n`` particles: kper 1
+    (one slot per thread, N <= 1024) or 2, 4, 8 neighbouring slots per
+    thread (at most 1024 threads); None: 1 up to 1024, else 8."""
+    if kper is None:
+        return 1 if n <= MAX_PARTICLES else 8
+    # a CTA holds at most MAX_PARTICLES (1024) threads
+    if kper not in (1, 2, 4, 8) or -(-n // kper) > MAX_PARTICLES:
+        raise ValueError(f"kper={kper} at N={n}: 1 up to {MAX_PARTICLES} "
+                         "particles, or 2, 4, 8 with at most "
+                         f"{MAX_PARTICLES} threads")
+    return kper
+
+
+def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
     """Systematic selection of every leaf row by per-row weights.
 
     ``w``: (B, N) nonnegative float32 weights, N a multiple of 32 up to
-    1024 or of 128 up to 4096 (the SVOL kernel's kPer layout);
-    ``leaves``: (L, B, N) float32, moved by the same ancestors; ``u0``:
-    (B,) offsets in (0, 1).
-    Returns (picked (L, B, N), ancestors (B, N) int32).  Launches the CUDA
-    kernel for CUDA tensors and runs the plain version for CPU tensors.
+    1024 or of 128 up to 4096; ``leaves``: (L, B, N) float32, moved by the
+    same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper`` picks the
+    device code a CUDA call runs: 1, one slot per thread
+    (``csrc/systematic_select.cuh``, the generic and Liu-West kernels'), or
+    2, 4, 8 neighbouring slots per thread (``csrc/row_select.cuh``, the
+    SVOL kernel's CDF, search and walk); None: 1 up to 1024 particles,
+    else 8.
+    Returns (picked (L, B, N), ancestors (B, N) int32) and, with
+    ``return_cdf``, the inclusive CDF (B, N) they were found on.  Launches
+    the CUDA kernel for CUDA tensors and runs the plain version (whose CDF
+    is ``torch.cumsum``) for CPU tensors, at any ``kper``.
     """
     _validate(w, leaves, u0)
+    kper = _select_kper(w.shape[1], kper)
     if w.device.type == "cpu":
-        return systematic_select_reference(w, leaves, u0)
+        picked, anc = systematic_select_reference(w, leaves, u0)
+        return (picked, anc, torch.cumsum(w, dim=-1)) if return_cdf \
+            else (picked, anc)
     if w.device.type != "cuda":
         raise ValueError(f"systematic_select: unsupported device {w.device}")
     lib = _cuda.library()
     num_leaves, b, n = leaves.shape
     picked = torch.empty_like(leaves)
     anc = torch.empty((b, n), dtype=torch.int32, device=w.device)
-    err = lib.ssme_systematic_select(w.data_ptr(), leaves.data_ptr(),
-                                     u0.data_ptr(), num_leaves, b, n,
-                                     picked.data_ptr(), anc.data_ptr(),
-                                     _cuda.stream_ptr(w.device))
+    cdf = torch.empty_like(w) if return_cdf else None
+    err = lib.ssme_systematic_select(
+        w.data_ptr(), leaves.data_ptr(), u0.data_ptr(), num_leaves, b, n,
+        kper, picked.data_ptr(), anc.data_ptr(),
+        None if cdf is None else cdf.data_ptr(), _cuda.stream_ptr(w.device))
     _cuda.check(err, "ssme_systematic_select")
     systematic_select.launches += 1
-    return picked, anc
+    return (picked, anc, cdf) if return_cdf else (picked, anc)
 
 
 systematic_select.launches = 0
@@ -401,7 +479,8 @@ def metropolis_sweeps_for(bias_budget, t_len, ess_threshold=0.5,
 
 
 __all__ = ["systematic_select", "systematic_select_reference",
-           "systematic_ancestors", "systematic_points", "check_particles",
+           "systematic_ancestors", "systematic_ancestors_walk",
+           "systematic_points", "check_particles",
            "check_resampler", "roll_select", "roll_select_reference",
            "roll_ancestors", "plain_ancestor_fn", "metropolis_ancestors", "rejection_ancestors",
            "metropolis_select", "rejection_select", "philox_draw",

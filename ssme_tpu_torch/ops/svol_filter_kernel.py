@@ -2,19 +2,21 @@
 its plain PyTorch version.
 
 Replaces ``ssme_tpu/ops/svol_filter_kernel.py::svol_filter_pallas``.  The
-kernel is ``csrc/svol_filter.cu`` (its header comment gives the step
-recursion, the layout and the intended divergences from the Pallas
-kernel); :func:`svol_filter_reference` runs the same recursion step by
-step with plain tensor operations and the same Philox bits
-(``ops/_prng.py``), on either device.
+kernels: under systematic selection ``csrc/svol_filter_sys.cu`` (kPer
+neighbouring particles per thread, paired Philox draws, three barriers in
+a step that resamples, a forward walk for the ancestors; its header note
+gives the layout), under the roll-based ``"metropolis"`` and
+``"rejection"`` resamplers ``csrc/svol_filter.cu`` (its header note gives
+the step recursion and the intended divergences from the Pallas kernel,
+which both follow).  :func:`svol_filter_reference` runs the same
+recursion step by step with plain tensor operations and the same Philox
+bits (``ops/_prng.py``), on either device.
 
-:func:`svol_filter` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors; on a CUDA tensor it never falls back.
-Selection: systematic, or the roll-based ``"metropolis"`` and
-``"rejection"`` resamplers (``ops/_select.py``, a power-of-two N), to
-4096 particles under each (kPer = 2 or 4 particles per thread above
-1024); above 4096 it raises and points to the generic bank of
-``filters/bootstrap.py``.
+:func:`svol_filter` launches a kernel for CUDA tensors and runs the plain
+version for CPU tensors; on a CUDA tensor it never falls back.  N runs to
+4096 particles under each resampler (``ops/_select.py``; a power of two
+under the roll ones); above 4096 it raises and points to the generic bank
+of ``filters/bootstrap.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ssme_tpu_torch.utils import logmeanexp
 
 
 # above the cap the two buffers of N floats would pass the 48 KB of static
-# shared memory (csrc/svol_filter.cu); JAX's kernel has no cap in code
+# shared memory (csrc/svol_filter*.cu); JAX's kernel has no cap in code
 _BEYOND = ("above 4096 particles run the generic bank, "
            "ssme_tpu_torch.filters.bootstrap.replicated_log_like_fn")
 
@@ -181,9 +183,9 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
     seed: (2,) int64 Philox key words on the params' device, or a Python
     int; params: (B, 3) float32 constrained [beta, phi, sigma] (sigma,
     not sigma^2); ys: (T,) or (T, 1) float32.  ``num_particles`` is a
-    multiple of 32 in [32, 1024].  Returns (total (B,), lcl (B, T),
-    xmean (B, T)): total = sum_t log p(y_t | y_{1:t-1}); xmean the
-    filtered E[x_t | y_{1:t}].
+    multiple of 32 up to 1024 or of 128 up to 4096.  Returns (total (B,),
+    lcl (B, T), xmean (B, T)): total = sum_t log p(y_t | y_{1:t-1}); xmean
+    the filtered E[x_t | y_{1:t}].
 
     ess_threshold: resample when a row's ESS falls below this fraction of
     N (1.0 = every step).  gate_stride g > 1 (ESS-adaptive schedules
@@ -203,24 +205,84 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
                                      metropolis_iters)
     if params.device.type != "cuda":
         raise ValueError(f"svol_filter: unsupported device {params.device}")
+    return _launch(seed, params, ys, num_particles, ess_threshold,
+                   gate_stride, resampler, metropolis_iters)
+
+
+svol_filter.launches = 0
+
+
+def _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
+            resampler, metropolis_iters, spans=None):
+    """One K1 launch on validated CUDA inputs: the systematic kernel (with
+    ``spans`` an int64 (B, len(SPAN_RECORD)) tensor, its instrumented
+    instance) or the roll one."""
     lib = _cuda.library()
     b, t_len = params.shape[0], ys.shape[0]
     dev = params.device
     total = torch.empty((b,), dtype=torch.float32, device=dev)
     lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
     xmean = torch.empty_like(lcl)
-    err = lib.ssme_svol_filter(
-        seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len,
-        int(num_particles), float(ess_threshold) * int(num_particles),
-        int(ess_threshold >= 1.0), int(gate_stride),
-        RESAMPLER_CODES[resampler], int(metropolis_iters), total.data_ptr(),
-        lcl.data_ptr(), xmean.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_svol_filter")
+    n = int(num_particles)
+    common = (seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
+              float(ess_threshold) * n, int(ess_threshold >= 1.0),
+              int(gate_stride))
+    outs = (total.data_ptr(), lcl.data_ptr(), xmean.data_ptr(),
+            _cuda.stream_ptr(dev))
+    if resampler == "systematic":
+        err = lib.ssme_svol_filter_sys(
+            *common, *outs[:3], None if spans is None else spans.data_ptr(),
+            outs[3])
+        _cuda.check(err, "ssme_svol_filter_sys")
+    else:
+        err = lib.ssme_svol_filter(*common, RESAMPLER_CODES[resampler],
+                                   int(metropolis_iters), *outs)
+        _cuda.check(err, "ssme_svol_filter")
     svol_filter.launches += 1
     return total, lcl, xmean
 
 
-svol_filter.launches = 0
+# the barriers a step of the systematic kernel crosses, as its source note
+# states them (csrc/svol_filter_sys.cu); step_spans counts them on the card
+BARRIERS_PER_STEP = {"resample": 3, "check": 2, "other": 0}
+# the parts of a step its clock64 spans time, then the rest of the
+# instrumented instance's record per row (csrc/svol_filter_sys.cu Span)
+SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
+SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "barriers_resample",
+                            "barriers_check", "barriers_other", "kper",
+                            "threads")
+
+
+def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
+               gate_stride=1):
+    """Where a step's time goes on the card, and what it does: one launch
+    of the systematic kernel's instrumented instance, recorded by thread
+    0 of each row.  Returns {"cycles_per_step": {part: mean clock64
+    cycles a step} over SPAN_PARTS (the barriers' waits inside the part
+    that ends in them), "checks", "resamples": mean counts per row,
+    "barriers_per_step": {"resample", "check", "other": barriers a step
+    of that kind crossed, mean over the rows' steps of that kind, or None
+    where there was none}, "kper", "threads": the layout the launch
+    ran}."""
+    seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
+                         gate_stride)
+    spans = torch.zeros((params.shape[0], len(SPAN_RECORD)),
+                        dtype=torch.int64, device=params.device)
+    _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
+            "systematic", 16, spans=spans)
+    rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
+    b, t_len = params.shape[0], ys.shape[0]
+    layout = spans[:, SPAN_RECORD.index("kper"):]
+    if not bool((layout == layout[:1]).all()):
+        raise RuntimeError("step_spans: rows report different layouts")
+    steps = {"resample": rec["resamples"],
+             "check": rec["checks"] - rec["resamples"],
+             "other": b * t_len - rec["checks"]}
+    return {"cycles_per_step": {k: rec[k] / (b * t_len) for k in SPAN_PARTS},
+            "checks": rec["checks"] / b, "resamples": rec["resamples"] / b,
+            "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
+                                  for k, v in steps.items()},
+            "kper": int(layout[0, 0]), "threads": int(layout[0, 1])}
 
 
 def _kernel_rows(params):
@@ -305,4 +367,5 @@ def svol_swarm_evidence(seed, param_draws, ys, num_particles=512,
 
 
 __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
-           "svol_replicated_log_like", "svol_swarm_evidence"]
+           "svol_replicated_log_like", "svol_swarm_evidence", "step_spans",
+           "BARRIERS_PER_STEP", "SPAN_PARTS", "SPAN_RECORD"]

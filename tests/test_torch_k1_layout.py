@@ -1,0 +1,243 @@
+"""Plain models of the SVOL filter kernel's layout for Hopper
+(``ssme_tpu_torch/csrc/svol_filter_sys.cu`` and ``csrc/row_select.cuh``):
+kPer neighbouring particles per thread, one Philox call per pair, the CDF
+built from a lane scan and serially chained warps, and the forward walk
+that takes the place of a search per slot.
+
+The models use the kernel's arithmetic in float32, so they pin down what
+the kernel must compute; ``test_torch_kernels_cuda.py`` holds the kernel
+itself to the plain filter on a card.  The walk is also held to JAX's
+in-kernel selector (``select_leaves_dense``, interpret mode).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from ssme_tpu.ops._select import select_leaves_dense
+from ssme_tpu_torch.ops import _prng
+from ssme_tpu_torch.ops._select import (_points, systematic_ancestors,
+                                        systematic_ancestors_walk)
+
+torch.set_num_threads(1)
+KPERS = (2, 4, 8)
+SIZES = (32, 96, 512, 4096)
+
+
+def _paired_normals(seed, row, step, n, kper):
+    """The kernel's draws for one row and step: thread i owns particles
+    kper * i + p; its pair q is Philox counter ((kper / 2) i + q, step,
+    row, 0), one call whose Box-Muller cosine goes to the even particle
+    and sine to the odd.  Returns the (n,) normals and the counters each
+    thread used."""
+    k0, k1 = seed[0] & _prng.MASK32, seed[1] & _prng.MASK32
+    z = torch.empty(n)
+    used = []
+    for i in range(n // kper):
+        pairs = torch.arange(kper // 2) + (kper // 2) * i
+        used.append(pairs.tolist())
+        w0, w1, _, _ = _prng.philox4x32_10(
+            pairs, torch.full_like(pairs, step), torch.full_like(pairs, row),
+            torch.zeros_like(pairs), k0, k1)
+        cos, sin = _prng.box_muller(w0, w1)
+        z[kper * i:kper * (i + 1)] = torch.stack([cos, sin], dim=-1).reshape(
+            -1)
+    return z, used
+
+
+@pytest.mark.parametrize("kper", KPERS)
+def test_paired_draws_give_the_bits_of_normals_steps(kper):
+    """One Philox call per pair, every pair once: the bits the plain
+    filter draws (``normals_steps``) for every particle of a row."""
+    seed = _prng.seed_words(0x9E3779B97F4A7C15)
+    rows = torch.tensor([0, 5, 255])
+    steps = torch.tensor([0, 1, 3083])
+    for n in (96, 512):
+        want = _prng.normals_steps(seed, rows, steps, n)
+        for si, t in enumerate(steps.tolist()):
+            for ri, b in enumerate(rows.tolist()):
+                got, used = _paired_normals(seed, b, t, n, kper)
+                assert torch.equal(got, want[si, ri])
+                flat = [k for ks in used for k in ks]
+                assert sorted(flat) == list(range(n // 2))
+
+
+def _row_cdf(w, kper):
+    """The kernel's CDF of one row (row_select.cuh warp_cdf and
+    row_sums) in float32: a serial prefix over each thread's kper
+    weights, an inclusive lane scan of the thread totals (shuffle-up
+    steps 1, 2, 4, 8, 16), each lane's entries raised to the running max
+    of the earlier lanes' last entries, and the warps' offsets chained
+    serially.  Returns (cdf (N,), the chained total)."""
+    w = np.asarray(w, np.float32)
+    n = w.shape[0]
+    threads = -(-(n // kper) // 32) * 32
+    per = np.zeros((threads, kper), np.float32)
+    per[:n // kper] = w.reshape(-1, kper)
+    active = np.arange(threads) < n // kper
+    for p in range(1, kper):
+        per[:, p] = per[:, p - 1] + per[:, p]
+    cdf_parts, lasts = [], []
+    for lo in range(0, threads, 32):
+        run = per[lo:lo + 32].copy()
+        act = active[lo:lo + 32]
+        incl = np.where(act, run[:, -1], np.float32(0))
+        for o in (1, 2, 4, 8, 16):
+            incl = incl.copy()
+            incl[o:] = incl[o:] + incl[:-o]
+        excl = np.concatenate([[np.float32(0)], incl[:-1]]).astype(np.float32)
+        run = excl[:, None] + run
+        top = np.where(act, run[:, -1], np.float32(0))
+        for o in (1, 2, 4, 8, 16):
+            top = top.copy()
+            top[o:] = np.maximum(top[o:], top[:-o])
+        below = np.concatenate([[np.float32(0)], top[:-1]]).astype(np.float32)
+        cdf_parts.append(np.maximum(run, below[:, None])[act])
+        lasts.append(top[-1])
+    base, cdf = np.float32(0), []
+    for part, last in zip(cdf_parts, lasts):
+        cdf.append(base + part)
+        base = base + last
+    return np.concatenate(cdf).reshape(-1), base
+
+
+def _weights(case, rows, n, rng):
+    w = rng.gamma(1.0, 1.0, (rows, n)).astype(np.float32)
+    if case == "dominant":
+        w *= 1e-12
+        w[np.arange(rows), rng.integers(0, n, rows)] = 1.0
+    elif case == "zero_runs":
+        for r in range(rows):
+            for _ in range(3):
+                a = rng.integers(0, n)
+                w[r, a:a + rng.integers(n // 8, n // 2)] = 0.0
+    return torch.from_numpy(w)
+
+
+def _near_ulp_offsets(w, rng):
+    """Rows of ``w`` with offsets that put one point within one ulp of an
+    entry of the row's CDF."""
+    cdf = torch.cumsum(w, dim=-1)
+    n = w.shape[1]
+    rows, offs = [], []
+    for r in range(w.shape[0]):
+        k = int(rng.integers(n // 4, n))
+        step = (cdf[r, -1] / n).item()
+        x = cdf[r, k].item() / step
+        j = int(np.floor(x))
+        base = np.float32(x - j)
+        for d in range(-6, 7):
+            u0 = base
+            for _ in range(abs(d)):
+                u0 = np.nextafter(u0, np.float32(2 if d > 0 else -1))
+            if not 0.0 < u0 < 1.0:
+                continue
+            pt = _points(cdf[r:r + 1], torch.tensor([u0]))[0, j]
+            gap = abs(float(pt) - float(cdf[r, k]))
+            if gap <= float(np.spacing(np.float32(cdf[r, k]))):
+                rows.append(r)
+                offs.append(u0)
+    return w[rows], torch.tensor(np.array(offs, np.float32))
+
+
+@pytest.mark.parametrize("case", ["random", "dominant", "zero_runs",
+                                  "one_ulp", "clamped"])
+@pytest.mark.parametrize("n", SIZES)
+def test_walk_equals_the_search(n, case):
+    """The forward walk gives the binary search's ancestors on the same
+    CDF and points, at every kPer, for random weights, one dominant
+    weight, long zero runs, points within one ulp of a CDF entry and the
+    last point clamped to the total."""
+    rng = np.random.default_rng(n)
+    rows = 16
+    if case == "one_ulp":
+        w, u0 = _near_ulp_offsets(_weights("random", rows, n, rng), rng)
+        assert w.shape[0] >= rows
+    elif case == "clamped":
+        # the largest offset puts the last point on the total at a power
+        # of two and past it in some rows at N=96, and trailing zeros make
+        # the clamped point select the last particle of weight, not N - 1
+        w = _weights("random", 64, n, rng)
+        w[::2, -5:] = 0.0
+        u0 = torch.full((64,), _prng.uniform_offset(
+            torch.tensor(_prng.MASK32)).item())
+        cdf = torch.cumsum(w, dim=-1)
+        raw = (n - 1 + u0) * (cdf[:, -1] / n)
+        if n & (n - 1):
+            assert bool((raw > cdf[:, -1]).any())
+        else:
+            assert torch.equal(raw, cdf[:, -1])
+    else:
+        w = _weights(case, rows, n, rng)
+        u0 = torch.from_numpy(rng.uniform(0.0, 1.0, rows).astype(np.float32))
+    want = systematic_ancestors(w, u0)
+    for kper in KPERS:
+        got = systematic_ancestors_walk(torch.cumsum(w, dim=-1), u0, kper)
+        assert torch.equal(got, want), kper
+        if case == "dominant":
+            assert bool((got == got[:, :1]).all())
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_kernel_cdf_never_falls_and_ends_at_its_total(n):
+    """The kernel's CDF (lane scan, max of the earlier lanes, chained
+    warps) never falls, its last entry is the chained total bit for bit,
+    it agrees with the serial cumulative sum to float32 rounding, and the
+    walk on it equals the search on it."""
+    rng = np.random.default_rng(n + 1)
+    for case in ("random", "zero_runs", "dominant"):
+        w = _weights(case, 4, n, rng)
+        u0 = torch.from_numpy(rng.uniform(0.0, 1.0, 4).astype(np.float32))
+        for kper in KPERS:
+            built = [_row_cdf(row.numpy(), kper) for row in w]
+            cdf = torch.from_numpy(np.stack([c for c, _ in built]))
+            assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
+            assert [c[-1] for c, _ in built] == [t for _, t in built]
+            serial = torch.cumsum(w.double(), -1).float()
+            torch.testing.assert_close(cdf, serial, rtol=1e-5, atol=1e-6 * n)
+            search = torch.clamp(torch.searchsorted(
+                cdf, _points(cdf, u0), side="left"), max=n - 1)
+            assert torch.equal(systematic_ancestors_walk(cdf, u0, kper),
+                               search)
+
+
+def _jax_ancestors(w, u0):
+    """JAX's in-kernel systematic selector through a minimal
+    interpret-mode ``pallas_call``: the ancestors as a moved id leaf."""
+    n = w.shape[1]
+    lt = np.tril(np.ones((n, n), np.float32)).T
+    ids = np.tile(np.arange(n, dtype=np.float32), (w.shape[0], 1))
+
+    def kernel(w_ref, u0_ref, lt_ref, ids_ref, out_ref):
+        out_ref[:] = select_leaves_dense(w_ref[:], [ids_ref[:]], u0_ref[:],
+                                         lt_ref[:])[0]
+
+    out = pl.pallas_call(kernel, out_shape=jax.ShapeDtypeStruct(
+        w.shape, jnp.float32), interpret=True)(
+            jnp.asarray(w), jnp.asarray(u0[:, None]), jnp.asarray(lt),
+            jnp.asarray(ids))
+    return np.asarray(out).astype(np.int64)
+
+
+@pytest.mark.parametrize("kper", KPERS)
+def test_walk_matches_jax_away_from_boundaries(kper):
+    """8 rows of N=256 gamma weights: the walk on the kernel's CDF model
+    selects JAX's ancestors wherever a point lies farther than 2e-4 of
+    the total from every CDF entry (float32 and JAX's bf16-compensated
+    CDFs round otherwise)."""
+    rng = np.random.default_rng(kper)
+    w = rng.gamma(1.0, 1.0, (8, 256)).astype(np.float32)
+    u0 = rng.uniform(0.05, 0.95, 8).astype(np.float32)
+    want = _jax_ancestors(w, u0)
+    cdf = torch.from_numpy(np.stack([_row_cdf(r, kper)[0] for r in w]))
+    got = systematic_ancestors_walk(cdf, torch.from_numpy(u0), kper).numpy()
+    c64 = np.cumsum(w.astype(np.float64), axis=1)
+    u = (np.arange(256)[None] + u0[:, None].astype(np.float64)) \
+        * c64[:, -1:] / 256
+    safe = np.min(np.abs(c64[:, None, :] - u[:, :, None]), axis=2) \
+        > 2e-4 * c64[:, -1:]
+    assert safe.sum() > 8 * 256 // 2
+    np.testing.assert_array_equal(got[safe], want[safe])

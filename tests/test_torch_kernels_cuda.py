@@ -21,6 +21,7 @@ from ssme_tpu_torch.ops import filter_megakernel as fm
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm
 from ssme_tpu_torch.ops import svol_kernel as k5
 from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4
+from ssme_tpu_torch.ops import svol_filter_kernel as sfk
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_filter,
                                                    svol_filter_reference)
 
@@ -55,16 +56,37 @@ def test_philox_fill_matches_plain_bitwise(dev):
                                atol=1e-7)
 
 
-def test_systematic_select_matches_plain_away_from_boundaries(dev):
-    rng = np.random.default_rng(1)
-    w = torch.as_tensor(rng.gamma(1.0, 1.0, (32, 256)).astype(np.float32),
+@pytest.mark.parametrize("n,kper", [(256, 1), (256, 2), (32, 2), (96, 2),
+                                    (1024, 4), (2048, 8), (4096, 8),
+                                    (512, 4), (512, 8)])
+def test_systematic_select_matches_plain_away_from_boundaries(dev, n, kper):
+    """The standalone selection in each layout (one slot per thread, the
+    generic and Liu-West kernels'; kPer neighbouring slots, the SVOL
+    kernel's): ancestors bit for bit those of the plain model of its
+    search and walk on the CDF it returns (which never falls at kPer > 1),
+    the leaves moved by them, and the plain law's but where a point lies
+    within rounding of a CDF boundary (another scan order)."""
+    rng = np.random.default_rng(n + kper)
+    w = torch.as_tensor(rng.gamma(1.0, 1.0, (32, n)).astype(np.float32),
                         device=dev)
-    leaves = torch.as_tensor(rng.normal(size=(2, 32, 256)).astype(
+    w[::4, n // 3:n // 2] = 0.0
+    w[1::4] *= 1e-12
+    w[1::4, 7] = 1.0
+    leaves = torch.as_tensor(rng.normal(size=(2, 32, n)).astype(
         np.float32), device=dev)
     u0 = torch.full((32,), 0.37, device=dev)
-    picked, anc = _select.systematic_select(w, leaves, u0)
+    picked, anc, cdf = _select.systematic_select(w, leaves, u0, kper=kper,
+                                                 return_cdf=True)
     _, anc_p = _select.systematic_select_reference(w, leaves, u0)
-    # block scan vs torch.cumsum: a point may flip only at a boundary
+    assert torch.equal(anc.long(),
+                       _select.systematic_ancestors_walk(cdf, u0, kper))
+    if kper > 1:
+        assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
+    assert bool((anc[1::4] == 7).all())
+    torch.testing.assert_close(cdf, torch.cumsum(w, -1), rtol=1e-5,
+                               atol=1e-6 * n)
+    # another scan order than torch.cumsum: a point may flip only at a
+    # boundary
     assert float((anc != anc_p).float().mean()) < 0.01
     assert torch.equal(picked, torch.gather(
         leaves, 2, anc.long()[None].expand_as(leaves)))
@@ -125,15 +147,94 @@ def test_megakernel_matches_plain_without_resampling(dev, name, gate_stride):
                                atol=1e-3)
 
 
+def _step_one_rule(lcl, lcl_p):
+    """Phase 25's rule for two systematic runs on identical bits whose
+    CDFs sum in another order: step 0 equal, and step 1 (one selection)
+    within 2e-3 on at least 90% of the rows (a point within rounding of a
+    CDF boundary picks the neighbour, and that row then parts)."""
+    torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4)
+    assert float(((lcl[:, 1] - lcl_p[:, 1]).abs() <= 2e-3).float().mean()) \
+        >= 0.9
+
+
 def test_megakernel_svol_instance_equals_the_svol_kernel(dev):
+    """The generic kernel's svol instance draws the SVOL kernel's bits:
+    with a gate that never fires the totals within 1e-3; while rows
+    resample, phase 25's rule (the two kernels' CDFs sum in another
+    order)."""
     ys = _ys(300, 9).to(dev)
     km, params, _ = _instance("svol", dev, ys)
+    a = fm.filter_megakernel(km, 4, params, ys, num_particles=256,
+                             ess_threshold=1e-6)[0]
+    b = svol_filter(4, params, ys, num_particles=256, ess_threshold=1e-6)[0]
+    assert float((a - b).abs().max()) <= 1e-3
     for ess in (1.0, 0.5):
         a = fm.filter_megakernel(km, 4, params, ys, num_particles=256,
-                                 ess_threshold=ess)[0]
+                                 ess_threshold=ess)[1]
         b = svol_filter(4, params, ys, num_particles=256,
-                        ess_threshold=ess)[0]
-        assert float((a - b).abs().max()) <= 1e-3
+                        ess_threshold=ess)[1]
+        assert torch.isfinite(b).all()
+        _step_one_rule(a, b)
+
+
+@pytest.mark.parametrize("gate_stride", [1, 8])
+@pytest.mark.parametrize("n", [32, 96, 512, 2048, 4096])
+def test_systematic_kernel_matches_plain(dev, n, gate_stride):
+    """The systematic K1 (kPer neighbouring particles per thread, a
+    partial last warp at N=32 and 96) on identical bits: with a gate that
+    never fires the totals to phase 5's tolerance and equal zero
+    patterns; every step (stride 1), phase 25's rule."""
+    ys = _ys(64, 14).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    kw = dict(num_particles=n, gate_stride=gate_stride)
+    tot, lcl, xm = svol_filter(5, params, ys, ess_threshold=1e-6, **kw)
+    tot_p, lcl_p, xm_p = svol_filter_reference(5, params, ys,
+                                               ess_threshold=1e-6, **kw)
+    torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=1e-3)
+    assert torch.equal(lcl != 0, lcl_p != 0)
+    torch.testing.assert_close(xm, xm_p, rtol=1e-3, atol=1e-3)
+    if gate_stride == 1:
+        tot, lcl, _ = svol_filter(5, params, ys, ess_threshold=1.0, **kw)
+        lcl_p = svol_filter_reference(5, params, ys, ess_threshold=1.0,
+                                      **kw)[1]
+        assert torch.isfinite(tot).all()
+        _step_one_rule(lcl, lcl_p)
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024, 2048, 4096])
+def test_systematic_kernel_record_layout_and_barriers(dev, n):
+    """The instrumented instance of each layout: the kPer and threads it
+    ran, the barriers a step crossed (those the source note states), the
+    checks and resamples of both schedules, and its outputs the plain
+    kernel's bits."""
+    ys = _ys(48, 15).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    kper = 2 if n <= 512 else 4 if n <= 1024 else 8
+    for ess, g in ((1.0, 1), (0.5, 8)):
+        rec = sfk.step_spans(6, params, ys, n, ess, g)
+        assert (rec["kper"], rec["threads"]) == (kper,
+                                                  -(-n // kper // 32) * 32)
+        got = {k: v for k, v in rec["barriers_per_step"].items()
+               if v is not None}
+        assert got == {k: sfk.BARRIERS_PER_STEP[k] for k in got}
+        assert rec["checks"] == (48 if g == 1 else 6)
+        assert 0 < rec["resamples"] < rec["checks"] + (g == 1)
+    seed = _prng.seed_words(6, device=dev)
+    spans = torch.zeros((16, len(sfk.SPAN_RECORD)), dtype=torch.int64,
+                        device=dev)
+    plain = sfk._launch(seed, params, ys, n, 1.0, 1, "systematic", 16)
+    inst = sfk._launch(seed, params, ys, n, 1.0, 1, "systematic", 16,
+                       spans=spans)
+    for a, b in zip(plain, inst):
+        assert torch.equal(a, b)
+
+
+def test_systematic_kernel_refuses_other_counts(dev):
+    params = torch.tensor([[1.0, 0.9, 0.2]] * 4, device=dev)
+    seed = _prng.seed_words(1, device=dev)
+    ys = _ys(8, 2).to(dev)
+    with pytest.raises(RuntimeError, match="CUDA error -3"):
+        sfk._launch(seed, params, ys, 1056, 1.0, 1, "systematic", 16)
 
 
 def test_megakernel_launch_counter_and_errors(dev):
@@ -399,24 +500,6 @@ def test_svol_step_equals_plain(dev):
     with pytest.raises(ValueError):
         k5.fused_svol_propagate_weight(5, 0.0, params, x[:, :511], lw)
 
-
-
-@pytest.mark.parametrize("n", [2048, 4096])
-def test_systematic_select_kper_matches_plain_away_from_boundaries(dev, n):
-    """The standalone systematic selection at kPer = N / 1024 (the SVOL
-    kernel's layout above 1024): ancestors equal but where a point lies
-    within rounding of a CDF boundary (another scan order)."""
-    rng = np.random.default_rng(n)
-    w = torch.as_tensor(rng.gamma(1.0, 1.0, (16, n)).astype(np.float32),
-                        device=dev)
-    leaves = torch.as_tensor(rng.normal(size=(1, 16, n)).astype(np.float32),
-                             device=dev)
-    u0 = torch.full((16,), 0.37, device=dev)
-    picked, anc = _select.systematic_select(w, leaves, u0)
-    _, anc_p = _select.systematic_select_reference(w, leaves, u0)
-    assert float((anc != anc_p).float().mean()) < 0.01
-    assert torch.equal(picked, torch.gather(
-        leaves, 2, anc.long()[None].expand_as(leaves)))
 
 
 @pytest.mark.parametrize("n", [2048, 4096])

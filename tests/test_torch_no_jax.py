@@ -30,7 +30,8 @@ assert not bad, bad
 print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
 # the port's own scripts (the JAX yardstick scripts import JAX by design)
-SCRIPTS = [os.path.join(ROOT, "scripts", "k3_roll_fullsize.py")]
+SCRIPTS = [os.path.join(ROOT, "scripts", name)
+           for name in ("k3_roll_fullsize.py", "kernel_timing.py")]
 
 
 def _port_modules():

@@ -139,3 +139,31 @@ def test_wrapper_validation():
     picked, anc = systematic_select_reference(w, torch.ones(1, 4, 64),
                                               torch.full((4,), 0.5))
     assert anc.dtype == torch.int32 and picked.shape == (1, 4, 64)
+
+
+@pytest.mark.parametrize("n,kper", [(64, 1), (1024, 1), (2048, 8),
+                                    (4096, 4), (96, 2), (32, 8)])
+def test_layouts_the_kernel_takes_and_the_plain_cdf(n, kper):
+    """Each layout the standalone kernel runs (one slot per thread up to
+    1024; kPer neighbouring slots with at most 1024 threads) gives the
+    plain law on the CPU, and its CDF is the plain cumulative sum."""
+    rng = np.random.default_rng(n)
+    w = torch.from_numpy(rng.gamma(1.0, 1.0, (4, n)).astype(np.float32))
+    leaves = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
+    u0 = torch.full((4,), 0.37)
+    picked, anc, cdf = systematic_select(w, leaves, u0, kper=kper,
+                                         return_cdf=True)
+    want = systematic_select_reference(w, leaves, u0)
+    assert torch.equal(picked, want[0]) and torch.equal(anc, want[1])
+    assert torch.equal(cdf, torch.cumsum(w, -1))
+
+
+@pytest.mark.parametrize("n,kper", [(2048, 1), (4096, 2), (512, 3),
+                                    (512, 16)])
+def test_layouts_the_kernel_refuses(n, kper):
+    """One slot per thread above 1024 particles, more than 1024 threads,
+    or a kPer other than 1, 2, 4, 8."""
+    w = torch.ones(2, n)
+    with pytest.raises(ValueError, match="kper"):
+        systematic_select(w, torch.ones(1, 2, n), torch.full((2,), 0.5),
+                          kper=kper)
