@@ -23,12 +23,15 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
-            instance of the systematic SVOL kernel spills nothing;
+            instance of the systematic SVOL kernel and of the generic
+            kernel's systematic family (each functor, bootstrap and APF, at
+            2 and 4 particles per thread, and the instrumented twins)
+            spills nothing;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
 4. select   the standalone selection kernel at N=512 in both layouts (one
-            slot per thread, the generic and Liu-West kernels'; kPer
-            neighbouring slots, the SVOL kernel's), and in the SVOL
-            kernel's at N=32, 96 and 1024, on random, dominant and
+            slot per thread, the Liu-West kernel's; kPer neighbouring
+            slots, the SVOL and generic kernels' systematic families'), and
+            in the latter at N=32, 96 and 1024, on random, dominant and
             zero-run weights: ancestors bit for bit those of the kernel's
             own search and walk (the plain model) on the CDF it returns,
             the leaves moved by them, and against the plain law;
@@ -137,7 +140,15 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 29. flagship-cli  ``ssme_tpu_torch.examples.spy_flagship`` at its width for
             500 iterations per schedule (every step, ESS 0.5): the samples'
             shape, finite, an accept rate in (0, 1), launches = iterations
-            + 1, the summary on stdout.
+            + 1, the summary on stdout;
+30. k2-layout   the generic kernel's systematic family at N=32, 96, 512
+            and 1024: the instrumented twins' barriers a step (3 / 2 / 0 in
+            the bootstrap, 5 an APF step) and layout (kPer, threads), their
+            outputs the plain instances' bits; its svol instance against
+            the SVOL kernel (the same CDF, walk, paired draws and offsets)
+            at parity and ESS 0.5 over SPY, B=128: step 0 equal, step 1
+            within 2e-3 on 90% of the rows, the means within 4 combined
+            standard errors.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -231,6 +242,12 @@ FLAGSHIP_ITERS = 500
 # launch_for: kPer 2 and 4 at up to 256 threads, 8 at up to 256 and 512,
 # each also instrumented)
 K1_INSTANCES = 8
+# instances of the generic kernel's systematic family
+# (csrc/filter_megakernel_sys.cuh): per kPer (2, 4) the 7 functors'
+# bootstrap, the 4 lookahead functors' APF and the 2 instrumented twins
+K2_SYS_INSTANCES = 2 * (7 + 4 + 2)
+# N at which phase 30 reads the twins' record (partial warps at 32 and 96)
+K2_RECORD_N = (32, 96, 512, 1024)
 # N at which phase 6 reads the systematic kernel's record: each of its
 # instances
 K1_RECORD_N = (32, N, 1024) + ROLL_N
@@ -244,8 +261,8 @@ PEAK_F32_PER_S = 67e12
 # operations per particle and step, counted from the sources; a normal is
 # half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
 # adds = 100) plus its half of Box-Muller (~12): 56, which is what the
-# systematic SVOL kernel computes (one call per pair of particles); the
-# SVOL kernel's roll family, the generic and the Liu-West kernels still
+# systematic families of the SVOL and generic kernels compute (one call
+# per pair of particles); the roll families and the Liu-West kernel still
 # make one call per particle.  Resampling inside a gated schedule depends
 # on the data and is left out (a lower bound).
 NORMAL_OPS = 56
@@ -349,15 +366,32 @@ def phase_device():
     return ident
 
 
-def _k1_instances(ptxas):
+def _k1_key(name):
+    """The systematic SVOL kernel's instance of a mangled entry name."""
+    t = re.search(r"svol_filter_sys_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
+    return t and (f"kper{t.group(1)}/threads{t.group(2)}"
+                  + ("/spans" if t.group(3) == "1" else ""))
+
+
+def _k2_key(name):
+    """The generic kernel's systematic instance of a mangled entry name."""
+    t = re.search(r"filter_megakernel_sysIN4ssme\d+(\w+?Model)(?:ILi(\d)EE)?"
+                  r"ELb(\d)ELi(\d)ELb(\d)E", name)
+    return t and (f"{t.group(1)}{t.group(2) or ''}/"
+                  f"{'apf' if t.group(3) == '1' else 'bootstrap'}/"
+                  f"kper{t.group(4)}" + ("/spans" if t.group(5) == "1"
+                                         else ""))
+
+
+def _ptxas_instances(ptxas, key):
     """{instance: (registers, spill store bytes, spill load bytes)} of the
-    systematic SVOL kernel from ptxas' -v lines, in their order."""
+    entries whose mangled name ``key`` maps to an instance, from ptxas' -v
+    lines, in their order."""
     out, name, spill = {}, None, None
     for ln in ptxas:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1) if "svol_filter_sys_kernel" in m.group(1) \
-                else None
+            name = key(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
@@ -365,10 +399,7 @@ def _k1_instances(ptxas):
             spill = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name and spill:
-            t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
-            key = (f"kper{t.group(1)}/threads{t.group(2)}"
-                   + ("/spans" if t.group(3) == "1" else "")) if t else name
-            out[key] = (int(m.group(1)),) + spill
+            out[name] = (int(m.group(1)),) + spill
             name = spill = None
     return out
 
@@ -378,16 +409,24 @@ def phase_build():
     _cuda.library()
     info = _cuda.build_info
     ptxas = info.get("ptxas", [])
-    k1 = _k1_instances(ptxas)
-    require(len(k1) == K1_INSTANCES, f"ptxas reports {len(k1)} instances of "
-            f"the systematic SVOL kernel, want {K1_INSTANCES}: {k1}")
-    spilled = {k: v for k, v in k1.items() if v[1] or v[2]}
-    require(not spilled, f"systematic SVOL kernel instances spill: {spilled}")
+    found = {}
+    for kernel, key, want in (("systematic SVOL kernel", _k1_key,
+                               K1_INSTANCES),
+                              ("generic kernel's systematic family", _k2_key,
+                               K2_SYS_INSTANCES)):
+        inst = _ptxas_instances(ptxas, key)
+        require(len(inst) == want, f"ptxas reports {len(inst)} instances of "
+                f"the {kernel}, want {want}: {inst}")
+        spilled = {k: v for k, v in inst.items() if v[1] or v[2]}
+        require(not spilled, f"{kernel} instances spill: {spilled}")
+        found[kernel] = inst
     phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
-          f"{info.get('seconds', 0.0):.3f} s); systematic SVOL kernel "
-          "(registers, spill stores, spill loads): " + ", ".join(
-              f"{k} {v}" for k, v in k1.items()) + " | " + " | ".join(ptxas))
-    return k1
+          f"{info.get('seconds', 0.0):.3f} s); (registers, spill stores, "
+          "spill loads) of " + "; ".join(
+              f"the {kernel}: " + ", ".join(f"{k} {v}" for k, v in
+                                            inst.items())
+              for kernel, inst in found.items()) + " | " + " | ".join(ptxas))
+    return tuple(found.values())
 
 
 def phase_philox(dev):
@@ -1145,7 +1184,7 @@ def phase_families_sis(dev, ys_all):
     for name, km, rows, y in cases:
         for g in (1, 8):
             _compare_sis(name, km, rows, y, None, g, errs)
-    # APF: identical bits; after the first selection the block scan and
+    # APF: identical bits; after the first selection the kernel's CDF and
     # torch.cumsum may pick different neighbours at a CDF boundary, so
     # only step 0 must agree to float tolerance, and most (row, step)
     # cells: a flip is rare (phase 4), and a row agrees until its first
@@ -1909,10 +1948,86 @@ def phase_flagship_cli(dev, ident):
     return launches
 
 
+def _require_k2_barriers(tag, rec):
+    """The barriers a step of each kind crossed on the card are those the
+    generic kernel's systematic source note states
+    (fmk.BARRIERS_PER_STEP)."""
+    for kind, want in fmk.BARRIERS_PER_STEP.items():
+        got = rec["barriers_per_step"][kind]
+        require(got is None or got == want, f"K2 {tag}: {got} barriers a "
+                f"{kind} step, the source note states {want}")
+
+
+def phase_k2_layout(dev, ys_all):
+    """The systematic family's instrumented twins at every layout, and its
+    svol instance against K1 on the same bits over SPY."""
+    ys = ys_all[:512, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)
+    params = torch.tensor([LEV_POINTS["posterior"]] * 64, device=dev)
+    layout, counted = {}, {}
+    for n in K2_RECORD_N:
+        for tag, kw in (("parity", dict(ess_threshold=1.0)),
+                        ("tuned", dict(ess_threshold=0.5)),
+                        ("adaptive", dict(ess_threshold=0.5, gate_stride=8)),
+                        ("apf", dict(mode="apf"))):
+            rec = fmk.step_spans(13, params, ys, zs, n, **kw)
+            plain = fmk.filter_megakernel(fmk.svol_leverage_kernel_model(),
+                                          13, params, ys, zs,
+                                          num_particles=n, **kw)
+            require(all(torch.equal(a, b)
+                        for a, b in zip(plain, rec["outputs"])),
+                    f"K2 N={n} {tag}: the twin's outputs are not the plain "
+                    "instance's bits")
+            _require_k2_barriers(f"N={n} {tag}", rec)
+            require(rec["checks"] == (512 if tag != "adaptive" else 64)
+                    and (rec["apf_steps"] == 511) == (tag == "apf"),
+                    f"K2 N={n} {tag}: {rec['checks']} checks, "
+                    f"{rec['apf_steps']} APF steps")
+            counted[f"N{n}/{tag}"] = rec["barriers_per_step"]
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+        require(rec["threads"] == -(-n // rec["kper"] // 32) * 32,
+                f"K2 N={n}: {rec['threads']} threads at kPer {rec['kper']}")
+    # the svol instance against K1: the same bits, CDF, walk and offsets,
+    # but each kernel fuses its own multiply-adds, so a point within an ulp
+    # of a CDF entry now and then picks the neighbour and the row parts
+    # (over SPY every row does, some step): phase 25's rule (step 0 equal,
+    # step 1 close on 90% of the rows) and the means within 4 combined SE
+    rows = _svol_rows((0.9, 0.98, 0.02), LB).to(dev)
+    ys = ys_all[:, 0].contiguous()
+    vs_k1 = {}
+    for n in (N, 1024):
+        for sched, ess in (("parity", 1.0), ("ess0.5", 0.5)):
+            kw = dict(num_particles=n, ess_threshold=ess)
+            tot, lcl, _ = fmk.filter_megakernel(fmk.svol_kernel_model(), 21,
+                                                rows, ys, **kw)
+            tot1, lcl1, _ = sfk.svol_filter(21, rows, ys, **kw)
+            key = f"K2 svol vs K1 N={n} {sched}"
+            _agree(f"{key} to step 1", lcl[:, 1], lcl1[:, 1], lcl, lcl1,
+                   min_close=0.9)
+            se = math.sqrt(float(tot.var()) / LB + float(tot1.var()) / LB)
+            d = abs(float(tot.mean()) - float(tot1.mean()))
+            require(d <= 4 * se, f"{key}: means differ by {d:.3f} > 4 SE "
+                    f"{4 * se:.3f}")
+            vs_k1[f"N{n}/{sched}"] = {
+                "max_abs_err_steps_0_1": float(
+                    (lcl[:, :2] - lcl1[:, :2]).abs().max()),
+                "mean_diff": d, "four_se": 4 * se}
+    phase(30, "k2-layout", "twins' barriers a step (resample, check, other, "
+          "apf) " + "; ".join(f"{k} {v}" for k, v in counted.items())
+          + "; layout (kPer, threads) " + ", ".join(
+              f"N={n} ({v['kper']}, {v['threads']})"
+              for n, v in layout.items())
+          + f" | svol instance vs K1 over SPY, B={LB}: " + ", ".join(
+              f"{k} steps 0-1 max abs err {v['max_abs_err_steps_0_1']:.3e},"
+              f" means {v['mean_diff']:.4f} apart (4 SE {v['four_se']:.4f})"
+              for k, v in vs_k1.items()))
+    return layout, counted, vs_k1
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
-    k1_ptxas = phase_build()
+    k1_ptxas, k2_ptxas = phase_build()
     phase_philox(dev)
     phase_select(dev)
     ys = torch.as_tensor(read_data(os.path.join(ROOT, "data",
@@ -1945,6 +2060,7 @@ def main():
     k3_large_err, k3_large, lw_q = phase_k3_large(dev, ys, ident)
     k1_pmmh_launches, k1_pmmh = phase_pmmh_large_n_k1(dev, ys, ident)
     flagship_launches = phase_flagship_cli(dev, ident)
+    k2_layout, k2_barriers, k2_vs_k1 = phase_k2_layout(dev, ys)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -1989,7 +2105,8 @@ def main():
     }, {
         "name": "filter_megakernel",
         "route": "cuda",
-        "source": "ssme_tpu_torch/csrc/filter_megakernel.cu",
+        "source": "ssme_tpu_torch/csrc/filter_megakernel_sys.cuh",
+        "roll_source": "ssme_tpu_torch/csrc/filter_megakernel.cuh",
         "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
         "launches": (k2_launches + swarm_launches + svol_t_launches
                      + large_launches),
@@ -2011,6 +2128,11 @@ def main():
         "per_resampler": dict(roll["K2"], sweeps=roll["sweeps"],
                               bias_envelope=roll["bias_envelope"]),
         "pmmh_large_n": large,
+        "layout": k2_layout,
+        "barriers_per_step": k2_barriers,
+        "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
+                              v)) for k, v in k2_ptxas.items()},
+        "svol_vs_svol_filter": k2_vs_k1,
     }, {
         "name": "lw_megakernel",
         "route": "cuda",

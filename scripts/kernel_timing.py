@@ -21,14 +21,20 @@ events, over all of ``data/spy_returns.csv``.
   instrumented record of a step (``step_spans``) at N=512, both
   schedules, and at N=2048, ESS 0.5;
 - ``--k2``: the generic filter kernel (K2), SVOL-leverage at its tuned
-  and parity schedules (B=128, N=512) and, where the tree has them,
-  svol_t bootstrap and svol APF and bootstrap (B=256, N=512);
+  (ESS 0.5) and parity schedules and in APF mode (B=128, N=512 and 1024),
+  svol_t parity (B=256, N=512 and 1024), svol APF and bootstrap (B=256,
+  N=512), and Poisson AR (bootstrap and APF, B=128) and factor SVOL with
+  4 assets (B=32) at their phase-18 shapes (``data/k2_families_jax.json``);
+  where the tree has them, the systematic family's step records
+  (``step_spans``) of the leverage cases at N=512 and 1024;
 - ``--paths``: adaptive PMMH at N=2048 (C=64 x R=4, 10 iterations, ms per
   iteration, phase 28) and the ``spy_flagship`` CLI for 500 iterations
   per schedule (wall seconds, phase 29);
-- ``--bits``: sha256 prefixes of the outputs of K1 under the roll
-  resamplers, K2 and K3 on fixed inputs, to show two trees compute the
-  same bits there.
+- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler), K2
+  under the roll resamplers and K3 on fixed inputs, to show
+  two trees compute the same bits there (``bits``), and apart from them
+  those of K2's systematic family (``bits_k2_systematic``), which a
+  change of its CDF's rounding order changes.
 
 Needs a CUDA card; imports no JAX.
 """
@@ -94,11 +100,12 @@ def main(argv=None):
     if args.k1 or both:
         out.update(_k1(torch, ys[:, 0].contiguous(), dev, ms))
     if args.k2 or both:
-        out["k2_ms"] = _k2(torch, ys[:, 0].contiguous(), dev, ms)
+        out.update(_k2(torch, ys[:, 0].contiguous(), dev, ms))
     if args.paths:
         out.update(_paths(ys, dev))
     if args.bits:
-        out["bits"] = _bits(torch, ys[:, 0].contiguous(), dev)
+        out["bits"], out["bits_k2_systematic"] = _bits(
+            torch, ys[:, 0].contiguous(), dev)
     print(json.dumps(out), flush=True)
 
 
@@ -139,29 +146,55 @@ def _k1(torch, ys, dev, ms):
 
 
 def _k2(torch, ys, dev, ms):
-    """K2 ms per launch at the leverage path's and the families' shapes."""
+    """K2 ms per launch at the main paths' and the families' shapes, and,
+    where the tree has them, the systematic family's step records."""
     from ssme_tpu_torch.models import svol_leverage
     from ssme_tpu_torch.ops import filter_megakernel as fmk
 
-    out = {}
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(fmk.__file__))))
+    out, spans = {}, {}
     lev = fmk.svol_leverage_kernel_model()
     zs = svol_leverage.lagged_covariates(ys)
     rows = torch.tensor([(0.95, -0.1, 0.3, -0.7)] * 128, device=dev)
-    for name, ess in (("leverage_tuned", 0.5), ("leverage_parity", 1.0)):
-        out[name] = ms(lambda: fmk.filter_megakernel(
-            lev, 11, rows, ys, zs, num_particles=512, ess_threshold=ess))
-    if hasattr(fmk, "svol_t_param_rows"):
-        svt = fmk.svol_t_param_rows(torch.tensor(
-            [(0.868, 0.975, 0.064, 10.0)] * 256)).to(dev)
-        out["svol_t_parity"] = ms(lambda: fmk.filter_megakernel(
-            fmk.svol_t_kernel_model(), 11, svt, ys, num_particles=512))
-        srows = fmk.svol_kernel_rows(torch.tensor(
-            [(0.868, 0.975, 0.064)] * 256)).to(dev).contiguous()
-        for mode in ("apf", "bootstrap"):
-            out[f"svol_{mode}"] = ms(lambda: fmk.filter_megakernel(
-                fmk.svol_kernel_model(), 11, srows, ys, num_particles=512,
-                mode=mode))
-    return out
+    for n in (512, 1024):
+        for name, ess, mode in (("tuned", 0.5, "bootstrap"),
+                                ("parity", 1.0, "bootstrap"),
+                                ("apf", 1.0, "apf")):
+            kw = dict(num_particles=n, ess_threshold=ess, mode=mode)
+            out[f"leverage_{name}/N{n}"] = ms(lambda: fmk.filter_megakernel(
+                lev, 11, rows, ys, zs, **kw))
+            if hasattr(fmk, "step_spans"):
+                rec = fmk.step_spans(11, rows, ys, zs, **kw)
+                rec.pop("outputs")
+                spans[f"leverage_{name}/N{n}"] = rec
+    svt = fmk.svol_t_param_rows(torch.tensor(
+        [(0.868, 0.975, 0.064, 10.0)] * 256)).to(dev)
+    for n in (512, 1024):
+        out[f"svol_t_parity/N{n}"] = ms(lambda: fmk.filter_megakernel(
+            fmk.svol_t_kernel_model(), 11, svt, ys, num_particles=n))
+    srows = fmk.svol_kernel_rows(torch.tensor(
+        [(0.868, 0.975, 0.064)] * 256)).to(dev).contiguous()
+    for mode in ("apf", "bootstrap"):
+        out[f"svol_{mode}"] = ms(lambda: fmk.filter_megakernel(
+            fmk.svol_kernel_model(), 11, srows, ys, num_particles=512,
+            mode=mode))
+    with open(os.path.join(root, "data", "k2_families_jax.json")) as f:
+        ref = json.load(f)
+    counts = fmk.poisson_obs_rows(torch.tensor(
+        ref["poisson_ar_counts"])).to(dev).contiguous()
+    prows = torch.tensor([(0.9, 1.0, 0.3)] * 128, device=dev)
+    for mode in ("bootstrap", "apf"):
+        out[f"poisson_ar_{mode}"] = ms(lambda: fmk.filter_megakernel(
+            fmk.poisson_ar_kernel_model(), 11, prows, counts,
+            num_particles=512, mode=mode))
+    fys = torch.tensor(ref["factor_svol_ys"], dtype=torch.float32,
+                       device=dev)
+    frows = torch.tensor(ref["factor_svol_params"], dtype=torch.float32,
+                         device=dev).expand(32, -1).contiguous()
+    out["factor_svol_4"] = ms(lambda: fmk.filter_megakernel(
+        fmk.factor_svol_kernel_model(4), 11, frows, fys, num_particles=512))
+    return {"k2_ms": out, "k2_spans": spans}
 
 
 def _paths(ys, dev):
@@ -199,7 +232,8 @@ def _paths(ys, dev):
 
 
 def _bits(torch, ys, dev):
-    """sha256 prefixes of K1 roll, K2 and K3 outputs on fixed inputs."""
+    """sha256 prefixes of K1, K2 roll and K3 outputs on fixed inputs, and
+    apart from them those of K2's systematic family."""
     from ssme_tpu_torch.models.svol_leverage import lagged_covariates
     from ssme_tpu_torch.ops import filter_megakernel as fmk
     from ssme_tpu_torch.ops import liu_west_megakernel as lwm
@@ -215,7 +249,10 @@ def _bits(torch, ys, dev):
     zs = lagged_covariates(ys)
     rows = torch.tensor([[0.9, 0.98, math.sqrt(0.02)]] * 64, device=dev)
     lev = torch.tensor([[0.958, -0.080, 0.311, -0.751]] * 64, device=dev)
-    out = {}
+    out, k2_sys = {}, {}
+    for n in (512, 2048):
+        out[f"K1/systematic/N{n}"] = digest(*sfk.svol_filter(
+            3, rows, ys, num_particles=n, ess_threshold=0.5))
     for r in ("metropolis", "rejection"):
         for n in (512, 2048):
             out[f"K1/{r}/N{n}"] = digest(*sfk.svol_filter(
@@ -227,9 +264,10 @@ def _bits(torch, ys, dev):
                 ("svol_leverage", fmk.svol_leverage_kernel_model(), lev, zs,
                  "bootstrap"),
                 ("svol", fmk.svol_kernel_model(), rows, None, "apf")):
-            out[f"K2/{name}/{mode}/{r}"] = digest(*fmk.filter_megakernel(
-                km, 3, p, ys, z, num_particles=512, mode=mode,
-                resampler=r)[:2])
+            key = f"K2/{name}/{mode}/{r}"
+            (k2_sys if r == "systematic" else out)[key] = digest(
+                *fmk.filter_megakernel(km, 3, p, ys, z, num_particles=512,
+                                       mode=mode, resampler=r)[:2])
     km = lwm.svol_leverage_lw_kernel_model()
     for r in ("systematic", "rejection"):
         for variant in ("apf", "sisr"):
@@ -237,7 +275,7 @@ def _bits(torch, ys, dev):
                                   num_filters=16, num_particles=512,
                                   variant=variant, resampler=r)
             out[f"K3/{variant}/{r}"] = digest(o["log_cond_likes"], o["cloud"])
-    return out
+    return out, k2_sys
 
 
 if __name__ == "__main__":

@@ -1,8 +1,23 @@
-// The generic filter kernel's C entry point and its systematic instances
-// (one particle per thread).  The kernel template, its layout and the step
-// recursion are in filter_megakernel.cuh; the roll instances in
-// filter_megakernel_roll{1,2,4}.cu.
-#include "filter_megakernel.cuh"
+// The generic filter kernel's C entry points.  The systematic family is in
+// filter_megakernel_sys.cuh (instances in filter_megakernel_sys{2,4}.cu),
+// the roll family, the launch arguments and the step recursion in
+// filter_megakernel.cuh (instances in filter_megakernel_roll{1,2,4}.cu).
+#include "filter_megakernel_sys.cuh"
+
+namespace {
+
+// the systematic instance of kper_for(N); spans: the instrumented twin's
+// record, or null; -3 for a particle count it does not take
+int dispatch_systematic(int model_id, int apf, const ssme_fmk::Launch& a,
+                        long long* spans) {
+  using namespace ssme_fmk;
+  const int n = a.num_particles;
+  if (n < 32 || n > kMaxThreads || n % 32) return -3;
+  return kper_for(n) == 2 ? dispatch_sys2(model_id, apf, a, spans)
+                          : dispatch_sys4(model_id, apf, a, spans);
+}
+
+}  // namespace
 
 // Plain C entry point (bound with ctypes).  All pointers are device
 // pointers the caller allocated; zs is null for a model without
@@ -29,10 +44,8 @@ extern "C" int ssme_filter_megakernel(int model_id, int apf,
                  ess_limit, always, gate_stride, resampler,
                  metropolis_iters, total, lcl, fmean, cloud, cloud_lw,
                  static_cast<cudaStream_t>(stream)};
-  if (resampler == ssme::kResampleSystematic) {
-    if (num_particles > kMaxThreads) return -3;
-    return dispatch_model<false, 1>(model_id, apf, a);
-  }
+  if (resampler == ssme::kResampleSystematic)
+    return dispatch_systematic(model_id, apf, a, nullptr);
   switch (num_particles > kMaxThreads ? num_particles / kMaxThreads : 1) {
     case 1:
       return dispatch_roll1(model_id, apf, a);
@@ -43,4 +56,24 @@ extern "C" int ssme_filter_megakernel(int model_id, int apf,
     default:
       return -3;
   }
+}
+
+// The systematic family's instrumented twin of the svol_leverage functor
+// (filter_megakernel_sys.cuh SysSpan): the same arguments, no cloud, and
+// spans int64[num_rows * kNumSysSpans] for its record.
+extern "C" int ssme_filter_megakernel_spans(int apf, const int64_t* seed,
+                                            const float* params,
+                                            const float* ys, const float* zs,
+                                            int num_rows, int num_steps,
+                                            int num_particles,
+                                            float ess_limit, int always,
+                                            int gate_stride, float* total,
+                                            float* lcl, float* fmean,
+                                            long long* spans, void* stream) {
+  using namespace ssme_fmk;
+  const Launch a{seed, params, ys, zs, num_rows, num_steps, num_particles,
+                 ess_limit, always, gate_stride, ssme::kResampleSystematic,
+                 16, total, lcl, fmean, nullptr, nullptr,
+                 static_cast<cudaStream_t>(stream)};
+  return dispatch_systematic(ssme::kModelSvolLeverage, apf, a, spans);
 }

@@ -1,47 +1,44 @@
-// Generic whole-sequence filter bank for Hopper: one template kernel over
-// model functors (kernel_models.cuh), the filtering mode, the selection
-// and the particles per thread.
+// Generic whole-sequence filter bank for Hopper: model functors
+// (kernel_models.cuh) over two kernel templates, one per selection family.
 //
 // Replaces ssme_tpu/ops/filter_megakernel.py::filter_megakernel (the Pallas
 // body _make_kernel): B filters over T observations, with optional
 // covariates, in ONE launch, the particle cloud never leaving the chip.
 // Instances: svol, svol_leverage, svol_t, poisson_ar and factor_svol at 3,
-// 4 and 5 assets (kernel_models.cuh), chosen at run time by a model id;
-// each in bootstrap mode and, where the functor has a lookahead, APF mode;
-// each with the systematic selection and with the roll resamplers
-// (roll_select.cuh: metropolis or rejection, chosen at run time).  Mode,
-// selection family and kPer are template parameters, so the systematic
-// bootstrap instances compile without the APF branch or the roll code.
-// filter_megakernel.cu holds the C entry point and the systematic
-// instances; filter_megakernel_roll{1,2,4}.cu the roll instances, one file
-// per kPer, so that nvcc builds them in parallel.
+// 4 and 5 assets (kernel_models.cuh), chosen at run time by a model id
+// (ssme::with_model); each in bootstrap mode and, where the functor has a
+// lookahead, APF mode.  The systematic family (N a multiple of 32 up to
+// 1024) is filter_megakernel_sys.cuh: kPer neighbouring particles per
+// thread on row_select.cuh, instances in filter_megakernel_sys{2,4}.cu.
+// This header holds the launch arguments both families take and the roll
+// family (roll_select.cuh: metropolis or rejection, chosen at run time),
+// instances in filter_megakernel_roll{1,2,4}.cu, one file per kPer, so
+// that nvcc builds them in parallel; filter_megakernel.cu holds the C
+// entry point.
 //
-// Layout: one CTA per filter row.  The systematic selection runs one
-// particle per thread (kPer = 1, blockDim = N, a multiple of 32, at most
-// 1024): its block scan and binary search want one value per thread.  The
-// roll resamplers take a power of two N up to 4096 with kPer = N / 1024
-// particles per thread above 1024 (blockDim = N / kPer): particle j = p *
-// blockDim + threadIdx.x, so global loads and stores stay coalesced, and
-// the reductions first fold a thread's kPer values.  Of the two designs
-// that reach 4096 (kPer particles per thread, or a cluster of N / 1024
-// CTAs reading each other's shared memory) this one keeps every barrier
-// inside one CTA and needs no cluster launch: the selection only reads
-// the row's weights (16 KB at 4096) and gathers through one buffer of N
-// floats, 32 KB of static shared memory in all, under the 48 KB that
+// Roll layout: one CTA per filter row, a power of two N up to 4096 with
+// kPer = N / 1024 particles per thread above 1024 (blockDim = N / kPer):
+// particle j = p * blockDim + threadIdx.x, so global loads and stores stay
+// coalesced, and the reductions first fold a thread's kPer values.  Of the
+// two designs that reach 4096 (kPer particles per thread, or a cluster of
+// N / 1024 CTAs reading each other's shared memory) this one keeps every
+// barrier inside one CTA and needs no cluster launch: the selection only
+// reads the row's weights (16 KB at 4096) and gathers through one buffer
+// of N floats, 32 KB of static shared memory in all, under the 48 KB that
 // needs no opt-in.  The state leaves and the carried log-weights live in
-// registers for all T steps; shared memory holds the CDF (the roll
-// resamplers' weights), one gather buffer reused leaf by leaf, the
-// reduction scratch and the functor's per-row constants (factor_svol's l/d
-// and 1/d).  ys (T, dim_obs) and zs (T, dim_cov) are read row-major from
-// global memory, one broadcast load per step (zs is null when dim_cov =
-// 0).  __launch_bounds__(1024, 1) caps a thread at 64 registers.
+// registers for all T steps; shared memory holds the roll resamplers'
+// weights, one gather buffer reused leaf by leaf, the reduction scratch
+// and the functor's per-row constants (factor_svol's l/d and 1/d).  ys (T,
+// dim_obs) and zs (T, dim_cov) are read row-major from global memory, one
+// broadcast load per step (zs is null when dim_cov = 0).
+// __launch_bounds__(1024, 1) caps a thread at 64 registers.
 //
 // What bounds it: per-step latency of block barriers, not bytes, as in
 // svol_filter.cu.  Each of the T sequential steps costs one max and one
-// three-way sum reduction (plus, when it resamples, a scan and a gather per
-// leaf, or the roll sweeps: Philox draws per slot and, for rejection, one
-// barrier per sweep) and the model's transcendentals; APF adds a max, a
-// selection, a gather per leaf and two more densities every step.
+// three-way sum reduction (plus, when it resamples, the roll sweeps:
+// Philox draws per slot and, for rejection, one barrier per sweep) and the
+// model's transcendentals; APF adds a max, a sum, a selection, a gather
+// per leaf and two more densities every step.
 //
 // Per step it computes what _make_kernel computes:
 //   t = 0   init (the model's init hook), lw = 0, carry = log N;
@@ -53,7 +50,7 @@
 //           look = prop_mu(x), fsw = lw + log_weight(look), a selection of
 //           the state on exp(fsw - max): systematic with the step's
 //           resampling offset (tag 1, unused otherwise in this mode) and
-//           LSE(fsw) from the scan's total, or a roll resampler on the
+//           LSE(fsw) from the CDF's total, or a roll resampler on the
 //           first-stage sweep tags and LSE(fsw) from a block sum; the
 //           lookahead recomputed at the selected state (with an exact
 //           gather it is the gathered lookahead, bit for bit, so only the
@@ -82,6 +79,9 @@
 //  - the APF selection moves the state leaves only and recomputes the
 //    lookahead (the TPU gathers both, in bf16 under the systematic
 //    selection, and re-evaluates the density for that reason);
+//  - the systematic family resamples step t + 1 at the end of step t's
+//    check, on the same weights and states and with step t + 1's offset
+//    (the same computation in another order, filter_megakernel_sys.cuh);
 //  - the hooks are compiled functors, so only the instances in
 //    kernel_models.cuh run here, each with its one functional (the TPU
 //    traces any Python hook, and a vector of functionals, into the
@@ -95,7 +95,6 @@
 #include "kernel_models.cuh"
 #include "philox.cuh"
 #include "roll_select.cuh"
-#include "systematic_select.cuh"
 
 namespace ssme_fmk {
 
@@ -107,27 +106,34 @@ __device__ __forceinline__ void load_row(const float* src, int t, float* dst) {
   for (int j = 0; j < kDim; ++j) dst[j] = src[t * kDim + j];
 }
 
-// the ancestors of this thread's particles on weights w, every state leaf
-// moved by them: systematic with the step's offset (kPer = 1), or the roll
-// resampler on the sweep tags from tag_roll
-template <bool kRoll, int kPer, int kLeaves>
+// the launch's arguments, as the C entry point receives them
+struct Launch {
+  const int64_t* seed;
+  const float* params;
+  const float* ys;
+  const float* zs;
+  int num_rows, num_steps, num_particles;
+  float ess_limit;
+  int always, gate_stride, resampler, metropolis_iters;
+  float *total, *lcl, *fmean, *cloud, *cloud_lw;
+  cudaStream_t stream;
+};
+
+// the ancestors of this thread's particles on weights w under the roll
+// resampler, on the sweep tags from tag_roll; every state leaf moved by
+// them
+template <int kPer, int kLeaves>
 __device__ __forceinline__ void select_state(
     const float (&w)[kPer], float (&x)[kPer][kLeaves], int resampler,
     int metropolis_iters, uint32_t k0, uint32_t k1, uint32_t t, uint32_t b,
     uint32_t tag_roll, float* cdf, float* buf, float* red) {
-  if constexpr (kRoll) {
-    int anc[kPer];
-    ssme::roll_ancestors<kPer>(resampler, metropolis_iters, w, cdf, red, k0,
-                               k1, t, b, tag_roll, anc);
-    ssme::gather_leaves_per<kLeaves, kPer>(x, anc, buf);
-  } else {
-    const int anc = ssme::systematic_ancestor(
-        w[0], ssme::offset_at(k0, k1, t, b), cdf, red);
-    ssme::gather_leaves<kLeaves>(x[0], anc, buf);
-  }
+  int anc[kPer];
+  ssme::roll_ancestors<kPer>(resampler, metropolis_iters, w, cdf, red, k0, k1,
+                             t, b, tag_roll, anc);
+  ssme::gather_leaves_per<kLeaves, kPer>(x, anc, buf);
 }
 
-template <class Model, bool kApf, bool kRoll, int kPer>
+template <class Model, bool kApf, int kPer>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 filter_megakernel(const int64_t* __restrict__ seed,
                   const float* __restrict__ params,
@@ -138,8 +144,6 @@ filter_megakernel(const int64_t* __restrict__ seed,
                   float* __restrict__ total, float* __restrict__ lcl,
                   float* __restrict__ fmean, float* __restrict__ cloud,
                   float* __restrict__ cloud_lw) {
-  static_assert(kRoll || kPer == 1,
-                "the systematic selection runs one particle per thread");
   constexpr int kLeaves = Model::kNumState;
   constexpr int kObs = Model::kDimObs;
   constexpr int kCov = Model::kDimCov;
@@ -205,17 +209,14 @@ filter_megakernel(const int64_t* __restrict__ seed,
         float w_fs[kPer];
 #pragma unroll
         for (int p = 0; p < kPer; ++p) w_fs[p] = expf(fsw[p] - m_fs);
-        if constexpr (kRoll) {
-          float s_fs[1] = {w_fs[0]};
+        float s_fs[1] = {w_fs[0]};
 #pragma unroll
-          for (int p = 1; p < kPer; ++p) s_fs[0] += w_fs[p];
-          ssme::block_sum<1>(s_fs, red);
-          lse_fs = m_fs + logf(s_fs[0]);
-        }
-        select_state<kRoll, kPer, kLeaves>(
+        for (int p = 1; p < kPer; ++p) s_fs[0] += w_fs[p];
+        ssme::block_sum<1>(s_fs, red);
+        lse_fs = m_fs + logf(s_fs[0]);
+        select_state<kPer, kLeaves>(
             w_fs, x, resampler, metropolis_iters, k0, k1, t, b,
             ssme::kTagRollSelect, cdf, buf, red);
-        if constexpr (!kRoll) lse_fs = m_fs + logf(cdf[blockDim.x - 1]);
 #pragma unroll
         for (int p = 0; p < kPer; ++p) {
           model.prop_mu(x[p], y, z, look);
@@ -228,7 +229,7 @@ filter_megakernel(const int64_t* __restrict__ seed,
       } else {
         if (gate_stride == 1 &&
             (always || s_last * s_last / s2_last < ess_limit)) {
-          select_state<kRoll, kPer, kLeaves>(
+          select_state<kPer, kLeaves>(
               wn, x, resampler, metropolis_iters, k0, k1, t, b,
               ssme::kTagRollSweep, cdf, buf, red);
 #pragma unroll
@@ -286,7 +287,7 @@ filter_megakernel(const int64_t* __restrict__ seed,
     }
     row_total += step_lcl;
     if (gate_stride > 1 && r.x * r.x / r.z < ess_limit) {
-      select_state<kRoll, kPer, kLeaves>(
+      select_state<kPer, kLeaves>(
           wn, x, resampler, metropolis_iters, k0, k1, t, b,
           ssme::kTagRollSweep, cdf, buf, red);
 #pragma unroll
@@ -308,64 +309,30 @@ filter_megakernel(const int64_t* __restrict__ seed,
   }
 }
 
-// the launch's arguments, as the C entry point receives them
-struct Launch {
-  const int64_t* seed;
-  const float* params;
-  const float* ys;
-  const float* zs;
-  int num_rows, num_steps, num_particles;
-  float ess_limit;
-  int always, gate_stride, resampler, metropolis_iters;
-  float *total, *lcl, *fmean, *cloud, *cloud_lw;
-  cudaStream_t stream;
-};
-
-template <class Model, bool kApf, bool kRoll, int kPer>
+template <class Model, bool kApf, int kPer>
 void launch(const Launch& a) {
-  filter_megakernel<Model, kApf, kRoll, kPer>
+  filter_megakernel<Model, kApf, kPer>
       <<<a.num_rows, a.num_particles / kPer, 0, a.stream>>>(
           a.seed, a.params, a.ys, a.zs, a.num_steps, a.ess_limit, a.always,
           a.gate_stride, a.resampler, a.metropolis_iters, a.total, a.lcl,
           a.fmean, a.cloud, a.cloud_lw);
 }
 
-// -2: APF mode for a functor without a lookahead
-template <class Model, bool kRoll, int kPer>
-int dispatch(int apf, const Launch& a) {
-  if (apf) {
-    if constexpr (Model::kHasPropMu) {
-      launch<Model, true, kRoll, kPer>(a);
+// the roll instances of every model id at kPer; -1 for an unknown id, -2
+// for APF mode on a functor without a lookahead
+template <int kPer>
+int dispatch_roll(int model_id, int apf, const Launch& a) {
+  return ssme::with_model(model_id, [&](auto is) -> int {
+    using Model = typename decltype(is)::type;
+    if (!apf) {
+      launch<Model, false, kPer>(a);
+    } else if constexpr (Model::kHasPropMu) {
+      launch<Model, true, kPer>(a);
     } else {
       return -2;
     }
-  } else {
-    launch<Model, false, kRoll, kPer>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// every model id; -1 for an unknown one
-template <bool kRoll, int kPer>
-int dispatch_model(int model_id, int apf, const Launch& a) {
-  switch (model_id) {
-    case ssme::kModelSvol:
-      return dispatch<ssme::SvolModel, kRoll, kPer>(apf, a);
-    case ssme::kModelSvolLeverage:
-      return dispatch<ssme::SvolLeverageModel, kRoll, kPer>(apf, a);
-    case ssme::kModelSvolT:
-      return dispatch<ssme::SvolTModel, kRoll, kPer>(apf, a);
-    case ssme::kModelPoissonAr:
-      return dispatch<ssme::PoissonArModel, kRoll, kPer>(apf, a);
-    case ssme::kModelFactorSvol3:
-      return dispatch<ssme::FactorSvolModel<3>, kRoll, kPer>(apf, a);
-    case ssme::kModelFactorSvol4:
-      return dispatch<ssme::FactorSvolModel<4>, kRoll, kPer>(apf, a);
-    case ssme::kModelFactorSvol5:
-      return dispatch<ssme::FactorSvolModel<5>, kRoll, kPer>(apf, a);
-    default:
-      return -1;
-  }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // the roll instances, one translation unit per kPer

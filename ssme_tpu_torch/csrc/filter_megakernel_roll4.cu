@@ -4,5 +4,5 @@
 #include "filter_megakernel.cuh"
 
 int ssme_fmk::dispatch_roll4(int model_id, int apf, const Launch& a) {
-  return dispatch_model<true, 4>(model_id, apf, a);
+  return dispatch_roll<4>(model_id, apf, a);
 }

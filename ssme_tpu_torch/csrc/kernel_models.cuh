@@ -8,6 +8,7 @@
 //   traits   kNumParams, kNumState, kDimObs, kDimCov; kRowShared, the
 //            count of per-row constants the kernel keeps in shared
 //            memory; kHasPropMu, whether the APF mode can run it;
+//            kDraws, the normals one init or propagate call takes;
 //   row_shared(row, j) -> float      per-row shared constant j (when
 //            kRowShared > 0), written once per filter row;
 //   ctor     Model(const float* row, const float* shared): reads the
@@ -19,9 +20,12 @@
 //            kHasPropMu)
 //   log_weight (x, y, z) -> float                            log g(y | x)
 //   functional (x) -> float          whose filtered mean the kernel emits
-// The rng hands out normal k of (particle, step, row) in the order the
-// hook asks for them (draw 0 first; the tags are in ops/_prng.py), so a
-// hook that draws one normal consumes exactly the SVOL kernel's bits.
+// The hooks that draw are templates over the rng, which hands out normal
+// k of (particle, step, row) in the order the hook asks for them (draw 0
+// first; the tags are in ops/_prng.py), so a hook that draws one normal
+// consumes exactly the SVOL kernel's bits: StepRng, one Philox call per
+// particle and draw (the roll family), or PairRng and PairSines, one call
+// per pair of neighbouring particles and draw (the systematic family).
 // Each functor performs the float operations of its Python hooks in
 // their order, so that with the same bits the kernel and the plain
 // version differ only by fused multiply-adds and reduction order.
@@ -54,6 +58,44 @@ struct StepRng {
   __device__ float normal() { return normal_at(k0, k1, i, t, b, draw++); }
 };
 
+// normal draws of the pair q = (particle 2q, particle 2q + 1) at one step,
+// handed to two hook calls in turn: the first particle's k-th normal()
+// makes one Philox call on counter (q, t, b, tag of draw k) and one
+// Box-Muller, returns the cosine and keeps the sine, which the second
+// particle's k-th normal() returns (PairSines) -- the bits normal_at gives
+// each of them.  kDraws: the hook's draws (Model::kDraws), so the sines
+// stay in registers.
+template <int kDraws>
+struct PairRng {
+  uint32_t k0, k1, q, t, b;
+  int draw = 0;
+  float sine[kDraws];
+  __device__ float normal() {
+    const float2 z = normal_pair_at(k0, k1, q, t, b, draw);
+    sine[draw++] = z.y;
+    return z.x;
+  }
+};
+
+template <int kDraws>
+struct PairSines {
+  const float (&sine)[kDraws];
+  int draw = 0;
+  __device__ float normal() { return sine[draw++]; }
+};
+
+// One hook of one pair of particles: hook(first's rng, 0) then
+// hook(second's rng, 1) on the pair's draws at step t.
+template <int kDraws, class Hook>
+__device__ __forceinline__ void for_pair(uint32_t k0, uint32_t k1,
+                                         uint32_t q, uint32_t t, uint32_t b,
+                                         Hook&& hook) {
+  PairRng<kDraws> first{k0, k1, q, t, b};
+  hook(first, 0);
+  PairSines<kDraws> second{first.sine};
+  hook(second, 1);
+}
+
 // NaN-propagating clamp (as torch.clamp and jnp.clip)
 __device__ __forceinline__ float clamp_state(float v) {
   return v < -kStateClamp ? -kStateClamp : (v > kStateClamp ? kStateClamp : v);
@@ -68,6 +110,7 @@ struct SvolModel {
   static constexpr int kDimCov = 0;
   static constexpr int kRowShared = 0;
   static constexpr bool kHasPropMu = true;
+  static constexpr int kDraws = 1;
 
   float beta, phi, sigma, c0;
 
@@ -75,11 +118,13 @@ struct SvolModel {
       : beta(p[0]), phi(p[1]), sigma(p[2]),
         c0(-kHalfLog2Pi - logf(p[0])) {}
 
-  __device__ void init(StepRng& rng, const float*, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float*, const float*,
                        float* x) const {
     x[0] = rng.normal() * (sigma / sqrtf(1.0f - phi * phi));
   }
-  __device__ void propagate(StepRng& rng, float* x, const float*,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, float* x, const float*,
                             const float*) const {
     x[0] = phi * x[0] + sigma * rng.normal();
   }
@@ -108,6 +153,7 @@ struct SvolLeverageModel {
   static constexpr int kDimCov = 1;
   static constexpr int kRowShared = 0;
   static constexpr bool kHasPropMu = true;
+  static constexpr int kDraws = 1;
 
   float phi, mu, sigma, rho, sd0, sd;
 
@@ -116,7 +162,8 @@ struct SvolLeverageModel {
         sd0(p[2] / sqrtf(1.0f - p[0] * p[0])),
         sd(p[2] * sqrtf(1.0f - p[3] * p[3])) {}
 
-  __device__ void init(StepRng& rng, const float*, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float*, const float*,
                        float* x) const {
     x[0] = rng.normal() * sd0;
   }
@@ -125,7 +172,8 @@ struct SvolLeverageModel {
     return clamp_state(mu + phi * (x[0] - mu) +
                        z[0] * rho * sigma * expf(-0.5f * x[0]));
   }
-  __device__ void propagate(StepRng& rng, float* x, const float*,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, float* x, const float*,
                             const float* z) const {
     x[0] = mean(x, z) + sd * rng.normal();
   }
@@ -152,6 +200,7 @@ struct SvolTModel {
   static constexpr int kDimCov = 0;
   static constexpr int kRowShared = 0;
   static constexpr bool kHasPropMu = true;
+  static constexpr int kDraws = 1;
 
   float beta, phi, sigma, nu, c0, half_nu1;
 
@@ -159,11 +208,13 @@ struct SvolTModel {
       : beta(p[0]), phi(p[1]), sigma(p[2]), nu(p[3]),
         c0(p[4] - logf(p[0])), half_nu1(0.5f * (p[3] + 1.0f)) {}
 
-  __device__ void init(StepRng& rng, const float*, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float*, const float*,
                        float* x) const {
     x[0] = rng.normal() * (sigma / sqrtf(1.0f - phi * phi));
   }
-  __device__ void propagate(StepRng& rng, float* x, const float*,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, float* x, const float*,
                             const float*) const {
     x[0] = phi * x[0] + sigma * rng.normal();
   }
@@ -189,17 +240,20 @@ struct PoissonArModel {
   static constexpr int kDimCov = 0;
   static constexpr int kRowShared = 0;
   static constexpr bool kHasPropMu = true;
+  static constexpr int kDraws = 1;
 
   float phi, mu, sigma;
 
   __device__ PoissonArModel(const float* p, const float*)
       : phi(p[0]), mu(p[1]), sigma(p[2]) {}
 
-  __device__ void init(StepRng& rng, const float*, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float*, const float*,
                        float* x) const {
     x[0] = mu + rng.normal() * (sigma / sqrtf(1.0f - phi * phi));
   }
-  __device__ void propagate(StepRng& rng, float* x, const float*,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, float* x, const float*,
                             const float*) const {
     x[0] = mu + phi * (x[0] - mu) + sigma * rng.normal();
   }
@@ -232,6 +286,7 @@ struct FactorSvolModel {
   static constexpr int kDimCov = 0;
   static constexpr int kRowShared = 3 * kAssets;
   static constexpr bool kHasPropMu = false;
+  static constexpr int kDraws = 2;
   static constexpr float kConst =
       static_cast<float>(-kAssets * 0.9189385332046727);
   static constexpr int kD = 6 + 2 * kAssets;  // the first d column
@@ -262,13 +317,15 @@ struct FactorSvolModel {
     }
   }
 
-  __device__ void init(StepRng& rng, const float*, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float*, const float*,
                        float* x) const {
 #pragma unroll
     for (int j = 0; j < 2; ++j)
       x[j] = mu[j] + rng.normal() * (sigma[j] / sqrtf(1.0f - phi[j] * phi[j]));
   }
-  __device__ void propagate(StepRng& rng, float* x, const float*,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, float* x, const float*,
                             const float*) const {
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -293,5 +350,27 @@ struct FactorSvolModel {
   }
   __device__ float functional(const float* x) const { return x[0]; }
 };
+
+// The functor of a model id: f(Is<Functor>{}), or -1 for an unknown id.
+// Both filter families dispatch through this one table
+// (tests/test_torch_megakernel.py reads it).
+template <class M>
+struct Is {
+  using type = M;
+};
+
+template <class F>
+int with_model(int model_id, F&& f) {
+  switch (model_id) {
+    case kModelSvol: return f(Is<SvolModel>{});
+    case kModelSvolLeverage: return f(Is<SvolLeverageModel>{});
+    case kModelSvolT: return f(Is<SvolTModel>{});
+    case kModelPoissonAr: return f(Is<PoissonArModel>{});
+    case kModelFactorSvol3: return f(Is<FactorSvolModel<3>>{});
+    case kModelFactorSvol4: return f(Is<FactorSvolModel<4>>{});
+    case kModelFactorSvol5: return f(Is<FactorSvolModel<5>>{});
+    default: return -1;
+  }
+}
 
 }  // namespace ssme

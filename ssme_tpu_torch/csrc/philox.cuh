@@ -75,24 +75,31 @@ __device__ __forceinline__ float2 box_muller(uint32_t w0, uint32_t w1) {
   return make_float2(r * c, r * s);
 }
 
+// the fourth counter word of normal draw `draw` of a step
+__device__ __forceinline__ uint32_t normal_tag(uint32_t draw) {
+  return draw == 0u ? kTagNormal : kTagChain + draw;
+}
+
 // normal number i of row b at step t, draw `draw` of the step: the pair
 // i >> 1 shares one Philox call; even i takes the cosine, odd i the sine
 __device__ __forceinline__ float normal_at(uint32_t k0, uint32_t k1,
                                            uint32_t i, uint32_t t,
                                            uint32_t b, uint32_t draw = 0u) {
-  const uint32_t tag = draw == 0u ? kTagNormal : kTagChain + draw;
-  const uint4 w = philox4x32_10(make_uint4(i >> 1, t, b, tag), k0, k1);
+  const uint4 w = philox4x32_10(make_uint4(i >> 1, t, b, normal_tag(draw)),
+                                k0, k1);
   const float2 z = box_muller(w.x, w.y);
   return (i & 1u) ? z.y : z.x;
 }
 
-// both normals of pair k of row b at step t, draw 0: (particle 2k,
+// both normals of pair k of row b at step t, draw `draw`: (particle 2k,
 // particle 2k+1) = (r cos a, r sin a), the bits normal_at gives each of
 // them, from one Philox call and one Box-Muller
 __device__ __forceinline__ float2 normal_pair_at(uint32_t k0, uint32_t k1,
                                                  uint32_t k, uint32_t t,
-                                                 uint32_t b) {
-  const uint4 w = philox4x32_10(make_uint4(k, t, b, kTagNormal), k0, k1);
+                                                 uint32_t b,
+                                                 uint32_t draw = 0u) {
+  const uint4 w = philox4x32_10(make_uint4(k, t, b, normal_tag(draw)), k0,
+                                k1);
   return box_muller(w.x, w.y);
 }
 

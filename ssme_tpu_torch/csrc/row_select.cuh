@@ -2,9 +2,11 @@
 // particles per thread: particle j = kPer * threadIdx.x + p, p < kPer.
 // blockDim.x is a multiple of 32; the first `active` threads hold the n
 // particles, and the lanes after them (a partial last warp) hold none and
-// are masked out of every reduction.  Replaces, for the SVOL filter
-// kernel, the one-particle-per-thread primitives of systematic_select.cuh
-// (which K2 and K3 keep) and select_leaves_dense of ssme_tpu/ops/_select.py.
+// are masked out of every reduction.  Replaces, for the systematic
+// families of the SVOL filter kernel (svol_filter_sys.cu) and of the
+// generic filter kernel (filter_megakernel_sys.cuh), the
+// one-particle-per-thread primitives of systematic_select.cuh (which K3
+// keeps) and select_leaves_dense of ssme_tpu/ops/_select.py.
 //
 // Exchanges.  A thread first folds its kPer values in registers, a warp
 // reduces with shuffles, and the warps meet at ONE barrier: lane 0 writes
@@ -13,8 +15,9 @@
 // barrier is needed before the write because the caller alternates two
 // partial buffers (the max's and the sums'): a buffer is written again
 // only after another exchange's barrier, which every thread reaches after
-// its last read of it.  The same holds for the CDF and the gather buffer,
-// written once per resample between the sums' barrier and the walk's.
+// its last read of it.  The same holds for the CDF and the gather buffers
+// (one per state leaf), written once per resample between the sums'
+// barrier and the walk's.
 // Every barrier here is row_sync, which the instrumented kernels count.
 //
 // Systematic selection (the rules of systematic_select.cuh and of the
@@ -85,12 +88,11 @@ __device__ __forceinline__ float row_max(const float (&v)[kPer], bool active,
 }
 
 // The warp's inclusive CDF of w (the thread's kPer weights, 0 on an
-// inactive lane), in place: w[p] = the weights of the warp's earlier lanes
-// plus the serial prefix of this lane's to p, raised to at least the last
-// entry of every earlier lane.  Returns the warp's last entry (every lane).
-// No barrier.
+// inactive lane), in place, before its raise: w[p] = the weights of the
+// warp's earlier lanes plus the serial prefix of this lane's to p.  No
+// barrier.
 template <int kPer>
-__device__ __forceinline__ float warp_cdf(float (&w)[kPer], bool active) {
+__device__ __forceinline__ void warp_cdf(float (&w)[kPer], bool active) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int p = 1; p < kPer; ++p) w[p] = w[p - 1] + w[p];
@@ -104,6 +106,15 @@ __device__ __forceinline__ float warp_cdf(float (&w)[kPer], bool active) {
   if (lane == 0) excl = 0.0f;
 #pragma unroll
   for (int p = 0; p < kPer; ++p) w[p] = excl + w[p];
+}
+
+// warp_cdf's entries raised to at least the last entry of every earlier
+// lane, so the CDF never falls (the lane scan rounds otherwise than a
+// serial sum).  Returns the warp's last entry (every lane).  No barrier.
+template <int kPer>
+__device__ __forceinline__ float warp_cdf_raise(float (&w)[kPer],
+                                                bool active) {
+  const int lane = threadIdx.x & 31;
   float top = active ? w[kPer - 1] : 0.0f;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -115,6 +126,18 @@ __device__ __forceinline__ float warp_cdf(float (&w)[kPer], bool active) {
 #pragma unroll
   for (int p = 0; p < kPer; ++p) w[p] = fmaxf(w[p], below);
   return __shfl_sync(kFullMask, top, 31);
+}
+
+// The warp's last entry of warp_cdf's entries once raised, without the
+// raise: the largest of the lanes' last entries (a max over nonnegative
+// floats is the max of their bit patterns, one redux), the same bits as
+// warp_cdf_raise returns.  For a kernel that raises only on a step that
+// stages its CDF.  No barrier.
+template <int kPer>
+__device__ __forceinline__ float warp_cdf_total(const float (&w)[kPer],
+                                                bool active) {
+  return __uint_as_float(__reduce_max_sync(
+      kFullMask, __float_as_uint(active ? w[kPer - 1] : 0.0f)));
 }
 
 // The row's K sums of the threads' folded v (every thread the same bits)
@@ -169,21 +192,37 @@ __device__ __forceinline__ void row_sums(float (&v)[K], float warp_last,
   if constexpr (kScan) total = acc[K];
 }
 
-// this thread's CDF entries (warp_cdf's, plus the warp's base) and its
-// kPer values of x to the row's padded shared arrays; the caller's next
-// barrier publishes them
-template <int kPer>
+// this thread's CDF entries (warp_cdf's, raised by warp_cdf_raise, plus
+// the warp's base) and its kPer values of each of kLeaves state leaves to
+// the row's padded shared arrays (leaf l's at buf + l * stride), so every
+// leaf is staged before one barrier; the caller's next barrier publishes
+// them
+template <int kPer, int kLeaves>
 __device__ __forceinline__ void row_stage(const float (&cdf_local)[kPer],
                                           float base,
-                                          const float (&x)[kPer], bool active,
-                                          float* cdf, float* buf) {
+                                          const float (&x)[kPer][kLeaves],
+                                          bool active, float* cdf, float* buf,
+                                          int stride) {
   if (!active) return;
   const int at = padded(kPer * threadIdx.x);  // kPer divides 32: contiguous
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
     cdf[at + p] = base + cdf_local[p];
-    buf[at + p] = x[p];
+#pragma unroll
+    for (int l = 0; l < kLeaves; ++l) buf[l * stride + at + p] = x[p][l];
   }
+}
+
+// one leaf
+template <int kPer>
+__device__ __forceinline__ void row_stage(const float (&cdf_local)[kPer],
+                                          float base,
+                                          const float (&x)[kPer], bool active,
+                                          float* cdf, float* buf) {
+  float v[kPer][1];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) v[p][0] = x[p];
+  row_stage<kPer, 1>(cdf_local, base, v, active, cdf, buf, 0);
 }
 
 // the first a in [lo, hi] with cdf[a] >= u, given cdf[hi] >= u
@@ -223,13 +262,29 @@ __device__ __forceinline__ void systematic_walk(float u0, float total, int n,
   }
 }
 
-// x moved by the ancestors through the staged buffer
+// every leaf of x moved by the same ancestors through the staged buffers
+// (leaf l's at buf + l * stride)
+template <int kPer, int kLeaves>
+__device__ __forceinline__ void row_gather(float (&x)[kPer][kLeaves],
+                                           const int (&anc)[kPer],
+                                           const float* buf, int stride) {
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int at = padded(anc[p]);
+#pragma unroll
+    for (int l = 0; l < kLeaves; ++l) x[p][l] = buf[l * stride + at];
+  }
+}
+
+// one leaf
 template <int kPer>
 __device__ __forceinline__ void row_gather(float (&x)[kPer],
                                            const int (&anc)[kPer],
                                            const float* buf) {
+  float v[kPer][1];
+  row_gather<kPer, 1>(v, anc, buf, 0);
 #pragma unroll
-  for (int p = 0; p < kPer; ++p) x[p] = buf[padded(anc[p])];
+  for (int p = 0; p < kPer; ++p) x[p] = v[p][0];
 }
 
 }  // namespace ssme

@@ -190,7 +190,8 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
       s[1] += x[p] * w[p];
       s[2] += w[p] * w[p];
     }
-    const float warp_last = ssme::warp_cdf<kPer>(w, active);
+    ssme::warp_cdf<kPer>(w, active);
+    const float warp_last = ssme::warp_cdf_raise<kPer>(w, active);
     float base = 0.0f, cdf_total = 0.0f;
     ssme::row_sums<3, true>(s, warp_last, sum_part, base, cdf_total,
                             bars);  // barrier 2

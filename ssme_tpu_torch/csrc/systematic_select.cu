@@ -5,10 +5,10 @@
 //
 // One CTA per row.  kPer = 1: one slot per thread (blockDim = N, up to
 // 1024), the block scan and per-slot search of systematic_select.cuh that
-// the generic and Liu-West kernels run.  kPer = 2, 4 or 8: kPer
-// neighbouring slots per thread, the SVOL kernel's layout (blockDim = N /
-// kPer rounded up to a warp), its CDF, search-then-walk and padded gather
-// buffer from row_select.cuh.  Every leaf moves by the same ancestors; the
+// the Liu-West kernel runs.  kPer = 2, 4 or 8: kPer neighbouring slots per
+// thread, the layout of the SVOL kernel's and the generic kernel's
+// systematic families (blockDim = N / kPer rounded up to a warp), their
+// CDF, search-then-walk and padded gather buffer from row_select.cuh.  Every leaf moves by the same ancestors; the
 // CDF the ancestors were found on can be written out.  Bound by barrier
 // latency like the filters' resample step.
 #include <cstdint>
@@ -69,7 +69,8 @@ row_select_kernel(const float* __restrict__ w,
     wv[p] = active ? w[row + j0 + p] : 0.0f;
     x[p] = active ? leaves[row + j0 + p] : 0.0f;
   }
-  const float warp_last = ssme::warp_cdf<kPer>(wv, active);
+  ssme::warp_cdf<kPer>(wv, active);
+  const float warp_last = ssme::warp_cdf_raise<kPer>(wv, active);
   float sum[1] = {0.0f};
   float base = 0.0f, total = 0.0f;
   ssme::row_sums<1, true>(sum, warp_last, sum_part, base, total);

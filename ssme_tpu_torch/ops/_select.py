@@ -16,10 +16,11 @@ ancestor_j = the first i with cdf[i] >= u_j, which is the half-open test
 cdf[i-1] < u_j <= cdf[i] on the same rounded array (cdf[-1] read as 0).
 The kernels' block scans add in another order than ``torch.cumsum``, so
 a point within rounding of a CDF boundary can pick the neighbour.  The
-SVOL kernel (``csrc/row_select.cuh``) gives each thread kPer neighbouring
-slots: it searches for the first and walks forward over the rest
-(:func:`systematic_ancestors_walk`, its plain model, which equals the
-search on a CDF that never falls).
+systematic families of the SVOL and generic kernels
+(``csrc/row_select.cuh``) give each thread kPer neighbouring slots: they
+build the CDF as :func:`kernel_cdf` models it, search for the first slot
+and walk forward over the rest (:func:`systematic_ancestors_walk`, its
+plain model, which equals the search on a CDF that never falls).
 
 Roll laws (Murray, Lee & Jacob's GPU resamplers, in the TPU's roll form),
 per row of power-of-two N, sweep s drawing a shift word and one uniform
@@ -163,6 +164,51 @@ def systematic_ancestors_walk(cdf, u0, kper):
     return torch.stack(out, dim=-1).reshape(b, n)
 
 
+def kernel_cdf(w, kper):
+    """The inclusive CDF (B, N) and its total (B,) as the kernels with kPer
+    neighbouring particles per thread build it (``csrc/row_select.cuh``
+    warp_cdf and row_sums), in float32: a serial prefix over each thread's
+    kper weights, an inclusive lane scan of the thread totals (shuffle-up
+    steps 1, 2, 4, 8, 16), each lane's entries raised to the running max
+    of the earlier lanes' last entries, and the warps' offsets chained
+    serially; the total is the chain's, which is the last entry bit for
+    bit.  The plain model the layout tests hold the kernels' arithmetic
+    to; the filters' plain versions use ``torch.cumsum``."""
+    b, n = w.shape
+    if kper < 1 or n % kper:
+        raise ValueError(f"kper={kper} must divide N={n}")
+    used = n // kper
+    threads = -(-used // 32) * 32
+    f32 = dict(dtype=torch.float32, device=w.device)
+    per = torch.zeros((b, threads, kper), **f32)
+    per[:, :used] = w.to(torch.float32).reshape(b, used, kper)
+    for p in range(1, kper):
+        per[..., p] = per[..., p - 1] + per[..., p]
+    warps = threads // 32
+    per = per.reshape(b, warps, 32, kper)
+    act = (torch.arange(threads, device=w.device) < used).reshape(warps, 32)
+    zero = torch.zeros((b, warps, 1), **f32)
+
+    def lane_scan(v, op):
+        for o in (1, 2, 4, 8, 16):
+            v = torch.cat([v[..., :o], op(v[..., o:], v[..., :-o])], dim=-1)
+        return v
+
+    incl = lane_scan(torch.where(act, per[..., -1], 0.0), torch.add)
+    run = torch.cat([zero, incl[..., :-1]], dim=-1)[..., None] + per
+    top = lane_scan(torch.where(act, run[..., -1], 0.0), torch.maximum)
+    below = torch.cat([zero, top[..., :-1]], dim=-1)
+    run = torch.maximum(run, below[..., None])
+    base = torch.zeros((b,), **f32)
+    bases = []
+    for k in range(warps):
+        bases.append(base)
+        base = base + top[:, k, -1]
+    cdf = (torch.stack(bases, dim=1)[:, :, None, None] + run).reshape(
+        b, threads * kper)
+    return cdf[:, :n].contiguous(), base
+
+
 def systematic_select_reference(w, leaves, u0):
     """Plain version of :func:`systematic_select`."""
     anc = systematic_ancestors(w, u0)
@@ -208,10 +254,10 @@ def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
     1024 or of 128 up to 4096; ``leaves``: (L, B, N) float32, moved by the
     same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper`` picks the
     device code a CUDA call runs: 1, one slot per thread
-    (``csrc/systematic_select.cuh``, the generic and Liu-West kernels'), or
-    2, 4, 8 neighbouring slots per thread (``csrc/row_select.cuh``, the
-    SVOL kernel's CDF, search and walk); None: 1 up to 1024 particles,
-    else 8.
+    (``csrc/systematic_select.cuh``, the Liu-West kernel's), or 2, 4, 8
+    neighbouring slots per thread (``csrc/row_select.cuh``, the CDF,
+    search and walk of the SVOL and generic kernels' systematic families);
+    None: 1 up to 1024 particles, else 8.
     Returns (picked (L, B, N), ancestors (B, N) int32) and, with
     ``return_cdf``, the inclusive CDF (B, N) they were found on.  Launches
     the CUDA kernel for CUDA tensors and runs the plain version (whose CDF

@@ -19,7 +19,8 @@ from jax.experimental import pallas as pl
 
 from ssme_tpu.ops._select import select_leaves_dense
 from ssme_tpu_torch.ops import _prng
-from ssme_tpu_torch.ops._select import (_points, systematic_ancestors,
+from ssme_tpu_torch.ops._select import (_points, kernel_cdf,
+                                        systematic_ancestors,
                                         systematic_ancestors_walk)
 
 torch.set_num_threads(1)
@@ -66,42 +67,15 @@ def test_paired_draws_give_the_bits_of_normals_steps(kper):
 
 
 def _row_cdf(w, kper):
-    """The kernel's CDF of one row (row_select.cuh warp_cdf and
-    row_sums) in float32: a serial prefix over each thread's kper
-    weights, an inclusive lane scan of the thread totals (shuffle-up
-    steps 1, 2, 4, 8, 16), each lane's entries raised to the running max
-    of the earlier lanes' last entries, and the warps' offsets chained
-    serially.  Returns (cdf (N,), the chained total)."""
-    w = np.asarray(w, np.float32)
-    n = w.shape[0]
-    threads = -(-(n // kper) // 32) * 32
-    per = np.zeros((threads, kper), np.float32)
-    per[:n // kper] = w.reshape(-1, kper)
-    active = np.arange(threads) < n // kper
-    for p in range(1, kper):
-        per[:, p] = per[:, p - 1] + per[:, p]
-    cdf_parts, lasts = [], []
-    for lo in range(0, threads, 32):
-        run = per[lo:lo + 32].copy()
-        act = active[lo:lo + 32]
-        incl = np.where(act, run[:, -1], np.float32(0))
-        for o in (1, 2, 4, 8, 16):
-            incl = incl.copy()
-            incl[o:] = incl[o:] + incl[:-o]
-        excl = np.concatenate([[np.float32(0)], incl[:-1]]).astype(np.float32)
-        run = excl[:, None] + run
-        top = np.where(act, run[:, -1], np.float32(0))
-        for o in (1, 2, 4, 8, 16):
-            top = top.copy()
-            top[o:] = np.maximum(top[o:], top[:-o])
-        below = np.concatenate([[np.float32(0)], top[:-1]]).astype(np.float32)
-        cdf_parts.append(np.maximum(run, below[:, None])[act])
-        lasts.append(top[-1])
-    base, cdf = np.float32(0), []
-    for part, last in zip(cdf_parts, lasts):
-        cdf.append(base + part)
-        base = base + last
-    return np.concatenate(cdf).reshape(-1), base
+    """The kernel's CDF of one row (row_select.cuh warp_cdf and row_sums)
+    in float32, through its plain model ``_select.kernel_cdf``: a serial
+    prefix over each thread's kper weights, an inclusive lane scan of the
+    thread totals, each lane's entries raised to the running max of the
+    earlier lanes' last entries, and the warps' offsets chained serially.
+    Returns (cdf (N,), the chained total)."""
+    cdf, total = kernel_cdf(torch.from_numpy(np.asarray(w, np.float32))[None],
+                            kper)
+    return cdf[0].numpy(), np.float32(total[0])
 
 
 def _weights(case, rows, n, rng):

@@ -318,6 +318,70 @@ def test_apf_matches_plain_at_step_zero(dev, name):
     assert float(((lcl - lcl_p).abs() <= 1e-3).float().mean()) >= 0.5
 
 
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_megakernel_systematic_twins_record_layout_and_barriers(dev, n):
+    """The systematic family's instrumented twins (svol_leverage, both
+    modes) at each layout: the kPer and threads they ran, the barriers a
+    step of each kind crossed (those the source note states: 3 / 2 / 0 in
+    the bootstrap, 5 an APF step), the checks, and their outputs the plain
+    instance's bits."""
+    ys = _ys(48, 16).to(dev)
+    km, params, zs = _instance("svol_leverage", dev, ys)
+    kper = 2 if n <= 512 else 4
+    for kw, checks in ((dict(ess_threshold=1.0), 48),
+                       (dict(ess_threshold=0.5), 48),
+                       (dict(ess_threshold=0.5, gate_stride=8), 6),
+                       (dict(mode="apf"), 48)):
+        rec = fm.step_spans(6, params, ys, zs, n, **kw)
+        assert (rec["kper"], rec["threads"]) == (kper,
+                                                  -(-n // kper // 32) * 32)
+        got = {k: v for k, v in rec["barriers_per_step"].items()
+               if v is not None}
+        assert got == {k: fm.BARRIERS_PER_STEP[k] for k in got}
+        assert rec["checks"] == checks
+        assert rec["apf_steps"] == (47 if kw.get("mode") == "apf" else 0)
+        plain = fm.filter_megakernel(km, 6, params, ys, zs, num_particles=n,
+                                     **kw)
+        for a, b in zip(plain, rec["outputs"]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_factor_svol_two_leaf_resampling_matches_plain(dev, n):
+    """Factor SVOL's two leaves resampled together every step through one
+    gather buffer each (kPer 2 at N=256, 4 at 1024): kernel and plain mean
+    log-likelihoods within 4 combined standard errors over 64 rows."""
+    ys = _ys(200, 17).to(dev)
+    km, params, obs = _family("factor_svol_4", dev, ys)
+    tot = fm.filter_megakernel(km, 9, params, obs, num_particles=n)[0]
+    tot_p = fm.filter_megakernel_reference(km, 10, params, obs,
+                                           num_particles=n)[0]
+    assert bool(torch.isfinite(tot).all())
+    se = math.sqrt(float(tot.var()) / 64 + float(tot_p.var()) / 64)
+    assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_swarm_evidence_cloud_keeps_its_layout(dev, n):
+    """The final cloud through megakernel_swarm_evidence, two leaves, with
+    a gate that never fires: each thread stores its kPer neighbouring
+    particles, and the cloud (leaf, draw, particle) and its weights are
+    the plain version's on the same bits."""
+    ys = _ys(100, 18).to(dev)
+    km, params, obs = _family("factor_svol_4", dev, ys)
+    kw = dict(num_particles=n, ess_threshold=1e-6, return_cloud=True)
+    got = fm.megakernel_swarm_evidence(km, 5, params[:16], obs, **kw)
+    want = fm.megakernel_swarm_evidence(km, 5, params[:16].cpu(), obs.cpu(),
+                                        **kw)
+    assert len(got["final_cloud"]) == 2
+    for a, b in zip(got["final_cloud"], want["final_cloud"]):
+        assert a.shape == (16, n)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(torch.exp(got["final_log_weights"].cpu()),
+                               torch.exp(want["final_log_weights"]),
+                               rtol=1e-3, atol=1e-3)
+
+
 def test_new_instances_refuse_what_the_card_cannot_run(dev):
     ys = _ys(20, 2).to(dev)
     km, params, obs = _family("factor_svol_4", dev, ys)

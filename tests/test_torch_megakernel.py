@@ -428,8 +428,9 @@ def test_instances_are_memoised_and_name_their_cuda_functor():
 
 def test_model_id_table_matches_the_cuda_header():
     """The dispatch ids and each functor's traits are written once in
-    csrc/kernel_models.cuh; the Python side must read the same, and the
-    C entry point must dispatch every id to its functor."""
+    csrc/kernel_models.cuh; the Python side must read the same, and its
+    dispatch table, through which both selection families' instances
+    launch, must send every id to its functor."""
     path = os.path.join(ROOT, "ssme_tpu_torch", "csrc", "kernel_models.cuh")
     with open(path) as f:
         src = f.read()
@@ -459,11 +460,12 @@ def test_model_id_table_matches_the_cuda_header():
             "kNumParams": km.num_params, "kNumState": km.num_state,
             "kDimObs": km.dim_obs, "kDimCov": km.dim_cov}, struct
         assert t["kHasPropMu"] == (km.prop_mu is not None), struct
-    with open(os.path.join(os.path.dirname(path),
-                           "filter_megakernel.cuh")) as f:
-        dispatch = re.findall(
-            r"case ssme::(kModel\w+):\s*return dispatch<ssme::(\w+(?:<\d+>)?),",
-            f.read())
+    # one table (ssme::with_model) dispatches both selection families
+    dispatch = re.findall(
+        r"case (kModel\w+): return f\(Is<(\w+(?:<\d+>)?)>\{\}\);", src)
+    for family in ("filter_megakernel.cuh", "filter_megakernel_sys.cuh"):
+        with open(os.path.join(os.path.dirname(path), family)) as f:
+            assert "ssme::with_model(model_id," in f.read(), family
     consts = dict(re.findall(r"constexpr int (kModel\w+) = (\d+);", src))
     by_id = {int(consts[c]): functor for c, functor in dispatch}
     want = {0: "SvolModel", 1: "SvolLeverageModel", 2: "SvolTModel",
