@@ -23,14 +23,16 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
-            instance of the systematic SVOL kernel and of the generic
+            instance of the systematic SVOL kernel, of the generic
             kernel's systematic family (each functor, bootstrap and APF, at
-            2 and 4 particles per thread, and the instrumented twins)
-            spills nothing;
+            2 and 4 particles per thread, and the instrumented twins) and
+            of the Liu-West kernel's systematic family (each functor at 2
+            particles per thread, and each one's twin) spills nothing;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
 4. select   the standalone selection kernel at N=512 in both layouts (one
-            slot per thread, the Liu-West kernel's; kPer neighbouring
-            slots, the SVOL and generic kernels' systematic families'), and
+            slot per thread, the block scan no filter kernel runs any more;
+            kPer neighbouring slots, the systematic families' of every
+            filter kernel), and
             in the latter at N=32, 96 and 1024, on random, dominant and
             zero-run weights: ancestors bit for bit those of the kernel's
             own search and walk (the plain model) on the CDF it returns,
@@ -148,7 +150,12 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             the SVOL kernel (the same CDF, walk, paired draws and offsets)
             at parity and ESS 0.5 over SPY, B=128: step 0 equal, step 1
             within 2e-3 on 90% of the rows, the means within 4 combined
-            standard errors.
+            standard errors;
+31. k3-layout   the Liu-West kernel's systematic family at N=32, 96, 512
+            and 1024, every functor: the instrumented twins' barriers a
+            step (8 / 7 an APF step that does / does not resample, 5 / 4
+            in SISR, 3 / 2 at t = 0), layout (2 particles per thread) and
+            clock64 spans, their outputs the plain instances' bits.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -248,6 +255,10 @@ K1_INSTANCES = 8
 K2_SYS_INSTANCES = 2 * (7 + 4 + 2)
 # N at which phase 30 reads the twins' record (partial warps at 32 and 96)
 K2_RECORD_N = (32, 96, 512, 1024)
+# instances of the Liu-West kernel's systematic family
+# (csrc/lw_megakernel_sys.cu): the 3 functors and each one's instrumented
+# twin; phase 31 reads the twins at K2_RECORD_N
+K3_SYS_INSTANCES = 2 * 3
 # N at which phase 6 reads the systematic kernel's record: each of its
 # instances
 K1_RECORD_N = (32, N, 1024) + ROLL_N
@@ -261,10 +272,10 @@ PEAK_F32_PER_S = 67e12
 # operations per particle and step, counted from the sources; a normal is
 # half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
 # adds = 100) plus its half of Box-Muller (~12): 56, which is what the
-# systematic families of the SVOL and generic kernels compute (one call
-# per pair of particles); the roll families and the Liu-West kernel still
-# make one call per particle.  Resampling inside a gated schedule depends
-# on the data and is left out (a lower bound).
+# systematic families of the SVOL, generic and Liu-West kernels compute
+# (one call per pair of particles); the roll families still make one call
+# per particle.  Resampling inside a gated schedule depends on the data
+# and is left out (a lower bound).
 NORMAL_OPS = 56
 STEP_OPS = {
     # normal, phi x + sigma e, the weight (exp, 2 mul, fma), max/exp/3 sums
@@ -383,6 +394,14 @@ def _k2_key(name):
                                          else ""))
 
 
+def _k3_key(name):
+    """The Liu-West kernel's systematic instance of a mangled entry name."""
+    t = re.search(r"lw_megakernel_sysIN4ssme\d+(\w+?LW)ELi(\d)ELb(\d)E",
+                  name)
+    return t and (f"{t.group(1)}/kper{t.group(2)}"
+                  + ("/twin" if t.group(3) == "1" else ""))
+
+
 def _ptxas_instances(ptxas, key):
     """{instance: (registers, spill store bytes, spill load bytes)} of the
     entries whose mangled name ``key`` maps to an instance, from ptxas' -v
@@ -413,7 +432,9 @@ def phase_build():
     for kernel, key, want in (("systematic SVOL kernel", _k1_key,
                                K1_INSTANCES),
                               ("generic kernel's systematic family", _k2_key,
-                               K2_SYS_INSTANCES)):
+                               K2_SYS_INSTANCES),
+                              ("Liu-West kernel's systematic family", _k3_key,
+                               K3_SYS_INSTANCES)):
         inst = _ptxas_instances(ptxas, key)
         require(len(inst) == want, f"ptxas reports {len(inst)} instances of "
                 f"the {kernel}, want {want}: {inst}")
@@ -2024,10 +2045,77 @@ def phase_k2_layout(dev, ys_all):
     return layout, counted, vs_k1
 
 
+# the schedules phase 31 reads the Liu-West twins at, and the kinds of
+# step each must show
+K3_RECORD_RUNS = {
+    "apf": (dict(variant="apf"), ("first_resample", "resample")),
+    "apf-ess": (dict(variant="apf", ess_threshold=0.5), ("other",)),
+    "sisr": (dict(variant="sisr"), ("first_resample", "resample")),
+    "sisr-no-selection": (dict(variant="sisr"), ("first_other", "other")),
+}
+
+
+def phase_k3_layout(dev, ys_all):
+    """The Liu-West kernel's systematic twins, every functor at every
+    layout: barriers per kind of step, layout, spans, and their outputs
+    the plain instances' bits."""
+    ys = ys_all[:512, 0].contiguous()
+    zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    functors = dict(_lw_instances(zs), svol_leverage_lw_q=(
+        lwm.svol_leverage_lw_q_kernel_model(Q_KAPPA), zs))
+    f = 16
+    counted, layout, spans = {}, {}, {}
+    for n in K2_RECORD_N:
+        for name, (km, zs_k) in functors.items():
+            for run, (kw, kinds) in K3_RECORD_RUNS.items():
+                kw = dict(kw)
+                if run == "sisr-no-selection":
+                    kw["ess_threshold"] = 0.5 / n
+                tag = f"K3 {name} N={n} {run}"
+                rec = lwm.step_spans(13, ys, zs_k, f, n, kmodel=km, **kw)
+                seed, ys_, zs_ = lwm._validate(
+                    km, 13, ys, zs_k, f, n, 1, kw["variant"],
+                    kw.get("ess_threshold", 0.0), "systematic")
+                plain = lwm._launch(km, seed, ys_, zs_, f, n, 0.99, 1,
+                                    kw["variant"],
+                                    kw.get("ess_threshold", 0.0))
+                require(all(torch.equal(plain[k], rec["outputs"][k])
+                            for k in ("log_cond_likes", "cloud")),
+                        f"{tag}: the twin's outputs are not the plain "
+                        "instance's bits")
+                want = lwm.BARRIERS_PER_STEP[kw["variant"]]
+                got = rec["barriers_per_step"]
+                for kind, v in got.items():
+                    require(v is None or v == want[kind],
+                            f"{tag}: {v} barriers a {kind} step, the "
+                            f"source note states {want[kind]}")
+                require(all(got[k] is not None for k in kinds),
+                        f"{tag}: no {kinds} step: {got}")
+                require(rec["kper"] == 2
+                        and rec["threads"] == -(-n // 2 // 32) * 32,
+                        f"{tag}: ran kPer {rec['kper']} at "
+                        f"{rec['threads']} threads")
+                counted[f"{name}/N{n}/{run}"] = {
+                    k: v for k, v in got.items() if v is not None}
+                if n == 512:
+                    spans[f"{name}/{run}"] = rec["cycles_per_step"]
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    phase(31, "k3-layout", "twins' barriers a step (first_resample, "
+          "first_other, resample, other) " + "; ".join(
+              f"{k} {v}" for k, v in counted.items())
+          + "; layout (kPer, threads) " + ", ".join(
+              f"N={n} ({v['kper']}, {v['threads']})"
+              for n, v in layout.items())
+          + " | clock64 cycles a step at N=512 F=16 T=512: " + "; ".join(
+              f"{k} " + ", ".join(f"{p} {c:.0f}" for p, c in v.items())
+              for k, v in spans.items()))
+    return layout, counted, spans
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
-    k1_ptxas, k2_ptxas = phase_build()
+    k1_ptxas, k2_ptxas, k3_ptxas = phase_build()
     phase_philox(dev)
     phase_select(dev)
     ys = torch.as_tensor(read_data(os.path.join(ROOT, "data",
@@ -2061,6 +2149,7 @@ def main():
     k1_pmmh_launches, k1_pmmh = phase_pmmh_large_n_k1(dev, ys, ident)
     flagship_launches = phase_flagship_cli(dev, ident)
     k2_layout, k2_barriers, k2_vs_k1 = phase_k2_layout(dev, ys)
+    k3_layout, k3_barriers, k3_spans = phase_k3_layout(dev, ys)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -2136,7 +2225,8 @@ def main():
     }, {
         "name": "lw_megakernel",
         "route": "cuda",
-        "source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
+        "source": "ssme_tpu_torch/csrc/lw_megakernel_sys.cuh",
+        "roll_source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
         "replaces": "ssme_tpu/ops/liu_west_megakernel.py:500",
         "launches": lw_launches,
         "max_abs_err": max(max(lw_errs.values()), k3_large_err),
@@ -2150,11 +2240,16 @@ def main():
         "per_resampler": roll["K3"],
         "per_kper": k3_large,
         "svol_leverage_lw_q": lw_q,
+        "layout": k3_layout,
+        "barriers_per_step": k3_barriers,
+        "clock64_spans": k3_spans,
+        "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
+                              v)) for k, v in k3_ptxas.items()},
     }, {
         "name": "svol_leverage_lw",
         "route": "cuda",
         "instance_of": "lw_megakernel (its svol_leverage_lw instance)",
-        "source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
+        "source": "ssme_tpu_torch/csrc/lw_megakernel_sys.cuh",
         "replaces": "ssme_tpu/ops/svol_leverage_lw_kernel.py:331",
         "launches": lw_launches,
         "max_abs_err": lw_errs["svol_leverage_lw"],

@@ -3,7 +3,7 @@
 card, as one JSON line.
 
     python scripts/kernel_timing.py [ROOT] [--label NAME] [--reps 10]
-                                    [--k1] [--k2] [--paths] [--bits]
+                                    [--k1] [--k2] [--k3] [--paths] [--bits]
 
 ROOT (default: this checkout) is the tree whose ``ssme_tpu_torch`` is
 imported, so that two trees can be timed in turns within one call on one
@@ -12,7 +12,8 @@ that ``.gitignore`` lists: parent, change, change, parent.  Each kernel
 time is the mean over ``--reps`` launches after one warm-up, by CUDA
 events, over all of ``data/spy_returns.csv``.
 
-- ``--k1`` (with ``--k2``, the default when neither is given): the SVOL
+- ``--k1`` (with ``--k2``, the default when none of ``--k1``, ``--k2``,
+  ``--k3`` is given): the SVOL
   filter kernel (K1) at B=256 and B=128 rows, N=512, at svol's chain
   start (as ``chip_smoke.py`` phase 6) and at the SPY posterior (the
   accuracy gate's means), parity (every step) and adaptive (ESS 0.5,
@@ -27,14 +28,22 @@ events, over all of ``data/spy_returns.csv``.
   4 assets (B=32) at their phase-18 shapes (``data/k2_families_jax.json``);
   where the tree has them, the systematic family's step records
   (``step_spans``) of the leverage cases at N=512 and 1024;
+- ``--k3``: the Liu-West kernel (K3) under systematic selection over SPY,
+  F=8 and 64 filters, N=512 and 1024, the leverage model's APF every
+  step (``apf``), APF at ESS 0.5 (``apf-ess``) and SISR every step
+  (``sisr``), and svol_t's APF (``svol_t-apf``): ms per launch
+  (``k3_ms``, through ``lw_megakernel``); where the tree has them, the
+  instrumented twins' step records of the leverage model's and svol_t's
+  APF at F=64, N=512 and 1024 (``k3_spans``);
 - ``--paths``: adaptive PMMH at N=2048 (C=64 x R=4, 10 iterations, ms per
   iteration, phase 28) and the ``spy_flagship`` CLI for 500 iterations
   per schedule (wall seconds, phase 29);
-- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler), K2
-  under the roll resamplers and K3 on fixed inputs, to show
-  two trees compute the same bits there (``bits``), and apart from them
-  those of K2's systematic family (``bits_k2_systematic``), which a
-  change of its CDF's rounding order changes.
+- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler) and
+  of K2 and K3 under the roll resamplers on fixed inputs, to show two
+  trees compute the same bits there (``bits``), and apart from them
+  those of K2's and K3's systematic families (``bits_k2_systematic``,
+  ``bits_k3_systematic``), which a change of their arithmetic or their
+  CDF's rounding order changes.
 
 Needs a CUDA card; imports no JAX.
 """
@@ -59,6 +68,7 @@ def main(argv=None):
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--k1", action="store_true")
     p.add_argument("--k2", action="store_true")
+    p.add_argument("--k3", action="store_true")
     p.add_argument("--paths", action="store_true")
     p.add_argument("--bits", action="store_true")
     args = p.parse_args(argv)
@@ -96,16 +106,19 @@ def main(argv=None):
 
     out = {"tree": args.label or root, "device": torch.cuda.get_device_name(0),
            "nvidia_smi": gpu_identity(), "reps": args.reps}
-    both = not (args.k1 or args.k2)
+    both = not (args.k1 or args.k2 or args.k3)
     if args.k1 or both:
         out.update(_k1(torch, ys[:, 0].contiguous(), dev, ms))
     if args.k2 or both:
         out.update(_k2(torch, ys[:, 0].contiguous(), dev, ms))
+    if args.k3:
+        out.update(_k3(torch, ys[:, 0].contiguous(), ms))
     if args.paths:
         out.update(_paths(ys, dev))
     if args.bits:
-        out["bits"], out["bits_k2_systematic"] = _bits(
-            torch, ys[:, 0].contiguous(), dev)
+        (out["bits"], out["bits_k2_systematic"],
+         out["bits_k3_systematic"]) = _bits(torch, ys[:, 0].contiguous(),
+                                            dev)
     print(json.dumps(out), flush=True)
 
 
@@ -197,6 +210,34 @@ def _k2(torch, ys, dev, ms):
     return {"k2_ms": out, "k2_spans": spans}
 
 
+def _k3(torch, ys, ms):
+    """K3 systematic ms per launch over SPY and, where the tree has them,
+    the twins' step records (svol_leverage_lw and svol_t_lw, APF)."""
+    from ssme_tpu_torch.models import svol_leverage
+    from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+
+    zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    lev, svt = lwm.svol_leverage_lw_kernel_model(), lwm.svol_t_lw_kernel_model()
+    runs = {"apf": (lev, zs, dict(variant="apf")),
+            "apf-ess": (lev, zs, dict(variant="apf", ess_threshold=0.5)),
+            "sisr": (lev, zs, dict(variant="sisr")),
+            "svol_t-apf": (svt, None, dict(variant="apf"))}
+    out, spans = {}, {}
+    for f in (8, 64):
+        for n in (512, 1024):
+            for run, (km, z, kw) in runs.items():
+                out[f"F{f}/N{n}/{run}"] = ms(lambda: lwm.lw_megakernel(
+                    km, 11, ys, z, num_filters=f, num_particles=n, **kw))
+    if hasattr(lwm, "step_spans"):
+        for n in (512, 1024):
+            for run in ("apf", "svol_t-apf"):
+                km, z, kw = runs[run]
+                rec = lwm.step_spans(11, ys, z, 64, n, kmodel=km, **kw)
+                rec.pop("outputs")
+                spans[f"F64/N{n}/{run}"] = rec
+    return {"k3_ms": out, "k3_spans": spans}
+
+
 def _paths(ys, dev):
     """Phase 28's PMMH at N=2048 and phase 29's flagship CLI."""
     import torch
@@ -232,8 +273,8 @@ def _paths(ys, dev):
 
 
 def _bits(torch, ys, dev):
-    """sha256 prefixes of K1, K2 roll and K3 outputs on fixed inputs, and
-    apart from them those of K2's systematic family."""
+    """sha256 prefixes of K1, K2 roll and K3 roll outputs on fixed inputs,
+    and apart from them those of K2's and K3's systematic families."""
     from ssme_tpu_torch.models.svol_leverage import lagged_covariates
     from ssme_tpu_torch.ops import filter_megakernel as fmk
     from ssme_tpu_torch.ops import liu_west_megakernel as lwm
@@ -249,7 +290,7 @@ def _bits(torch, ys, dev):
     zs = lagged_covariates(ys)
     rows = torch.tensor([[0.9, 0.98, math.sqrt(0.02)]] * 64, device=dev)
     lev = torch.tensor([[0.958, -0.080, 0.311, -0.751]] * 64, device=dev)
-    out, k2_sys = {}, {}
+    out, k2_sys, k3_sys = {}, {}, {}
     for n in (512, 2048):
         out[f"K1/systematic/N{n}"] = digest(*sfk.svol_filter(
             3, rows, ys, num_particles=n, ess_threshold=0.5))
@@ -274,8 +315,9 @@ def _bits(torch, ys, dev):
             o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
                                   num_filters=16, num_particles=512,
                                   variant=variant, resampler=r)
-            out[f"K3/{variant}/{r}"] = digest(o["log_cond_likes"], o["cloud"])
-    return out, k2_sys
+            (k3_sys if r == "systematic" else out)[f"K3/{variant}/{r}"] = \
+                digest(o["log_cond_likes"], o["cloud"])
+    return out, k2_sys, k3_sys
 
 
 if __name__ == "__main__":

@@ -25,7 +25,8 @@
 // first; the tags are in ops/_prng.py), so a hook that draws one normal
 // consumes exactly the SVOL kernel's bits: StepRng, one Philox call per
 // particle and draw (the roll family), or PairRng and PairSines, one call
-// per pair of neighbouring particles and draw (the systematic family).
+// per pair of neighbouring particles and draw (the systematic family;
+// both in step_rng.cuh, which the Liu-West functors share).
 // Each functor performs the float operations of its Python hooks in
 // their order, so that with the same bits the kernel and the plain
 // version differ only by fused multiply-adds and reduction order.
@@ -34,6 +35,7 @@
 #include <cstdint>
 
 #include "philox.cuh"
+#include "step_rng.cuh"
 
 namespace ssme {
 
@@ -50,51 +52,6 @@ constexpr int kModelFactorSvol5 = 6;   // "factor_svol_5"
 
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 constexpr float kStateClamp = 40.0f;   // models/svol_leverage.py STATE_CLAMP
-
-// normal draws of one particle at one step, handed to one hook call
-struct StepRng {
-  uint32_t k0, k1, i, t, b;
-  uint32_t draw;
-  __device__ float normal() { return normal_at(k0, k1, i, t, b, draw++); }
-};
-
-// normal draws of the pair q = (particle 2q, particle 2q + 1) at one step,
-// handed to two hook calls in turn: the first particle's k-th normal()
-// makes one Philox call on counter (q, t, b, tag of draw k) and one
-// Box-Muller, returns the cosine and keeps the sine, which the second
-// particle's k-th normal() returns (PairSines) -- the bits normal_at gives
-// each of them.  kDraws: the hook's draws (Model::kDraws), so the sines
-// stay in registers.
-template <int kDraws>
-struct PairRng {
-  uint32_t k0, k1, q, t, b;
-  int draw = 0;
-  float sine[kDraws];
-  __device__ float normal() {
-    const float2 z = normal_pair_at(k0, k1, q, t, b, draw);
-    sine[draw++] = z.y;
-    return z.x;
-  }
-};
-
-template <int kDraws>
-struct PairSines {
-  const float (&sine)[kDraws];
-  int draw = 0;
-  __device__ float normal() { return sine[draw++]; }
-};
-
-// One hook of one pair of particles: hook(first's rng, 0) then
-// hook(second's rng, 1) on the pair's draws at step t.
-template <int kDraws, class Hook>
-__device__ __forceinline__ void for_pair(uint32_t k0, uint32_t k1,
-                                         uint32_t q, uint32_t t, uint32_t b,
-                                         Hook&& hook) {
-  PairRng<kDraws> first{k0, k1, q, t, b};
-  hook(first, 0);
-  PairSines<kDraws> second{first.sine};
-  hook(second, 1);
-}
 
 // NaN-propagating clamp (as torch.clamp and jnp.clip)
 __device__ __forceinline__ float clamp_state(float v) {

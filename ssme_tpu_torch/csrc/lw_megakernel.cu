@@ -1,8 +1,9 @@
-// The Liu-West kernel at one particle per thread: the C entry point and
-// the instances of every model under the systematic selection and, up to
-// 1024 particles, the roll resamplers.  lw_megakernel.cuh has the layout,
-// the step recursion and the divergences from the Pallas kernel;
-// lw_megakernel_roll.cu the roll instances above 1024 particles.
+// The Liu-West kernel's C entry points, and its roll family at one
+// particle per thread (the Metropolis and rejection resamplers up to 1024
+// particles).  lw_megakernel.cuh has the step recursion and the
+// divergences from the Pallas kernel; lw_megakernel_sys.cuh the systematic
+// family (instances in lw_megakernel_sys.cu); lw_megakernel_roll.cu
+// the roll instances above 1024 particles.
 //
 // This kernel keeps its own code, apart from the kPer one of
 // lw_megakernel_roll.cu: instantiated at kPer = 1, that template computed
@@ -12,6 +13,7 @@
 // (2S + P leaves) where the kPer kernel gathers state and theta and
 // recomputes the other two.
 #include "lw_megakernel.cuh"
+#include "lw_megakernel_sys.cuh"
 
 namespace ssme_lw {
 namespace {
@@ -41,9 +43,24 @@ __device__ __forceinline__ float weigh(const Model& model, float lw,
   return m;
 }
 
+// the ancestor of this thread's particle under the roll resampler, on the
+// sweep tags from tag_roll (cdf: the weights')
+__device__ __forceinline__ int roll_ancestor(float w, int resampler,
+                                             int metropolis_iters,
+                                             uint32_t k0, uint32_t k1,
+                                             uint32_t t, uint32_t b,
+                                             uint32_t tag_roll, float* cdf,
+                                             float* red) {
+  const float wv[1] = {w};
+  int anc[1];
+  ssme::roll_ancestors<1>(resampler, metropolis_iters, wv, cdf, red, k0, k1,
+                          t, b, tag_roll, anc);
+  return anc[0];
+}
+
 // the joint (state, theta) resample of one filter, on the resample_every
 // schedule or when its ESS falls below ess_limit; lw = 0 after it
-template <bool kRoll, int S, int P>
+template <int S, int P>
 __device__ __forceinline__ void maybe_resample(
     int t, float wn, float s, float s2, float ess_limit, int resample_every,
     int resampler, int metropolis_iters, uint32_t k0, uint32_t k1,
@@ -54,9 +71,8 @@ __device__ __forceinline__ void maybe_resample(
                         : (resample_every == 1 ||
                            (t + 1) % resample_every == 0);
   if (!fire) return;
-  const int anc = ssme::select_ancestor<kRoll>(
-      wn, resampler, metropolis_iters, k0, k1, t, b, ssme::kTagOffset,
-      ssme::kTagRollSweep, cdf, red);
+  const int anc = roll_ancestor(wn, resampler, metropolis_iters, k0, k1, t,
+                                b, ssme::kTagRollSweep, cdf, red);
   float v[S + P];
 #pragma unroll
   for (int l = 0; l < S; ++l) v[l] = x[l];
@@ -70,7 +86,7 @@ __device__ __forceinline__ void maybe_resample(
   lw = 0.0f;
 }
 
-template <class Model, bool kRoll>
+template <class Model>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
               const float* __restrict__ zs, int num_steps, int apf,
@@ -136,9 +152,8 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
   float m = weigh(model, lw, cp, x, red, &wn, &s, &s2, &lse, fmean);
   emit(0, lse - log_n);
   lw = lw - m;
-  maybe_resample<kRoll>(0, wn, s, s2, ess_limit, resample_every, resampler,
-                        metropolis_iters, k0, k1, b, x, th, lw, cdf, buf,
-                        red);
+  maybe_resample(0, wn, s, s2, ess_limit, resample_every, resampler,
+                 metropolis_iters, k0, k1, b, x, th, lw, cdf, buf, red);
 
   for (int t = 1; t < num_steps; ++t) {
     load_step<Model>(ys, zs, t, y, z);
@@ -202,15 +217,11 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
       const float lfs = lw + model.log_weight(cp, look, y, z);
       const float mfs = ssme::block_max(lfs, red);
       const float wfs = expf(lfs - mfs);
-      if constexpr (kRoll) {
-        float sfs[1] = {wfs};
-        ssme::block_sum<1>(sfs, red);
-        lse_fs = mfs + logf(sfs[0]);
-      }
-      const int anc = ssme::select_ancestor<kRoll>(
-          wfs, resampler, metropolis_iters, k0, k1, t, b,
-          ssme::kTagSelectOffset, ssme::kTagRollSelect, cdf, red);
-      if constexpr (!kRoll) lse_fs = mfs + logf(cdf[n - 1]);
+      float sfs[1] = {wfs};
+      ssme::block_sum<1>(sfs, red);
+      lse_fs = mfs + logf(sfs[0]);
+      const int anc = roll_ancestor(wfs, resampler, metropolis_iters, k0, k1,
+                                    t, b, ssme::kTagRollSelect, cdf, red);
       float g[2 * S + P];
 #pragma unroll
       for (int l = 0; l < S; ++l) {
@@ -272,9 +283,8 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
     m = weigh(model, lw_new, cp, x, red, &wn, &s, &s2, &lse, fmean);
     emit(t, apf ? ((lse_fs - logf(wsum)) + lse) - log_n : lse - logf(wsum));
     lw = lw_new - m;
-    maybe_resample<kRoll>(t, wn, s, s2, ess_limit, resample_every,
-                          resampler, metropolis_iters, k0, k1, b, x, th, lw,
-                          cdf, buf, red);
+    maybe_resample(t, wn, s, s2, ess_limit, resample_every, resampler,
+                   metropolis_iters, k0, k1, b, x, th, lw, cdf, buf, red);
   }
 
   const size_t rows = S + 1 + P;
@@ -289,21 +299,37 @@ lw_megakernel(const int64_t* __restrict__ seed, const float* __restrict__ ys,
 template <class Model>
 struct RunOne {
   static int go(const LWLaunch& a, const LWArgs& args) {
-    if (a.resampler == ssme::kResampleSystematic)
-      lw_megakernel<Model, false><<<a.num_filters, a.num_particles, 0,
-                                    a.stream>>>(
-          a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
-          a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl,
-          a.fpaths, a.cloud);
-    else
-      lw_megakernel<Model, true><<<a.num_filters, a.num_particles, 0,
-                                   a.stream>>>(
-          a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
-          a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl,
-          a.fpaths, a.cloud);
+    lw_megakernel<Model><<<a.num_filters, a.num_particles, 0, a.stream>>>(
+        a.seed, a.ys, a.zs, a.num_steps, a.apf, a.resample_every,
+        a.ess_limit, a.resampler, a.metropolis_iters, args, a.lcl, a.fpaths,
+        a.cloud);
     return static_cast<int>(cudaGetLastError());
   }
 };
+
+// the argument block from the host arrays of the C entry points
+LWArgs make_args(const float* coefs, const float* prior_lo,
+                 const float* prior_scale, const float* model_args) {
+  LWArgs args;
+  args.a = coefs[0];
+  args.one_minus_a = coefs[1];
+  args.h2 = coefs[2];
+  for (int k = 0; k < kMaxParams; ++k) {
+    args.prior_lo[k] = prior_lo[k];
+    args.prior_scale[k] = prior_scale[k];
+  }
+  for (int k = 0; k < kMaxModelArgs; ++k) args.model[k] = model_args[k];
+  return args;
+}
+
+// the systematic instances (or, with a.spans, their twins); -3 for a
+// particle count they do not take
+int dispatch_systematic(int model_id, const LWLaunch& a,
+                        const LWArgs& args) {
+  const int n = a.num_particles;
+  if (n < 32 || n > kMaxThreads || n % 32) return -3;
+  return dispatch_sys(model_id, a, args);
+}
 
 }  // namespace
 }  // namespace ssme_lw
@@ -330,21 +356,39 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                                   const float* model_args, float* lcl,
                                   float* fpaths, float* cloud, void* stream) {
   using namespace ssme_lw;
-  LWArgs args;
-  args.a = coefs[0];
-  args.one_minus_a = coefs[1];
-  args.h2 = coefs[2];
-  for (int k = 0; k < kMaxParams; ++k) {
-    args.prior_lo[k] = prior_lo[k];
-    args.prior_scale[k] = prior_scale[k];
-  }
-  for (int k = 0; k < kMaxModelArgs; ++k) args.model[k] = model_args[k];
+  const LWArgs args = make_args(coefs, prior_lo, prior_scale, model_args);
   const LWLaunch a{seed, ys, zs, num_filters, num_steps, num_particles,
                    apf, resample_every, ess_limit, resampler,
                    metropolis_iters, lcl, fpaths, cloud,
                    static_cast<cudaStream_t>(stream)};
+  if (resampler == ssme::kResampleSystematic)
+    return dispatch_systematic(model_id, a, args);
   if (num_particles <= kMaxThreads)
     return dispatch_model<RunOne>(model_id, a, args);
-  if (resampler == ssme::kResampleSystematic) return -3;
   return dispatch_roll_large(model_id, a, args);
+}
+
+// The instrumented twin of the systematic instance ssme_lw_megakernel
+// runs: its arguments less the resampler, and spans, int64[num_filters *
+// kNumLWSpans] the twin writes (lw_megakernel_sys.cuh LWSpan): where a
+// step's time goes and the barriers it crosses.
+extern "C" int ssme_lw_megakernel_spans(int model_id, const int64_t* seed,
+                                        const float* ys, const float* zs,
+                                        int num_filters, int num_steps,
+                                        int num_particles, int apf,
+                                        int resample_every, float ess_limit,
+                                        const float* coefs,
+                                        const float* prior_lo,
+                                        const float* prior_scale,
+                                        const float* model_args, float* lcl,
+                                        float* fpaths, float* cloud,
+                                        long long* spans, void* stream) {
+  using namespace ssme_lw;
+  if (spans == nullptr) return -3;
+  const LWArgs args = make_args(coefs, prior_lo, prior_scale, model_args);
+  const LWLaunch a{seed, ys, zs, num_filters, num_steps, num_particles,
+                   apf, resample_every, ess_limit,
+                   ssme::kResampleSystematic, 16, lcl, fpaths, cloud,
+                   static_cast<cudaStream_t>(stream), spans};
+  return dispatch_systematic(model_id, a, args);
 }

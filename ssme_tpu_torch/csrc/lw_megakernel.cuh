@@ -1,50 +1,42 @@
 // Whole-sequence Liu-West filter bank for Hopper: template kernels over
-// model functors (lw_models.cuh) and the selection family, at one
-// particle per thread and at kPer particles per thread.
+// model functors (lw_models.cuh) and the selection family.
 //
 // Replaces ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel (the Pallas
 // body _build_kernel) and, through its svol_leverage_lw instance,
 // ssme_tpu/ops/svol_leverage_lw_kernel.py::svol_leverage_lw_pallas, to
 // which that instance is bit-compatible in JAX.  F filters, each on a
 // joint (state, theta) cloud of N particles, over T observations in ONE
-// launch; the cloud never leaves the chip.  lw_megakernel.cu holds the C
-// entry point and the kernel at one particle per thread,
-// lw_megakernel_roll.cu the kernel of the roll resamplers above 1024
-// particles, so that nvcc builds the two in parallel.
+// launch; the cloud never leaves the chip.  Two families, one nvcc per
+// file so that they build in parallel:
+//  - systematic selection (N a multiple of 32 up to 1024):
+//    lw_megakernel_sys.cuh, laid out for Hopper on row_select.cuh, 2
+//    NEIGHBOURING particles per thread (j = 2 * threadIdx.x + p), paired
+//    Philox draws, the Cholesky on every thread, 8 barriers in an
+//    APF step that resamples; its note gives the design;
+//  - the roll resamplers (roll_select.cuh: Metropolis or rejection, chosen
+//    at run time): lw_megakernel.cu at one particle per thread (blockDim =
+//    N, a power of two up to 1024) and lw_megakernel_roll.cu above, a
+//    power of two up to 4096 (JAX's MAX_LW_METROPOLIS_PARTICLES), with
+//    blockDim = 1024 and kPer = N / 1024 STRIDED particles per thread
+//    (particle j = p * blockDim + threadIdx.x), as in the generic kernel.
+// The Philox counters are keyed by the particle index, so the plain
+// version's bits hold in every layout.  lw_megakernel.cu also holds the C
+// entry points.
 //
-// Layout: one CTA per filter and kPer particles per thread (particle j =
-// p * blockDim + threadIdx.x; the Philox counters are keyed by j, so the
-// plain version's bits hold at every kPer).  The systematic selection and
-// every N up to 1024 run one particle per thread (blockDim = N, a multiple
-// of 32; a power of two under the roll resamplers; lw_megakernel.cu).
-// Above 1024 the roll resamplers take a power of two up to 4096 (JAX's
-// MAX_LW_METROPOLIS_PARTICLES) with blockDim = 1024 and kPer = N / 1024,
-// 2 or 4 particles per thread, as in the generic kernel
-// (lw_megakernel_roll.cu).  Each particle keeps its state, theta[P] and
-// its log-weight in registers for all T steps, and at the 64 registers of
+// The roll family: each particle keeps its state, theta[P] and its
+// log-weight in registers for all T steps, and at the 64 registers of
 // __launch_bounds__(1024, 1) ptxas spills: some 200 bytes a thread at
 // kPer = 2 and 500-1000 at kPer = 4 (PERF.md; chip_smoke.py phase 2
-// prints them).  The other design, blockDim = 512 with 4 or 8 particles
-// per thread at 128 registers, spilled no less in a bring-up build, and
-// ran no faster, so the kernel keeps the generic kernel's.  Shared memory
-// holds the CDF (the roll resamplers' weights) and one gather buffer of N
-// floats each (32 KB at 4096), the reduction scratch (32 floats per
-// simultaneous sum), theta_bar and the P x P Cholesky factor, which thread
-// 0 computes once per step from the block sums.  ys (T, dim_obs) and zs
-// (T, dim_cov) are read row-major from global memory.
-//
-// What bounds it: per-step latency of block barriers, not bytes.  Each of
-// the T sequential steps costs a (1 + P)-way and a P(P+1)/2-way block sum
-// (the moments), one Cholesky on one thread, the first-stage max, scan
-// and (2S + P)-leaf gather (APF; S + P above 1024), the weights' max and
-// sums, and on a
-// resampling step a scan and an (S + P)-leaf gather: some forty barriers
-// against a few hundred float operations per thread.  Under a roll
-// resampler (roll_select.cuh: metropolis or rejection, chosen at run
-// time; the family a template parameter, so the systematic instances
-// compile without it) each selection is a sweep loop of Philox draws
-// instead of a scan, and the APF first stage takes its LSE from a block
-// sum.  The inputs are T floats, the outputs (F, T) and the final cloud.
+// prints them).  Shared memory holds the roll resamplers' weights and one
+// gather buffer of N floats each (32 KB at 4096), the reduction scratch
+// (32 floats per simultaneous sum), theta_bar and the P x P Cholesky
+// factor, which thread 0 computes once per step from the block sums.  What
+// bounds it: per-step latency of block barriers, not bytes: the
+// systematic_select.cuh reductions cross two barriers each and a gather
+// two per leaf, and each selection is a sweep loop of Philox draws; the
+// APF first stage takes its LSE from a block sum.  ys (T, dim_obs) and zs
+// (T, dim_cov) are read row-major from global memory.  The inputs are T
+// floats, the outputs (F, T) and the final cloud.
 //
 // Per step it computes what _build_kernel computes:
 //   t = 0   prior draw (uniform box, lo + (hi - lo) u), transform, init,
@@ -80,8 +72,9 @@
 //    rows; there is no tile to share it);
 //  - the loop runs to T exactly: no padded steps, no steps_per_cell;
 //  - no (N, N) lt matrix, no compensated_cdf and no tile_seeds: the
-//    systematic selection is the block scan of systematic_select.cuh, the
-//    roll resamplers carry ancestor indices (roll_select.cuh);
+//    systematic selection is the search and walk on the CDF of
+//    row_select.cuh, the roll resamplers carry ancestor indices
+//    (roll_select.cuh);
 //  - no zero pad rows in the cloud (a TPU sublane artefact);
 //  - random numbers are Philox4x32-10 (philox.cuh), not the TPU's;
 //  - the log-weights are renormalised by their maximum after every step
@@ -144,6 +137,7 @@ struct LWLaunch {
   int resampler, metropolis_iters;
   float *lcl, *fpaths, *cloud;
   cudaStream_t stream;
+  long long* spans = nullptr;  // the systematic twin's record, or null
 };
 
 // Run<Model>::go for every model id; -1 for an unknown one

@@ -1,0 +1,556 @@
+// The Liu-West filter kernel's systematic family, laid out for Hopper: F
+// filters, each on a joint (state, theta) cloud of N particles (a multiple
+// of 32 in [32, 1024], the JAX package's MAX_LW_KERNEL_PARTICLES), over T
+// observations in ONE launch, APF or SISR, for every functor of
+// lw_models.cuh.
+//
+// Replaces ssme_tpu/ops/liu_west_megakernel.py::lw_megakernel (the Pallas
+// body _build_kernel: moments and shrinkage :369-382, the APF lookahead
+// and joint selection :385-401, the Cholesky, the kernel draws and the
+// weights :413-444) under systematic selection and, through its
+// svol_leverage_lw instance, ssme_tpu/ops/svol_leverage_lw_kernel.py::
+// svol_leverage_lw_pallas.  The step recursion and the intended
+// divergences from the Pallas kernel are those of lw_megakernel.cuh's
+// note.  The roll family is lw_megakernel.cu (N <= 1024) and
+// lw_megakernel_roll.cu (above).
+//
+// Layout: one CTA per filter; thread i owns kPer NEIGHBOURING particles
+// j = kPer * i + p, blockDim = N / kPer rounded up to a warp, the lanes
+// past N / kPer masked (N = 32 or 96 leave part of a warp empty).  The
+// template takes kPer 2 or 4; the instances run kLWPer = 2 at every N,
+// from the grid measured on the card (PERF.md §6: kPer 4 lost 13-32%).
+// Each particle keeps its state, theta[P] and its log-weight in registers
+// for all T steps; the Philox counters stay keyed by the particle index,
+// so the prior uniforms, the kernel draws, the transition draws and the
+// offsets are the plain version's bits.  Shared memory holds the CDF and
+// one padded gather buffer per leaf (row_select.cuh; S + 1 + P leaves,
+// 25 KB at N = 1024 for the leverage model), the partial buffers of the
+// exchanges and the step's two selection offsets.  Instances
+// (lw_megakernel_sys.cu): every functor, at most 512 threads, and beside
+// each an instrumented twin (kRecord), which counts the barriers a step
+// crosses and times its parts by clock64 on thread 0.  The twin must
+// compute its plain instance's bits: ptxas fused the Cholesky's
+// multiply-subtracts in one compilation and not in the other, so they are
+// written as fmaf, and the shrinkage's products are rounded apart.
+//
+// What bounds it: per-step latency, not bytes.  At F <= 64 each row has an
+// SM to itself, so the wall time is T times one row's step, and on the
+// H100 that step waits on dependent arithmetic (transforms, Philox,
+// Box-Muller, the Cholesky) more than on its barriers: 8 warps a row at
+// N = 512 hide less of it than 16 (PERF.md §6).  The design cuts the
+// step's chain of barriers and its random-number work:
+//  - barriers per step (row_select.cuh: one per exchange; the max's
+//    partial buffer and two sums' buffers, A and B, used so that a buffer
+//    is written again only after another barrier that every thread
+//    crosses after its last read of it):
+//      the moments, 2: sum w and sum w theta (A), then the centred Gram
+//      sum w (theta - bar)(theta - bar)' (B), the two-pass form;
+//      APF's first stage, 3: the max, one exchange that carries only the
+//      warps' CDF totals (A; its chained total, bit for bit the CDF's last
+//      entry, gives LSE(fsw)), and the stage of the CDF with the S + 1 + P
+//      leaves (state, the lookahead's log-density, shrunk theta), then the
+//      walk and the gather (gathering the lookahead itself, as the
+//      one-particle-per-thread kernel does, and recomputing its density at
+//      the gathered shrunk theta costs a constrain and a log-density more
+//      a particle: 1-3% slower on the card, PERF.md §6);
+//      the weights, 2: the max, and one exchange (B) of s, the functional
+//      sums, s^2 and the warps' CDF totals; a step that resamples stages
+//      the CDF with the S + P leaves (state, theta) and crosses 1 more;
+//    so 8 in an APF step that resamples, 7 in one that does not, 5 and 4
+//    in SISR, 3 and 2 at t = 0 (one particle per thread, with two barriers
+//    an exchange and two a gathered leaf, takes about 40);
+//  - the Cholesky of h^2 Vt on every thread, from the Gram sums every
+//    thread holds with the same bits, into registers (no thread-0 factor,
+//    no shared theta_bar, no barrier to publish them), one reciprocal a
+//    column in place of a divide an entry;
+//  - paired draws: particles 2q and 2q + 1 share Philox counter (q, t, b,
+//    tag of draw k) and a thread, so one philox4x32_10 call and one
+//    Box-Muller give draw k of both, for the P kernel draws and, through
+//    ssme::for_pair from draw P on, the transition's or sample_q's
+//    (step_rng.cuh): half the calls of one particle per thread;
+//  - selection without a per-slot search: each thread searches for its
+//    first slot and gallops over the rest on a padded CDF that never
+//    falls (row_select.cuh systematic_walk);
+//  - the two offsets (first stage, tag 2^31 + 1; resample, tag 1) drawn by
+//    thread 0 ahead of the max that precedes their use, and read after it;
+//    y_{t+1} and z_{t+1} loaded a step ahead.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "lw_megakernel.cuh"
+#include "lw_models.cuh"
+#include "philox.cuh"
+#include "row_select.cuh"
+#include "step_rng.cuh"
+
+namespace ssme_lw {
+
+// particles per thread of the instances, at every N (at N = 1024, 512
+// threads), from the grid measured on the card (PERF.md §6)
+constexpr int kLWPer = 2;
+
+// The twins record, per row, by thread 0 in shared memory:
+// the clock64 cycles of the step's parts (t = 0: the prior and init draws
+// count under draws), the rows' resamples at t = 0 and at t > 0, the
+// barriers crossed at t = 0 in a step that resamples and in one that does
+// not, and at t > 0 likewise, and the layout the launch ran (kPer,
+// blockDim).
+enum LWSpan { kLWSpanMoments, kLWSpanCholesky, kLWSpanFirstStage,
+              kLWSpanDraws, kLWSpanWeigh, kLWSpanResample,
+              kLWSpanFirstResamples, kLWSpanResamples,
+              kLWSpanBarFirstResample, kLWSpanBarFirstOther,
+              kLWSpanBarResample, kLWSpanBarOther, kLWSpanLayoutPer,
+              kLWSpanLayoutThreads, kNumLWSpans };
+
+// one vector store of a thread's kPer neighbouring values of a cloud row
+template <int kPer>
+__device__ __forceinline__ void store_neighbours(float* dst,
+                                                 const float (&v)[kPer]) {
+  if constexpr (kPer == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+template <class Model, int kPer, bool kRecord>
+__global__ void __launch_bounds__(kMaxThreads / kPer, 1)
+lw_megakernel_sys(const int64_t* __restrict__ seed,
+                  const float* __restrict__ ys, const float* __restrict__ zs,
+                  int num_steps, int num_particles, int apf,
+                  int resample_every, float ess_limit, LWArgs args,
+                  float* __restrict__ lcl, float* __restrict__ fpaths,
+                  float* __restrict__ cloud, long long* __restrict__ spans) {
+  static_assert(kPer == 2 || kPer == 4, "whole Philox pairs, kPer | 32");
+  constexpr int kPairs = kPer / 2;
+  constexpr int P = Model::kNumParams;
+  constexpr int S = Model::kNumState;
+  constexpr int K = Model::kNumFunctionals;
+  constexpr int kK = K > 0 ? K : 1;
+  constexpr int kGram = P * (P + 1) / 2;
+  constexpr int kDraws = Model::kDraws;
+  constexpr int kCov = Model::kDimCov > 0 ? Model::kDimCov : 1;
+  constexpr int kLook = S + 1 + P;  // leaves APF's first stage moves
+  constexpr int kJoint = S + P;     // leaves the joint resample moves
+  constexpr int kRow = ssme::padded_size(kMaxThreads);
+  __shared__ float cdf[kRow];
+  __shared__ float buf[kLook * kRow];
+  __shared__ float max_part[32];
+  // A: the moments' first pass, the first stage's scan; B: the Gram, the
+  // weights' sums and scan
+  __shared__ float4 sums_a[32 * ssme::wide_stride(1 + P) / 4];
+  __shared__ float4 sums_b[32 * cmax(ssme::wide_stride(kGram),
+                                    ssme::wide_stride(K + 3)) / 4];
+  __shared__ float offsets[2];  // first stage, resample; thread 0 draws
+  // the twin's record: the spans, then the last clock read and this
+  // step's barriers
+  constexpr int kMark = kNumLWSpans, kStepBars = kNumLWSpans + 1;
+  __shared__ long long rec[kRecord ? kNumLWSpans + 2 : 1];
+  long long* const bars = kRecord ? &rec[kRecord ? kStepBars : 0] : nullptr;
+
+  const uint32_t b = blockIdx.x;
+  const uint32_t i = threadIdx.x;
+  const int n = num_particles;
+  const bool active = static_cast<int>(kPer * i) < n;
+  const int num_filters = gridDim.x;
+  const uint32_t k0 = static_cast<uint32_t>(seed[0]);
+  const uint32_t k1 = static_cast<uint32_t>(seed[1]);
+  const Model model(args.model);
+  const float log_n = logf(static_cast<float>(n));
+  float* lcl_row = lcl + static_cast<size_t>(b) * num_steps;
+
+  auto tick = [&](int k) {
+    if constexpr (kRecord) {
+      if (i == 0) {
+        const long long now = clock64();
+        rec[k] += now - rec[kMark];
+        rec[kMark] = now;
+      }
+    }
+  };
+  // the step's barriers to the count of its kind
+  auto close_step = [&](int kind) {
+    if constexpr (kRecord) {
+      if (i == 0) {
+        rec[kind] += rec[kStepBars];
+        rec[kStepBars] = 0;
+      }
+    }
+  };
+  auto count = [&](int k) {
+    if constexpr (kRecord) {
+      if (i == 0) rec[k] += 1;
+    }
+  };
+  if constexpr (kRecord) {
+    if (i == 0) {
+#pragma unroll
+      for (int k = 0; k < kNumLWSpans + 2; ++k) rec[k] = 0;
+      rec[kMark] = clock64();
+    }
+  }
+
+  float y[Model::kDimObs], z[kCov];
+  float x[kPer][S], th[kPer][P], lw[kPer];
+  float lw_new[kPer];
+  float hv[kPer][kK];  // the functionals of the step's particles
+
+  // The weights' max, then one exchange of s, the functional sums, s^2
+  // and the warps' CDF totals; lcl and the functional means of column t
+  // by thread 0; lw = lw_new - max; and, when the row resamples, the stage
+  // of the CDF with (state, theta), the walk and the gather, lw = 0.
+  // lcl_of(lse) gives column t's value from LSE(lw_new).  Returns whether
+  // the row resampled.
+  auto weigh_and_resample = [&](int t, auto lcl_of) -> bool {
+    const bool may_fire = ess_limit > 0.0f || resample_every == 1 ||
+                          (t + 1) % resample_every == 0;
+    if (may_fire && i == 0)
+      offsets[1] = ssme::offset_at(k0, k1, static_cast<uint32_t>(t), b);
+    const float m = ssme::row_max<kPer>(lw_new, active, max_part, bars);
+    float w[kPer];
+    float v[K + 2];
+#pragma unroll
+    for (int k = 0; k < K + 2; ++k) v[k] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      w[p] = active ? expf(lw_new[p] - m) : 0.0f;
+      lw[p] = lw_new[p] - m;
+      v[0] += w[p];
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[1 + k] += hv[p][k] * w[p];
+      v[K + 1] += w[p] * w[p];
+    }
+#pragma unroll
+    for (int k = 0; k < K + 2; ++k) v[k] = active ? v[k] : 0.0f;
+    ssme::warp_cdf<kPer>(w, active);
+    const float warp_last = ssme::warp_cdf_total<kPer>(w, active);
+    float base = 0.0f, total = 0.0f;
+    ssme::row_sums_wide<K + 2, true>(v, warp_last, sums_b, base, total,
+                                     bars);
+    if (i == 0) {
+      lcl_row[t] = lcl_of(m + logf(v[0]));
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        fpaths[(static_cast<size_t>(k) * num_filters + b) * num_steps + t] =
+            v[1 + k] / v[0];
+    }
+    tick(kLWSpanWeigh);
+    const bool fire = ess_limit > 0.0f ? v[0] * v[0] / v[K + 1] < ess_limit
+                                       : may_fire;
+    if (!fire) return false;
+    ssme::warp_cdf_raise<kPer>(w, active);
+    float g[kPer][kJoint];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+#pragma unroll
+      for (int l = 0; l < S; ++l) g[p][l] = x[p][l];
+#pragma unroll
+      for (int k = 0; k < P; ++k) g[p][S + k] = th[p][k];
+    }
+    ssme::row_stage<kPer, kJoint>(w, base, g, active, cdf, buf, kRow);
+    ssme::row_sync(bars);
+    int anc[kPer];
+    ssme::systematic_walk<kPer>(offsets[1], total, n, cdf, anc);
+    ssme::row_gather<kPer, kJoint>(g, anc, buf, kRow);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+#pragma unroll
+      for (int l = 0; l < S; ++l) x[p][l] = g[p][l];
+#pragma unroll
+      for (int k = 0; k < P; ++k) th[p][k] = g[p][S + k];
+      lw[p] = 0.0f;
+    }
+    tick(kLWSpanResample);
+    return true;
+  };
+
+  // t = 0: the prior draw (uniforms keyed by the particle), the init draw
+  // from draw P on, the first weights
+  load_step<Model>(ys, zs, 0, y, z);
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    ssme::for_pair<kDraws>(
+        k0, k1, kPairs * i + q, 0u, b,
+        [&](auto& rng, int e) {
+          const int p = 2 * q + e;
+          const uint32_t j = kPer * i + p;
+          float cp[P];
+#pragma unroll
+          for (int blk = 0; blk < (P + 3) / 4; ++blk) {
+            const float4 u = ssme::prior_uniforms_at(k0, k1, j, blk, b);
+            const float uu[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int c = 0; c < 4 && 4 * blk + c < P; ++c) {
+              const int k = 4 * blk + c;
+              cp[k] = args.prior_lo[k] + args.prior_scale[k] * uu[c];
+              th[p][k] = ssme::to_transformed(Model::code(k), cp[k]);
+            }
+          }
+          model.init(rng, cp, y, z, x[p]);
+          lw_new[p] = model.log_weight(cp, x[p], y, z);
+#pragma unroll
+          for (int k = 0; k < K; ++k) hv[p][k] = model.functional(k, cp, x[p]);
+        },
+        static_cast<uint32_t>(P));
+  }
+  tick(kLWSpanDraws);
+  {
+    const bool fired = weigh_and_resample(
+        0, [&](float lse) { return lse - log_n; });
+    if (fired) count(kLWSpanFirstResamples);
+    close_step(fired ? kLWSpanBarFirstResample : kLWSpanBarFirstOther);
+  }
+
+  float y_next[Model::kDimObs], z_next[kCov];
+  if (num_steps > 1) load_step<Model>(ys, zs, 1, y_next, z_next);
+  for (int t = 1; t < num_steps; ++t) {
+    const uint32_t tu = static_cast<uint32_t>(t);
+#pragma unroll
+    for (int k = 0; k < Model::kDimObs; ++k) y[k] = y_next[k];
+#pragma unroll
+    for (int k = 0; k < Model::kDimCov; ++k) z[k] = z_next[k];
+    if (t + 1 < num_steps) load_step<Model>(ys, zs, t + 1, y_next, z_next);
+
+    // weighted shrinkage moments in two passes; lw has maximum 0
+    float ww[kPer];
+    float v1[1 + P];
+#pragma unroll
+    for (int k = 0; k < 1 + P; ++k) v1[k] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      ww[p] = expf(lw[p]);
+      v1[0] += ww[p];
+#pragma unroll
+      for (int k = 0; k < P; ++k) v1[1 + k] += th[p][k] * ww[p];
+    }
+    // an inactive lane's particles count for nothing (selects, not
+    // branches, so the neighbours' folds stay one block of code)
+#pragma unroll
+    for (int k = 0; k < 1 + P; ++k) v1[k] = active ? v1[k] : 0.0f;
+    float unused_base, unused_total;
+    ssme::row_sums_wide<1 + P, false>(v1, 0.0f, sums_a, unused_base,
+                                      unused_total, bars);
+    const float wsum = v1[0];
+    float tbar[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) tbar[k] = v1[1 + k] / wsum;
+    float v2[kGram];
+#pragma unroll
+    for (int k = 0; k < kGram; ++k) v2[k] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      float cen[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) cen[k] = th[p][k] - tbar[k];
+      int at = 0;
+#pragma unroll
+      for (int r = 0; r < P; ++r)
+#pragma unroll
+        for (int c = 0; c <= r; ++c, ++at) v2[at] += (cen[r] * ww[p]) * cen[c];
+    }
+#pragma unroll
+    for (int k = 0; k < kGram; ++k) v2[k] = active ? v2[k] : 0.0f;
+    ssme::row_sums_wide<kGram, false>(v2, 0.0f, sums_b, unused_base,
+                                      unused_total, bars);
+    tick(kLWSpanMoments);
+    // the unrolled P x P Cholesky of h^2 Vt on every thread, the floored
+    // diagonal; v2[r (r + 1) / 2 + c] is Gram entry (r, c).  One divide
+    // for h^2 / wsum and a reciprocal per column (the plain version
+    // divides each entry: a few ulp apart); each subtraction of a product
+    // is one fmaf, and h^2 G is rounded before it, so every compilation
+    // rounds alike.
+    float chol[P][P];
+    const float h2w = args.h2 / wsum;
+#pragma unroll
+    for (int jj = 0; jj < P; ++jj) {
+      float acc = __fmul_rn(h2w, v2[jj * (jj + 1) / 2 + jj]);
+#pragma unroll
+      for (int k = 0; k < jj; ++k) acc = fmaf(-chol[jj][k], chol[jj][k], acc);
+      chol[jj][jj] = sqrtf(acc < kEpsChol ? kEpsChol : acc);
+      const float inv_d = 1.0f / chol[jj][jj];
+#pragma unroll
+      for (int r = jj + 1; r < P; ++r) {
+        float acc2 = __fmul_rn(h2w, v2[r * (r + 1) / 2 + jj]);
+#pragma unroll
+        for (int k = 0; k < jj; ++k)
+          acc2 = fmaf(-chol[r][k], chol[jj][k], acc2);
+        chol[r][jj] = acc2 * inv_d;
+      }
+    }
+    // shrunk = a theta + (1 - a) theta_bar, both products rounded as the
+    // plain version rounds them
+    float shrunk[kPer][P];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p)
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        shrunk[p][k] = __fadd_rn(__fmul_rn(args.a, th[p][k]),
+                                 __fmul_rn(args.one_minus_a, tbar[k]));
+    tick(kLWSpanCholesky);
+
+    float lg_anc[kPer];
+    float lse_fs = 0.0f;
+    if (apf) {
+      // the first stage: lookahead at the pre-shrinkage theta, weights
+      // lw + log g(y, lookahead; shrunk), a systematic selection, and the
+      // joint gather of (state, log g(y, lookahead; shrunk), shrunk
+      // theta): the ancestor's lookahead density moves with it, the value
+      // the second stage would recompute from the gathered lookahead and
+      // shrunk theta
+      if (i == 0) offsets[0] = ssme::offset_at(k0, k1, tu, b,
+                                               ssme::kTagSelectOffset);
+      float g[kPer][kLook];
+      float lfs[kPer];
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+        float cp[P], look[S];
+        constrain<Model>(th[p], cp);
+        model.prop_mu(cp, x[p], y, z, look);
+        constrain<Model>(shrunk[p], cp);
+        const float lg = model.log_weight(cp, look, y, z);
+        lfs[p] = lw[p] + lg;
+#pragma unroll
+        for (int l = 0; l < S; ++l) g[p][l] = x[p][l];
+        g[p][S] = lg;
+#pragma unroll
+        for (int k = 0; k < P; ++k) g[p][S + 1 + k] = shrunk[p][k];
+      }
+      const float mfs = ssme::row_max<kPer>(lfs, active, max_part, bars);
+#pragma unroll
+      for (int p = 0; p < kPer; ++p)
+        lfs[p] = active ? expf(lfs[p] - mfs) : 0.0f;
+      ssme::warp_cdf<kPer>(lfs, active);
+      const float warp_last = ssme::warp_cdf_raise<kPer>(lfs, active);
+      float base = 0.0f, total = 0.0f;
+      ssme::row_sums_wide<0, true>(nullptr, warp_last, sums_a, base, total,
+                                   bars);
+      lse_fs = mfs + logf(total);
+      ssme::row_stage<kPer, kLook>(lfs, base, g, active, cdf, buf, kRow);
+      ssme::row_sync(bars);
+      int anc[kPer];
+      ssme::systematic_walk<kPer>(offsets[0], total, n, cdf, anc);
+      ssme::row_gather<kPer, kLook>(g, anc, buf, kRow);
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+#pragma unroll
+        for (int l = 0; l < S; ++l) x[p][l] = g[p][l];
+        lg_anc[p] = g[p][S];
+#pragma unroll
+        for (int k = 0; k < P; ++k) shrunk[p][k] = g[p][S + 1 + k];
+      }
+      tick(kLWSpanFirstStage);
+    }
+
+    // pair by pair: the kernel draws theta' = shrunk_anc + L e (draws 0 ..
+    // P-1), then the transition or sample_q from draw P on, the weights
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      const uint32_t qg = kPairs * i + q;
+      const int p0 = 2 * q, p1 = 2 * q + 1;
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        th[p0][r] = shrunk[p0][r];
+        th[p1][r] = shrunk[p1][r];
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float2 e = ssme::normal_pair_at(k0, k1, qg, tu, b, k);
+#pragma unroll
+        for (int r = k; r < P; ++r) {
+          th[p0][r] = th[p0][r] + chol[r][k] * e.x;
+          th[p1][r] = th[p1][r] + chol[r][k] * e.y;
+        }
+      }
+      ssme::for_pair<kDraws>(
+          k0, k1, qg, tu, b,
+          [&](auto& rng, int e) {
+            const int p = 2 * q + e;
+            float cp[P];
+            constrain<Model>(th[p], cp);
+            if (apf) {
+              model.propagate(rng, cp, x[p], y, z);
+              lw_new[p] = model.log_weight(cp, x[p], y, z) - lg_anc[p];
+            } else if constexpr (Model::kHasProposal) {
+              // the SISR form's own proposal and its log f - log q
+              float x_anc[S];
+#pragma unroll
+              for (int l = 0; l < S; ++l) x_anc[l] = x[p][l];
+              model.sample_q(rng, cp, x_anc, y, z, x[p]);
+              lw_new[p] = lw[p] + (model.log_weight(cp, x[p], y, z) +
+                                   model.log_fq(cp, x[p], x_anc, y, z));
+            } else {
+              model.propagate(rng, cp, x[p], y, z);
+              lw_new[p] = lw[p] + model.log_weight(cp, x[p], y, z);
+            }
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              hv[p][k] = model.functional(k, cp, x[p]);
+          },
+          static_cast<uint32_t>(P));
+    }
+    tick(kLWSpanDraws);
+    const bool fired = weigh_and_resample(t, [&](float lse) {
+      return apf ? ((lse_fs - logf(wsum)) + lse) - log_n
+                 : lse - logf(wsum);
+    });
+    if (fired) count(kLWSpanResamples);
+    close_step(fired ? kLWSpanBarResample : kLWSpanBarOther);
+  }
+
+  if (kRecord && i == 0) {
+    rec[kLWSpanLayoutPer] = kPer;
+    rec[kLWSpanLayoutThreads] = blockDim.x;
+#pragma unroll
+    for (int k = 0; k < kNumLWSpans; ++k)
+      spans[kNumLWSpans * b + k] = rec[k];
+  }
+  if (active) {
+    // rows [state x S, logw, theta x P], this thread's kPer neighbours in
+    // one vector store per row
+    float* out = cloud + static_cast<size_t>(b) * (S + 1 + P) * n + kPer * i;
+    float row[kPer];
+#pragma unroll
+    for (int l = 0; l < S; ++l) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) row[p] = x[p][l];
+      store_neighbours<kPer>(out + static_cast<size_t>(l) * n, row);
+    }
+    store_neighbours<kPer>(out + static_cast<size_t>(S) * n, lw);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) row[p] = th[p][k];
+      store_neighbours<kPer>(out + static_cast<size_t>(S + 1 + k) * n, row);
+    }
+  }
+}
+
+template <class Model, int kPer, bool kRecord>
+int launch_sys(const LWLaunch& a, const LWArgs& args) {
+  const int threads = (a.num_particles / kPer + 31) / 32 * 32;
+  lw_megakernel_sys<Model, kPer, kRecord>
+      <<<a.num_filters, threads, 0, a.stream>>>(
+          a.seed, a.ys, a.zs, a.num_steps, a.num_particles, a.apf,
+          a.resample_every, a.ess_limit, args, a.lcl, a.fpaths, a.cloud,
+          a.spans);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRecord>
+struct SysAt {
+  template <class Model>
+  struct Run {
+    static int go(const LWLaunch& a, const LWArgs& args) {
+      return launch_sys<Model, kLWPer, kRecord>(a, args);
+    }
+  };
+};
+
+// the systematic instances (lw_megakernel_sys.cu) of every model id or,
+// with a.spans, their instrumented twins; -1 for an unknown id
+int dispatch_sys(int model_id, const LWLaunch& a, const LWArgs& args);
+
+}  // namespace ssme_lw

@@ -1,5 +1,5 @@
-// Model functors of the Liu-West filter kernel (lw_megakernel.cu): the
-// CUDA counterparts of the LWKernelModel hooks of
+// Model functors of the Liu-West filter kernel (lw_megakernel_sys.cuh and
+// lw_megakernel.cu): the CUDA counterparts of the LWKernelModel hooks of
 // ssme_tpu/ops/liu_west_megakernel.py (svol_leverage_lw_kernel_model :739,
 // svol_t_lw_kernel_model :792), with the same float operations in the
 // same order as the plain hooks of
@@ -18,15 +18,20 @@
 // optional LWKernelModel.sample_q / log_fq; APF never uses them):
 //   sample_q   (rng, cp, x_anc, y, z, x_out)  draw x_out from q
 //   log_fq     (cp, x_new, x_anc, y, z) -> float   log f - log q
-// Unlike the bootstrap kernel's functors the parameters are per particle:
-// each hook takes that particle's constrained cp[kNumParams].  The rng
-// hands out the step's normals from draw kNumParams on (draws 0 .. P-1 are
-// the kernel draws of theta; ssme_tpu_torch/ops/_prng.py).
+// and the trait kDraws, the normals one init, propagate or sample_q call
+// takes.  Unlike the bootstrap kernel's functors the parameters are per
+// particle: each hook takes that particle's constrained cp[kNumParams].
+// The hooks that draw are templates over the rng (step_rng.cuh: StepRng in
+// the roll family, PairRng / PairSines through for_pair in the systematic
+// family), which hands out the step's normals from draw kNumParams on
+// (draws 0 .. P-1 are the kernel draws of theta;
+// ssme_tpu_torch/ops/_prng.py).
 #pragma once
 
 #include <cstdint>
 
 #include "kernel_models.cuh"
+#include "step_rng.cuh"
 
 namespace ssme {
 
@@ -74,6 +79,7 @@ struct SvolLeverageLW {
   static constexpr int kDimCov = 1;
   static constexpr int kNumFunctionals = 0;
   static constexpr bool kHasProposal = false;
+  static constexpr int kDraws = kNumState;  // normals per init/propagate
   __host__ __device__ static constexpr int code(int k) {
     constexpr int codes[kNumParams] = {  // "svol_leverage_lw"
         kTransLogit, kTransNull, kTransLog, kTransTwiceFisher};
@@ -86,12 +92,14 @@ struct SvolLeverageLW {
     return clamp_state(cp[1] + cp[0] * (x - cp[1]) +
                        z[0] * cp[3] * cp[2] * expf(-0.5f * x));
   }
-  __device__ void init(StepRng& rng, const float* cp, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float* cp, const float*,
                        const float*, float* x) const {
     const float sd0 = cp[2] / sqrtf(1.0f - cp[0] * cp[0]);
     x[0] = rng.normal() * sd0;
   }
-  __device__ void propagate(StepRng& rng, const float* cp, float* x,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, const float* cp, float* x,
                             const float*, const float* z) const {
     const float m = mean(cp, x[0], z);
     const float sd = cp[2] * sqrtf(1.0f - cp[3] * cp[3]);
@@ -121,6 +129,7 @@ struct SvolTLW {
   static constexpr int kDimCov = 0;
   static constexpr int kNumFunctionals = 1;
   static constexpr bool kHasProposal = false;
+  static constexpr int kDraws = kNumState;  // normals per init/propagate
   __host__ __device__ static constexpr int code(int k) {
     constexpr int codes[kNumParams] = {  // "svol_t_lw"
         kTransLog, kTransTwiceFisher, kTransLog};
@@ -132,11 +141,13 @@ struct SvolTLW {
   __device__ explicit SvolTLW(const float* args)
       : c_nu(args[0]), nu(args[1]), half_nu1(args[2]) {}
 
-  __device__ void init(StepRng& rng, const float* cp, const float*,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float* cp, const float*,
                        const float*, float* x) const {
     x[0] = rng.normal() * (cp[2] / sqrtf(1.0f - cp[1] * cp[1]));
   }
-  __device__ void propagate(StepRng& rng, const float* cp, float* x,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, const float* cp, float* x,
                             const float*, const float*) const {
     x[0] = cp[1] * x[0] + cp[2] * rng.normal();
   }
@@ -169,6 +180,7 @@ struct SvolLeverageQLW {
   static constexpr int kDimCov = 1;
   static constexpr int kNumFunctionals = 0;
   static constexpr bool kHasProposal = true;
+  static constexpr int kDraws = kNumState;  // per init/propagate/sample_q
   __host__ __device__ static constexpr int code(int k) {
     constexpr int codes[kNumParams] = {  // "svol_leverage_lw_q"
         kTransLogit, kTransNull, kTransLog, kTransTwiceFisher};
@@ -181,11 +193,13 @@ struct SvolLeverageQLW {
   __device__ explicit SvolLeverageQLW(const float* args)
       : base(args), kappa(args[0]) {}
 
-  __device__ void init(StepRng& rng, const float* cp, const float* y,
+  template <class Rng>
+  __device__ void init(Rng& rng, const float* cp, const float* y,
                        const float* z, float* x) const {
     base.init(rng, cp, y, z, x);
   }
-  __device__ void propagate(StepRng& rng, const float* cp, float* x,
+  template <class Rng>
+  __device__ void propagate(Rng& rng, const float* cp, float* x,
                             const float* y, const float* z) const {
     base.propagate(rng, cp, x, y, z);
   }
@@ -200,7 +214,8 @@ struct SvolLeverageQLW {
   __device__ float functional(int, const float*, const float*) const {
     return 0.0f;
   }
-  __device__ void sample_q(StepRng& rng, const float* cp, const float* x_anc,
+  template <class Rng>
+  __device__ void sample_q(Rng& rng, const float* cp, const float* x_anc,
                            const float*, const float* z, float* x) const {
     const float m = SvolLeverageLW::mean(cp, x_anc[0], z);
     const float sd = cp[2] * sqrtf(1.0f - cp[3] * cp[3]);

@@ -121,28 +121,6 @@ __device__ __forceinline__ void roll_ancestors(
   }
 }
 
-// the ancestor of this thread's particle (one per thread) on weight w:
-// systematic with the offset of stream `tag` (cdf the block scan's), or
-// the roll resampler on the sweep tags from tag_roll (cdf the weights')
-template <bool kRoll>
-__device__ __forceinline__ int select_ancestor(float w, int resampler,
-                                               int metropolis_iters,
-                                               uint32_t k0, uint32_t k1,
-                                               uint32_t t, uint32_t b,
-                                               uint32_t tag,
-                                               uint32_t tag_roll, float* cdf,
-                                               float* red) {
-  if constexpr (kRoll) {
-    const float wv[1] = {w};
-    int anc[1];
-    roll_ancestors<1>(resampler, metropolis_iters, wv, cdf, red, k0, k1, t,
-                      b, tag_roll, anc);
-    return anc[0];
-  } else {
-    return systematic_ancestor(w, offset_at(k0, k1, t, b, tag), cdf, red);
-  }
-}
-
 // every leaf of the kPer particles of this thread moved by their
 // ancestors, through one shared buffer of n floats reused leaf by leaf;
 // at kPer = 1 this is gather_leaves

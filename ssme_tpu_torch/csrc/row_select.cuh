@@ -3,10 +3,12 @@
 // blockDim.x is a multiple of 32; the first `active` threads hold the n
 // particles, and the lanes after them (a partial last warp) hold none and
 // are masked out of every reduction.  Replaces, for the systematic
-// families of the SVOL filter kernel (svol_filter_sys.cu) and of the
-// generic filter kernel (filter_megakernel_sys.cuh), the
-// one-particle-per-thread primitives of systematic_select.cuh (which K3
-// keeps) and select_leaves_dense of ssme_tpu/ops/_select.py.
+// families of the SVOL filter kernel (svol_filter_sys.cu), the generic
+// filter kernel (filter_megakernel_sys.cuh) and the Liu-West kernel
+// (lw_megakernel_sys.cuh), the one-particle-per-thread primitives of
+// systematic_select.cuh (which the roll families' reductions and the
+// standalone selection at kper 1 keep) and select_leaves_dense of
+// ssme_tpu/ops/_select.py.
 //
 // Exchanges.  A thread first folds its kPer values in registers, a warp
 // reduces with shuffles, and the warps meet at ONE barrier: lane 0 writes
@@ -186,6 +188,83 @@ __device__ __forceinline__ void row_sums(float (&v)[K], float warp_last,
     acc[1] = acc[1] + q.y;
     acc[2] = acc[2] + q.z;
     acc[3] = acc[3] + q.w;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) v[k] = acc[k];
+  if constexpr (kScan) total = acc[K];
+}
+
+// floats a warp's partials take in row_sums_wide's buffer: K (+ 1 with
+// the scan) rounded up to an odd number of float4 words, so that lanes
+// reading the partials of neighbouring warps meet in no bank
+__host__ __device__ constexpr int wide_stride(int k) {
+  return 4 * (((k + 3) / 4) % 2 ? (k + 3) / 4 : (k + 3) / 4 + 1);
+}
+
+// row_sums for any number of sums: the row's K sums of the threads'
+// folded v (every thread the same bits) and, with kScan, the warp's CDF
+// offset and the row's total, as row_sums.  One barrier.  part: shared
+// float4[32 * wide_stride(K + kScan) / 4], warp w's partials from float
+// w * wide_stride(K + kScan), so a thread reads a warp's in
+// wide_stride / 4 vector loads; v may be null at K = 0 (the scan alone).
+// The caller alternates partial buffers as for row_sums.
+template <int K, bool kScan>
+__device__ __forceinline__ void row_sums_wide(float* v, float warp_last,
+                                              float4* part, float& base,
+                                              float& total,
+                                              long long* bars = nullptr) {
+  constexpr int kW = wide_stride(K + kScan) / 4;  // float4 words a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  float mine[4 * kW];
+#pragma unroll
+  for (int k = 0; k < 4 * kW; ++k) mine[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) mine[k] = v[k] = warp_sum(v[k]);
+  if constexpr (kScan) mine[K] = warp_last;
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kW; ++c)
+      part[warp * kW + c] = make_float4(mine[4 * c], mine[4 * c + 1],
+                                        mine[4 * c + 2], mine[4 * c + 3]);
+  }
+  row_sync(bars);
+  const float* lasts = reinterpret_cast<const float*>(part) + K;
+  if (nw > kSerialWarps) {
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const float4 q = lane < nw ? part[lane * kW + c]
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float qs[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * c + e < K) v[4 * c + e] = warp_sum(qs[e]);
+    }
+    if constexpr (kScan) {
+      float acc = 0.0f;
+      for (int u = 0; u < nw; ++u) {
+        if (u == warp) base = acc;
+        acc = acc + lasts[4 * kW * u];
+      }
+      total = acc;
+    }
+    return;
+  }
+  float acc[4 * kW];
+#pragma unroll
+  for (int k = 0; k < 4 * kW; ++k) acc[k] = 0.0f;
+  for (int u = 0; u < nw; ++u) {
+    if constexpr (kScan) {
+      if (u == warp) base = acc[K];
+    }
+#pragma unroll
+    for (int c = 0; c < kW; ++c) {
+      const float4 q = part[u * kW + c];
+      acc[4 * c] = acc[4 * c] + q.x;
+      acc[4 * c + 1] = acc[4 * c + 1] + q.y;
+      acc[4 * c + 2] = acc[4 * c + 2] + q.z;
+      acc[4 * c + 3] = acc[4 * c + 3] + q.w;
+    }
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = acc[k];

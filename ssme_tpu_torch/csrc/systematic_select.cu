@@ -4,11 +4,12 @@
 // ssme_tpu/ops/_select.py::select_leaves_dense.
 //
 // One CTA per row.  kPer = 1: one slot per thread (blockDim = N, up to
-// 1024), the block scan and per-slot search of systematic_select.cuh that
-// the Liu-West kernel runs.  kPer = 2, 4 or 8: kPer neighbouring slots per
-// thread, the layout of the SVOL kernel's and the generic kernel's
-// systematic families (blockDim = N / kPer rounded up to a warp), their
-// CDF, search-then-walk and padded gather buffer from row_select.cuh.  Every leaf moves by the same ancestors; the
+// 1024), the block scan and per-slot search of systematic_select.cuh,
+// which no filter kernel runs any more.  kPer = 2, 4 or 8: kPer
+// neighbouring slots per thread, the layout of every filter kernel's
+// systematic family (blockDim = N / kPer rounded up to a warp), their
+// CDF, search-then-walk and padded gather buffer from row_select.cuh.
+// Every leaf moves by the same ancestors; the
 // CDF the ancestors were found on can be written out.  Bound by barrier
 // latency like the filters' resample step.
 #include <cstdint>

@@ -1,10 +1,10 @@
 // Block-wide reductions, scan and systematic ancestor selection for one
 // CTA per filter row and one particle per thread (blockDim.x = N, a
-// multiple of 32, at most 1024): the Liu-West filter kernel's and the
-// standalone systematic_select's at kper 1; the roll families' kernels
-// take only the block reductions (the systematic families of the SVOL
-// and generic filter kernels, kPer particles per thread, are on
-// row_select.cuh).  Replaces select_leaves_dense of ssme_tpu/ops/_select.py.
+// multiple of 32, at most 1024): the standalone systematic_select's at
+// kper 1; the roll families' kernels take only the block reductions (the
+// systematic families of the SVOL, generic and Liu-West filter kernels,
+// kPer particles per thread, are on row_select.cuh).  Replaces
+// select_leaves_dense of ssme_tpu/ops/_select.py.
 //
 // The TPU builds the CDF and the gather as dense (n, n) one-hot matmuls
 // because its lanes cannot gather.  Here a float32 block scan writes the

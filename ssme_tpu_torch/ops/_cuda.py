@@ -45,6 +45,11 @@ _SIGNATURES = {
     # model_args (host arrays), lcl, fpaths, cloud, stream
     "ssme_lw_megakernel": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P],
+    # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
+    # coefs, prior_lo, prior_scale, model_args (host arrays), lcl, fpaths,
+    # cloud, spans, stream
+    "ssme_lw_megakernel_spans": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
     # resampler, metropolis_iters, total, lcl, xmean, stream
     "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,

@@ -16,7 +16,7 @@ ancestor_j = the first i with cdf[i] >= u_j, which is the half-open test
 cdf[i-1] < u_j <= cdf[i] on the same rounded array (cdf[-1] read as 0).
 The kernels' block scans add in another order than ``torch.cumsum``, so
 a point within rounding of a CDF boundary can pick the neighbour.  The
-systematic families of the SVOL and generic kernels
+systematic families of the SVOL, generic and Liu-West kernels
 (``csrc/row_select.cuh``) give each thread kPer neighbouring slots: they
 build the CDF as :func:`kernel_cdf` models it, search for the first slot
 and walk forward over the rest (:func:`systematic_ancestors_walk`, its
@@ -254,9 +254,10 @@ def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
     1024 or of 128 up to 4096; ``leaves``: (L, B, N) float32, moved by the
     same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper`` picks the
     device code a CUDA call runs: 1, one slot per thread
-    (``csrc/systematic_select.cuh``, the Liu-West kernel's), or 2, 4, 8
-    neighbouring slots per thread (``csrc/row_select.cuh``, the CDF,
-    search and walk of the SVOL and generic kernels' systematic families);
+    (``csrc/systematic_select.cuh``'s block scan and per-slot search,
+    which no filter kernel runs any more), or 2, 4, 8 neighbouring slots
+    per thread (``csrc/row_select.cuh``, the CDF, search and walk of every
+    filter kernel's systematic family);
     None: 1 up to 1024 particles, else 8.
     Returns (picked (L, B, N), ancestors (B, N) int32) and, with
     ``return_cdf``, the inclusive CDF (B, N) they were found on.  Launches

@@ -32,9 +32,13 @@ and ``rng.normal(shape)`` the kernel's Philox normals of the step: a
 hook's draw j is normal draw P + j, since draws 0 .. P-1 are the kernel
 draws of theta (``ops/_prng.py``).
 
-The kernel is ``csrc/lw_megakernel.cuh``, one template over the functors
-of ``csrc/lw_models.cuh``; its header comment gives the layout and the
-intended divergences from the Pallas kernel.  On a CUDA tensor only a
+The kernels are templates over the functors of ``csrc/lw_models.cuh``:
+the systematic family ``csrc/lw_megakernel_sys.cuh`` (2 neighbouring
+particles per thread, paired draws, 8 barriers in an APF step that
+resamples) and the roll family (``csrc/lw_megakernel.cu``,
+``lw_megakernel_roll.cu``);
+``csrc/lw_megakernel.cuh`` gives the step recursion and the intended
+divergences from the Pallas kernel.  On a CUDA tensor only a
 model whose ``cuda_instance`` names a functor there runs (a custom SISR
 proposal too: the functor's, ``svol_leverage_lw_q_kernel_model``);
 anything else raises.  Selection (``resampler``): "systematic" at N up
@@ -42,7 +46,8 @@ to 1024 (``MAX_LW_KERNEL_PARTICLES``), or the roll-based "metropolis" and
 "rejection" resamplers (``ops/_select.py``) at a power-of-two N up to
 4096 (``MAX_LW_METROPOLIS_PARTICLES``, several particles per thread
 above 1024), moving the joint (state, logw, theta) column by one
-ancestor index.  On a CPU tensor every model
+ancestor index.  :func:`step_spans` reads the systematic family's
+instrumented twin.  On a CPU tensor every model
 runs through :func:`lw_megakernel_reference`, which calls the hooks step
 by step with the kernel's random bits.  The carried log-weights are
 renormalised by their maximum after every step (the conditional
@@ -75,7 +80,7 @@ CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1,
 # the instances whose functor has a SISR proposal (kHasProposal)
 _CUDA_LW_PROPOSALS = frozenset({"svol_leverage_lw_q"})
 
-# the systematic selection: one CTA of N threads per filter (JAX's cap)
+# the systematic selection: one CTA per filter (JAX's cap)
 MAX_LW_KERNEL_PARTICLES = 1024
 # the roll resamplers: a power of two up to this, several particles per
 # thread above 1024 (JAX's name and cap)
@@ -295,7 +300,7 @@ def _coefficients(delta):
 
 def _cholesky(gram, h2, p):
     """Lower P x P Cholesky of h^2 * gram with the floored diagonal, on
-    lists of (F, 1) entries; the kernel's thread 0 does the same."""
+    lists of (F, 1) entries; every thread of the kernel does the same."""
     lmat = [[None] * p for _ in range(p)]
     for jj in range(p):
         s = h2 * gram[jj][jj]
@@ -522,6 +527,20 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
                                        metropolis_iters)
     if ys.device.type != "cuda":
         raise ValueError(f"lw_megakernel: unsupported device {ys.device}")
+    out = _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
+                  resample_every, variant, ess_threshold, resampler,
+                  metropolis_iters)
+    lw_megakernel.launches += 1
+    return out
+
+
+def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
+            resample_every, variant, ess_threshold, resampler="systematic",
+            metropolis_iters=16, spans=None):
+    """One launch on the card of validated arguments: the instance
+    ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
+    len(SPAN_RECORD))), its systematic instance's instrumented twin
+    (``ssme_lw_megakernel_spans``), which writes its record there."""
     model_id = _model_id(kmodel)
     bounds = kmodel.prior_bounds
     if bounds is None or len(bounds) != kmodel.num_params:
@@ -536,23 +555,93 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     cloud = torch.empty((f, kmodel.tile_rows, n), dtype=torch.float32,
                         device=dev)
     lo, scale = _prior_box(bounds)
-    err = lib.ssme_lw_megakernel(
-        model_id, seed.data_ptr(), ys.data_ptr(),
-        None if zs is None else zs.data_ptr(), f, t_len, n,
-        int(variant == "apf"), int(resample_every),
-        float(ess_threshold) * n if ess_threshold > 0.0 else 0.0,
-        RESAMPLER_CODES[resampler], int(metropolis_iters),
-        _host_floats(_coefficients(delta), 3),
-        _host_floats(lo, _MAX_PARAMS), _host_floats(scale, _MAX_PARAMS),
-        _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS),
-        lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
-        cloud.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_lw_megakernel")
-    lw_megakernel.launches += 1
+    run = (int(variant == "apf"), int(resample_every),
+           float(ess_threshold) * n if ess_threshold > 0.0 else 0.0)
+    host = (_host_floats(_coefficients(delta), 3),
+            _host_floats(lo, _MAX_PARAMS), _host_floats(scale, _MAX_PARAMS),
+            _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS))
+    outs = (lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
+            cloud.data_ptr())
+    zs_ptr = None if zs is None else zs.data_ptr()
+    if spans is None:
+        name = "ssme_lw_megakernel"
+        err = lib.ssme_lw_megakernel(
+            model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
+            *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
+            *outs, _cuda.stream_ptr(dev))
+    else:
+        if resampler != "systematic":
+            raise ValueError("the twins are the systematic family's")
+        name = "ssme_lw_megakernel_spans"
+        err = lib.ssme_lw_megakernel_spans(
+            model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
+            *run, *host, *outs, spans.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, name)
     return _result(lcl, fpaths, cloud, n_fns)
 
 
 lw_megakernel.launches = 0
+
+# the barriers a step of the systematic family crosses, as its source note
+# states them (csrc/lw_megakernel_sys.cuh): at t = 0 and at t > 0, in a
+# step that resamples and in one that does not; step_spans counts them on
+# the card
+BARRIERS_PER_STEP = {
+    "apf": {"first_resample": 3, "first_other": 2, "resample": 8,
+            "other": 7},
+    "sisr": {"first_resample": 3, "first_other": 2, "resample": 5,
+             "other": 4}}
+# the parts of a step its clock64 spans time, then the rest of the
+# instrumented twins' record per filter (csrc/lw_megakernel_sys.cuh LWSpan)
+SPAN_PARTS = ("moments", "cholesky", "first_stage", "draws", "weigh",
+              "resample")
+SPAN_RECORD = SPAN_PARTS + ("first_resamples", "resamples",
+                            "barriers_first_resample",
+                            "barriers_first_other", "barriers_resample",
+                            "barriers_other", "kper", "threads")
+
+
+def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
+               resample_every=1, variant="apf", ess_threshold=0.0,
+               kmodel=None):
+    """Where a step of the systematic family's time goes on the card, and
+    what it does: one launch of the instrumented twin of ``kmodel``'s
+    instance (default: svol_leverage_lw), recorded by thread 0 of each
+    filter.  Returns {"cycles_per_step": {part: mean clock64 cycles a
+    step} over SPAN_PARTS (the barriers' waits inside the part that ends
+    in them), "resamples": mean resamples a filter at t > 0,
+    "first_resamples": the share of filters that resampled at t = 0,
+    "barriers_per_step": {"first_resample", "first_other", "resample",
+    "other": barriers a step of that kind crossed, mean over the filters'
+    steps of that kind, or None where there was none}, "kper", "threads":
+    the layout the launch ran, "outputs": the result dict, the plain
+    instance's bits}."""
+    kmodel = svol_leverage_lw_kernel_model() if kmodel is None else kmodel
+    seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
+                             num_particles, resample_every, variant,
+                             ess_threshold, "systematic")
+    if ys.device.type != "cuda":
+        raise ValueError("step_spans: the record is the card's")
+    f, t_len = int(num_filters), ys.shape[0]
+    spans = torch.zeros((f, len(SPAN_RECORD)), dtype=torch.int64,
+                        device=ys.device)
+    out = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
+                  resample_every, variant, ess_threshold, spans=spans)
+    rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
+    layout = spans[:, SPAN_RECORD.index("kper"):]
+    if not bool((layout == layout[:1]).all()):
+        raise RuntimeError("step_spans: filters report different layouts")
+    steps = {"first_resample": rec["first_resamples"],
+             "first_other": f - rec["first_resamples"],
+             "resample": rec["resamples"],
+             "other": f * (t_len - 1) - rec["resamples"]}
+    return {"cycles_per_step": {k: rec[k] / (f * t_len) for k in SPAN_PARTS},
+            "resamples": rec["resamples"] / f,
+            "first_resamples": rec["first_resamples"] / f,
+            "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
+                                  for k, v in steps.items()},
+            "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
+            "outputs": out}
 
 
 def lw_cloud_params(kmodel: LWKernelModel, cloud):
@@ -761,7 +850,8 @@ def svol_t_lw_kernel_model(
 
 __all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
-           "lw_kernel_sim_future_obs", "svol_leverage_lw_kernel_model",
+           "lw_kernel_sim_future_obs", "step_spans", "BARRIERS_PER_STEP",
+           "SPAN_PARTS", "SPAN_RECORD", "svol_leverage_lw_kernel_model",
            "svol_leverage_lw_q_kernel_model", "svol_t_lw_kernel_model",
            "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",
            "MAX_LW_METROPOLIS_PARTICLES"]

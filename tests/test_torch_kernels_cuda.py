@@ -658,3 +658,82 @@ def test_ragged_tail_at_t131_on_the_card(dev):
         torch.testing.assert_close(tot8, tot1, rtol=2e-4, atol=2e-4)
         cols = sorted(set(torch.nonzero(lcl8)[:, 1].tolist()))
         assert cols == list(range(7, 131, 8)) + [130]
+
+
+K3_FUNCTORS = ("svol_leverage_lw", "svol_t_lw", "svol_leverage_lw_q")
+
+
+def _k3_functor(name, ys):
+    if name == "svol_leverage_lw_q":
+        return (lwm.svol_leverage_lw_q_kernel_model(1.5),
+                lagged_covariates(ys)[:, 0].contiguous())
+    return _lw_instance(name, ys)
+
+
+def _k3_pair(km, seed, ys, zs, f, n, **kw):
+    """The systematic instance and the plain version, same bits."""
+    got = lwm.lw_megakernel(km, seed, ys, zs, f, n, **kw)
+    want = lwm.lw_megakernel_reference(km, seed, ys, zs, f, n, **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+@pytest.mark.parametrize("name", K3_FUNCTORS)
+def test_k3_systematic_matches_plain(dev, name, n):
+    """K3's systematic family (2 neighbouring particles per thread, a
+    partial last warp at N=32 and 96) against its plain version on the
+    same bits: SISR with a gate that never fires within 2e-3 (the totals)
+    and 1e-3 (the cloud); APF and SISR resampling every step by phase
+    25's rule (step 0 equal, step 1 within 2e-3 on 90% of the filters; a
+    point within rounding of a CDF boundary picks the neighbour) and the
+    means within 4 combined standard errors."""
+    ys = _ys(64, 17).to(dev)
+    km, zs = _k3_functor(name, ys)
+    f = 16
+    got, want = _k3_pair(km, 12, ys, zs, f, n, variant="sisr",
+                         ess_threshold=0.5 / n)
+    torch.testing.assert_close(got["log_likelihood"], want["log_likelihood"],
+                               rtol=0, atol=2e-3)
+    s = km.num_state
+    for rows in (slice(0, s), slice(s + 1, None)):
+        torch.testing.assert_close(got["cloud"][:, rows],
+                                   want["cloud"][:, rows], rtol=0, atol=1e-3)
+    torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                               lwm.lw_cloud_weights(km, want["cloud"]),
+                               rtol=0, atol=1e-3)
+    for a, b in zip(got.get("functional_paths", ()),
+                    want.get("functional_paths", ())):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for variant in ("apf", "sisr"):
+        got, want = _k3_pair(km, 13, ys, zs, f, n, variant=variant)
+        tot, tot_p = got["log_likelihood"], want["log_likelihood"]
+        assert torch.isfinite(tot).all()
+        _step_one_rule(got["log_cond_likes"], want["log_cond_likes"])
+        se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
+        assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+@pytest.mark.parametrize("name", K3_FUNCTORS)
+def test_k3_systematic_twins_record_layout_and_barriers(dev, name, n):
+    """Every functor's instrumented twin at each N: the kPer (2) and
+    threads it ran, the barriers a step of each kind crossed (those the
+    source note states: 8 / 7 an APF step that does / does not resample,
+    5 / 4 in SISR, 3 / 2 at t = 0), and its outputs the plain instance's
+    bits."""
+    ys = _ys(48, 18).to(dev)
+    km, zs = _k3_functor(name, ys)
+    for kw in (dict(variant="apf"), dict(variant="apf", ess_threshold=0.5),
+               dict(variant="sisr", ess_threshold=0.5 / n),
+               dict(variant="sisr")):
+        rec = lwm.step_spans(6, ys, zs, 8, n, kmodel=km, **kw)
+        assert (rec["kper"], rec["threads"]) == (2, -(-n // 2 // 32) * 32)
+        want = lwm.BARRIERS_PER_STEP[kw["variant"]]
+        got = {k: v for k, v in rec["barriers_per_step"].items()
+               if v is not None}
+        assert got == {k: want[k] for k in got}
+        if kw.get("ess_threshold", 0.0) == 0.0:
+            assert rec["resamples"] == 47 and rec["first_resamples"] == 1
+        plain = lwm.lw_megakernel(km, 6, ys, zs, 8, n, **kw)
+        for key in ("log_cond_likes", "cloud"):
+            assert torch.equal(plain[key], rec["outputs"][key]), key
