@@ -26,17 +26,17 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             instance of the systematic SVOL kernel, of the generic
             kernel's systematic family (each functor, bootstrap and APF, at
             2 and 4 particles per thread, and the instrumented twins) and
-            of the Liu-West kernel's systematic family (each functor at 2
-            particles per thread, and each one's twin) spills nothing;
+            roll family (the same at 2, 4, 8 and 16 particles per thread,
+            and its twins) and of the Liu-West kernel's systematic family
+            (each functor at 2 particles per thread, and each one's twin)
+            spills nothing;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
-4. select   the standalone selection kernel at N=512 in both layouts (one
-            slot per thread, the block scan no filter kernel runs any more;
-            kPer neighbouring slots, the systematic families' of every
-            filter kernel), and
-            in the latter at N=32, 96 and 1024, on random, dominant and
-            zero-run weights: ancestors bit for bit those of the kernel's
-            own search and walk (the plain model) on the CDF it returns,
-            the leaves moved by them, and against the plain law;
+4. select   the standalone selection kernel in the systematic families'
+            layout (kPer neighbouring slots) at N=512 with 2 and 4 slots a
+            thread, at N=32, 96 and 1024, on random, dominant and zero-run
+            weights: ancestors bit for bit those of the kernel's own search
+            and walk (the plain model) on the CDF it returns, the leaves
+            moved by them, and against the plain law;
 5. filter   the filter kernel against the plain filter with a gate that
             never fires (identical random bits, no resampling);
 6. filter   full size, both schedules, two parameter points: kernel and
@@ -96,11 +96,12 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             generic bank with ``model=``, no kernel launch; without it, an
             error;
 21. roll-sis    ``roll_select`` against the plain law on fixed weights
-            (ancestors equal, both resamplers, N=512 and 2048), and the
+            (ancestors equal, both resamplers, N=512, 2048 and 4096, with a
+            row of zeros that rejection runs to the 4096 cap), and the
             generic kernel (svol and svol_leverage bootstrap, svol APF;
-            N=512 and 2048), the SVOL kernel and the Liu-West kernel (APF
-            and SISR) under both resamplers against their plain versions
-            (B=32, T=64: step 0 equal, most totals within 2e-3);
+            N=512, 2048 and 4096), the SVOL kernel and the Liu-West kernel
+            (APF and SISR) under both resamplers against their plain
+            versions (B=32, T=64: step 0 equal, most totals within 2e-3);
 22. roll-full   the generic kernel on SVOL over SPY at ESS 0.5, B=256,
             N=2048 and 4096: rejection within 4 combined standard errors
             of the JAX bank in ``data/roll_resamplers_jax.json``,
@@ -115,6 +116,9 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             at N=2048 with ``resampler="rejection"`` (C=64 x R=4, SPY): one
             kernel launch per iteration, none through the bridge, no host
             synchronisation; ms per iteration beside phase 20's bridge;
+            then the same proposals through the roll family's svol twin:
+            the sweeps a resample ran (median, 99th percentile, maximum,
+            the share at the 4096 cap), the votes and the tail's slots;
 24. svol-step   the fused SVOL step kernel against its plain version
             (B=256, N=512), the moments of sigma eps over 8 seeds, its
             time and bound;
@@ -146,11 +150,15 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 30. k2-layout   the generic kernel's systematic family at N=32, 96, 512
             and 1024: the instrumented twins' barriers a step (3 / 2 / 0 in
             the bootstrap, 5 an APF step) and layout (kPer, threads), their
-            outputs the plain instances' bits; its svol instance against
-            the SVOL kernel (the same CDF, walk, paired draws and offsets)
-            at parity and ESS 0.5 over SPY, B=128: step 0 equal, step 1
-            within 2e-3 on 90% of the rows, the means within 4 combined
-            standard errors;
+            outputs the plain instances' bits; its roll family's twins
+            (svol_leverage bootstrap and APF, svol bootstrap) under both
+            resamplers at N=32 to 4096: 2 barriers a check and 4 an APF
+            step besides the selections' votes (one per chunk of 32
+            sweeps) and tail barriers, the layout, the outputs the plain
+            instances' bits; its svol instance against the SVOL kernel
+            (the same CDF, walk, paired draws and offsets) at parity and
+            ESS 0.5 over SPY, B=128: step 0 equal, step 1 within 2e-3 on
+            90% of the rows, the means within 4 combined standard errors;
 31. k3-layout   the Liu-West kernel's systematic family at N=32, 96, 512
             and 1024, every functor: the instrumented twins' barriers a
             step (8 / 7 an APF step that does / does not resample, 5 / 4
@@ -238,6 +246,8 @@ ROLLS = ("metropolis", "rejection")
 ROLL_B, ROLL_T, ROLL_ITERS = 32, 64, 16
 ROLL_FULL_B, ROLL_PLAIN_T = 256, 256
 ROLL_N = (2048, 4096)
+# N of phase 21's roll_select and generic-kernel checks
+ROLL_SIS_N = (512,) + ROLL_N
 LARGE_N, LARGE_ITERS = 2048, 10
 STEP_B, STEP_N = 256, 512
 # K1 and K3 above 1024 particles, the q instance, the flagship CLI
@@ -251,10 +261,14 @@ FLAGSHIP_ITERS = 500
 K1_INSTANCES = 8
 # instances of the generic kernel's systematic family
 # (csrc/filter_megakernel_sys.cuh): per kPer (2, 4) the 7 functors'
-# bootstrap, the 4 lookahead functors' APF and the 2 instrumented twins
+# bootstrap, the 4 lookahead functors' APF and the 2 instrumented twins;
+# of its roll family, per kPer (2, 4, 8, 16) the same and 3 twins
 K2_SYS_INSTANCES = 2 * (7 + 4 + 2)
-# N at which phase 30 reads the twins' record (partial warps at 32 and 96)
+K2_ROLL_INSTANCES = 4 * (7 + 4 + 3)
+# N at which phase 30 reads the twins' record (partial warps at 32 and 96),
+# and the roll twins' (powers of two)
 K2_RECORD_N = (32, 96, 512, 1024)
+K2_ROLL_RECORD_N = (32, 512, 1024) + ROLL_N
 # instances of the Liu-West kernel's systematic family
 # (csrc/lw_megakernel_sys.cu): the 3 functors and each one's instrumented
 # twin; phase 31 reads the twins at K2_RECORD_N
@@ -272,8 +286,9 @@ PEAK_F32_PER_S = 67e12
 # operations per particle and step, counted from the sources; a normal is
 # half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
 # adds = 100) plus its half of Box-Muller (~12): 56, which is what the
-# systematic families of the SVOL, generic and Liu-West kernels compute
-# (one call per pair of particles); the roll families still make one call
+# systematic families of the SVOL, generic and Liu-West kernels and the
+# generic kernel's roll family compute (one call per pair of particles);
+# the roll families of the SVOL and Liu-West kernels still make one call
 # per particle.  Resampling inside a gated schedule depends on the data
 # and is left out (a lower bound).
 NORMAL_OPS = 56
@@ -384,14 +399,16 @@ def _k1_key(name):
                   + ("/spans" if t.group(3) == "1" else ""))
 
 
-def _k2_key(name):
-    """The generic kernel's systematic instance of a mangled entry name."""
+def _k2_key(name, roll):
+    """The generic kernel's instance of a mangled entry name in the
+    systematic family (roll False) or the roll family (roll True)."""
     t = re.search(r"filter_megakernel_sysIN4ssme\d+(\w+?Model)(?:ILi(\d)EE)?"
-                  r"ELb(\d)ELi(\d)ELb(\d)E", name)
-    return t and (f"{t.group(1)}{t.group(2) or ''}/"
-                  f"{'apf' if t.group(3) == '1' else 'bootstrap'}/"
-                  f"kper{t.group(4)}" + ("/spans" if t.group(5) == "1"
-                                         else ""))
+                  r"ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
+    if not t or (t.group(6) == "1") != roll:
+        return None
+    return (f"{t.group(1)}{t.group(2) or ''}/"
+            f"{'apf' if t.group(3) == '1' else 'bootstrap'}/"
+            f"kper{t.group(4)}" + ("/spans" if t.group(5) == "1" else ""))
 
 
 def _k3_key(name):
@@ -431,8 +448,10 @@ def phase_build():
     found = {}
     for kernel, key, want in (("systematic SVOL kernel", _k1_key,
                                K1_INSTANCES),
-                              ("generic kernel's systematic family", _k2_key,
-                               K2_SYS_INSTANCES),
+                              ("generic kernel's systematic family",
+                               lambda n: _k2_key(n, False), K2_SYS_INSTANCES),
+                              ("generic kernel's roll family",
+                               lambda n: _k2_key(n, True), K2_ROLL_INSTANCES),
                               ("Liu-West kernel's systematic family", _k3_key,
                                K3_SYS_INSTANCES)):
         inst = _ptxas_instances(ptxas, key)
@@ -487,7 +506,7 @@ def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
     """The standalone selection kernel at ``kper`` slots per thread on
     ``case`` weights (rows, n): its ancestors are bit for bit those of the
     plain model of its search and walk (``systematic_ancestors_walk``) on
-    the CDF it returns, which never falls at kper > 1 (row_select.cuh);
+    the CDF it returns, which never falls (row_select.cuh);
     the ids leaf is the ancestors and the values leaf moves by them; under
     1% of the slots differ from the plain law (torch.cumsum), each within
     1e-5 of the total of a CDF boundary.  Returns (differing slots, their
@@ -507,9 +526,8 @@ def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
     require(torch.equal(anc, _select.systematic_ancestors_walk(
         cdf_k, u0, kper)), f"{tag}: ancestors differ from the search and "
             "walk on the kernel's CDF")
-    if kper > 1:
-        require(bool((cdf_k[:, 1:] >= cdf_k[:, :-1]).all()),
-                f"{tag}: the CDF falls")
+    require(bool((cdf_k[:, 1:] >= cdf_k[:, :-1]).all()),
+            f"{tag}: the CDF falls")
     require(torch.equal(picked[0].long(), anc), f"{tag}: ids leaf != ancestors")
     require(torch.equal(picked[1], torch.gather(vals, 1, anc)),
             f"{tag}: values leaf not moved by the same ancestors")
@@ -533,9 +551,9 @@ def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
     return int(diff.sum()), frac, worst
 
 
-# (N, kPer) of phase 4: the one-slot layout, and the SVOL kernel's at N=512,
-# at the partial warps of N=32 and 96, and at 1024
-SELECT_LAYOUTS = ((N, 1), (N, 2), (32, 2), (96, 2), (1024, 4))
+# (N, kPer) of phase 4: the SVOL kernel's at N=512 and the generic
+# kernel's at 1024 (4), at the partial warps of N=32 and 96, and at 1024
+SELECT_LAYOUTS = ((N, 4), (N, 2), (32, 2), (96, 2), (1024, 4))
 SELECT_CASES = ("random", "dominant", "zero_runs")
 
 
@@ -1405,9 +1423,14 @@ def _agree(name, tot, tot_p, lcl, lcl_p, min_close=0.75):
 def phase_roll_sis(dev, ys_all):
     rng = np.random.default_rng(21)
     sel_lines = []
-    for n in (512, 2048):
-        w = torch.as_tensor(rng.gamma(1.0, 1.0, (ROLL_B, n)).astype(
-            np.float32), device=dev)
+    for n in ROLL_SIS_N:
+        # beside gamma rows: zeros (rejection runs them to the 4096 cap,
+        # where every slot keeps itself) and one dominant particle
+        w = rng.gamma(1.0, 1.0, (ROLL_B, n)).astype(np.float32)
+        w[0] = 0.0
+        w[1] *= np.float32(1e-12)
+        w[1, n // 5] = 1.0
+        w = torch.as_tensor(w, device=dev)
         leaves = torch.stack([
             torch.arange(n, dtype=torch.float32, device=dev).expand(ROLL_B, n),
             torch.as_tensor(rng.normal(size=(ROLL_B, n)).astype(np.float32),
@@ -1423,6 +1446,9 @@ def phase_roll_sis(dev, ys_all):
                     "ancestors differ")
             require(torch.equal(picked, want), f"roll_select {r} N={n}: "
                     "leaves differ")
+            require(r != "rejection" or torch.equal(
+                anc[0].long(), torch.arange(n, device=dev)),
+                f"roll_select {r} N={n}: a slot of the row at the cap moved")
             sel_lines.append(f"{r} N={n}")
     ys = ys_all[:ROLL_T, 0].contiguous()
     zs = svol_leverage.lagged_covariates(ys)
@@ -1431,7 +1457,7 @@ def phase_roll_sis(dev, ys_all):
     errs = {}
     for r in ROLLS:
         roll = dict(resampler=r, metropolis_iters=ROLL_ITERS)
-        for n in (N, 2048):
+        for n in ROLL_SIS_N:
             for name, km, rows, z, mode in (
                     ("svol", fmk.svol_kernel_model(), svol_rows, None,
                      "bootstrap"),
@@ -1461,7 +1487,8 @@ def phase_roll_sis(dev, ys_all):
                                want["log_likelihood"], got["log_cond_likes"],
                                want["log_cond_likes"])
     phase(21, "roll-sis", f"roll_select ancestors equal ({', '.join(sel_lines)}"
-          f"); B={ROLL_B} T={ROLL_T} {ROLL_ITERS} Metropolis sweeps, totals "
+          "; a row at the 4096 cap kept itself under rejection); "
+          f"B={ROLL_B} T={ROLL_T} {ROLL_ITERS} Metropolis sweeps, totals "
           "max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return max(errs.values())
 
@@ -1592,15 +1619,19 @@ def phase_pmmh_large_n(dev, ys_all, ident, bridge_ms):
     ys = ys_all
     model = svol.make_model()
     props_per_run = LARGE_ITERS * C * R * LARGE_N * ys.shape[0]
+    log_like = fmk.megakernel_log_like(
+        fmk.svol_kernel_model(), LARGE_N, R, constrain=fmk.svol_kernel_rows,
+        ess_threshold=0.5, resampler="rejection", model=model)
+    proposals = []
+
+    def recorded(gen, params, ys, zs=None):
+        proposals.append(params.clone())     # on the device, no sync
+        return log_like(gen, params, ys, zs)
+
     # the counts start at 0 just before this path and are read just after
     sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
     pmmh = AdaptivePMMH(model, num_particles=LARGE_N, num_replicates=R,
-                        t0=150, t1=1000,
-                        batched_log_like=fmk.megakernel_log_like(
-                            fmk.svol_kernel_model(), LARGE_N, R,
-                            constrain=fmk.svol_kernel_rows,
-                            ess_threshold=0.5, resampler="rejection",
-                            model=model))
+                        t0=150, t1=1000, batched_log_like=recorded)
     state = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1626,17 +1657,53 @@ def phase_pmmh_large_n(dev, ys_all, ident, bridge_ms):
     # device's busy share and its ms per iteration by kernel
     busy, top = device_share(lambda: pmmh.run_from(res.final_state, 2, ys),
                              2)
+    sweeps = _proposal_sweeps(proposals, ys[:, 0].contiguous())
     phase(23, "pmmh-large-n", f"C={C} R={R} N={LARGE_N} T={ys.shape[0]} "
           f"{LARGE_ITERS} iters, rejection: {launches} launches, {n_acc} "
           f"accepts, init mean log-likelihood "
           f"{float(state.log_like.mean()):.4f}, {ms_iter:.4f} ms per "
           f"iteration, {rate:.6e} props/s; device busy share {busy}, device"
           f" ms per iteration {top}; phase 20's bridge {bridge_ms:.3f} ms "
-          f"for one C=2 x R=2 call at the same N ({ident})")
+          f"for one C=2 x R=2 call at the same N ({ident}) | sweeps a "
+          f"resample on these proposals (the svol twin): {sweeps}")
     return launches, {"ms_per_iteration": ms_iter, "props_per_s": rate,
                       "bridge_ms_per_call": bridge_ms, "accepts": n_acc,
                       "device_busy_share": busy,
-                      "device_ms_per_iteration": top}
+                      "device_ms_per_iteration": top, "sweeps": sweeps}
+
+
+def _proposal_sweeps(proposals, ys):
+    """Each launch's proposals (C, 3) again, R rows each as
+    ``megakernel_log_like`` makes them, through the roll family's svol twin
+    under rejection at phase 23's N and ESS: the sweeps its resamples ran
+    (1 + the last accept sweep, 4096 at the cap) over all the launches'
+    rows and steps, and the twin's own time per launch."""
+    got, ratios, votes, tail, ms = [], [], 0.0, 0.0, []
+    for k, p in enumerate(proposals):
+        rows = fmk.svol_kernel_rows(p)
+        rows = rows[:, None].expand(-1, R, -1).reshape(-1, 3).contiguous()
+        rec, t_ms = event_ms(lambda: fmk.step_spans(
+            100 + k, rows, ys, None, LARGE_N, ess_threshold=0.5,
+            resampler="rejection", kmodel=fmk.svol_kernel_model()))
+        hit = rec["sweeps"] > 0
+        got.append(rec["sweeps"][hit].double())
+        ratios.append(rec["ratio"][hit].double())
+        votes += rec["votes"]
+        tail += rec["tail_slots"]
+        ms.append(t_ms)
+    sw, ratio = torch.cat(got), torch.cat(ratios)
+    top = sw >= torch.quantile(sw, 0.99)
+    return {"resamples": int(sw.numel()),
+            "median": float(torch.quantile(sw, 0.5)),
+            "p99": float(torch.quantile(sw, 0.99)), "max": float(sw.max()),
+            "mean": float(sw.mean()),
+            "cap_share": float((sw >= _prng.ROLL_MAX_ITERS).double().mean()),
+            "ratio_median": float(torch.quantile(ratio, 0.5)),
+            "ratio_median_at_top1pct_sweeps": float(torch.quantile(
+                ratio[top], 0.5)),
+            "votes_per_resample": votes / sw.numel(),
+            "tail_slots_per_resample": tail / sw.numel(),
+            "twin_ms_per_launch": ms}
 
 
 def phase_svol_step(dev, ident):
@@ -1979,9 +2046,56 @@ def _require_k2_barriers(tag, rec):
                 f"{kind} step, the source note states {want}")
 
 
+def _k2_roll_twins(dev, ys, zs):
+    """The roll family's instrumented twins at every layout under both
+    resamplers: 2 barriers a check and 4 an APF step besides the
+    selections' votes and tail barriers (fmk.ROLL_BARRIERS_PER_STEP), the
+    layout, the outputs the plain instances' bits.  Returns (layout,
+    barriers and votes per selection by run)."""
+    rows = {"svol_leverage": torch.tensor([LEV_POINTS["posterior"]] * 64,
+                                          device=dev),
+            "svol": _svol_rows(ROLL_POINT, 64).to(dev)}
+    layout, counted = {}, {}
+    for n in K2_ROLL_RECORD_N:
+        for r in ROLLS:
+            for name, mode in fmk.SPAN_TWINS["roll"]:
+                km = (fmk.svol_kernel_model() if name == "svol"
+                      else fmk.svol_leverage_kernel_model())
+                z = zs if name == "svol_leverage" else None
+                kw = dict(mode=mode, resampler=r, metropolis_iters=ROLL_ITERS,
+                          ess_threshold=1.0 if mode == "apf" else 0.5)
+                rec = fmk.step_spans(13, rows[name], ys, z, n, kmodel=km, **kw)
+                plain = fmk.filter_megakernel(km, 13, rows[name], ys, z,
+                                              num_particles=n, **kw)
+                tag = f"K2 roll N={n} {r} {name} {mode}"
+                require(all(torch.equal(a, b)
+                            for a, b in zip(plain, rec["outputs"])),
+                        f"{tag}: the twin's outputs are not the plain "
+                        "instance's bits")
+                for kind, want in fmk.ROLL_BARRIERS_PER_STEP.items():
+                    got = rec["barriers_per_step"][kind]
+                    require(got is None or got == want, f"{tag}: {got} "
+                            f"barriers a {kind} step besides the votes, the "
+                            f"source note states {want}")
+                sel = int((rec["sweeps"] > 0).sum())
+                require(sel > 0 and (r == "rejection" or rec["votes"] == 0),
+                        f"{tag}: {sel} selections, {rec['votes']} votes")
+                counted[f"N{n}/{r}/{name}/{mode}"] = dict(
+                    rec["barriers_per_step"], votes_per_selection=rec[
+                        "votes"] / sel, tail_slots_per_selection=rec[
+                        "tail_slots"] / sel)
+            require(rec["threads"] == -(-n // rec["kper"] // 32) * 32
+                    and rec["threads"] <= 256,
+                    f"K2 roll N={n}: {rec['threads']} threads at kPer "
+                    f"{rec['kper']}")
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    return layout, counted
+
+
 def phase_k2_layout(dev, ys_all):
-    """The systematic family's instrumented twins at every layout, and its
-    svol instance against K1 on the same bits over SPY."""
+    """The systematic family's instrumented twins at every layout, the roll
+    family's, and the svol instance against K1 on the same bits over
+    SPY."""
     ys = ys_all[:512, 0].contiguous()
     zs = svol_leverage.lagged_covariates(ys)
     params = torch.tensor([LEV_POINTS["posterior"]] * 64, device=dev)
@@ -2008,6 +2122,7 @@ def phase_k2_layout(dev, ys_all):
         layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
         require(rec["threads"] == -(-n // rec["kper"] // 32) * 32,
                 f"K2 N={n}: {rec['threads']} threads at kPer {rec['kper']}")
+    roll_layout, roll_counted = _k2_roll_twins(dev, ys, zs)
     # the svol instance against K1: the same bits, CDF, walk and offsets,
     # but each kernel fuses its own multiply-adds, so a point within an ulp
     # of a CDF entry now and then picks the neighbour and the row parts
@@ -2038,11 +2153,17 @@ def phase_k2_layout(dev, ys_all):
           + "; layout (kPer, threads) " + ", ".join(
               f"N={n} ({v['kper']}, {v['threads']})"
               for n, v in layout.items())
+          + " | roll twins' barriers a step besides the votes, votes and "
+          "tail slots a selection: " + "; ".join(
+              f"{k} {v}" for k, v in roll_counted.items())
+          + "; layout " + ", ".join(f"N={n} ({v['kper']}, {v['threads']})"
+                                    for n, v in roll_layout.items())
           + f" | svol instance vs K1 over SPY, B={LB}: " + ", ".join(
               f"{k} steps 0-1 max abs err {v['max_abs_err_steps_0_1']:.3e},"
               f" means {v['mean_diff']:.4f} apart (4 SE {v['four_se']:.4f})"
               for k, v in vs_k1.items()))
-    return layout, counted, vs_k1
+    return (layout, counted, vs_k1,
+            {"layout": roll_layout, "barriers_per_step": roll_counted})
 
 
 # the schedules phase 31 reads the Liu-West twins at, and the kinds of
@@ -2115,7 +2236,7 @@ def phase_k3_layout(dev, ys_all):
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
-    k1_ptxas, k2_ptxas, k3_ptxas = phase_build()
+    k1_ptxas, k2_ptxas, k2_roll_ptxas, k3_ptxas = phase_build()
     phase_philox(dev)
     phase_select(dev)
     ys = torch.as_tensor(read_data(os.path.join(ROOT, "data",
@@ -2148,7 +2269,7 @@ def main():
     k3_large_err, k3_large, lw_q = phase_k3_large(dev, ys, ident)
     k1_pmmh_launches, k1_pmmh = phase_pmmh_large_n_k1(dev, ys, ident)
     flagship_launches = phase_flagship_cli(dev, ident)
-    k2_layout, k2_barriers, k2_vs_k1 = phase_k2_layout(dev, ys)
+    k2_layout, k2_barriers, k2_vs_k1, k2_roll = phase_k2_layout(dev, ys)
     k3_layout, k3_barriers, k3_spans = phase_k3_layout(dev, ys)
 
     t_len = ys.shape[0]
@@ -2195,7 +2316,8 @@ def main():
         "name": "filter_megakernel",
         "route": "cuda",
         "source": "ssme_tpu_torch/csrc/filter_megakernel_sys.cuh",
-        "roll_source": "ssme_tpu_torch/csrc/filter_megakernel.cuh",
+        "roll_source": "ssme_tpu_torch/csrc/filter_megakernel_sys.cuh",
+        "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
         "launches": (k2_launches + swarm_launches + svol_t_launches
                      + large_launches),
@@ -2217,10 +2339,16 @@ def main():
         "per_resampler": dict(roll["K2"], sweeps=roll["sweeps"],
                               bias_envelope=roll["bias_envelope"]),
         "pmmh_large_n": large,
+        "sweeps": large["sweeps"],
         "layout": k2_layout,
         "barriers_per_step": k2_barriers,
+        "roll_layout": k2_roll["layout"],
+        "roll_barriers_per_step": k2_roll["barriers_per_step"],
         "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
                               v)) for k, v in k2_ptxas.items()},
+        "roll_ptxas": {k: dict(zip(("registers", "spill_stores",
+                                    "spill_loads"), v))
+                       for k, v in k2_roll_ptxas.items()},
         "svol_vs_svol_filter": k2_vs_k1,
     }, {
         "name": "lw_megakernel",

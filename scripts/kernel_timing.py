@@ -3,7 +3,8 @@
 card, as one JSON line.
 
     python scripts/kernel_timing.py [ROOT] [--label NAME] [--reps 10]
-                                    [--k1] [--k2] [--k3] [--paths] [--bits]
+                                    [--k1] [--k2] [--k3] [--roll] [--paths]
+                                    [--bits]
 
 ROOT (default: this checkout) is the tree whose ``ssme_tpu_torch`` is
 imported, so that two trees can be timed in turns within one call on one
@@ -13,7 +14,7 @@ time is the mean over ``--reps`` launches after one warm-up, by CUDA
 events, over all of ``data/spy_returns.csv``.
 
 - ``--k1`` (with ``--k2``, the default when none of ``--k1``, ``--k2``,
-  ``--k3`` is given): the SVOL
+  ``--k3``, ``--roll``, ``--bits`` is given): the SVOL
   filter kernel (K1) at B=256 and B=128 rows, N=512, at svol's chain
   start (as ``chip_smoke.py`` phase 6) and at the SPY posterior (the
   accuracy gate's means), parity (every step) and adaptive (ESS 0.5,
@@ -35,15 +36,25 @@ events, over all of ``data/spy_returns.csv``.
   (``k3_ms``, through ``lw_megakernel``); where the tree has them, the
   instrumented twins' step records of the leverage model's and svol_t's
   APF at F=64, N=512 and 1024 (``k3_spans``);
+- ``--roll``: every filter kernel under the roll resamplers (both), over
+  SPY at ESS 0.5 as ``chip_smoke.py`` phases 22 and 26-27, with
+  phase 22's Metropolis sweep count: K2 (svol, B=256, N=2048 and 4096 at
+  phase 22's point, N=2048 at svol's chain start), K1 (B=256, N=512,
+  2048, 4096) and K3 (F=64, N=512, 2048, 4096, APF; ``--reps`` capped at
+  3 above 512), ms per launch (``roll_ms``); where the tree has them, the
+  generic kernel's roll twins' records at those K2 points
+  (``roll_spans``: cycles a step by part, votes and tail slots a
+  selection, sweeps a selection: median, 99th percentile, maximum);
 - ``--paths``: adaptive PMMH at N=2048 (C=64 x R=4, 10 iterations, ms per
   iteration, phase 28) and the ``spy_flagship`` CLI for 500 iterations
   per schedule (wall seconds, phase 29);
-- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler) and
-  of K2 and K3 under the roll resamplers on fixed inputs, to show two
-  trees compute the same bits there (``bits``), and apart from them
-  those of K2's and K3's systematic families (``bits_k2_systematic``,
-  ``bits_k3_systematic``), which a change of their arithmetic or their
-  CDF's rounding order changes.
+- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler, N=512
+  and 2048) and of K3 under the roll resamplers (both, N=512 and 2048)
+  on fixed inputs, to show two trees compute the same bits there
+  (``bits``), and apart from them those of K2's and K3's systematic
+  families (``bits_k2_systematic``, ``bits_k3_systematic``) and K2's
+  roll family (``bits_k2_roll``), which a change of their arithmetic,
+  their CDF's rounding order or their layout changes.
 
 Needs a CUDA card; imports no JAX.
 """
@@ -69,6 +80,7 @@ def main(argv=None):
     p.add_argument("--k1", action="store_true")
     p.add_argument("--k2", action="store_true")
     p.add_argument("--k3", action="store_true")
+    p.add_argument("--roll", action="store_true")
     p.add_argument("--paths", action="store_true")
     p.add_argument("--bits", action="store_true")
     args = p.parse_args(argv)
@@ -106,19 +118,21 @@ def main(argv=None):
 
     out = {"tree": args.label or root, "device": torch.cuda.get_device_name(0),
            "nvidia_smi": gpu_identity(), "reps": args.reps}
-    both = not (args.k1 or args.k2 or args.k3)
+    both = not (args.k1 or args.k2 or args.k3 or args.roll or args.bits)
     if args.k1 or both:
         out.update(_k1(torch, ys[:, 0].contiguous(), dev, ms))
     if args.k2 or both:
         out.update(_k2(torch, ys[:, 0].contiguous(), dev, ms))
     if args.k3:
         out.update(_k3(torch, ys[:, 0].contiguous(), ms))
+    if args.roll:
+        out.update(_roll(torch, ys[:, 0].contiguous(), dev, ms,
+                         min(args.reps, 3)))
     if args.paths:
         out.update(_paths(ys, dev))
     if args.bits:
-        (out["bits"], out["bits_k2_systematic"],
-         out["bits_k3_systematic"]) = _bits(torch, ys[:, 0].contiguous(),
-                                            dev)
+        (out["bits"], out["bits_k2_systematic"], out["bits_k3_systematic"],
+         out["bits_k2_roll"]) = _bits(torch, ys[:, 0].contiguous(), dev)
     print(json.dumps(out), flush=True)
 
 
@@ -238,6 +252,65 @@ def _k3(torch, ys, ms):
     return {"k3_ms": out, "k3_spans": spans}
 
 
+def _roll(torch, ys, dev, ms, few):
+    """Every filter kernel's roll family over SPY at ESS 0.5 and, where the
+    tree has them, the generic kernel's roll twins' records."""
+    from ssme_tpu_torch.models import svol, svol_leverage
+    from ssme_tpu_torch.ops import _select
+    from ssme_tpu_torch.ops import filter_megakernel as fmk
+    from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+    from ssme_tpu_torch.ops import svol_filter_kernel as sfk
+
+    def ms_few(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(few):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / few
+
+    sweeps = _select.metropolis_sweeps_for(0.5, ys.shape[0], 0.5)
+    point = fmk.svol_kernel_rows(torch.tensor([[0.9, 0.98, 0.02]] * 256))
+    start = fmk.svol_kernel_rows(svol.make_model().transform.constrain(
+        torch.tensor(svol.START_TRANS_THETA)).expand(256, -1))
+    k2_rows = {"point": point.to(dev).contiguous(),
+               "start": start.to(dev).contiguous()}
+    km = fmk.svol_kernel_model()
+    lw_km = lwm.svol_leverage_lw_kernel_model()
+    lw_zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    out, spans = {}, {}
+    for r in ("metropolis", "rejection"):
+        roll = dict(ess_threshold=0.5, resampler=r, metropolis_iters=sweeps)
+        for n, at in ((2048, "point"), (4096, "point"), (2048, "start")):
+            kw = dict(num_particles=n, **roll)
+            out[f"K2/{r}/N{n}/{at}"] = ms_few(lambda: fmk.filter_megakernel(
+                km, 11, k2_rows[at], ys, **kw))
+            if hasattr(fmk, "SPAN_TWINS"):
+                rec = fmk.step_spans(11, k2_rows[at], ys, None, n, kmodel=km,
+                                     **roll)
+                sw = rec.pop("sweeps")
+                sw = sw[sw > 0].double()
+                rec.pop("outputs")
+                rec.pop("ratio")
+                rec["sweeps_per_selection"] = {
+                    "median": float(torch.quantile(sw, 0.5)),
+                    "p99": float(torch.quantile(sw, 0.99)),
+                    "max": float(sw.max()), "count": int(sw.numel())}
+                spans[f"K2/{r}/N{n}/{at}"] = rec
+        for n in (512, 2048, 4096):
+            out[f"K1/{r}/N{n}"] = ms_few(lambda: sfk.svol_filter(
+                11, point.to(dev).contiguous(), ys, num_particles=n, **roll))
+        for n in (512, 2048, 4096):
+            out[f"K3/{r}/N{n}"] = ms_few(lambda: lwm.lw_megakernel(
+                lw_km, 11, ys, lw_zs, num_filters=64, num_particles=n,
+                resampler=r, metropolis_iters=sweeps))
+    return {"roll_ms": out, "roll_spans": spans, "roll_sweeps": sweeps}
+
+
 def _paths(ys, dev):
     """Phase 28's PMMH at N=2048 and phase 29's flagship CLI."""
     import torch
@@ -273,8 +346,9 @@ def _paths(ys, dev):
 
 
 def _bits(torch, ys, dev):
-    """sha256 prefixes of K1, K2 roll and K3 roll outputs on fixed inputs,
-    and apart from them those of K2's and K3's systematic families."""
+    """sha256 prefixes of K1 and K3 roll outputs on fixed inputs, and apart
+    from them those of K2's and K3's systematic families and of K2's roll
+    family."""
     from ssme_tpu_torch.models.svol_leverage import lagged_covariates
     from ssme_tpu_torch.ops import filter_megakernel as fmk
     from ssme_tpu_torch.ops import liu_west_megakernel as lwm
@@ -290,7 +364,7 @@ def _bits(torch, ys, dev):
     zs = lagged_covariates(ys)
     rows = torch.tensor([[0.9, 0.98, math.sqrt(0.02)]] * 64, device=dev)
     lev = torch.tensor([[0.958, -0.080, 0.311, -0.751]] * 64, device=dev)
-    out, k2_sys, k3_sys = {}, {}, {}
+    out, k2_sys, k3_sys, k2_roll = {}, {}, {}, {}
     for n in (512, 2048):
         out[f"K1/systematic/N{n}"] = digest(*sfk.svol_filter(
             3, rows, ys, num_particles=n, ess_threshold=0.5))
@@ -306,18 +380,26 @@ def _bits(torch, ys, dev):
                  "bootstrap"),
                 ("svol", fmk.svol_kernel_model(), rows, None, "apf")):
             key = f"K2/{name}/{mode}/{r}"
-            (k2_sys if r == "systematic" else out)[key] = digest(
+            (k2_sys if r == "systematic" else k2_roll)[key] = digest(
                 *fmk.filter_megakernel(km, 3, p, ys, z, num_particles=512,
                                        mode=mode, resampler=r)[:2])
     km = lwm.svol_leverage_lw_kernel_model()
-    for r in ("systematic", "rejection"):
-        for variant in ("apf", "sisr"):
-            o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
-                                  num_filters=16, num_particles=512,
-                                  variant=variant, resampler=r)
-            (k3_sys if r == "systematic" else out)[f"K3/{variant}/{r}"] = \
-                digest(o["log_cond_likes"], o["cloud"])
-    return out, k2_sys, k3_sys
+    for variant in ("apf", "sisr"):
+        o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
+                              num_filters=16, num_particles=512,
+                              variant=variant)
+        k3_sys[f"K3/{variant}/systematic"] = digest(o["log_cond_likes"],
+                                                    o["cloud"])
+    for r in ("metropolis", "rejection"):
+        for n in (512, 2048):
+            for variant in ("apf", "sisr"):
+                o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
+                                      num_filters=16, num_particles=n,
+                                      variant=variant, resampler=r,
+                                      metropolis_iters=16)
+                key = f"K3/{variant}/{r}" + ("" if n == 512 else f"/N{n}")
+                out[key] = digest(o["log_cond_likes"], o["cloud"])
+    return out, k2_sys, k3_sys, k2_roll
 
 
 if __name__ == "__main__":

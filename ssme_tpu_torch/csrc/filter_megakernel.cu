@@ -1,20 +1,36 @@
-// The generic filter kernel's C entry points.  The systematic family is in
-// filter_megakernel_sys.cuh (instances in filter_megakernel_sys{2,4}.cu),
-// the roll family, the launch arguments and the step recursion in
-// filter_megakernel.cuh (instances in filter_megakernel_roll{1,2,4}.cu).
+// The generic filter kernel's C entry points.  Both selection families run
+// the template of filter_megakernel_sys.cuh, instances in
+// filter_megakernel_sys{2,4}.cu (systematic) and
+// filter_megakernel_sys_roll{2,4,8,16}.cu (the roll resamplers); the
+// launch arguments and the step recursion are in filter_megakernel.cuh.
 #include "filter_megakernel_sys.cuh"
 
 namespace {
 
-// the systematic instance of kper_for(N); spans: the instrumented twin's
-// record, or null; -3 for a particle count it does not take
-int dispatch_systematic(int model_id, int apf, const ssme_fmk::Launch& a,
-                        long long* spans) {
+// the instance of kper_for(N) in the resampler's family; spans, sweeps and
+// ratio: the instrumented twin's records, or null; -3 for a particle count
+// the resampler does not take
+int dispatch(int model_id, int apf, const ssme_fmk::Launch& a,
+             long long* spans, int* sweeps, float* ratio) {
   using namespace ssme_fmk;
   const int n = a.num_particles;
-  if (n < 32 || n > kMaxThreads || n % 32) return -3;
-  return kper_for(n) == 2 ? dispatch_sys2(model_id, apf, a, spans)
-                          : dispatch_sys4(model_id, apf, a, spans);
+  if (a.resampler == ssme::kResampleSystematic) {
+    if (n < 32 || n > kMaxSysParticles || n % 32) return -3;
+    return kper_for(n) == 2
+               ? dispatch_sys2(model_id, apf, a, spans, sweeps, ratio)
+               : dispatch_sys4(model_id, apf, a, spans, sweeps, ratio);
+  }
+  if (n < 32 || n > kMaxRollParticles || (n & (n - 1))) return -3;
+  switch (kper_for(n)) {
+    case 2:
+      return dispatch_roll2(model_id, apf, a, spans, sweeps, ratio);
+    case 4:
+      return dispatch_roll4(model_id, apf, a, spans, sweeps, ratio);
+    case 8:
+      return dispatch_roll8(model_id, apf, a, spans, sweeps, ratio);
+    default:
+      return dispatch_roll16(model_id, apf, a, spans, sweeps, ratio);
+  }
 }
 
 }  // namespace
@@ -39,41 +55,32 @@ extern "C" int ssme_filter_megakernel(int model_id, int apf,
                                       int metropolis_iters, float* total,
                                       float* lcl, float* fmean, float* cloud,
                                       float* cloud_lw, void* stream) {
-  using namespace ssme_fmk;
-  const Launch a{seed, params, ys, zs, num_rows, num_steps, num_particles,
-                 ess_limit, always, gate_stride, resampler,
-                 metropolis_iters, total, lcl, fmean, cloud, cloud_lw,
-                 static_cast<cudaStream_t>(stream)};
-  if (resampler == ssme::kResampleSystematic)
-    return dispatch_systematic(model_id, apf, a, nullptr);
-  switch (num_particles > kMaxThreads ? num_particles / kMaxThreads : 1) {
-    case 1:
-      return dispatch_roll1(model_id, apf, a);
-    case 2:
-      return dispatch_roll2(model_id, apf, a);
-    case 4:
-      return dispatch_roll4(model_id, apf, a);
-    default:
-      return -3;
-  }
+  const ssme_fmk::Launch a{seed, params, ys, zs, num_rows, num_steps,
+                           num_particles, ess_limit, always, gate_stride,
+                           resampler, metropolis_iters, total, lcl, fmean,
+                           cloud, cloud_lw,
+                           static_cast<cudaStream_t>(stream)};
+  return dispatch(model_id, apf, a, nullptr, nullptr, nullptr);
 }
 
-// The systematic family's instrumented twin of the svol_leverage functor
-// (filter_megakernel_sys.cuh SysSpan): the same arguments, no cloud, and
-// spans int64[num_rows * kNumSysSpans] for its record.
-extern "C" int ssme_filter_megakernel_spans(int apf, const int64_t* seed,
-                                            const float* params,
-                                            const float* ys, const float* zs,
-                                            int num_rows, int num_steps,
-                                            int num_particles,
-                                            float ess_limit, int always,
-                                            int gate_stride, float* total,
-                                            float* lcl, float* fmean,
-                                            long long* spans, void* stream) {
-  using namespace ssme_fmk;
-  const Launch a{seed, params, ys, zs, num_rows, num_steps, num_particles,
-                 ess_limit, always, gate_stride, ssme::kResampleSystematic,
-                 16, total, lcl, fmean, nullptr, nullptr,
-                 static_cast<cudaStream_t>(stream)};
-  return dispatch_systematic(ssme::kModelSvolLeverage, apf, a, spans);
+// The instrumented twins (filter_megakernel_sys.cuh SysSpan): svol_leverage
+// (model id 1) in both modes under every resampler, svol (model id 0) in
+// bootstrap mode under the roll resamplers.  The same arguments, no
+// cloud; spans int64[num_rows * kNumSysSpans] for the record and, under a
+// roll resampler, sweeps int32[num_rows * num_steps] and ratio
+// float[num_rows * num_steps] (each or null) for each selection's sweeps
+// and max / mean weight.  -1 for another functor or mode.
+extern "C" int ssme_filter_megakernel_spans(
+    int model_id, int apf, const int64_t* seed, const float* params,
+    const float* ys, const float* zs, int num_rows, int num_steps,
+    int num_particles, float ess_limit, int always, int gate_stride,
+    int resampler, int metropolis_iters, float* total, float* lcl,
+    float* fmean, long long* spans, int* sweeps, float* ratio,
+    void* stream) {
+  const ssme_fmk::Launch a{seed, params, ys, zs, num_rows, num_steps,
+                           num_particles, ess_limit, always, gate_stride,
+                           resampler, metropolis_iters, total, lcl, fmean,
+                           nullptr, nullptr,
+                           static_cast<cudaStream_t>(stream)};
+  return dispatch(model_id, apf, a, spans, sweeps, ratio);
 }

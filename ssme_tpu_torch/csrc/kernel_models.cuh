@@ -23,10 +23,9 @@
 // The hooks that draw are templates over the rng, which hands out normal
 // k of (particle, step, row) in the order the hook asks for them (draw 0
 // first; the tags are in ops/_prng.py), so a hook that draws one normal
-// consumes exactly the SVOL kernel's bits: StepRng, one Philox call per
-// particle and draw (the roll family), or PairRng and PairSines, one call
-// per pair of neighbouring particles and draw (the systematic family;
-// both in step_rng.cuh, which the Liu-West functors share).
+// consumes exactly the SVOL kernel's bits: PairRng and PairSines, one
+// Philox call per pair of neighbouring particles and draw (both selection
+// families; step_rng.cuh, which the Liu-West functors share).
 // Each functor performs the float operations of its Python hooks in
 // their order, so that with the same bits the kernel and the plain
 // version differ only by fused multiply-adds and reduction order.

@@ -4,10 +4,11 @@
 // particles, and the lanes after them (a partial last warp) hold none and
 // are masked out of every reduction.  Replaces, for the systematic
 // families of the SVOL filter kernel (svol_filter_sys.cu), the generic
-// filter kernel (filter_megakernel_sys.cuh) and the Liu-West kernel
-// (lw_megakernel_sys.cuh), the one-particle-per-thread primitives of
-// systematic_select.cuh (which the roll families' reductions and the
-// standalone selection at kper 1 keep) and select_leaves_dense of
+// filter kernel (filter_megakernel_sys.cuh, whose roll family runs the
+// same exchanges, stage and gather around roll_select.cuh) and the
+// Liu-West kernel (lw_megakernel_sys.cuh), the one-particle-per-thread
+// block reductions of systematic_select.cuh (which the roll families of
+// the SVOL and Liu-West kernels keep) and select_leaves_dense of
 // ssme_tpu/ops/_select.py.
 //
 // Exchanges.  A thread first folds its kPer values in registers, a warp
@@ -353,6 +354,16 @@ __device__ __forceinline__ void row_gather(float (&x)[kPer][kLeaves],
 #pragma unroll
     for (int l = 0; l < kLeaves; ++l) x[p][l] = buf[l * stride + at];
   }
+}
+
+// every leaf of one particle from particle a's staged values (the roll
+// selection hands a slot its ancestor as it comes, roll_select.cuh)
+template <int kLeaves>
+__device__ __forceinline__ void row_take(float (&x)[kLeaves], int a,
+                                         const float* buf, int stride) {
+  const int at = padded(a);
+#pragma unroll
+  for (int l = 0; l < kLeaves; ++l) x[l] = buf[l * stride + at];
 }
 
 // one leaf

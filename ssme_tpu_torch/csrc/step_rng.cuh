@@ -6,11 +6,13 @@
 // writes down (the Liu-West kernel starts its hooks at draw P, after the P
 // kernel draws of theta).
 //  - StepRng: one particle, one Philox call and Box-Muller per draw (the
-//    roll families, one particle per thread or kPer strided ones);
+//    Liu-West kernel's roll family, one particle per thread or kPer
+//    strided ones);
 //  - PairRng / PairSines through for_pair: the two particles 2q and
 //    2q + 1 of a Philox counter, held by one thread (the systematic
-//    families, kPer neighbouring particles per thread): one call and one
-//    Box-Muller per draw serve both, the bits normal_at gives each.
+//    families and the generic kernel's roll family, kPer neighbouring
+//    particles per thread): one call and one Box-Muller per draw serve
+//    both, the bits normal_at gives each.
 #pragma once
 
 #include <cstdint>

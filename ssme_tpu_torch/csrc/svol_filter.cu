@@ -13,9 +13,8 @@
 // two), then kPer = 2 up to 2048 and 4 up to 4096 (blockDim = N / kPer).
 // Particle j = p * blockDim + threadIdx.x, so loads and the Philox
 // counters (keyed by j) are the plain version's at every kPer, and the
-// reductions first fold a thread's kPer values.  This is the generic
-// kernel's design (filter_megakernel.cuh): every barrier stays in one
-// CTA.  x and the carried log-weight live in registers for all T steps;
+// reductions first fold a thread's kPer values; every barrier stays in
+// one CTA.  x and the carried log-weight live in registers for all T steps;
 // the row's weights and the gather buffer of N floats each in static
 // shared memory, 32 KB at 4096, which is the cap: above it the 48 KB of
 // static shared memory would need an opt-in, and the generic bank
@@ -26,7 +25,7 @@
 //
 // What bounds it: per-step latency, not bytes.  Each of the T sequential
 // steps costs block barriers (one max and one three-way sum reduction,
-// plus the resampler's sweeps and a gather when it resamples) and the
+// plus, when it resamples, the selection's votes and a gather) and the
 // transcendentals of one Box-Muller half-pair, one exp for the weight and
 // one for the renormalisation.  The kernel moves about 8 bytes a step per
 // row.

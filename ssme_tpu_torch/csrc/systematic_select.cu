@@ -3,50 +3,22 @@
 // PyTorch version on identical inputs.  Replaces
 // ssme_tpu/ops/_select.py::select_leaves_dense.
 //
-// One CTA per row.  kPer = 1: one slot per thread (blockDim = N, up to
-// 1024), the block scan and per-slot search of systematic_select.cuh,
-// which no filter kernel runs any more.  kPer = 2, 4 or 8: kPer
-// neighbouring slots per thread, the layout of every filter kernel's
-// systematic family (blockDim = N / kPer rounded up to a warp), their
-// CDF, search-then-walk and padded gather buffer from row_select.cuh.
-// Every leaf moves by the same ancestors; the
-// CDF the ancestors were found on can be written out.  Bound by barrier
-// latency like the filters' resample step.
+// One CTA per row, kPer = 2, 4 or 8 neighbouring slots per thread, the
+// layout of every filter kernel's systematic family (blockDim = N / kPer
+// rounded up to a warp), their CDF, search-then-walk and padded gather
+// buffer from row_select.cuh.  Every leaf moves by the same ancestors;
+// the CDF the ancestors were found on can be written out.  Bound by
+// barrier latency like the filters' resample step.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "row_select.cuh"
-#include "systematic_select.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxParticles = 4096;
-
-__global__ void __launch_bounds__(kMaxThreads, 1)
-block_select_kernel(const float* __restrict__ w,
-                    const float* __restrict__ leaves,
-                    const float* __restrict__ u0, int num_leaves,
-                    int num_rows, float* __restrict__ picked,
-                    int32_t* __restrict__ ancestors,
-                    float* __restrict__ cdf_out) {
-  __shared__ float cdf[kMaxThreads];
-  __shared__ float buf[kMaxThreads];
-  __shared__ float red[32];
-
-  const int n = blockDim.x;
-  const int i = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const int anc = ssme::systematic_ancestor(w[row + i], u0[blockIdx.x], cdf,
-                                            red);
-  ancestors[row + i] = anc;
-  if (cdf_out) cdf_out[row + i] = cdf[i];
-  for (int l = 0; l < num_leaves; ++l) {
-    const size_t at = static_cast<size_t>(l) * num_rows * n + row;
-    picked[at + i] = ssme::gather_from(leaves[at + i], anc, buf);
-  }
-}
 
 template <int kPer>
 __global__ void __launch_bounds__(kMaxThreads, 1)
@@ -114,9 +86,8 @@ void launch_row(const float* w, const float* leaves, const float* u0,
 
 }  // namespace
 
-// kper: 1 (the block scan, N a multiple of 32 up to 1024) or 2, 4, 8 (the
-// SVOL kernel's layout, N a multiple of 32 up to 1024 or of 128 up to
-// 4096, at most 1024 threads).  cdf_out: null, or float[B * N] for the
+// kper: 2, 4 or 8 (N a multiple of 32 up to 1024 or of 128 up to 4096, at
+// most 1024 threads).  cdf_out: null, or float[B * N] for the
 // inclusive CDF.  -3 for a shape it does not take.
 extern "C" int ssme_systematic_select(const float* w, const float* leaves,
                                       const float* u0, int num_leaves,
@@ -128,13 +99,6 @@ extern "C" int ssme_systematic_select(const float* w, const float* leaves,
   const int n = num_particles;
   if (n < 32 || n % 32 || n > kMaxParticles || (n > kMaxThreads && n % 128))
     return -3;
-  if (kper == 1) {
-    if (n > kMaxThreads) return -3;
-    block_select_kernel<<<num_rows, n, 0, s>>>(w, leaves, u0, num_leaves,
-                                               num_rows, picked, ancestors,
-                                               cdf_out);
-    return static_cast<int>(cudaGetLastError());
-  }
   const int threads = kper > 0 ? (n / kper + 31) / 32 * 32 : 0;
   if (threads < 32 || threads > kMaxThreads) return -3;
   switch (kper) {

@@ -36,10 +36,12 @@ _SIGNATURES = {
     # cloud_lw, stream
     "ssme_filter_megakernel": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # apf, seed, params, ys, zs, B, T, N, ess_limit, always, gate_stride,
-    # total, lcl, fmean, spans, stream
-    "ssme_filter_megakernel_spans": [_I, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                                     _I, _P, _P, _P, _P, _P],
+    # model id, apf, seed, params, ys, zs, B, T, N, ess_limit, always,
+    # gate_stride, resampler, metropolis_iters, total, lcl, fmean, spans,
+    # sweeps, ratio (each or null), stream
+    "ssme_filter_megakernel_spans": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _F,
+                                     _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                     _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
     # resampler, metropolis_iters, coefs, prior_lo, prior_scale,
     # model_args (host arrays), lcl, fpaths, cloud, stream

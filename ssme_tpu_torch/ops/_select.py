@@ -4,11 +4,12 @@ roll-based Metropolis and rejection resamplers.
 Replaces ``ssme_tpu/ops/_select.py``: ``select_leaves_dense``
 (systematic), ``metropolis_select_leaves``, ``rejection_select_leaves``
 and the Metropolis sweep budget (``metropolis_bias_estimate``,
-``metropolis_sweeps_for``).  The CUDA sides are
-``csrc/systematic_select.cuh``, ``csrc/row_select.cuh`` and
-``csrc/roll_select.cuh`` (inlined by the filter kernels; launched alone
-by :func:`systematic_select` and :func:`roll_select`); this module holds
-their plain PyTorch versions and those wrappers.
+``metropolis_sweeps_for``).  The CUDA sides are ``csrc/row_select.cuh``
+and ``csrc/roll_select.cuh`` (inlined by the filter kernels; launched
+alone by :func:`systematic_select` and :func:`roll_select`); this module
+holds their plain PyTorch versions and those wrappers, and
+:func:`roll_schedule`, the plain model of the order in which the roll
+kernels test their sweeps.
 
 Systematic law, per row: cdf = inclusive float32 cumulative sum of w,
 total = cdf[-1], points u_j = min((j + u0) * (total / N), total) and
@@ -234,15 +235,14 @@ def _validate(w, leaves, u0):
 
 
 def _select_kper(n, kper):
-    """The layout the standalone kernel runs at ``n`` particles: kper 1
-    (one slot per thread, N <= 1024) or 2, 4, 8 neighbouring slots per
-    thread (at most 1024 threads); None: 1 up to 1024, else 8."""
+    """The layout the standalone kernel runs at ``n`` particles: 2, 4 or 8
+    neighbouring slots per thread (at most 1024 threads); None: the SVOL
+    kernel's, 2 up to 512, 4 up to 1024, 8 above."""
     if kper is None:
-        return 1 if n <= MAX_PARTICLES else 8
+        return 2 if n <= 512 else 4 if n <= MAX_PARTICLES else 8
     # a CTA holds at most MAX_PARTICLES (1024) threads
-    if kper not in (1, 2, 4, 8) or -(-n // kper) > MAX_PARTICLES:
-        raise ValueError(f"kper={kper} at N={n}: 1 up to {MAX_PARTICLES} "
-                         "particles, or 2, 4, 8 with at most "
+    if kper not in (2, 4, 8) or -(-n // kper) > MAX_PARTICLES:
+        raise ValueError(f"kper={kper} at N={n}: 2, 4 or 8 with at most "
                          f"{MAX_PARTICLES} threads")
     return kper
 
@@ -252,13 +252,11 @@ def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
 
     ``w``: (B, N) nonnegative float32 weights, N a multiple of 32 up to
     1024 or of 128 up to 4096; ``leaves``: (L, B, N) float32, moved by the
-    same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper`` picks the
-    device code a CUDA call runs: 1, one slot per thread
-    (``csrc/systematic_select.cuh``'s block scan and per-slot search,
-    which no filter kernel runs any more), or 2, 4, 8 neighbouring slots
-    per thread (``csrc/row_select.cuh``, the CDF, search and walk of every
-    filter kernel's systematic family);
-    None: 1 up to 1024 particles, else 8.
+    same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper``: the
+    neighbouring slots per thread (2, 4 or 8) of the device code a CUDA
+    call runs (``csrc/row_select.cuh``, the CDF, search and walk of every
+    filter kernel's systematic family); None: 2 up to 512 particles, 4 up
+    to 1024, 8 above.
     Returns (picked (L, B, N), ancestors (B, N) int32) and, with
     ``return_cdf``, the inclusive CDF (B, N) they were found on.  Launches
     the CUDA kernel for CUDA tensors and runs the plain version (whose CDF
@@ -323,12 +321,14 @@ def metropolis_ancestors(w, draw, num_iters=16):
     return cur
 
 
-def rejection_ancestors(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
-    """Ancestors (B, N) int64 of the rejection law (module docstring);
-    ``draw`` as for :func:`metropolis_ancestors`.  Only the rows with a
-    pending slot draw, checked once per block of sweeps (a row whose
-    slots have all accepted no longer changes), and the loop stops at
-    ``max_iters`` sweeps."""
+def rejection_accepts(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
+    """(ancestors (B, N) int64 of the rejection law (module docstring),
+    accept sweeps (B, N) int64: the sweep at which each slot accepted, or
+    ``max_iters`` for a slot that kept itself at the cap); ``draw`` as
+    for :func:`metropolis_ancestors`.  Only the rows with a pending slot
+    draw, checked once per block of sweeps (a row whose slots have all
+    accepted no longer changes), and the loop stops at ``max_iters``
+    sweeps."""
     b, n = w.shape
     _check_pow2(n)
     max_iters = int(max_iters)
@@ -337,6 +337,7 @@ def rejection_ancestors(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
     w_max = torch.amax(w, dim=-1, keepdim=True)
     _, u = draw(0, 1, None)
     acc = u[0] * w_max < w
+    when = torch.where(acc, 0, max_iters)
     c = torch.zeros((b, 1), dtype=torch.int64, device=w.device)
     for s0 in range(1, max_iters, _SWEEP_BLOCK):
         sub = (~acc).any(-1).nonzero()[:, 0]
@@ -344,16 +345,127 @@ def rejection_ancestors(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
             break
         k = min(_SWEEP_BLOCK, max_iters - s0)
         shifts, us = draw(s0, k, sub)
-        c_s, cur_s, acc_s = c[sub], cur[sub], acc[sub]
+        c_s, cur_s, acc_s, when_s = c[sub], cur[sub], acc[sub], when[sub]
         w_s, w_max_s = w[sub], w_max[sub]
-        for shift, u in zip(shifts, us):
+        for s, (shift, u) in enumerate(zip(shifts, us), start=s0):
             c_s = (c_s + shift[:, None]) & _prng.MASK32
             idx = (j - c_s) & (n - 1)
             take = ~acc_s & (u * w_max_s < torch.gather(w_s, 1, idx))
             cur_s = torch.where(take, idx, cur_s)
+            when_s = torch.where(take, s, when_s)
             acc_s = acc_s | take
-        c[sub], cur[sub], acc[sub] = c_s, cur_s, acc_s
-    return cur
+        c[sub], cur[sub], acc[sub], when[sub] = c_s, cur_s, acc_s, when_s
+    return cur, when
+
+
+def rejection_ancestors(w, draw, max_iters=_prng.ROLL_MAX_ITERS):
+    """Ancestors (B, N) int64 of the rejection law: those of
+    :func:`rejection_accepts`."""
+    return rejection_accepts(w, draw, max_iters)[0]
+
+
+# sweeps a warp's shift scan covers, and the threads holding a pending
+# slot at or below which rejection turns to its sweep-parallel tail
+# (csrc/roll_select.cuh kRollChunk, kRollTailThreads)
+ROLL_CHUNK = 32
+ROLL_TAIL_THREADS = 32
+
+
+def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=1,
+                  layout="neighbouring", tail_threads=ROLL_TAIL_THREADS,
+                  max_iters=_prng.ROLL_MAX_ITERS):
+    """The kernels' schedule of a roll selection (``csrc/roll_select.cuh``)
+    on whole rows: (ancestors (B, N) int64, record), the ancestors those
+    of :func:`metropolis_ancestors` / :func:`rejection_ancestors`.
+
+    The shifts come by chunks of ``ROLL_CHUNK`` sweeps: sweep s0 + l's
+    cumulative shift is the carry before the chunk plus an inclusive scan
+    of the chunk's shift words, mod 2^32.  Metropolis runs each slot's
+    chain over the chunks' sweeps in order.  Rejection takes sweep 0,
+    then per chunk of a row still selecting: a vote, the threads holding
+    a pending slot (slot j's thread is j // kper in the neighbouring
+    layout, j mod N / kper in the strided one); none, or the cap: the row
+    is done; at most ``tail_threads``: the row enters its tail, which
+    tests each pending slot's sweeps a chunk at a time side by side, with
+    no more votes, up to the cap; else the bulk tests the chunk's sweeps
+    in order, one slot at a time.  Either way a pending slot takes the
+    chunk's first accepting sweep, so the two differ in the record only.
+
+    record: {"sweeps": (B,) sweeps the selection ran (1 + the last accept
+    sweep, ``max_iters`` at the cap; Metropolis: its sweeps), "votes":
+    (B,) the rejection votes, "tail_slots": (B,) the slots each row's
+    tail took}."""
+    if layout not in ("neighbouring", "strided"):
+        raise ValueError(f"unknown layout {layout!r}")
+    b, n = w.shape
+    _check_pow2(n)
+    if kper < 1 or n % kper:
+        raise ValueError(f"kper={kper} must divide N={n}")
+    dev = w.device
+    zeros = torch.zeros(b, dtype=torch.int64, device=dev)
+    j = torch.arange(n, device=dev)
+    anc = j.expand(b, n).clone()
+    c = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+
+    def chunk(s0, k, sub):
+        """(cumulative shifts (k, B', 1), uniforms (k, B', N), the
+        candidates (k, B', N)) of sweeps s0 .. s0 + k - 1."""
+        shifts, us = draw(s0, k, sub)
+        carry = c if sub is None else c[sub]
+        cs = (carry[None, :, 0] + torch.cumsum(shifts, 0)) & _prng.MASK32
+        return cs[..., None], us, (j - cs[..., None]) & (n - 1)
+
+    if resampler == "metropolis":
+        iters = int(metropolis_iters)
+        w_cur = w.clone()
+        for s0 in range(0, iters, ROLL_CHUNK):
+            cs, us, idx = chunk(s0, min(ROLL_CHUNK, iters - s0), None)
+            for u, cand in zip(us, idx):
+                w_cand = torch.gather(w, 1, cand)
+                take = u * w_cur < w_cand
+                anc = torch.where(take, cand, anc)
+                w_cur = torch.where(take, w_cand, w_cur)
+            c = cs[-1]
+        return anc, {"sweeps": zeros + iters, "votes": zeros.clone(),
+                     "tail_slots": zeros.clone()}
+    if resampler != "rejection":
+        raise ValueError(f"not a roll resampler: {resampler!r}")
+    max_iters = int(max_iters)
+    w_max = torch.amax(w, dim=-1, keepdim=True)
+    _, u = draw(0, 1, None)
+    pend = ~(u[0] * w_max < w)
+    thread = j // kper if layout == "neighbouring" else j % (n // kper)
+    last = zeros.clone()              # the last accept sweep
+    votes, tail = zeros.clone(), zeros.clone()
+    in_tail = torch.zeros(b, dtype=torch.bool, device=dev)
+    done = torch.zeros_like(in_tail)
+    for s0 in range(1, max_iters + ROLL_CHUNK, ROLL_CHUNK):
+        bulk = ~done & ~in_tail
+        per_thread = torch.zeros((b, n // kper), dtype=torch.int64,
+                                 device=dev).index_add_(1, thread, pend.long())
+        busy = (per_thread > 0).sum(-1)
+        votes += bulk.long()
+        done |= bulk & ((busy == 0) | (s0 >= max_iters))
+        enter = bulk & ~done & (busy <= tail_threads)
+        tail = torch.where(enter, pend.sum(-1), tail)
+        in_tail |= enter
+        done |= in_tail & ~pend.any(-1)
+        if s0 >= max_iters or bool(done.all()):
+            break
+        sub = (~done).nonzero()[:, 0]
+        cs, us, idx = chunk(s0, min(ROLL_CHUNK, max_iters - s0), sub)
+        ok = pend[sub] & (us * w_max[sub] < torch.gather(
+            w[sub].expand(us.shape[0], -1, -1), 2, idx))
+        hit = ok.any(0)
+        first = torch.argmax(ok.to(torch.int8), dim=0)
+        anc[sub] = torch.where(hit, torch.gather(idx, 0, first[None])[0],
+                               anc[sub])
+        last[sub] = torch.maximum(last[sub], torch.where(
+            hit, s0 + first, 0).amax(-1))
+        pend[sub] &= ~hit
+        c[sub] = cs[-1]
+    sweeps = torch.where(pend.any(-1), max_iters, last + 1)
+    return anc, {"sweeps": sweeps, "votes": votes, "tail_slots": tail}
 
 
 def philox_draw(seed, rows, step, num_particles, tag=_prng.TAG_ROLL_SWEEP):
@@ -529,7 +641,9 @@ __all__ = ["systematic_select", "systematic_select_reference",
            "systematic_ancestors", "systematic_ancestors_walk",
            "systematic_points", "check_particles",
            "check_resampler", "roll_select", "roll_select_reference",
-           "roll_ancestors", "plain_ancestor_fn", "metropolis_ancestors", "rejection_ancestors",
+           "roll_ancestors", "plain_ancestor_fn", "metropolis_ancestors",
+           "rejection_ancestors", "rejection_accepts", "roll_schedule",
            "metropolis_select", "rejection_select", "philox_draw",
            "metropolis_bias_estimate", "metropolis_sweeps_for",
-           "MAX_PARTICLES", "MAX_ROLL_PARTICLES", "RESAMPLER_CODES"]
+           "MAX_PARTICLES", "MAX_ROLL_PARTICLES", "RESAMPLER_CODES",
+           "ROLL_CHUNK", "ROLL_TAIL_THREADS"]

@@ -20,14 +20,14 @@ tuple of ``num_state`` (B, N) leaves (resampled together) and
 (``ops/_prng.py``: draw 0 on the first call of a hook, draw 1 on the
 second, ...).
 
-The kernel is two templates over the model functors of
-``csrc/kernel_models.cuh``, entered through ``csrc/filter_megakernel.cu``:
-the systematic family in ``csrc/filter_megakernel_sys.cuh`` (kPer
+The kernel is one template over the model functors of
+``csrc/kernel_models.cuh`` and the selection family, entered through
+``csrc/filter_megakernel.cu``: ``csrc/filter_megakernel_sys.cuh`` (kPer
 neighbouring particles per thread, paired draws, the block primitives of
-``csrc/row_select.cuh``) and the roll family in
-``csrc/filter_megakernel.cuh``, whose header comment gives the step
-recursion of both modes and the intended divergences from the Pallas
-kernel.  A hook written in Python cannot be compiled into
+``csrc/row_select.cuh``; the roll resamplers of ``csrc/roll_select.cuh``
+in the same layout); ``csrc/filter_megakernel.cuh``'s header comment
+gives the step recursion of both modes and the intended divergences from
+the Pallas kernel.  A hook written in Python cannot be compiled into
 it: on a CUDA tensor only a model whose ``cuda_instance`` names a functor
 there runs, with that functor's single functional, and any other model,
 or one with vector ``functionals``, raises.  On a CPU tensor every model
@@ -37,8 +37,9 @@ step by step with the kernel's random bits.
 Selection (``resampler``): "systematic", N a multiple of 32 in [32, 1024]
 (the JAX package's ``MAX_KERNEL_PARTICLES``), or
 the roll-based "metropolis" and "rejection" resamplers
-(``ops/_select.py``), N a power of two in [32, 4096] (N / 1024 particles
-per thread above 1024, as JAX's ``MAX_METROPOLIS_PARTICLES``).
+(``ops/_select.py``), N a power of two in [32, 4096] (as JAX's
+``MAX_METROPOLIS_PARTICLES``; 8 and 16 particles per thread at 2048 and
+4096).
 """
 
 from __future__ import annotations
@@ -416,37 +417,59 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
 
 filter_megakernel.launches = 0
 
-# the barriers a step of the systematic family crosses, as its source note
-# states them (csrc/filter_megakernel_sys.cuh): a bootstrap step that
-# resamples, a check that does not (and APF's t = 0), a step without a
-# check, an APF step; step_spans counts them on the card
+# the barriers a step crosses, as the source note states them
+# (csrc/filter_megakernel_sys.cuh): under systematic selection a bootstrap
+# step that resamples, a check that does not (and APF's t = 0), a step
+# without a check, an APF step; under the roll resamplers every check
+# crosses 2 and an APF step 4, plus the selection's votes and tail
+# barriers (counted apart); step_spans counts them on the card
 BARRIERS_PER_STEP = {"resample": 3, "check": 2, "other": 0, "apf": 5}
-# the parts of a step its clock64 spans time, then the rest of the
-# instrumented twins' record per row (csrc/filter_megakernel_sys.cuh
-# SysSpan)
+ROLL_BARRIERS_PER_STEP = {"resample": 2, "check": 2, "other": 0, "apf": 4}
+# the parts of a step its clock64 spans time (roll: the selection counts
+# as the walk), then the rest of the instrumented twins' record per row
+# (csrc/filter_megakernel_sys.cuh SysSpan)
 SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
 SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "apf_steps",
                             "barriers_resample", "barriers_check",
-                            "barriers_other", "barriers_apf", "kper",
+                            "barriers_other", "barriers_apf", "votes",
+                            "tail_barriers", "sweeps", "tail_slots", "kper",
                             "threads")
+# the twins' (functor, mode) under each selection family
+SPAN_TWINS = {"systematic": (("svol_leverage", "bootstrap"),
+                             ("svol_leverage", "apf")),
+              "roll": (("svol_leverage", "bootstrap"),
+                       ("svol_leverage", "apf"), ("svol", "bootstrap"))}
 
 
 def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
-               gate_stride=1, mode="bootstrap"):
-    """Where a step of the systematic family's time goes on the card, and
-    what it does: one launch of the svol_leverage functor's instrumented
-    twin (rows (phi, mu, sigma, rho), covariates ``zs``), recorded by
-    thread 0 of each row.  Returns {"cycles_per_step": {part: mean
-    clock64 cycles a step} over SPAN_PARTS (the barriers' waits inside
+               gate_stride=1, mode="bootstrap", resampler="systematic",
+               metropolis_iters=16, kmodel=None):
+    """Where a step's time goes on the card, and what it does: one launch
+    of an instrumented twin (``SPAN_TWINS``; ``kmodel`` defaults to the
+    svol_leverage model, rows (phi, mu, sigma, rho), covariates ``zs``),
+    recorded by thread 0 of each row.  Returns {"cycles_per_step": {part:
+    mean clock64 cycles a step} over SPAN_PARTS (the barriers' waits inside
     the part that ends in them; APF's first stage counts under the same
     parts), "checks", "resamples", "apf_steps": mean counts per row,
     "barriers_per_step": {"resample", "check", "other", "apf": barriers a
     step of that kind crossed, mean over the rows' steps of that kind, or
-    None where there was none}, "kper", "threads": the layout the launch
-    ran, "outputs": (total, lcl, fmean), the plain instance's bits}."""
-    kmodel = svol_leverage_kernel_model()
+    None where there was none; under a roll resampler without the
+    selections' votes and tail barriers}, "kper", "threads": the layout the
+    launch ran, "outputs": (total, lcl, fmean), the plain instance's bits}
+    and, under a roll resampler, "votes", "tail_barriers", "tail_slots":
+    their totals over the rows, "sweeps": (B, T) int32, the sweeps each
+    selection ran at the step of its draws (1 + its last accept sweep,
+    4096 at the cap; 0 where none), and "ratio": (B, T) float32, its
+    largest weight over its mean weight, N / sum(w) (0 where none)."""
+    kmodel = kmodel or svol_leverage_kernel_model()
+    family = "systematic" if resampler == "systematic" else "roll"
+    if (kmodel.cuda_instance, mode) not in SPAN_TWINS[family]:
+        raise ValueError(f"no instrumented twin of {kmodel.cuda_instance!r} "
+                         f"in {mode} mode under {resampler!r}; twins: "
+                         f"{SPAN_TWINS[family]}")
     seed, ys, zs = _validate(kmodel, seed, params, ys, zs, num_particles,
-                             ess_threshold, gate_stride, mode, "systematic")
+                             ess_threshold, gate_stride, mode, resampler,
+                             metropolis_iters)
     if params.device.type != "cuda":
         raise ValueError("step_spans: the record is the card's")
     lib = _cuda.library()
@@ -456,12 +479,19 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
     lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
     fmean = torch.empty_like(lcl)
     spans = torch.zeros((b, len(SPAN_RECORD)), dtype=torch.int64, device=dev)
+    sweeps = ratio = None
+    if family == "roll":
+        sweeps = torch.zeros((b, t_len), dtype=torch.int32, device=dev)
+        ratio = torch.zeros((b, t_len), dtype=torch.float32, device=dev)
     err = lib.ssme_filter_megakernel_spans(
-        int(mode == "apf"), seed.data_ptr(), params.data_ptr(), ys.data_ptr(),
-        zs.data_ptr(), b, t_len, n, float(ess_threshold) * n,
-        int(ess_threshold >= 1.0), int(gate_stride), total.data_ptr(),
-        lcl.data_ptr(), fmean.data_ptr(), spans.data_ptr(),
-        _cuda.stream_ptr(dev))
+        CUDA_MODEL_IDS[kmodel.cuda_instance], int(mode == "apf"),
+        seed.data_ptr(), params.data_ptr(), ys.data_ptr(),
+        None if zs is None else zs.data_ptr(), b, t_len, n,
+        float(ess_threshold) * n, int(ess_threshold >= 1.0),
+        int(gate_stride), RESAMPLER_CODES[resampler], int(metropolis_iters),
+        total.data_ptr(), lcl.data_ptr(), fmean.data_ptr(), spans.data_ptr(),
+        None if sweeps is None else sweeps.data_ptr(),
+        None if ratio is None else ratio.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, "ssme_filter_megakernel_spans")
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     layout = spans[:, SPAN_RECORD.index("kper"):]
@@ -470,13 +500,22 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
     steps = {"resample": rec["resamples"],
              "check": rec["checks"] - rec["resamples"] - rec["apf_steps"],
              "other": b * t_len - rec["checks"], "apf": rec["apf_steps"]}
-    return {"cycles_per_step": {k: rec[k] / (b * t_len) for k in SPAN_PARTS},
-            "checks": rec["checks"] / b, "resamples": rec["resamples"] / b,
-            "apf_steps": rec["apf_steps"] / b,
-            "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
-                                  for k, v in steps.items()},
-            "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
-            "outputs": (total, lcl, fmean)}
+    # the roll selections' votes and tail barriers fall in resample steps
+    # (bootstrap) or APF steps
+    sel = rec["votes"] + rec["tail_barriers"]
+    bars = {k: rec[f"barriers_{k}"] for k in steps}
+    bars["apf" if mode == "apf" else "resample"] -= sel
+    out = {"cycles_per_step": {k: rec[k] / (b * t_len) for k in SPAN_PARTS},
+           "checks": rec["checks"] / b, "resamples": rec["resamples"] / b,
+           "apf_steps": rec["apf_steps"] / b,
+           "barriers_per_step": {k: bars[k] / v if v else None
+                                 for k, v in steps.items()},
+           "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
+           "outputs": (total, lcl, fmean)}
+    if sweeps is not None:
+        out.update(votes=rec["votes"], tail_barriers=rec["tail_barriers"],
+                   tail_slots=rec["tail_slots"], sweeps=sweeps, ratio=ratio)
+    return out
 
 
 def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
@@ -852,4 +891,5 @@ __all__ = ["KernelModel", "filter_megakernel", "filter_megakernel_reference",
            "poisson_ar_kernel_model", "poisson_obs_rows",
            "svol_t_kernel_model", "svol_t_param_rows", "CUDA_MODEL_IDS",
            "FACTOR_ASSET_COUNTS", "step_spans", "BARRIERS_PER_STEP",
-           "SPAN_PARTS", "SPAN_RECORD"]
+           "ROLL_BARRIERS_PER_STEP", "SPAN_PARTS", "SPAN_RECORD",
+           "SPAN_TWINS"]

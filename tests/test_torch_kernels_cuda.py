@@ -56,16 +56,15 @@ def test_philox_fill_matches_plain_bitwise(dev):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("n,kper", [(256, 1), (256, 2), (32, 2), (96, 2),
+@pytest.mark.parametrize("n,kper", [(256, 4), (256, 2), (32, 2), (96, 2),
                                     (1024, 4), (2048, 8), (4096, 8),
                                     (512, 4), (512, 8)])
 def test_systematic_select_matches_plain_away_from_boundaries(dev, n, kper):
-    """The standalone selection in each layout (one slot per thread, the
-    generic and Liu-West kernels'; kPer neighbouring slots, the SVOL
-    kernel's): ancestors bit for bit those of the plain model of its
-    search and walk on the CDF it returns (which never falls at kPer > 1),
-    the leaves moved by them, and the plain law's but where a point lies
-    within rounding of a CDF boundary (another scan order)."""
+    """The standalone selection in each layout (kPer neighbouring slots,
+    the systematic families'): ancestors bit for bit those of the plain
+    model of its search and walk on the CDF it returns (which never
+    falls), the leaves moved by them, and the plain law's but where a
+    point lies within rounding of a CDF boundary (another scan order)."""
     rng = np.random.default_rng(n + kper)
     w = torch.as_tensor(rng.gamma(1.0, 1.0, (32, n)).astype(np.float32),
                         device=dev)
@@ -80,8 +79,7 @@ def test_systematic_select_matches_plain_away_from_boundaries(dev, n, kper):
     _, anc_p = _select.systematic_select_reference(w, leaves, u0)
     assert torch.equal(anc.long(),
                        _select.systematic_ancestors_walk(cdf, u0, kper))
-    if kper > 1:
-        assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
+    assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
     assert bool((anc[1::4] == 7).all())
     torch.testing.assert_close(cdf, torch.cumsum(w, -1), rtol=1e-5,
                                atol=1e-6 * n)
@@ -474,10 +472,17 @@ def test_lw_launch_counters_and_errors(dev):
 @pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
 def test_roll_select_equals_plain(dev, resampler, n):
     """Identical Philox draws and weights: the roll laws compare one
-    rounded product with a weight, so the ancestors are equal exactly."""
+    rounded product with a weight, so the ancestors are equal exactly;
+    beside gamma rows, a row of zeros (rejection runs it to the 4096 cap
+    and every slot keeps itself), one of a dominant particle and one of
+    long zero runs."""
     rng = np.random.default_rng(n)
-    w = torch.as_tensor(rng.gamma(0.5, 1.0, (16, n)).astype(np.float32),
-                        device=dev)
+    w = rng.gamma(0.5, 1.0, (16, n)).astype(np.float32)
+    w[0] = 0.0
+    w[1] *= np.float32(1e-12)
+    w[1, n // 3] = 1.0
+    w[2, n // 8:n // 2] = 0.0
+    w = torch.as_tensor(w, device=dev)
     leaves = torch.as_tensor(rng.normal(size=(2, 16, n)).astype(np.float32),
                              device=dev)
     before = _select.roll_select.launches
@@ -489,7 +494,83 @@ def test_roll_select_equals_plain(dev, resampler, n):
                                              metropolis_iters=24, tag=tag)
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0], want[0])
+        if resampler == "rejection":
+            assert torch.equal(got[1][0].long(), torch.arange(n, device=dev))
     assert _select.roll_select.launches == before + 2
+
+
+ROLL_FUNCTORS = ("svol", "svol_leverage", "svol_t", "poisson_ar",
+                 "factor_svol_3", "factor_svol_4", "factor_svol_5")
+
+
+def _roll_instance(name, dev, ys, rows):
+    if name in ("svol", "svol_leverage"):
+        km, params, zs = _instance(name, dev, ys)
+        return km, params[:rows].contiguous(), ys, zs
+    km, params, obs = _family(name, dev, ys)
+    return km, params[:rows].contiguous(), obs, None
+
+
+@pytest.mark.parametrize("n", [32, 1024, 2048, 4096])
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_megakernel_roll_family_matches_plain(dev, resampler, n):
+    """The generic kernel's roll family (filter_megakernel_sys.cuh at each
+    kPer) for every functor, bootstrap and, with a lookahead, APF, against
+    the plain version on identical bits: step 0 equal, most rows' totals
+    within 2e-3 (an exp ulp can flip one accept decision)."""
+    ys = _ys(24, 13).to(dev)
+    roll = dict(resampler=resampler, metropolis_iters=16)
+    for name in ROLL_FUNCTORS:
+        km, params, obs, zs = _roll_instance(name, dev, ys, 8)
+        for mode in ("bootstrap",) + (("apf",) if km.prop_mu else ()):
+            kw = dict(num_particles=n, mode=mode, **roll)
+            tot, lcl, _ = fm.filter_megakernel(km, 3, params, obs, zs, **kw)
+            tot_p, lcl_p, _ = fm.filter_megakernel_reference(km, 3, params,
+                                                             obs, zs, **kw)
+            torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5,
+                                       atol=1e-4, msg=f"{name} {mode}")
+            assert torch.isfinite(tot).all(), (name, mode)
+            close = float(((tot - tot_p).abs() <= 2e-3).float().mean())
+            assert close >= 0.75, (name, mode, close)
+
+
+@pytest.mark.parametrize("n", [32, 512, 1024, 2048, 4096])
+def test_megakernel_roll_twins_record_layout_and_barriers(dev, n):
+    """The roll family's instrumented twins (svol_leverage in both modes,
+    svol's bootstrap) at each layout: the kPer and threads they ran, 2
+    barriers a check and 4 an APF step besides the selections' votes and
+    tail barriers (Metropolis has none), each selection's sweeps (the
+    Metropolis count; under rejection 1 to 4096, one record per resample
+    or first stage), and their outputs the plain instances' bits."""
+    ys = _ys(48, 16).to(dev)
+    kper = 2 if n <= 512 else {1024: 4, 2048: 8, 4096: 16}[n]
+    for resampler in ("metropolis", "rejection"):
+        for name, mode in fm.SPAN_TWINS["roll"]:
+            km, params, zs = _instance(name, dev, ys)
+            params = params[:8].contiguous()
+            kw = dict(mode=mode, resampler=resampler, metropolis_iters=20,
+                      ess_threshold=1.0 if mode == "apf" else 0.5)
+            rec = fm.step_spans(6, params, ys, zs, n, kmodel=km, **kw)
+            assert (rec["kper"], rec["threads"]) == (
+                kper, -(-n // kper // 32) * 32)
+            got = {k: v for k, v in rec["barriers_per_step"].items()
+                   if v is not None}
+            assert got == {k: fm.ROLL_BARRIERS_PER_STEP[k] for k in got}
+            sweeps = rec["sweeps"]
+            selections = int((sweeps > 0).sum())
+            want = (rec["apf_steps"] if mode == "apf"
+                    else rec["resamples"]) * params.shape[0]
+            assert selections == want > 0
+            if resampler == "metropolis":
+                assert set(sweeps[sweeps > 0].tolist()) == {20}
+                assert rec["votes"] == 0
+            else:
+                assert int(sweeps.max()) <= 4096
+                assert rec["votes"] >= selections
+            plain = fm.filter_megakernel(km, 6, params, ys, zs,
+                                         num_particles=n, **kw)
+            for a, b in zip(plain, rec["outputs"]):
+                assert torch.equal(a, b)
 
 
 def test_megakernel_rejection_at_2048_is_finite_and_deterministic(dev):

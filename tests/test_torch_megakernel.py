@@ -460,12 +460,15 @@ def test_model_id_table_matches_the_cuda_header():
             "kNumParams": km.num_params, "kNumState": km.num_state,
             "kDimObs": km.dim_obs, "kDimCov": km.dim_cov}, struct
         assert t["kHasPropMu"] == (km.prop_mu is not None), struct
-    # one table (ssme::with_model) dispatches both selection families
+    # one table (ssme::with_model) dispatches both selection families,
+    # which are one template's instances
     dispatch = re.findall(
         r"case (kModel\w+): return f\(Is<(\w+(?:<\d+>)?)>\{\}\);", src)
-    for family in ("filter_megakernel.cuh", "filter_megakernel_sys.cuh"):
-        with open(os.path.join(os.path.dirname(path), family)) as f:
-            assert "ssme::with_model(model_id," in f.read(), family
+    with open(os.path.join(os.path.dirname(path),
+                           "filter_megakernel_sys.cuh")) as f:
+        family = f.read()
+    assert "ssme::with_model(model_id," in family
+    assert "launch_sys<Model, false, kPer, kRoll>(a)" in family
     consts = dict(re.findall(r"constexpr int (kModel\w+) = (\d+);", src))
     by_id = {int(consts[c]): functor for c, functor in dispatch}
     want = {0: "SvolModel", 1: "SvolLeverageModel", 2: "SvolTModel",

@@ -141,12 +141,12 @@ def test_wrapper_validation():
     assert anc.dtype == torch.int32 and picked.shape == (1, 4, 64)
 
 
-@pytest.mark.parametrize("n,kper", [(64, 1), (1024, 1), (2048, 8),
+@pytest.mark.parametrize("n,kper", [(64, 2), (1024, 4), (2048, 8),
                                     (4096, 4), (96, 2), (32, 8)])
 def test_layouts_the_kernel_takes_and_the_plain_cdf(n, kper):
-    """Each layout the standalone kernel runs (one slot per thread up to
-    1024; kPer neighbouring slots with at most 1024 threads) gives the
-    plain law on the CPU, and its CDF is the plain cumulative sum."""
+    """Each layout the standalone kernel runs (kPer neighbouring slots
+    with at most 1024 threads) gives the plain law on the CPU, and its CDF
+    is the plain cumulative sum."""
     rng = np.random.default_rng(n)
     w = torch.from_numpy(rng.gamma(1.0, 1.0, (4, n)).astype(np.float32))
     leaves = torch.from_numpy(rng.normal(size=(1, 4, n)).astype(np.float32))
@@ -161,8 +161,8 @@ def test_layouts_the_kernel_takes_and_the_plain_cdf(n, kper):
 @pytest.mark.parametrize("n,kper", [(2048, 1), (4096, 2), (512, 3),
                                     (512, 16)])
 def test_layouts_the_kernel_refuses(n, kper):
-    """One slot per thread above 1024 particles, more than 1024 threads,
-    or a kPer other than 1, 2, 4, 8."""
+    """One slot per thread (a layout no kernel runs), more than 1024
+    threads, or a kPer other than 2, 4, 8."""
     w = torch.ones(2, n)
     with pytest.raises(ValueError, match="kper"):
         systematic_select(w, torch.ones(1, 2, n), torch.full((2,), 0.5),
