@@ -23,13 +23,15 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
-            instance of the systematic SVOL kernel, of the generic
-            kernel's systematic family (each functor, bootstrap and APF, at
-            2 and 4 particles per thread, and the instrumented twins) and
-            roll family (the same at 2, 4, 8 and 16 particles per thread,
-            and its twins) and of the Liu-West kernel's systematic family
-            (each functor at 2 particles per thread, and each one's twin)
-            spills nothing;
+            instance of the SVOL kernel (systematic and roll, each layout
+            and its twin), of the generic kernel's systematic family (each
+            functor, bootstrap and APF, at 2 and 4 particles per thread,
+            and the instrumented twins) and roll family (the same at 2, 4,
+            8 and 16 particles per thread, and its twins) and of the
+            Liu-West kernel's systematic family (each functor at 2
+            particles per thread, and each one's twin) and roll family
+            (each functor at 2, 4 and 8, and each one's twin) spills
+            nothing;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
 4. select   the standalone selection kernel in the systematic families'
             layout (kPer neighbouring slots) at N=512 with 2 and 4 slots a
@@ -123,7 +125,7 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             (B=256, N=512), the moments of sigma eps over 8 seeds, its
             time and bound;
 25. k1-large-sis    the SVOL kernel at N=2048 and 4096 (8 particles per
-            thread, 2 and 4 under the roll resamplers): the standalone
+            thread, 8 and 16 under the roll resamplers): the standalone
             systematic selection in its layout (phase 4's checks), and the
             filter under each
             resampler against its plain version on identical bits (B=32,
@@ -133,7 +135,7 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
 26. k1-large-full   the SVOL kernel at N=2048 and 4096 over SPY (B=256, ESS
             0.5) under each resampler within 4 combined standard errors of
             the JAX bank (Metropolis plus its bias envelope); times, bounds;
-27. k3-large    the Liu-West kernel at N=2048 and 4096 (2 and 4 particles
+27. k3-large    the Liu-West kernel at N=2048 and 4096 (4 and 8 particles
             per thread) under both roll resamplers: on identical bits
             (F=16, T=64), against its plain version at T=128 within 4 SE,
             its time over SPY; the svol_leverage_lw_q instance (its own
@@ -159,11 +161,19 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             (the same CDF, walk, paired draws and offsets) at parity and
             ESS 0.5 over SPY, B=128: step 0 equal, step 1 within 2e-3 on
             90% of the rows, the means within 4 combined standard errors;
+            the SVOL kernel's roll twins under both resamplers at N=32 to
+            4096: 2 barriers a check besides the selections' votes and
+            tail barriers, the layout, the outputs the plain instances'
+            bits;
 31. k3-layout   the Liu-West kernel's systematic family at N=32, 96, 512
             and 1024, every functor: the instrumented twins' barriers a
             step (8 / 7 an APF step that does / does not resample, 5 / 4
             in SISR, 3 / 2 at t = 0), layout (2 particles per thread) and
-            clock64 spans, their outputs the plain instances' bits.
+            clock64 spans, their outputs the plain instances' bits; its
+            roll family's twins, every functor under both resamplers at
+            N=32 to 4096: the same barriers besides the selections' votes
+            and tail barriers, the layout, clock64 spans, the outputs the
+            plain instances' bits.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -255,10 +265,15 @@ STEP_B, STEP_N = 256, 512
 K3_SIS_F, K3_LARGE_T = 16, 128
 Q_KAPPA = 1.5
 FLAGSHIP_ITERS = 500
-# instances of the systematic SVOL kernel (csrc/svol_filter_sys.cu
-# launch_for: kPer 2 and 4 at up to 256 threads, 8 at up to 256 and 512,
-# each also instrumented)
-K1_INSTANCES = 8
+# instances of the SVOL kernel (csrc/svol_filter_sys.cu launch_for:
+# systematic kPer 2 and 4 at up to 256 threads, 8 at up to 256 and 512;
+# roll kPer 2, 4, 8 and 16 at up to 256 threads; each also instrumented)
+K1_SYS_INSTANCES = K1_ROLL_INSTANCES = 8
+# the roll families' kPer at each N (svol_filter_sys.cu kper_for,
+# lw_megakernel_sys.cuh roll_kper_for); phases 30 and 31 hold the twins'
+# records to them
+K1_ROLL_KPER = {32: 2, 512: 2, 1024: 4, 2048: 8, 4096: 16}
+K3_ROLL_KPER = {32: 2, 512: 2, 1024: 2, 2048: 4, 4096: 8}
 # instances of the generic kernel's systematic family
 # (csrc/filter_megakernel_sys.cuh): per kPer (2, 4) the 7 functors'
 # bootstrap, the 4 lookahead functors' APF and the 2 instrumented twins;
@@ -271,8 +286,10 @@ K2_RECORD_N = (32, 96, 512, 1024)
 K2_ROLL_RECORD_N = (32, 512, 1024) + ROLL_N
 # instances of the Liu-West kernel's systematic family
 # (csrc/lw_megakernel_sys.cu): the 3 functors and each one's instrumented
-# twin; phase 31 reads the twins at K2_RECORD_N
+# twin; phase 31 reads the twins at K2_RECORD_N; of its roll family
+# (csrc/lw_megakernel_sys_roll{2,4,8}.cu) the same at each kPer
 K3_SYS_INSTANCES = 2 * 3
+K3_ROLL_INSTANCES = 3 * 2 * 3
 # N at which phase 6 reads the systematic kernel's record: each of its
 # instances
 K1_RECORD_N = (32, N, 1024) + ROLL_N
@@ -285,12 +302,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # operations per particle and step, counted from the sources; a normal is
 # half a Philox4x32-10 call (10 rounds x 2 mul-hi, 2 mul, 4 xor, 2 key
-# adds = 100) plus its half of Box-Muller (~12): 56, which is what the
-# systematic families of the SVOL, generic and Liu-West kernels and the
-# generic kernel's roll family compute (one call per pair of particles);
-# the roll families of the SVOL and Liu-West kernels still make one call
-# per particle.  Resampling inside a gated schedule depends on the data
-# and is left out (a lower bound).
+# adds = 100) plus its half of Box-Muller (~12): 56, which is what every
+# family of the SVOL, generic and Liu-West kernels computes (one call per
+# pair of particles).  Resampling inside a gated schedule depends on the
+# data and is left out (a lower bound).
 NORMAL_OPS = 56
 STEP_OPS = {
     # normal, phi x + sigma e, the weight (exp, 2 mul, fma), max/exp/3 sums
@@ -392,11 +407,15 @@ def phase_device():
     return ident
 
 
-def _k1_key(name):
-    """The systematic SVOL kernel's instance of a mangled entry name."""
-    t = re.search(r"svol_filter_sys_kernelILi(\d+)ELi(\d+)ELb(\d)E", name)
-    return t and (f"kper{t.group(1)}/threads{t.group(2)}"
-                  + ("/spans" if t.group(3) == "1" else ""))
+def _k1_key(name, roll):
+    """The SVOL kernel's instance of a mangled entry name in the
+    systematic family (roll False) or the roll family (roll True)."""
+    t = re.search(r"svol_filter_sys_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                  name)
+    if not t or (t.group(4) == "1") != roll:
+        return None
+    return (f"kper{t.group(1)}/threads{t.group(2)}"
+            + ("/spans" if t.group(3) == "1" else ""))
 
 
 def _k2_key(name, roll):
@@ -411,12 +430,15 @@ def _k2_key(name, roll):
             f"kper{t.group(4)}" + ("/spans" if t.group(5) == "1" else ""))
 
 
-def _k3_key(name):
-    """The Liu-West kernel's systematic instance of a mangled entry name."""
-    t = re.search(r"lw_megakernel_sysIN4ssme\d+(\w+?LW)ELi(\d)ELb(\d)E",
-                  name)
-    return t and (f"{t.group(1)}/kper{t.group(2)}"
-                  + ("/twin" if t.group(3) == "1" else ""))
+def _k3_key(name, roll):
+    """The Liu-West kernel's instance of a mangled entry name in the
+    systematic family (roll False) or the roll family (roll True)."""
+    t = re.search(r"lw_megakernel_sysIN4ssme\d+(\w+?LW)ELi(\d+)ELi(\d+)ELb"
+                  r"(\d)ELb(\d)E", name)
+    if not t or (t.group(5) == "1") != roll:
+        return None
+    return (f"{t.group(1)}/kper{t.group(2)}/threads{t.group(3)}"
+            + ("/twin" if t.group(4) == "1" else ""))
 
 
 def _ptxas_instances(ptxas, key):
@@ -446,14 +468,19 @@ def phase_build():
     info = _cuda.build_info
     ptxas = info.get("ptxas", [])
     found = {}
-    for kernel, key, want in (("systematic SVOL kernel", _k1_key,
-                               K1_INSTANCES),
+    for kernel, key, want in (("SVOL kernel's systematic family",
+                               lambda n: _k1_key(n, False), K1_SYS_INSTANCES),
+                              ("SVOL kernel's roll family",
+                               lambda n: _k1_key(n, True), K1_ROLL_INSTANCES),
                               ("generic kernel's systematic family",
                                lambda n: _k2_key(n, False), K2_SYS_INSTANCES),
                               ("generic kernel's roll family",
                                lambda n: _k2_key(n, True), K2_ROLL_INSTANCES),
-                              ("Liu-West kernel's systematic family", _k3_key,
-                               K3_SYS_INSTANCES)):
+                              ("Liu-West kernel's systematic family",
+                               lambda n: _k3_key(n, False), K3_SYS_INSTANCES),
+                              ("Liu-West kernel's roll family",
+                               lambda n: _k3_key(n, True),
+                               K3_ROLL_INSTANCES)):
         inst = _ptxas_instances(ptxas, key)
         require(len(inst) == want, f"ptxas reports {len(inst)} instances of "
                 f"the {kernel}, want {want}: {inst}")
@@ -629,6 +656,7 @@ def phase_filter_full(dev, ys):
                         12, params, ys, **kw), 1),
                     cuda_ms(lambda: sfk.svol_filter(11, half, ys, **kw), 5))
                 spans[sched] = sfk.step_spans(11, params, ys, **kw)
+                spans[sched].pop("outputs")
             print(f"  {sched}/{pname}: kernel mean {float(tot.mean()):.4f} "
                   f"plain mean {float(tot_p.mean()):.4f} (4 SE "
                   f"{4 * se:.4f})", flush=True)
@@ -1756,7 +1784,7 @@ def phase_svol_step(dev, ident):
 
 
 def phase_k1_large_sis(dev, ys_all):
-    """K1 above 1024 particles (kPer 8 systematic, 2 and 4 under the roll
+    """K1 above 1024 particles (kPer 8 systematic, 8 and 16 under the roll
     resamplers) on identical bits: the
     standalone systematic selection against the plain law, and the filter
     under each resampler against its plain version."""
@@ -1833,7 +1861,7 @@ def phase_k1_large_full(dev, ys_all, ident, plain, layout):
                         "plain_T": ROLL_T, "bound_ms": bnd[0],
                         "bound_by": bnd[1],
                         "kper": (layout[str(n)]["kper"]
-                                 if r == "systematic" else n // 1024),
+                                 if r == "systematic" else K1_ROLL_KPER[n]),
                         "mean": mean,
                         "sd": sd, "jax_mean": jx["mean"], "diff": d,
                         "limit": lim}
@@ -1848,7 +1876,7 @@ def phase_k1_large_full(dev, ys_all, ident, plain, layout):
 
 
 def phase_k3_large(dev, ys_all, ident):
-    """K3 at N=2048 and 4096 (kPer 2 and 4) under both roll resamplers:
+    """K3 at N=2048 and 4096 (kPer 4 and 8) under both roll resamplers:
     on identical bits at a small size, against its plain version at
     T=K3_LARGE_T within 4 SE, times over SPY; the svol_leverage_lw_q
     instance against its plain version on identical bits (phase 14's
@@ -1891,7 +1919,8 @@ def phase_k3_large(dev, ys_all, ident):
             require(bool(torch.isfinite(full).all()), f"K3 {r} N={n}: NaN")
             out[f"{r}/N{n}"] = {
                 "ms": ms, "plain_ms": plain_ms, "plain_T": K3_LARGE_T,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "kper": n // 1024,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "kper": K3_ROLL_KPER[n],
                 "short_diff": d, "short_limit": lim,
                 "mean": float(full.mean()), "sd": float(full.std())}
             print(f"  K3 {r} N={n}: at T={K3_LARGE_T} kernel minus plain "
@@ -2092,6 +2121,47 @@ def _k2_roll_twins(dev, ys, zs):
     return layout, counted
 
 
+def _k1_roll_twins(dev, ys):
+    """The SVOL kernel's roll twins at every layout under both resamplers,
+    both schedules: 2 barriers a check besides the selections' votes and
+    tail barriers (sfk.ROLL_BARRIERS_PER_STEP), the layout of
+    K1_ROLL_KPER, the outputs the plain instances' bits.  Returns (layout,
+    barriers, votes and sweeps per selection by run)."""
+    rows = _svol_rows(ROLL_POINT, 64).to(dev)
+    layout, counted = {}, {}
+    for n in K2_ROLL_RECORD_N:
+        for r in ROLLS:
+            for tag, ess, g in (("parity", 1.0, 1), ("adaptive", 0.5, 8)):
+                kw = dict(resampler=r, metropolis_iters=ROLL_ITERS)
+                rec = sfk.step_spans(13, rows, ys, n, ess, g, **kw)
+                plain = sfk.svol_filter(13, rows, ys, n, ess, g, **kw)
+                key = f"N{n}/{r}/{tag}"
+                require(all(torch.equal(a, b)
+                            for a, b in zip(plain, rec["outputs"])),
+                        f"K1 roll {key}: the twin's outputs are not the "
+                        "plain instance's bits")
+                for kind, want in sfk.ROLL_BARRIERS_PER_STEP.items():
+                    got = rec["barriers_per_step"][kind]
+                    require(got is None or got == want, f"K1 roll {key}: "
+                            f"{got} barriers a {kind} step besides the "
+                            f"votes, the source note states {want}")
+                sel = rec["resamples"] * rows.shape[0]
+                require(sel > 0 and (r == "rejection") == (rec["votes"] > 0),
+                        f"K1 roll {key}: {sel} selections, {rec['votes']} "
+                        "votes")
+                counted[key] = dict(
+                    rec["barriers_per_step"], votes_per_selection=rec[
+                        "votes"] / sel, sweeps_per_selection=rec[
+                        "sweeps"] / sel)
+                require(rec["kper"] == K1_ROLL_KPER[n]
+                        and rec["threads"] == -(-n // rec["kper"] // 32) * 32
+                        and rec["threads"] <= 256,
+                        f"K1 roll {key}: {rec['threads']} threads at kPer "
+                        f"{rec['kper']}")
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    return {"layout": layout, "barriers_per_step": counted}
+
+
 def phase_k2_layout(dev, ys_all):
     """The systematic family's instrumented twins at every layout, the roll
     family's, and the svol instance against K1 on the same bits over
@@ -2123,6 +2193,7 @@ def phase_k2_layout(dev, ys_all):
         require(rec["threads"] == -(-n // rec["kper"] // 32) * 32,
                 f"K2 N={n}: {rec['threads']} threads at kPer {rec['kper']}")
     roll_layout, roll_counted = _k2_roll_twins(dev, ys, zs)
+    k1_roll = _k1_roll_twins(dev, ys)
     # the svol instance against K1: the same bits, CDF, walk and offsets,
     # but each kernel fuses its own multiply-adds, so a point within an ulp
     # of a CDF entry now and then picks the neighbour and the row parts
@@ -2158,12 +2229,19 @@ def phase_k2_layout(dev, ys_all):
               f"{k} {v}" for k, v in roll_counted.items())
           + "; layout " + ", ".join(f"N={n} ({v['kper']}, {v['threads']})"
                                     for n, v in roll_layout.items())
+          + " | SVOL kernel's roll twins' barriers a step besides the votes,"
+          " votes and sweeps a selection: " + "; ".join(
+              f"{k} {v}" for k, v in k1_roll["barriers_per_step"].items())
+          + "; layout " + ", ".join(
+              f"N={n} ({v['kper']}, {v['threads']})"
+              for n, v in k1_roll["layout"].items())
           + f" | svol instance vs K1 over SPY, B={LB}: " + ", ".join(
               f"{k} steps 0-1 max abs err {v['max_abs_err_steps_0_1']:.3e},"
               f" means {v['mean_diff']:.4f} apart (4 SE {v['four_se']:.4f})"
               for k, v in vs_k1.items()))
     return (layout, counted, vs_k1,
-            {"layout": roll_layout, "barriers_per_step": roll_counted})
+            {"layout": roll_layout, "barriers_per_step": roll_counted},
+            k1_roll)
 
 
 # the schedules phase 31 reads the Liu-West twins at, and the kinds of
@@ -2221,6 +2299,7 @@ def phase_k3_layout(dev, ys_all):
                 if n == 512:
                     spans[f"{name}/{run}"] = rec["cycles_per_step"]
         layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    roll = _k3_roll_twins(ys, functors, f)
     phase(31, "k3-layout", "twins' barriers a step (first_resample, "
           "first_other, resample, other) " + "; ".join(
               f"{k} {v}" for k, v in counted.items())
@@ -2229,14 +2308,74 @@ def phase_k3_layout(dev, ys_all):
               for n, v in layout.items())
           + " | clock64 cycles a step at N=512 F=16 T=512: " + "; ".join(
               f"{k} " + ", ".join(f"{p} {c:.0f}" for p, c in v.items())
-              for k, v in spans.items()))
-    return layout, counted, spans
+              for k, v in spans.items())
+          + " | roll twins' barriers a step besides the selections', votes "
+          "and sweeps a selection: " + "; ".join(
+              f"{k} {v}" for k, v in roll["barriers_per_step"].items())
+          + "; layout " + ", ".join(
+              f"N={n} ({v['kper']}, {v['threads']})"
+              for n, v in roll["layout"].items())
+          + " | roll clock64 cycles a step at F=16 T=512, N=512 and 4096: "
+          + "; ".join(f"{k} " + ", ".join(f"{p} {c:.0f}"
+                                          for p, c in v.items())
+                      for k, v in roll["spans"].items()))
+    return layout, counted, spans, roll
+
+
+def _k3_roll_twins(ys, functors, f):
+    """The Liu-West kernel's roll twins, every functor at every layout
+    under both resamplers: the barriers a step crosses besides the
+    selections' (lwm.BARRIERS_PER_STEP, as the systematic family), the
+    layout of K3_ROLL_KPER, the outputs the plain instances' bits; the
+    votes and sweeps a selection and, at N=512 and 4096, the clock64
+    spans."""
+    layout, counted, spans = {}, {}, {}
+    for n in K2_ROLL_RECORD_N:
+        for name, (km, zs_k) in functors.items():
+            for r in ROLLS:
+                for run in ("apf", "apf-ess", "sisr"):
+                    kw = dict(K3_RECORD_RUNS[run][0], resampler=r,
+                              metropolis_iters=ROLL_ITERS)
+                    tag = f"K3 roll {name} N={n} {r} {run}"
+                    rec = lwm.step_spans(13, ys, zs_k, f, n, kmodel=km, **kw)
+                    plain = lwm.lw_megakernel(km, 13, ys, zs_k, f, n, **kw)
+                    require(all(torch.equal(plain[k], rec["outputs"][k])
+                                for k in ("log_cond_likes", "cloud")),
+                            f"{tag}: the twin's outputs are not the plain "
+                            "instance's bits")
+                    want = lwm.BARRIERS_PER_STEP[kw["variant"]]
+                    got = rec["barriers_per_step"]
+                    for kind, v in got.items():
+                        require(v is None or v == want[kind],
+                                f"{tag}: {v} barriers a {kind} step besides "
+                                f"the selections', the source note states "
+                                f"{want[kind]}")
+                    sel = f * (rec["first_resamples"] + rec["resamples"]
+                               + (ys.shape[0] - 1
+                                  if kw["variant"] == "apf" else 0))
+                    require(sel > 0 and (r == "rejection") == (
+                        rec["votes"] > 0), f"{tag}: {sel} selections, "
+                        f"{rec['votes']} votes")
+                    require(rec["kper"] == K3_ROLL_KPER[n]
+                            and rec["threads"]
+                            == -(-n // rec["kper"] // 32) * 32,
+                            f"{tag}: ran kPer {rec['kper']} at "
+                            f"{rec['threads']} threads")
+                    counted[f"{name}/N{n}/{r}/{run}"] = dict(
+                        {k: v for k, v in got.items() if v is not None},
+                        votes_per_selection=rec["votes"] / sel,
+                        sweeps_per_selection=rec["sweeps"] / sel)
+                    if n in (512, 4096) and name == "svol_leverage_lw":
+                        spans[f"N{n}/{r}/{run}"] = rec["cycles_per_step"]
+        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    return {"layout": layout, "barriers_per_step": counted, "spans": spans}
 
 
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
-    k1_ptxas, k2_ptxas, k2_roll_ptxas, k3_ptxas = phase_build()
+    (k1_ptxas, k1_roll_ptxas, k2_ptxas, k2_roll_ptxas, k3_ptxas,
+     k3_roll_ptxas) = phase_build()
     phase_philox(dev)
     phase_select(dev)
     ys = torch.as_tensor(read_data(os.path.join(ROOT, "data",
@@ -2269,8 +2408,9 @@ def main():
     k3_large_err, k3_large, lw_q = phase_k3_large(dev, ys, ident)
     k1_pmmh_launches, k1_pmmh = phase_pmmh_large_n_k1(dev, ys, ident)
     flagship_launches = phase_flagship_cli(dev, ident)
-    k2_layout, k2_barriers, k2_vs_k1, k2_roll = phase_k2_layout(dev, ys)
-    k3_layout, k3_barriers, k3_spans = phase_k3_layout(dev, ys)
+    k2_layout, k2_barriers, k2_vs_k1, k2_roll, k1_roll = phase_k2_layout(
+        dev, ys)
+    k3_layout, k3_barriers, k3_spans, k3_roll = phase_k3_layout(dev, ys)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -2288,7 +2428,8 @@ def main():
         "name": "svol_filter",
         "route": "cuda",
         "source": "ssme_tpu_torch/csrc/svol_filter_sys.cu",
-        "roll_source": "ssme_tpu_torch/csrc/svol_filter.cu",
+        "roll_source": "ssme_tpu_torch/csrc/svol_filter_sys.cu",
+        "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/svol_filter_kernel.py:317",
         "launches": launches + k1_pmmh_launches + flagship_launches,
         "main_path_launches": {"pmmh": launches,
@@ -2309,6 +2450,11 @@ def main():
         "clock64_spans": k1_spans,
         "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
                               v)) for k, v in k1_ptxas.items()},
+        "roll_layout": k1_roll["layout"],
+        "roll_barriers_per_step": k1_roll["barriers_per_step"],
+        "roll_ptxas": {k: dict(zip(("registers", "spill_stores",
+                                    "spill_loads"), v))
+                       for k, v in k1_roll_ptxas.items()},
         "per_resampler": roll["K1"],
         "per_kper": k1_large,
         "pmmh_large_n": k1_pmmh,
@@ -2354,7 +2500,8 @@ def main():
         "name": "lw_megakernel",
         "route": "cuda",
         "source": "ssme_tpu_torch/csrc/lw_megakernel_sys.cuh",
-        "roll_source": "ssme_tpu_torch/csrc/lw_megakernel.cu",
+        "roll_source": "ssme_tpu_torch/csrc/lw_megakernel_sys.cuh",
+        "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/liu_west_megakernel.py:500",
         "launches": lw_launches,
         "max_abs_err": max(max(lw_errs.values()), k3_large_err),
@@ -2373,6 +2520,12 @@ def main():
         "clock64_spans": k3_spans,
         "ptxas": {k: dict(zip(("registers", "spill_stores", "spill_loads"),
                               v)) for k, v in k3_ptxas.items()},
+        "roll_layout": k3_roll["layout"],
+        "roll_barriers_per_step": k3_roll["barriers_per_step"],
+        "roll_clock64_spans": k3_roll["spans"],
+        "roll_ptxas": {k: dict(zip(("registers", "spill_stores",
+                                    "spill_loads"), v))
+                       for k, v in k3_roll_ptxas.items()},
     }, {
         "name": "svol_leverage_lw",
         "route": "cuda",

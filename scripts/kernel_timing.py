@@ -44,17 +44,20 @@ events, over all of ``data/spy_returns.csv``.
   3 above 512), ms per launch (``roll_ms``); where the tree has them, the
   generic kernel's roll twins' records at those K2 points
   (``roll_spans``: cycles a step by part, votes and tail slots a
-  selection, sweeps a selection: median, 99th percentile, maximum);
+  selection, sweeps a selection: median, 99th percentile, maximum) and
+  the SVOL and Liu-West kernels' roll twins' records at their points
+  (cycles a step by part, barriers, votes, sweeps and tail slots);
 - ``--paths``: adaptive PMMH at N=2048 (C=64 x R=4, 10 iterations, ms per
   iteration, phase 28) and the ``spy_flagship`` CLI for 500 iterations
   per schedule (wall seconds, phase 29);
-- ``--bits``: sha256 prefixes of the outputs of K1 (every resampler, N=512
-  and 2048) and of K3 under the roll resamplers (both, N=512 and 2048)
-  on fixed inputs, to show two trees compute the same bits there
-  (``bits``), and apart from them those of K2's and K3's systematic
-  families (``bits_k2_systematic``, ``bits_k3_systematic``) and K2's
-  roll family (``bits_k2_roll``), which a change of their arithmetic,
-  their CDF's rounding order or their layout changes.
+- ``--bits``: sha256 prefixes of the outputs of K1 (systematic, N=512
+  and 2048) on fixed inputs (``bits``), and apart from them those of K1
+  and K3 under the roll resamplers (both, N=512 and 2048:
+  ``bits_k1_roll``, ``bits_k3_roll``), of K2's and K3's systematic
+  families (``bits_k2_systematic``, ``bits_k3_systematic``) and of K2's
+  roll family (``bits_k2_roll``), to show which families two trees
+  compute the same bits in: a change of their arithmetic, their CDF's
+  rounding order or their layout changes them.
 
 Needs a CUDA card; imports no JAX.
 """
@@ -62,6 +65,7 @@ Needs a CUDA card; imports no JAX.
 import argparse
 import contextlib
 import hashlib
+import inspect
 import io
 import json
 import math
@@ -131,8 +135,7 @@ def main(argv=None):
     if args.paths:
         out.update(_paths(ys, dev))
     if args.bits:
-        (out["bits"], out["bits_k2_systematic"], out["bits_k3_systematic"],
-         out["bits_k2_roll"]) = _bits(torch, ys[:, 0].contiguous(), dev)
+        out.update(_bits(torch, ys[:, 0].contiguous(), dev))
     print(json.dumps(out), flush=True)
 
 
@@ -164,10 +167,14 @@ def _k1(torch, ys, dev, ms):
             11, params, ys, num_particles=n, ess_threshold=0.5))
     out = {"k1_ms": k1}
     if hasattr(sfk, "step_spans"):
-        out["spans"] = {f"N512/{sched}": sfk.step_spans(
+        def record(*a):
+            rec = sfk.step_spans(*a)
+            rec.pop("outputs", None)  # a tree's twin may return its bits
+            return rec
+        out["spans"] = {f"N512/{sched}": record(
             11, rows(start, 256), ys, 512, ess, g)
             for sched, (ess, g) in schedules.items()}
-        out["spans"]["N2048/ess0.5"] = sfk.step_spans(
+        out["spans"]["N2048/ess0.5"] = record(
             11, rows((0.9, 0.98, 0.02), 256), ys, 2048, 0.5)
     return out
 
@@ -282,6 +289,8 @@ def _roll(torch, ys, dev, ms, few):
     km = fmk.svol_kernel_model()
     lw_km = lwm.svol_leverage_lw_kernel_model()
     lw_zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
+    # the SVOL and Liu-West kernels' roll twins, in a tree that has them
+    twins = "resampler" in inspect.signature(sfk.step_spans).parameters
     out, spans = {}, {}
     for r in ("metropolis", "rejection"):
         roll = dict(ess_threshold=0.5, resampler=r, metropolis_iters=sweeps)
@@ -304,10 +313,20 @@ def _roll(torch, ys, dev, ms, few):
         for n in (512, 2048, 4096):
             out[f"K1/{r}/N{n}"] = ms_few(lambda: sfk.svol_filter(
                 11, point.to(dev).contiguous(), ys, num_particles=n, **roll))
+            if twins:
+                rec = sfk.step_spans(11, point.to(dev).contiguous(), ys, n,
+                                     **roll)
+                rec.pop("outputs")
+                spans[f"K1/{r}/N{n}"] = rec
         for n in (512, 2048, 4096):
+            kw = dict(num_filters=64, num_particles=n, resampler=r,
+                      metropolis_iters=sweeps)
             out[f"K3/{r}/N{n}"] = ms_few(lambda: lwm.lw_megakernel(
-                lw_km, 11, ys, lw_zs, num_filters=64, num_particles=n,
-                resampler=r, metropolis_iters=sweeps))
+                lw_km, 11, ys, lw_zs, **kw))
+            if twins:
+                rec = lwm.step_spans(11, ys, lw_zs, kmodel=lw_km, **kw)
+                rec.pop("outputs")
+                spans[f"K3/{r}/N{n}"] = rec
     return {"roll_ms": out, "roll_spans": spans, "roll_sweeps": sweeps}
 
 
@@ -346,9 +365,9 @@ def _paths(ys, dev):
 
 
 def _bits(torch, ys, dev):
-    """sha256 prefixes of K1 and K3 roll outputs on fixed inputs, and apart
-    from them those of K2's and K3's systematic families and of K2's roll
-    family."""
+    """sha256 prefixes of K1's systematic outputs on fixed inputs, and
+    apart from them those of K1's and K3's roll families, of K2's and K3's
+    systematic families and of K2's roll family."""
     from ssme_tpu_torch.models.svol_leverage import lagged_covariates
     from ssme_tpu_torch.ops import filter_megakernel as fmk
     from ssme_tpu_torch.ops import liu_west_megakernel as lwm
@@ -364,13 +383,14 @@ def _bits(torch, ys, dev):
     zs = lagged_covariates(ys)
     rows = torch.tensor([[0.9, 0.98, math.sqrt(0.02)]] * 64, device=dev)
     lev = torch.tensor([[0.958, -0.080, 0.311, -0.751]] * 64, device=dev)
-    out, k2_sys, k3_sys, k2_roll = {}, {}, {}, {}
+    out, k1_roll, k3_roll = {}, {}, {}
+    k2_sys, k3_sys, k2_roll = {}, {}, {}
     for n in (512, 2048):
         out[f"K1/systematic/N{n}"] = digest(*sfk.svol_filter(
             3, rows, ys, num_particles=n, ess_threshold=0.5))
     for r in ("metropolis", "rejection"):
         for n in (512, 2048):
-            out[f"K1/{r}/N{n}"] = digest(*sfk.svol_filter(
+            k1_roll[f"K1/{r}/N{n}"] = digest(*sfk.svol_filter(
                 3, rows, ys, num_particles=n, ess_threshold=0.5,
                 resampler=r, metropolis_iters=16))
     for r in ("systematic", "rejection"):
@@ -398,8 +418,10 @@ def _bits(torch, ys, dev):
                                       variant=variant, resampler=r,
                                       metropolis_iters=16)
                 key = f"K3/{variant}/{r}" + ("" if n == 512 else f"/N{n}")
-                out[key] = digest(o["log_cond_likes"], o["cloud"])
-    return out, k2_sys, k3_sys, k2_roll
+                k3_roll[key] = digest(o["log_cond_likes"], o["cloud"])
+    return {"bits": out, "bits_k1_roll": k1_roll, "bits_k3_roll": k3_roll,
+            "bits_k2_systematic": k2_sys, "bits_k3_systematic": k3_sys,
+            "bits_k2_roll": k2_roll}
 
 
 if __name__ == "__main__":

@@ -58,7 +58,7 @@ __device__ __forceinline__ float clamp_state(float v) {
 }
 
 // Univariate SVOL; row (beta, phi, sigma).  The same float operations as
-// svol_filter.cu, so with the same seed the two kernels agree.
+// svol_filter_sys.cu, so with the same seed the two kernels agree.
 struct SvolModel {
   static constexpr int kNumParams = 3;
   static constexpr int kNumState = 1;

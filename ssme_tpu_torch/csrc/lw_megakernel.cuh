@@ -6,37 +6,23 @@
 // ssme_tpu/ops/svol_leverage_lw_kernel.py::svol_leverage_lw_pallas, to
 // which that instance is bit-compatible in JAX.  F filters, each on a
 // joint (state, theta) cloud of N particles, over T observations in ONE
-// launch; the cloud never leaves the chip.  Two families, one nvcc per
-// file so that they build in parallel:
-//  - systematic selection (N a multiple of 32 up to 1024):
-//    lw_megakernel_sys.cuh, laid out for Hopper on row_select.cuh, 2
-//    NEIGHBOURING particles per thread (j = 2 * threadIdx.x + p), paired
-//    Philox draws, the Cholesky on every thread, 8 barriers in an
-//    APF step that resamples; its note gives the design;
+// launch; the cloud never leaves the chip.  One template,
+// lw_megakernel_sys.cuh, laid out for Hopper on row_select.cuh (kPer
+// NEIGHBOURING particles per thread, j = kPer * threadIdx.x + p, paired
+// Philox draws, the Cholesky on every thread, 8 barriers in an APF step
+// that resamples; its note gives the design), in two families, one nvcc
+// per file so that they build in parallel:
+//  - systematic selection (N a multiple of 32 up to 1024), kPer 2, the
+//    values in registers: lw_megakernel_sys.cu;
 //  - the roll resamplers (roll_select.cuh: Metropolis or rejection, chosen
-//    at run time): lw_megakernel.cu at one particle per thread (blockDim =
-//    N, a power of two up to 1024) and lw_megakernel_roll.cu above, a
-//    power of two up to 4096 (JAX's MAX_LW_METROPOLIS_PARTICLES), with
-//    blockDim = 1024 and kPer = N / 1024 STRIDED particles per thread
-//    (particle j = p * blockDim + threadIdx.x), as in the generic kernel.
+//    at run time; N a power of two up to 4096, JAX's
+//    MAX_LW_METROPOLIS_PARTICLES), kPer 2, 4 and 8, the values in shared
+//    memory: lw_megakernel_sys_roll{2,4,8}.cu.
 // The Philox counters are keyed by the particle index, so the plain
-// version's bits hold in every layout.  lw_megakernel.cu also holds the C
-// entry points.
-//
-// The roll family: each particle keeps its state, theta[P] and its
-// log-weight in registers for all T steps, and at the 64 registers of
-// __launch_bounds__(1024, 1) ptxas spills: some 200 bytes a thread at
-// kPer = 2 and 500-1000 at kPer = 4 (PERF.md; chip_smoke.py phase 2
-// prints them).  Shared memory holds the roll resamplers' weights and one
-// gather buffer of N floats each (32 KB at 4096), the reduction scratch
-// (32 floats per simultaneous sum), theta_bar and the P x P Cholesky
-// factor, which thread 0 computes once per step from the block sums.  What
-// bounds it: per-step latency of block barriers, not bytes: the
-// systematic_select.cuh reductions cross two barriers each and a gather
-// two per leaf, and each selection is a sweep loop of Philox draws; the
-// APF first stage takes its LSE from a block sum.  ys (T, dim_obs) and zs
-// (T, dim_cov) are read row-major from global memory.  The inputs are T
-// floats, the outputs (F, T) and the final cloud.
+// version's bits hold in every layout.  lw_megakernel.cu holds the C
+// entry points.  ys (T, dim_obs) and zs (T, dim_cov) are read row-major
+// from global memory.  The inputs are T floats, the outputs (F, T) and
+// the final cloud.
 //
 // Per step it computes what _build_kernel computes:
 //   t = 0   prior draw (uniform box, lo + (hi - lo) u), transform, init,
@@ -50,10 +36,9 @@
 //           lw + log g(y, lookahead; shrunk), a selection on them
 //           (systematic with offset tag 2^31 + 1, or a roll resampler on
 //           the first-stage sweep tags) and a joint gather of (state,
-//           lookahead, shrunk) (above 1024 particles: of state and theta,
-//           the ancestor's lookahead and shrunk theta recomputed from
-//           them, which holds fewer values per particle across the
-//           selection);
+//           lookahead density, shrunk) (roll: of state and theta, the
+//           ancestor's density read where it was written and its shrunk
+//           theta recomputed from its theta, the same bits);
 //     both: theta' = shrunk_anc + L e (draws 0 .. P-1), the transition
 //           (its normals from draw P on) or, under sisr with a functor
 //           that has a proposal (kHasProposal), sample_q;
@@ -91,8 +76,6 @@
 
 #include "lw_models.cuh"
 #include "philox.cuh"
-#include "roll_select.cuh"
-#include "systematic_select.cuh"
 
 namespace ssme_lw {
 
@@ -137,7 +120,7 @@ struct LWLaunch {
   int resampler, metropolis_iters;
   float *lcl, *fpaths, *cloud;
   cudaStream_t stream;
-  long long* spans = nullptr;  // the systematic twin's record, or null
+  long long* spans = nullptr;  // a twin's record, or null
 };
 
 // Run<Model>::go for every model id; -1 for an unknown one
@@ -154,9 +137,5 @@ int dispatch_model(int model_id, const LWLaunch& a, const LWArgs& args) {
       return -1;
   }
 }
-
-// the roll instances above 1024 particles (lw_megakernel_roll.cu): -3 for
-// a particle count they do not take
-int dispatch_roll_large(int model_id, const LWLaunch& a, const LWArgs& args);
 
 }  // namespace ssme_lw

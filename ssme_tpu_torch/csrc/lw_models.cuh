@@ -1,5 +1,5 @@
-// Model functors of the Liu-West filter kernel (lw_megakernel_sys.cuh and
-// lw_megakernel.cu): the CUDA counterparts of the LWKernelModel hooks of
+// Model functors of the Liu-West filter kernel (lw_megakernel_sys.cuh):
+// the CUDA counterparts of the LWKernelModel hooks of
 // ssme_tpu/ops/liu_west_megakernel.py (svol_leverage_lw_kernel_model :739,
 // svol_t_lw_kernel_model :792), with the same float operations in the
 // same order as the plain hooks of
@@ -21,9 +21,9 @@
 // and the trait kDraws, the normals one init, propagate or sample_q call
 // takes.  Unlike the bootstrap kernel's functors the parameters are per
 // particle: each hook takes that particle's constrained cp[kNumParams].
-// The hooks that draw are templates over the rng (step_rng.cuh: StepRng in
-// the roll family, PairRng / PairSines through for_pair in the systematic
-// family), which hands out the step's normals from draw kNumParams on
+// The hooks that draw are templates over the rng (step_rng.cuh: PairRng /
+// PairSines through for_pair), which hands out the step's normals from
+// draw kNumParams on
 // (draws 0 .. P-1 are the kernel draws of theta;
 // ssme_tpu_torch/ops/_prng.py).
 #pragma once

@@ -80,20 +80,10 @@ __device__ __forceinline__ uint32_t normal_tag(uint32_t draw) {
   return draw == 0u ? kTagNormal : kTagChain + draw;
 }
 
-// normal number i of row b at step t, draw `draw` of the step: the pair
-// i >> 1 shares one Philox call; even i takes the cosine, odd i the sine
-__device__ __forceinline__ float normal_at(uint32_t k0, uint32_t k1,
-                                           uint32_t i, uint32_t t,
-                                           uint32_t b, uint32_t draw = 0u) {
-  const uint4 w = philox4x32_10(make_uint4(i >> 1, t, b, normal_tag(draw)),
-                                k0, k1);
-  const float2 z = box_muller(w.x, w.y);
-  return (i & 1u) ? z.y : z.x;
-}
-
 // both normals of pair k of row b at step t, draw `draw`: (particle 2k,
-// particle 2k+1) = (r cos a, r sin a), the bits normal_at gives each of
-// them, from one Philox call and one Box-Muller
+// particle 2k+1) = (r cos a, r sin a), the bits ops/_prng.py
+// normals_steps gives each of them, from one Philox call and one
+// Box-Muller
 __device__ __forceinline__ float2 normal_pair_at(uint32_t k0, uint32_t k1,
                                                  uint32_t k, uint32_t t,
                                                  uint32_t b,

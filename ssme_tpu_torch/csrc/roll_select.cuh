@@ -1,11 +1,10 @@
 // Roll-based Metropolis and rejection ancestor selection for one CTA per
-// filter row, keyed by slot index so that any layout can call it:
-// roll_select below takes the layout as a class (NeighbourSlots, the
-// layout of row_select.cuh that the generic filter kernel and the
-// standalone selection run; StridedSlots, that of the roll families of
-// the SVOL and Liu-West kernels, through roll_ancestors).  Replaces
-// metropolis_select_leaves and rejection_select_leaves of
-// ssme_tpu/ops/_select.py (Murray, Lee & Jacob's GPU resamplers).
+// filter row, keyed by slot index: roll_select below takes the layout as
+// a class (NeighbourSlots, the layout of row_select.cuh that the roll
+// families of the SVOL, generic and Liu-West filter kernels and the
+// standalone selection run).  Replaces metropolis_select_leaves and
+// rejection_select_leaves of ssme_tpu/ops/_select.py (Murray, Lee &
+// Jacob's GPU resamplers).
 //
 // The TPU moves values: each sweep rolls every leaf by the cumulative
 // shift c and selects elementwise, because its lanes cannot gather.  Here
@@ -113,15 +112,6 @@ template <int kPer>
 struct NeighbourSlots {
   __device__ static uint32_t slot(int p) { return kPer * threadIdx.x + p; }
   __device__ static int at(uint32_t j) { return padded(static_cast<int>(j)); }
-};
-// kPer strided slots a thread (slot p * blockDim.x + threadIdx.x), weights
-// unpadded
-template <int kPer>
-struct StridedSlots {
-  __device__ static uint32_t slot(int p) {
-    return p * blockDim.x + threadIdx.x;
-  }
-  __device__ static int at(uint32_t j) { return static_cast<int>(j); }
 };
 
 // the tail's shared list: its length, then one entry per pending slot
@@ -310,59 +300,6 @@ __device__ __forceinline__ void roll_select(
 #pragma unroll
   for (int p = 0; p < kPer; ++p)
     if (pend >> p & 1u) take(p, list[at++]);
-}
-
-// The roll families of the SVOL and Liu-West kernels (kPer strided slots a
-// thread, n = kPer * blockDim.x a power of two): this thread's weights w
-// to wsh (shared float[n]), published by a barrier (rejection: those of
-// block_max, which takes the row's largest weight in red, shared
-// float[32]), then roll_select; anc[p]: slot p's ancestor.  The caller's
-// next barrier must come before wsh is written again.
-template <int kPer>
-__device__ __forceinline__ void roll_ancestors(
-    int resampler, int metropolis_iters, const float (&w)[kPer], float* wsh,
-    float* red, uint32_t k0, uint32_t k1, uint32_t t, uint32_t b,
-    uint32_t tag_base, int (&anc)[kPer]) {
-  const int bd = blockDim.x;
-  float m = w[0];
-#pragma unroll
-  for (int p = 0; p < kPer; ++p) {
-    wsh[p * bd + threadIdx.x] = w[p];
-    anc[p] = p * bd + threadIdx.x;
-    m = fmaxf(m, w[p]);
-  }
-  float w_max = 0.0f;
-  if (resampler == kResampleMetropolis)
-    __syncthreads();
-  else
-    w_max = block_max(m, red);  // its barriers publish wsh
-  roll_select<kPer, StridedSlots<kPer>>(
-      resampler, metropolis_iters, true, wsh, w_max, kPer * bd, k0, k1, t, b,
-      tag_base, [&](int p, int a) {
-#pragma unroll
-        for (int q = 0; q < kPer; ++q)  // p may be a run-time index
-          if (q == p) anc[q] = a;
-      });
-}
-
-// every leaf of the kPer strided particles of this thread moved by their
-// ancestors, through one shared buffer of n floats reused leaf by leaf
-// (the roll families of the SVOL kernel and, above 1024 particles, of
-// the Liu-West kernel; at kPer = 1 this is gather_leaves)
-template <int kLeaves, int kPer>
-__device__ __forceinline__ void gather_leaves_per(float (&v)[kPer][kLeaves],
-                                                  const int (&anc)[kPer],
-                                                  float* buf) {
-  const int bd = blockDim.x;
-#pragma unroll
-  for (int l = 0; l < kLeaves; ++l) {
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) buf[p * bd + threadIdx.x] = v[p][l];
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kPer; ++p) v[p][l] = buf[anc[p]];
-    __syncthreads();
-  }
 }
 
 }  // namespace ssme

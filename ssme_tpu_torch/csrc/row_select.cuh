@@ -2,14 +2,12 @@
 // particles per thread: particle j = kPer * threadIdx.x + p, p < kPer.
 // blockDim.x is a multiple of 32; the first `active` threads hold the n
 // particles, and the lanes after them (a partial last warp) hold none and
-// are masked out of every reduction.  Replaces, for the systematic
-// families of the SVOL filter kernel (svol_filter_sys.cu), the generic
-// filter kernel (filter_megakernel_sys.cuh, whose roll family runs the
-// same exchanges, stage and gather around roll_select.cuh) and the
-// Liu-West kernel (lw_megakernel_sys.cuh), the one-particle-per-thread
-// block reductions of systematic_select.cuh (which the roll families of
-// the SVOL and Liu-West kernels keep) and select_leaves_dense of
-// ssme_tpu/ops/_select.py.
+// are masked out of every reduction.  Every family of the SVOL filter
+// kernel (svol_filter_sys.cu), the generic filter kernel
+// (filter_megakernel_sys.cuh) and the Liu-West kernel
+// (lw_megakernel_sys.cuh) runs these exchanges; the systematic ones stage,
+// walk and gather here (replacing select_leaves_dense of
+// ssme_tpu/ops/_select.py), the roll ones select in roll_select.cuh.
 //
 // Exchanges.  A thread first folds its kPer values in registers, a warp
 // reduces with shuffles, and the warps meet at ONE barrier: lane 0 writes
@@ -23,8 +21,7 @@
 // barrier and the walk's.
 // Every barrier here is row_sync, which the instrumented kernels count.
 //
-// Systematic selection (the rules of systematic_select.cuh and of the
-// plain law in ops/_select.py):
+// Systematic selection (the rules of the plain law in ops/_select.py):
 //  - the inclusive CDF is written to shared memory and never falls: each
 //    lane's entries are raised to the last entry of the lanes before it
 //    (the lane scan rounds otherwise than a serial sum, which could put a
@@ -41,9 +38,22 @@
 //    systematic_ancestors_walk is its plain model).
 #pragma once
 
-#include "systematic_select.cuh"
-
 namespace ssme {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);

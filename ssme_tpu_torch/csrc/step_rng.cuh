@@ -5,14 +5,11 @@
 // ... of (particle, step, row), whose counters and tags ops/_prng.py
 // writes down (the Liu-West kernel starts its hooks at draw P, after the P
 // kernel draws of theta).
-//  - StepRng: one particle, one Philox call and Box-Muller per draw (the
-//    Liu-West kernel's roll family, one particle per thread or kPer
-//    strided ones);
-//  - PairRng / PairSines through for_pair: the two particles 2q and
-//    2q + 1 of a Philox counter, held by one thread (the systematic
-//    families and the generic kernel's roll family, kPer neighbouring
-//    particles per thread): one call and one Box-Muller per draw serve
-//    both, the bits normal_at gives each.
+// PairRng / PairSines through for_pair: the two particles 2q and 2q + 1
+// of a Philox counter, held by one thread (every family of the generic
+// and Liu-West kernels, kPer neighbouring particles per thread): one call
+// and one Box-Muller per draw serve both, the bits ops/_prng.py
+// normals_steps gives each.
 #pragma once
 
 #include <cstdint>
@@ -21,18 +18,11 @@
 
 namespace ssme {
 
-// normal draws of one particle at one step, handed to one hook call
-struct StepRng {
-  uint32_t k0, k1, i, t, b;
-  uint32_t draw;
-  __device__ float normal() { return normal_at(k0, k1, i, t, b, draw++); }
-};
-
 // normal draws of the pair q = (particle 2q, particle 2q + 1) at one step,
 // handed to two hook calls in turn: the first particle's k-th normal()
 // makes one Philox call on counter (q, t, b, tag of draw base + k) and one
 // Box-Muller, returns the cosine and keeps the sine, which the second
-// particle's k-th normal() returns (PairSines) -- the bits normal_at gives
+// particle's k-th normal() returns (PairSines) -- the bits normals_steps gives
 // each of them.  kDraws: the hook's draws (Model::kDraws), so the sines
 // stay in registers.
 template <int kDraws>

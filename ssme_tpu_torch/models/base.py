@@ -68,6 +68,11 @@ class StateSpaceModel:
     def has_covariates(self) -> bool:
         return self.dim_cov > 0
 
+    def replace(self, **kw) -> "StateSpaceModel":
+        """A copy with the fields ``kw`` replaced
+        (``ssme_tpu/models/base.py::StateSpaceModel.replace``)."""
+        return dataclasses.replace(self, **kw)
+
     def require(self, *hooks: str) -> None:
         missing = [h for h in hooks if getattr(self, h) is None]
         if missing:

@@ -16,6 +16,8 @@ JAX module's ``*_batch`` fast-path samplers are the samplers below.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ssme_tpu_torch import rv
@@ -91,6 +93,34 @@ def log_prior(params):
             + rv.invgamma_logpdf(ss, 1e-3, 1e-3))
 
 
+# Gamma(1e-3)'s draws below the smallest normal float32 flush to 0 in
+# JAX's float32 sampler, so their ss = 1e-3 / 0 is +inf
+_LOG_FLOAT32_TINY = math.log(torch.finfo(torch.float32).tiny)
+
+
+def sample_prior(gen, shape=()):
+    """Draws from :func:`log_prior`'s distribution, (*shape, 3), as
+    ``ssme_tpu/models/svol.py::sample_prior`` makes them: beta = 1 + N(0,
+    1), phi ~ U(0, 1), ss = 1e-3 / G with G ~ Gamma(1e-3).  G is drawn in
+    log space (G = Gamma(1 + a) U^(1 / a)) and, as JAX's float32 draw,
+    flushed to 0 below the smallest normal float32, which gives ss = +inf
+    on about 92% of the draws (the reference never samples this prior)."""
+    shape = tuple(shape)
+    kw = dict(generator=gen, device=gen.device)
+    beta = 1.0 + torch.randn(shape, **kw)
+    phi = torch.rand(shape, **kw)
+    a = 1e-3
+    boost = torch._standard_gamma(torch.full(shape, 1.0 + a,
+                                             dtype=torch.float64,
+                                             device=gen.device),
+                                  generator=gen)
+    log_g = torch.log(boost) + torch.log(
+        torch.rand(shape, dtype=torch.float64, **kw)) / a
+    ss = torch.where(log_g < _LOG_FLOAT32_TINY, math.inf,
+                     torch.exp(math.log(1e-3) - log_g))
+    return torch.stack([beta, phi, ss.to(beta.dtype)], dim=-1)
+
+
 def make_model() -> StateSpaceModel:
     return StateSpaceModel(
         dim_state=1,
@@ -106,8 +136,10 @@ def make_model() -> StateSpaceModel:
         sample_g=sample_g,
         prop_mu=prop_mu,
         log_prior=log_prior,
+        sample_prior=sample_prior,
         name="univ_svol",
     )
 
 
-__all__ = ["make_model", "TRANSFORMS", "START_TRANS_THETA", "log_prior"]
+__all__ = ["make_model", "TRANSFORMS", "START_TRANS_THETA", "log_prior",
+           "sample_prior"]

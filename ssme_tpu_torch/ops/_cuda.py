@@ -48,18 +48,16 @@ _SIGNATURES = {
     "ssme_lw_megakernel": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
-    # coefs, prior_lo, prior_scale, model_args (host arrays), lcl, fpaths,
-    # cloud, spans, stream
+    # resampler, metropolis_iters, coefs, prior_lo, prior_scale,
+    # model_args (host arrays), lcl, fpaths, cloud, spans, stream
     "ssme_lw_megakernel_spans": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P],
     # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
-    # resampler, metropolis_iters, total, lcl, xmean, stream
+    # resampler, metropolis_iters, total, lcl, xmean, spans (or null),
+    # stream
     "ssme_svol_filter": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
-                         _P, _P],
-    # seed, params, ys, B, T, N, ess_limit, always, gate_stride, total,
-    # lcl, xmean, spans (or null), stream
-    "ssme_svol_filter_sys": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P,
-                             _P, _P],
+                         _P, _P, _P],
     # w, leaves, u0, L, B, N, kper, picked, ancestors, cdf (or null), stream
     "ssme_systematic_select": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # w, leaves, seed, step, tag, resampler, metropolis_iters, L, B, N,

@@ -371,8 +371,8 @@ ROLL_CHUNK = 32
 ROLL_TAIL_THREADS = 32
 
 
-def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=1,
-                  layout="neighbouring", tail_threads=ROLL_TAIL_THREADS,
+def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=2,
+                  tail_threads=ROLL_TAIL_THREADS,
                   max_iters=_prng.ROLL_MAX_ITERS):
     """The kernels' schedule of a roll selection (``csrc/roll_select.cuh``)
     on whole rows: (ancestors (B, N) int64, record), the ancestors those
@@ -383,8 +383,8 @@ def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=1,
     of the chunk's shift words, mod 2^32.  Metropolis runs each slot's
     chain over the chunks' sweeps in order.  Rejection takes sweep 0,
     then per chunk of a row still selecting: a vote, the threads holding
-    a pending slot (slot j's thread is j // kper in the neighbouring
-    layout, j mod N / kper in the strided one); none, or the cap: the row
+    a pending slot (slot j's thread is j // kper: kper neighbouring slots
+    a thread, the kernels' layout); none, or the cap: the row
     is done; at most ``tail_threads``: the row enters its tail, which
     tests each pending slot's sweeps a chunk at a time side by side, with
     no more votes, up to the cap; else the bulk tests the chunk's sweeps
@@ -395,8 +395,6 @@ def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=1,
     sweep, ``max_iters`` at the cap; Metropolis: its sweeps), "votes":
     (B,) the rejection votes, "tail_slots": (B,) the slots each row's
     tail took}."""
-    if layout not in ("neighbouring", "strided"):
-        raise ValueError(f"unknown layout {layout!r}")
     b, n = w.shape
     _check_pow2(n)
     if kper < 1 or n % kper:
@@ -434,7 +432,7 @@ def roll_schedule(resampler, w, draw, metropolis_iters=16, kper=1,
     w_max = torch.amax(w, dim=-1, keepdim=True)
     _, u = draw(0, 1, None)
     pend = ~(u[0] * w_max < w)
-    thread = j // kper if layout == "neighbouring" else j % (n // kper)
+    thread = j // kper
     last = zeros.clone()              # the last accept sweep
     votes, tail = zeros.clone(), zeros.clone()
     in_tail = torch.zeros(b, dtype=torch.bool, device=dev)

@@ -661,8 +661,7 @@ def megakernel_swarm_evidence(kmodel, seed, param_draws, ys, zs=None,
 def svol_kernel_model() -> KernelModel:
     """Univariate SVOL; rows (beta, phi, sigma) (see
     :func:`svol_kernel_rows`).  CUDA instance ``SvolModel``, which draws
-    exactly the bits of the SVOL kernel (``csrc/svol_filter_sys.cu``,
-    ``csrc/svol_filter.cu``)."""
+    exactly the bits of the SVOL kernel (``csrc/svol_filter_sys.cu``)."""
 
     def init(rng, p, y, z, shape):
         phi, sigma = p[:, 1:2], p[:, 2:3]

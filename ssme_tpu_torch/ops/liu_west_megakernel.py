@@ -32,11 +32,11 @@ and ``rng.normal(shape)`` the kernel's Philox normals of the step: a
 hook's draw j is normal draw P + j, since draws 0 .. P-1 are the kernel
 draws of theta (``ops/_prng.py``).
 
-The kernels are templates over the functors of ``csrc/lw_models.cuh``:
-the systematic family ``csrc/lw_megakernel_sys.cuh`` (2 neighbouring
-particles per thread, paired draws, 8 barriers in an APF step that
-resamples) and the roll family (``csrc/lw_megakernel.cu``,
-``lw_megakernel_roll.cu``);
+The kernel is one template over the functors of ``csrc/lw_models.cuh``,
+``csrc/lw_megakernel_sys.cuh`` (kPer neighbouring particles per thread,
+paired draws, 8 barriers in an APF step that resamples), in two families:
+systematic (2 particles a thread, the values in registers) and roll (2, 4
+or 8 a thread, the values in shared memory);
 ``csrc/lw_megakernel.cuh`` gives the step recursion and the intended
 divergences from the Pallas kernel.  On a CUDA tensor only a
 model whose ``cuda_instance`` names a functor there runs (a custom SISR
@@ -44,10 +44,9 @@ proposal too: the functor's, ``svol_leverage_lw_q_kernel_model``);
 anything else raises.  Selection (``resampler``): "systematic" at N up
 to 1024 (``MAX_LW_KERNEL_PARTICLES``), or the roll-based "metropolis" and
 "rejection" resamplers (``ops/_select.py``) at a power-of-two N up to
-4096 (``MAX_LW_METROPOLIS_PARTICLES``, several particles per thread
-above 1024), moving the joint (state, logw, theta) column by one
-ancestor index.  :func:`step_spans` reads the systematic family's
-instrumented twin.  On a CPU tensor every model
+4096 (``MAX_LW_METROPOLIS_PARTICLES``), moving the joint (state, logw,
+theta) column by one ancestor index.  :func:`step_spans` reads either
+family's instrumented twins.  On a CPU tensor every model
 runs through :func:`lw_megakernel_reference`, which calls the hooks step
 by step with the kernel's random bits.  The carried log-weights are
 renormalised by their maximum after every step (the conditional
@@ -539,7 +538,7 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
             metropolis_iters=16, spans=None):
     """One launch on the card of validated arguments: the instance
     ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
-    len(SPAN_RECORD))), its systematic instance's instrumented twin
+    len(SPAN_RECORD))), its instrumented twin
     (``ssme_lw_megakernel_spans``), which writes its record there."""
     model_id = _model_id(kmodel)
     bounds = kmodel.prior_bounds
@@ -563,29 +562,26 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
     outs = (lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
             cloud.data_ptr())
     zs_ptr = None if zs is None else zs.data_ptr()
+    args = (model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
+            *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
+            *outs)
     if spans is None:
         name = "ssme_lw_megakernel"
-        err = lib.ssme_lw_megakernel(
-            model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
-            *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
-            *outs, _cuda.stream_ptr(dev))
+        err = lib.ssme_lw_megakernel(*args, _cuda.stream_ptr(dev))
     else:
-        if resampler != "systematic":
-            raise ValueError("the twins are the systematic family's")
         name = "ssme_lw_megakernel_spans"
-        err = lib.ssme_lw_megakernel_spans(
-            model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
-            *run, *host, *outs, spans.data_ptr(), _cuda.stream_ptr(dev))
+        err = lib.ssme_lw_megakernel_spans(*args, spans.data_ptr(),
+                                           _cuda.stream_ptr(dev))
     _cuda.check(err, name)
     return _result(lcl, fpaths, cloud, n_fns)
 
 
 lw_megakernel.launches = 0
 
-# the barriers a step of the systematic family crosses, as its source note
-# states them (csrc/lw_megakernel_sys.cuh): at t = 0 and at t > 0, in a
-# step that resamples and in one that does not; step_spans counts them on
-# the card
+# the barriers a step crosses, as the source note states them
+# (csrc/lw_megakernel_sys.cuh), in both families (a roll selection's
+# votes and tail barriers apart): at t = 0 and at t > 0, in a step that
+# resamples and in one that does not; step_spans counts them on the card
 BARRIERS_PER_STEP = {
     "apf": {"first_resample": 3, "first_other": 2, "resample": 8,
             "other": 7},
@@ -598,35 +594,39 @@ SPAN_PARTS = ("moments", "cholesky", "first_stage", "draws", "weigh",
 SPAN_RECORD = SPAN_PARTS + ("first_resamples", "resamples",
                             "barriers_first_resample",
                             "barriers_first_other", "barriers_resample",
-                            "barriers_other", "kper", "threads")
+                            "barriers_other", "votes", "tail_barriers",
+                            "sweeps", "tail_slots", "kper", "threads")
 
 
 def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
                resample_every=1, variant="apf", ess_threshold=0.0,
-               kmodel=None):
-    """Where a step of the systematic family's time goes on the card, and
-    what it does: one launch of the instrumented twin of ``kmodel``'s
-    instance (default: svol_leverage_lw), recorded by thread 0 of each
-    filter.  Returns {"cycles_per_step": {part: mean clock64 cycles a
-    step} over SPAN_PARTS (the barriers' waits inside the part that ends
-    in them), "resamples": mean resamples a filter at t > 0,
-    "first_resamples": the share of filters that resampled at t = 0,
-    "barriers_per_step": {"first_resample", "first_other", "resample",
-    "other": barriers a step of that kind crossed, mean over the filters'
-    steps of that kind, or None where there was none}, "kper", "threads":
-    the layout the launch ran, "outputs": the result dict, the plain
-    instance's bits}."""
+               kmodel=None, resampler="systematic", metropolis_iters=16):
+    """Where a step's time goes on the card, and what it does: one launch
+    of the instrumented twin of ``kmodel``'s instance (default:
+    svol_leverage_lw) in the resampler's family, recorded by thread 0 of
+    each filter.  Returns {"cycles_per_step": {part: mean clock64 cycles
+    a step} over SPAN_PARTS (the barriers' waits inside the part that
+    ends in them; a roll selection counts in its part), "resamples": mean
+    resamples a filter at t > 0, "first_resamples": the share of filters
+    that resampled at t = 0, "barriers_per_step": {"first_resample",
+    "first_other", "resample", "other": barriers a step of that kind
+    crossed besides a roll selection's, mean over the filters' steps of
+    that kind, or None where there was none}, "votes", "tail_barriers",
+    "sweeps", "tail_slots": the roll selections' totals over the filters
+    (0 under systematic selection), "kper", "threads": the layout the
+    launch ran, "outputs": the result dict, the plain instance's bits}."""
     kmodel = svol_leverage_lw_kernel_model() if kmodel is None else kmodel
     seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
                              num_particles, resample_every, variant,
-                             ess_threshold, "systematic")
+                             ess_threshold, resampler, metropolis_iters)
     if ys.device.type != "cuda":
         raise ValueError("step_spans: the record is the card's")
     f, t_len = int(num_filters), ys.shape[0]
     spans = torch.zeros((f, len(SPAN_RECORD)), dtype=torch.int64,
                         device=ys.device)
     out = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
-                  resample_every, variant, ess_threshold, spans=spans)
+                  resample_every, variant, ess_threshold, resampler,
+                  metropolis_iters, spans=spans)
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     layout = spans[:, SPAN_RECORD.index("kper"):]
     if not bool((layout == layout[:1]).all()):
@@ -640,6 +640,8 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
             "first_resamples": rec["first_resamples"] / f,
             "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
                                   for k, v in steps.items()},
+            **{k: rec[k] for k in ("votes", "tail_barriers", "sweeps",
+                                   "tail_slots")},
             "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
             "outputs": out}
 

@@ -2,13 +2,13 @@
 its plain PyTorch version.
 
 Replaces ``ssme_tpu/ops/svol_filter_kernel.py::svol_filter_pallas``.  The
-kernels: under systematic selection ``csrc/svol_filter_sys.cu`` (kPer
-neighbouring particles per thread, paired Philox draws, three barriers in
-a step that resamples, a forward walk for the ancestors; its header note
-gives the layout), under the roll-based ``"metropolis"`` and
-``"rejection"`` resamplers ``csrc/svol_filter.cu`` (its header note gives
-the step recursion and the intended divergences from the Pallas kernel,
-which both follow).  :func:`svol_filter_reference` runs the same
+kernel, ``csrc/svol_filter_sys.cu``, has two families on one layout
+(kPer neighbouring particles per thread, paired Philox draws): systematic
+selection (three barriers in a step that resamples, a forward walk for
+the ancestors) and the roll-based ``"metropolis"`` and ``"rejection"``
+resamplers (``csrc/roll_select.cuh``, keyed by slot); its header note
+gives the step recursion, the layout and the intended divergences from
+the Pallas kernel.  :func:`svol_filter_reference` runs the same
 recursion step by step with plain tensor operations and the same Philox
 bits (``ops/_prng.py``), on either device.
 
@@ -33,7 +33,7 @@ from ssme_tpu_torch.utils import logmeanexp
 
 
 # above the cap the two buffers of N floats would pass the 48 KB of static
-# shared memory (csrc/svol_filter*.cu); JAX's kernel has no cap in code
+# shared memory (csrc/svol_filter_sys.cu); JAX's kernel has no cap in code
 _BEYOND = ("above 4096 particles run the generic bank, "
            "ssme_tpu_torch.filters.bootstrap.replicated_log_like_fn")
 
@@ -214,9 +214,9 @@ svol_filter.launches = 0
 
 def _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
             resampler, metropolis_iters, spans=None):
-    """One K1 launch on validated CUDA inputs: the systematic kernel (with
-    ``spans`` an int64 (B, len(SPAN_RECORD)) tensor, its instrumented
-    instance) or the roll one."""
+    """One K1 launch on validated CUDA inputs: the instance of the
+    resampler's family or, with ``spans`` an int64 (B, len(SPAN_RECORD))
+    tensor, its instrumented twin."""
     lib = _cuda.library()
     b, t_len = params.shape[0], ys.shape[0]
     dev = params.device
@@ -224,52 +224,53 @@ def _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
     lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
     xmean = torch.empty_like(lcl)
     n = int(num_particles)
-    common = (seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
-              float(ess_threshold) * n, int(ess_threshold >= 1.0),
-              int(gate_stride))
-    outs = (total.data_ptr(), lcl.data_ptr(), xmean.data_ptr(),
-            _cuda.stream_ptr(dev))
-    if resampler == "systematic":
-        err = lib.ssme_svol_filter_sys(
-            *common, *outs[:3], None if spans is None else spans.data_ptr(),
-            outs[3])
-        _cuda.check(err, "ssme_svol_filter_sys")
-    else:
-        err = lib.ssme_svol_filter(*common, RESAMPLER_CODES[resampler],
-                                   int(metropolis_iters), *outs)
-        _cuda.check(err, "ssme_svol_filter")
+    err = lib.ssme_svol_filter(
+        seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
+        float(ess_threshold) * n, int(ess_threshold >= 1.0), int(gate_stride),
+        RESAMPLER_CODES[resampler], int(metropolis_iters), total.data_ptr(),
+        lcl.data_ptr(), xmean.data_ptr(),
+        None if spans is None else spans.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, "ssme_svol_filter")
     svol_filter.launches += 1
     return total, lcl, xmean
 
 
-# the barriers a step of the systematic kernel crosses, as its source note
-# states them (csrc/svol_filter_sys.cu); step_spans counts them on the card
+# the barriers a step of the kernel crosses, as its source note states
+# them (csrc/svol_filter_sys.cu): systematic, and roll besides the
+# selections' votes and tail barriers; step_spans counts them on the card
 BARRIERS_PER_STEP = {"resample": 3, "check": 2, "other": 0}
+ROLL_BARRIERS_PER_STEP = {"resample": 2, "check": 2, "other": 0}
 # the parts of a step its clock64 spans time, then the rest of the
-# instrumented instance's record per row (csrc/svol_filter_sys.cu Span)
+# instrumented instances' record per row (csrc/svol_filter_sys.cu Span)
 SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
 SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "barriers_resample",
-                            "barriers_check", "barriers_other", "kper",
+                            "barriers_check", "barriers_other", "votes",
+                            "tail_barriers", "sweeps", "tail_slots", "kper",
                             "threads")
 
 
 def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
-               gate_stride=1):
+               gate_stride=1, resampler="systematic", metropolis_iters=16):
     """Where a step's time goes on the card, and what it does: one launch
-    of the systematic kernel's instrumented instance, recorded by thread
-    0 of each row.  Returns {"cycles_per_step": {part: mean clock64
+    of the instrumented twin of the resampler's instance, recorded by
+    thread 0 of each row.  Returns {"cycles_per_step": {part: mean clock64
     cycles a step} over SPAN_PARTS (the barriers' waits inside the part
-    that ends in them), "checks", "resamples": mean counts per row,
-    "barriers_per_step": {"resample", "check", "other": barriers a step
-    of that kind crossed, mean over the rows' steps of that kind, or None
-    where there was none}, "kper", "threads": the layout the launch
-    ran}."""
+    that ends in them; a roll selection counts as the walk), "checks",
+    "resamples": mean counts per row, "barriers_per_step": {"resample",
+    "check", "other": barriers a step of that kind crossed, besides a roll
+    selection's votes and tail barriers, mean over the rows' steps of that
+    kind, or None where there was none}, "votes", "tail_barriers",
+    "sweeps", "tail_slots": the roll selections' totals over the rows (0
+    under systematic selection), "kper", "threads": the layout the launch
+    ran, "outputs": (total, lcl, xmean), the plain instance's bits}."""
     seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
-                         gate_stride)
+                         gate_stride, resampler, metropolis_iters)
+    if params.device.type != "cuda":
+        raise ValueError("step_spans: the record is the card's")
     spans = torch.zeros((params.shape[0], len(SPAN_RECORD)),
                         dtype=torch.int64, device=params.device)
-    _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
-            "systematic", 16, spans=spans)
+    out = _launch(seed, params, ys, num_particles, ess_threshold,
+                  gate_stride, resampler, metropolis_iters, spans=spans)
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     b, t_len = params.shape[0], ys.shape[0]
     layout = spans[:, SPAN_RECORD.index("kper"):]
@@ -282,7 +283,10 @@ def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
             "checks": rec["checks"] / b, "resamples": rec["resamples"] / b,
             "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
                                   for k, v in steps.items()},
-            "kper": int(layout[0, 0]), "threads": int(layout[0, 1])}
+            **{k: rec[k] for k in ("votes", "tail_barriers", "sweeps",
+                                   "tail_slots")},
+            "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
+            "outputs": out}
 
 
 def _kernel_rows(params):
@@ -368,4 +372,5 @@ def svol_swarm_evidence(seed, param_draws, ys, num_particles=512,
 
 __all__ = ["svol_filter", "svol_filter_reference", "svol_batched_log_like",
            "svol_replicated_log_like", "svol_swarm_evidence", "step_spans",
-           "BARRIERS_PER_STEP", "SPAN_PARTS", "SPAN_RECORD"]
+           "BARRIERS_PER_STEP", "ROLL_BARRIERS_PER_STEP", "SPAN_PARTS",
+           "SPAN_RECORD"]

@@ -122,7 +122,7 @@ def test_pair_rng_gives_the_bits_of_normal_at(name, kper):
 
 
 def _warp_sum(v):
-    """systematic_select.cuh warp_sum on (..., 32) lanes: the xor
+    """row_select.cuh warp_sum on (..., 32) lanes: the xor
     butterfly, every lane's result."""
     lanes = torch.arange(32)
     for o in (16, 8, 4, 2, 1):

@@ -651,7 +651,8 @@ def test_svol_step_equals_plain(dev):
 @pytest.mark.parametrize("resampler", ["systematic", "metropolis",
                                        "rejection"])
 def test_svol_filter_kper_matches_plain(dev, resampler, n):
-    """K1 at kPer 2 and 4 on identical bits: with a gate that never fires
+    """K1 at kPer 8 (systematic) and 8 / 16 (roll) on identical bits: with
+    a gate that never fires
     the totals to float tolerance; every step, step 0 equal and most rows
     within 2e-3 (the systematic rows part at a boundary flip, so only
     their first selection's step is held)."""
@@ -674,9 +675,9 @@ def test_svol_filter_kper_matches_plain(dev, resampler, n):
 @pytest.mark.parametrize("n", [2048, 4096])
 @pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
 def test_lw_megakernel_kper_matches_plain(dev, resampler, n):
-    """K3 at kPer 2 and 4: SISR with a gate that never fires equal to float
-    tolerance; APF every step, step 0 equal and most filters' totals within
-    2e-3."""
+    """K3's roll family at kPer 4 and 8: SISR with a gate that never fires
+    equal to float tolerance; APF every step, step 0 equal and most
+    filters' totals within 2e-3."""
     ys = _ys(40, 7).to(dev)
     km, zs = _lw_instance("svol_leverage_lw", ys)
     kw = dict(num_filters=8, num_particles=n, resampler=resampler,
@@ -726,14 +727,18 @@ def test_svol_leverage_lw_q_matches_plain(dev, n):
 def test_ragged_tail_at_t131_on_the_card(dev):
     """H2: the SVOL and generic kernels at T=131 (131 mod 128 = 3 < 8) and
     gate_stride 8 against their own stride-1 runs, with a gate that never
-    fires: equal totals, and the last check column is 130."""
+    fires: equal totals, and the last check column is 130; the SVOL
+    kernel's roll instances too."""
     ys = _ys(131, 4).to(dev)
     params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 8, device=dev)
     kw = dict(num_particles=64, ess_threshold=1e-6)
     km = fm.svol_kernel_model()
-    for run in (lambda g: svol_filter(5, params, ys, gate_stride=g, **kw),
+    roll = [lambda g, r=r: svol_filter(5, params, ys, gate_stride=g,
+                                       resampler=r, **kw)
+            for r in ("metropolis", "rejection")]
+    for run in [lambda g: svol_filter(5, params, ys, gate_stride=g, **kw),
                 lambda g: fm.filter_megakernel(km, 5, params, ys,
-                                               gate_stride=g, **kw)):
+                                               gate_stride=g, **kw)] + roll:
         tot1 = run(1)[0]
         tot8, lcl8, _ = run(8)
         torch.testing.assert_close(tot8, tot1, rtol=2e-4, atol=2e-4)
@@ -818,3 +823,107 @@ def test_k3_systematic_twins_record_layout_and_barriers(dev, name, n):
         plain = lwm.lw_megakernel(km, 6, ys, zs, 8, n, **kw)
         for key in ("log_cond_likes", "cloud"):
             assert torch.equal(plain[key], rec["outputs"][key]), key
+
+
+# the roll families' kPer at each N (svol_filter_sys.cu kper_for,
+# lw_megakernel_sys.cuh roll_kper_for)
+K1_ROLL_KPER = {32: 2, 512: 2, 1024: 4, 2048: 8, 4096: 16}
+K3_ROLL_KPER = {32: 2, 512: 2, 1024: 2, 2048: 4, 4096: 8}
+
+
+@pytest.mark.parametrize("n", [32, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+def test_svol_filter_roll_twins_record_layout_and_barriers(dev, resampler,
+                                                          n):
+    """K1's roll instances at each N: the twin's kPer and threads, 2
+    barriers at every check besides the selections' votes (none under
+    Metropolis) and tail barriers, the selections' sweeps, both schedules,
+    and its outputs the plain instance's bits; the plain instance against
+    the plain version by phase 25's rule."""
+    ys = _ys(48, 21).to(dev)
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    kper = K1_ROLL_KPER[n]
+    roll = dict(resampler=resampler, metropolis_iters=16)
+    for ess, g in ((1.0, 1), (0.5, 8)):
+        rec = sfk.step_spans(6, params, ys, n, ess, g, **roll)
+        assert (rec["kper"], rec["threads"]) == (kper,
+                                                  -(-n // kper // 32) * 32)
+        got = {k: v for k, v in rec["barriers_per_step"].items()
+               if v is not None}
+        assert got == {k: sfk.ROLL_BARRIERS_PER_STEP[k] for k in got}
+        assert rec["checks"] == (48 if g == 1 else 6)
+        selections = rec["resamples"] * 16
+        assert 0 < selections and rec["sweeps"] >= selections
+        assert (rec["votes"] == 0) == (resampler == "metropolis")
+        plain = svol_filter(6, params, ys, n, ess, g, **roll)
+        for a, b in zip(plain, rec["outputs"]):
+            assert torch.equal(a, b)
+    tot, lcl, _ = svol_filter(6, params, ys, n, 1.0, **roll)
+    tot_p, lcl_p, _ = svol_filter_reference(6, params, ys, n, 1.0, **roll)
+    torch.testing.assert_close(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4)
+    assert float(((tot - tot_p).abs() <= 2e-3).float().mean()) >= 0.75
+
+
+@pytest.mark.parametrize("n", [32, 512, 1024])
+@pytest.mark.parametrize("resampler", ["metropolis", "rejection"])
+@pytest.mark.parametrize("name", K3_FUNCTORS)
+def test_k3_roll_family_matches_plain(dev, name, resampler, n):
+    """K3's roll family for every functor (2 neighbouring particles a
+    thread to N=1024, a partial warp at 32) against its plain version on
+    the same bits: SISR with a gate that never fires within 2e-3 (the
+    totals) and 1e-3 (the cloud); APF and SISR every step, step 0 equal
+    and most filters' totals within 2e-3 (an expf against torch.exp ulp
+    can flip one accept decision), the means within 4 combined standard
+    errors."""
+    ys = _ys(48, 22).to(dev)
+    km, zs = _k3_functor(name, ys)
+    f = 16
+    roll = dict(resampler=resampler, metropolis_iters=16)
+    got, want = _k3_pair(km, 12, ys, zs, f, n, variant="sisr",
+                         ess_threshold=0.5 / n, **roll)
+    torch.testing.assert_close(got["log_likelihood"], want["log_likelihood"],
+                               rtol=0, atol=2e-3)
+    s = km.num_state
+    for rows in (slice(0, s), slice(s + 1, None)):
+        torch.testing.assert_close(got["cloud"][:, rows],
+                                   want["cloud"][:, rows], rtol=0, atol=1e-3)
+    for variant in ("apf", "sisr"):
+        got, want = _k3_pair(km, 13, ys, zs, f, n, variant=variant, **roll)
+        tot, tot_p = got["log_likelihood"], want["log_likelihood"]
+        assert torch.isfinite(tot).all()
+        torch.testing.assert_close(got["log_cond_likes"][:, 0],
+                                   want["log_cond_likes"][:, 0], rtol=1e-5,
+                                   atol=1e-4)
+        assert float(((tot - tot_p).abs() <= 2e-3).float().mean()) >= 0.75
+        se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
+        assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se + 1e-3
+
+
+@pytest.mark.parametrize("n", [32, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("name", K3_FUNCTORS)
+def test_k3_roll_twins_record_layout_and_barriers(dev, name, n):
+    """Every functor's roll twin at each N under both resamplers: the kPer
+    and threads it ran, the barriers a step of each kind crossed besides
+    the selections' (the systematic family's: 8 / 7 an APF step, 5 / 4 in
+    SISR, 3 / 2 at t = 0), votes under rejection only, and its outputs the
+    plain instance's bits."""
+    ys = _ys(40, 23).to(dev)
+    km, zs = _k3_functor(name, ys)
+    kper = K3_ROLL_KPER[n]
+    for resampler in ("metropolis", "rejection"):
+        roll = dict(resampler=resampler, metropolis_iters=16)
+        for kw in (dict(variant="apf"),
+                   dict(variant="apf", ess_threshold=0.5),
+                   dict(variant="sisr")):
+            rec = lwm.step_spans(6, ys, zs, 8, n, kmodel=km, **kw, **roll)
+            assert (rec["kper"], rec["threads"]) == (
+                kper, -(-n // kper // 32) * 32)
+            want = lwm.BARRIERS_PER_STEP[kw["variant"]]
+            got = {k: v for k, v in rec["barriers_per_step"].items()
+                   if v is not None}
+            assert got == {k: want[k] for k in got}
+            assert rec["sweeps"] > 0
+            assert (rec["votes"] == 0) == (resampler == "metropolis")
+            plain = lwm.lw_megakernel(km, 6, ys, zs, 8, n, **kw, **roll)
+            for key in ("log_cond_likes", "cloud"):
+                assert torch.equal(plain[key], rec["outputs"][key]), key

@@ -31,7 +31,8 @@ print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
 # the port's own scripts (the JAX yardstick scripts import JAX by design)
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
-           for name in ("k3_roll_fullsize.py", "kernel_timing.py")]
+           for name in ("k3_roll_fullsize.py", "kernel_timing.py",
+                        "roll_sweeps.py")]
 
 
 def _port_modules():

@@ -25,13 +25,20 @@ from ssme_tpu.ops import _select as jsel
 from ssme_tpu_torch.ops import _prng
 from ssme_tpu_torch.ops import _select as sel
 from ssme_tpu_torch.ops import filter_megakernel as fm
+from ssme_tpu_torch.ops import liu_west_megakernel as lwm
+from ssme_tpu_torch.ops import svol_filter_kernel as sfk
 
 torch.set_num_threads(1)
 B = 4
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "ssme_tpu_torch", "csrc")
-# the generic kernel's kPer at each N (filter_megakernel_sys.cuh kper_for)
+# each kernel's kPer at each N under the roll resamplers: the generic
+# kernel's (filter_megakernel_sys.cuh kper_for), the SVOL kernel's
+# (svol_filter_sys.cu kper_for) and the Liu-West kernel's
+# (lw_megakernel_sys.cuh roll_kper_for)
 K2_KPER = {32: 2, 512: 2, 1024: 4, 2048: 8, 4096: 16}
+K1_ROLL_KPER = {32: 2, 512: 2, 1024: 4, 2048: 8, 4096: 16}
+K3_ROLL_KPER = {32: 2, 512: 2, 1024: 2, 2048: 4, 4096: 8}
 
 
 def _weights(case, n, seed):
@@ -51,20 +58,19 @@ def _weights(case, n, seed):
 
 
 def _layouts(n):
-    """(kper, layout) of the generic kernel and of the SVOL kernel's roll
-    family (kPer strided slots, N / 1024 above 1024)."""
-    return ((K2_KPER[n], "neighbouring"),
-            (max(1, n // 1024), "strided"))
+    """The kPers the roll families run at N (kPer neighbouring slots a
+    thread in every kernel)."""
+    return sorted({K2_KPER[n], K1_ROLL_KPER[n], K3_ROLL_KPER[n]})
 
 
 @pytest.mark.parametrize("n", [32, 512, 2048, 4096])
 @pytest.mark.parametrize("case", ["random", "dominant", "zero_runs"])
 def test_schedule_gives_the_rejection_law_bit_for_bit(case, n):
-    """Every layout and tail threshold (0: never, the kernels' 32, and
-    every row at its first vote) gives the ancestors of the sequential
-    law, and the record's sweeps are 1 + the last accept sweep.  Dominant
-    weights above N = 32 run most slots for thousands of sweeps: one row,
-    the kernels' threshold."""
+    """Every kernel's layout and tail threshold (0: never, the kernels'
+    32, and every row at its first vote) gives the ancestors of the
+    sequential law, and the record's sweeps are 1 + the last accept
+    sweep.  Dominant weights above N = 32 run most slots for thousands of
+    sweeps: one row, the kernels' threshold."""
     w = _weights(case, n, n)
     tails = (0, sel.ROLL_TAIL_THREADS, n)
     if case == "dominant" and n > 32:
@@ -73,11 +79,11 @@ def test_schedule_gives_the_rejection_law_bit_for_bit(case, n):
                            torch.arange(w.shape[0]), 3, n)
     want, when = sel.rejection_accepts(w, draw)
     sweeps = torch.clamp(when.amax(-1) + 1, max=_prng.ROLL_MAX_ITERS)
-    for kper, layout in _layouts(n):
+    for kper in _layouts(n):
         for tail in tails:
             anc, rec = sel.roll_schedule("rejection", w, draw, kper=kper,
-                                         layout=layout, tail_threads=tail)
-            assert torch.equal(anc, want), (kper, layout, tail)
+                                         tail_threads=tail)
+            assert torch.equal(anc, want), (kper, tail)
             assert torch.equal(rec["sweeps"], sweeps)
             assert (rec["votes"] >= 1).all()
             if tail == n:      # the tail from the first vote on
@@ -199,10 +205,9 @@ def test_schedule_equals_jax_rejection_on_one_tape(weights):
     got_jax = np.asarray(_jax_rejection(B, n, max_iters)(
         jnp.asarray(w), jnp.asarray(tape), jnp.asarray(ids)))
     draw = _tape_draw(shifts, u_port)
-    for kper, layout in ((2, "neighbouring"), (1, "strided")):
+    for kper in (2, 16):
         anc, rec = sel.roll_schedule("rejection", torch.from_numpy(w), draw,
-                                     kper=kper, layout=layout,
-                                     max_iters=max_iters)
+                                     kper=kper, max_iters=max_iters)
         np.testing.assert_array_equal(anc.numpy(), got_jax.astype(np.int64))
     assert (rec["sweeps"] > sel.ROLL_CHUNK).any()
 
@@ -287,3 +292,130 @@ def test_step_spans_refuses_a_functor_without_a_twin():
     with pytest.raises(ValueError, match="the card's"):
         fm.step_spans(1, torch.ones(4, 3), ys, None, 64,
                       resampler="rejection", kmodel=fm.svol_kernel_model())
+
+
+def _snake(names, prefix):
+    """CamelCase enum entries after ``prefix`` -> snake_case names."""
+    return [re.sub(r"(?<!^)([A-Z])", r"_\1", e[len(prefix):]).lower()
+            for e in names]
+
+
+def _enum(src, name):
+    body = re.search(rf"enum {name} \{{(.*?)\}};", src, re.S).group(1)
+    return [e.strip() for e in body.split(",") if e.strip()]
+
+
+# the twins' record names of the sources' enums, renamed as the Python
+# side reads them
+_RENAME = {"bar_resample": "barriers_resample",
+           "bar_check": "barriers_check", "bar_other": "barriers_other",
+           "bar_first_resample": "barriers_first_resample",
+           "bar_first_other": "barriers_first_other",
+           "layout_per": "kper", "layout_threads": "threads",
+           "tail_bars": "tail_barriers"}
+
+
+def test_the_svol_kernels_roll_layout_and_instances():
+    """kper_for gives each N its kPer under the roll resamplers within
+    256 threads, each roll kPer has an instance (and so a twin) in the
+    template the systematic family runs, the strided kernel is gone, and
+    the twins' record is the order SPAN_RECORD reads."""
+    src = _source("svol_filter_sys.cu")
+    body = re.search(r"int kper_for\(int n, bool roll\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    above, roll_kper = map(int, re.search(
+        r"if \(roll && n > (\d+)\) return (\d+);", body).groups())
+    steps = [(int(a), int(k)) for a, k in
+             re.findall(r"n <= (\d+) \? (\d+) :", body)]
+    last = int(re.search(r": (\d+);\s*$", body).group(1))
+    launch_for = re.search(r"int launch_for\(const Launch& a\) \{(.*?)\n\}",
+                           src, re.S).group(1)
+    roll_branch = re.search(r"if constexpr \(kRoll\) \{(.*?)\} else",
+                            launch_for, re.S).group(1)
+    instances = {int(k): int(t) for k, t in re.findall(
+        r"launch<(\d+), (\d+), kSpans, kRoll>", roll_branch)}
+    instances.update({int(k): int(t) for k, t in re.findall(
+        r"if \(kper == (\d+)\) return launch<\d+, (\d+), kSpans, kRoll>",
+        launch_for)})
+    for n, kper in K1_ROLL_KPER.items():
+        got = roll_kper if n > above else next(
+            (k for a, k in steps if n <= a), last)
+        assert got == kper, (n, got)
+        assert n // kper <= instances[kper] <= 256, (n, kper, instances)
+    assert not os.path.exists(os.path.join(CSRC, "svol_filter.cu"))
+    assert "ssme_svol_filter_sys" not in src
+    names = _snake(_enum(src, "Span")[:-1], "k")
+    assert tuple(_RENAME.get(n, n) for n in names) == sfk.SPAN_RECORD
+    assert set(sfk.ROLL_BARRIERS_PER_STEP) == set(sfk.BARRIERS_PER_STEP)
+
+
+def _k3_roll_bytes(kmodel, kper, threads):
+    """Shared memory of a Liu-West roll instance's row, in bytes: the
+    dynamic arrays (lw_megakernel_sys.cuh roll_row_bytes) and the static
+    ones (partial buffers, the roll tail's list, the twin's record)."""
+    p, k = kmodel.num_params, len(kmodel.functionals or ())
+    slots = kper * threads
+    dynamic = (4 * (slots + slots // 32 + (kmodel.num_state + p + 2 + k)
+                    * slots) + 2 * slots)
+
+    def wide(m):
+        w = (m + 3) // 4
+        return 4 * (w if w % 2 else w + 1)
+
+    static = (4 * 32 + 4 * 32 * wide(1 + p)
+              + 4 * 32 * max(wide(p * (p + 1) // 2), wide(k + 2))
+              + 8 * (len(lwm.SPAN_RECORD) + 2) + 4 * 3
+              + 4 * (1 + sel.ROLL_TAIL_THREADS * kper))
+    return dynamic, static
+
+
+def test_the_liu_west_kernels_roll_layout_and_instances():
+    """roll_kper_for gives each N its kPer within kRollThreads, each roll
+    kPer has its instance file and a case in the C entry's dispatch, the
+    strided kernels are gone, a row at N = 4096 fits the card's 232,448
+    bytes of shared memory a block, and the twins' record is the order
+    SPAN_RECORD reads."""
+    src = _source("lw_megakernel_sys.cuh")
+    body = re.search(r"inline int roll_kper_for\(int n\) \{\s*return "
+                     r"(.*?);", src, re.S).group(1)
+    steps = [(int(a), int(k)) for a, k in
+             re.findall(r"n <= (\d+) \? (\d+) :", body)]
+    last = int(re.search(r": (\d+)$", body.strip()).group(1))
+    threads = int(re.search(r"constexpr int kRollThreads = (\d+);",
+                            src).group(1))
+    entry = _source("lw_megakernel.cu")
+    for n, kper in K3_ROLL_KPER.items():
+        got = next((k for a, k in steps if n <= a), last)
+        assert got == kper, (n, got)
+        assert n // kper <= threads <= 512
+        inst = _source(f"lw_megakernel_sys_roll{kper}.cu")
+        assert (f"dispatch_layout<{kper}, kRollThreads, true>" in inst)
+        assert f"case {kper}: return dispatch_roll{kper}(" in entry
+    formula = re.sub(r"\s+", " ", re.search(
+        r"constexpr int roll_row_bytes\(\) \{(.*?)\n\}", src,
+        re.S).group(1))
+    assert ("4 * (ssme::padded_size(kSlots) + (Model::kNumState + "
+            "Model::kNumParams + 2 + Model::kNumFunctionals) * kSlots) + "
+            "2 * kSlots") in formula
+    for kmodel in (lwm.svol_leverage_lw_kernel_model(),
+                   lwm.svol_t_lw_kernel_model(),
+                   lwm.svol_leverage_lw_q_kernel_model()):
+        dynamic, static = _k3_roll_bytes(kmodel, K3_ROLL_KPER[4096], threads)
+        assert dynamic > 48 * 1024   # set with cudaFuncSetAttribute
+        assert dynamic + static <= 232448, (kmodel.name, dynamic, static)
+    for gone in ("lw_megakernel_roll.cu",):
+        assert not os.path.exists(os.path.join(CSRC, gone))
+    assert "__global__" not in entry
+    names = _snake(_enum(src, "LWSpan")[:-1], "kLWSpan")
+    assert tuple(_RENAME.get(n, n) for n in names) == lwm.SPAN_RECORD
+
+
+def test_no_kernel_keeps_a_strided_helper():
+    """The strided layout's helpers went with the last kernels that called
+    them."""
+    text = "".join(_source(f) for f in sorted(os.listdir(CSRC))
+                   if f.endswith((".cu", ".cuh")))
+    for name in ("StridedSlots", "void roll_ancestors(", "gather_leaves_per",
+                 "systematic_ancestors_per", "StepRng", "block_sum"):
+        assert name not in text, name
+    assert not os.path.exists(os.path.join(CSRC, "systematic_select.cuh"))

@@ -1,5 +1,5 @@
 """The port's systematic selection (``ssme_tpu_torch/ops/_select.py``, the
-plain version of ``csrc/systematic_select.cuh``) against the JAX
+plain version of ``csrc/row_select.cuh``) against the JAX
 ``select_leaves_dense`` (interpret mode) and a float64 oracle."""
 
 import jax
