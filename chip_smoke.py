@@ -19,7 +19,8 @@ resamplers of all three filter kernels, adaptive PMMH on SVOL at N=2048
 particles through one generic-kernel launch per iteration, and the fused
 SVOL step kernel; then the SVOL and Liu-West kernels at up to 4096
 particles, adaptive PMMH on SVOL at N=2048 through one SVOL-kernel
-launch per iteration, and the SPY flagship CLI.  Phases, one line each:
+launch per iteration, and the SPY flagship CLI; then the fixed-lag
+smoother and the two tuning CLIs.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
@@ -122,8 +123,14 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             the sweeps a resample ran (median, 99th percentile, maximum,
             the share at the 4096 cap), the votes and the tail's slots;
 24. svol-step   the fused SVOL step kernel against its plain version
-            (B=256, N=512), the moments of sigma eps over 8 seeds, its
-            time and bound;
+            (B=256, N=512), the moments of sigma eps over 8 seeds; at
+            (B, N) = (256, 512), (1024, 2048) and (4096, 4096) its
+            outputs on fixed inputs bit for bit those of the kernel before
+            its non-coherent loads and streaming stores (their digests)
+            and x' the plain version's, its device time (inputs cycled
+            through 200 MB so that each launch reads outside L2), an empty
+            kernel on its grid (the launch floor) and its byte and issue
+            bounds;
 25. k1-large-sis    the SVOL kernel at N=2048 and 4096 (8 particles per
             thread, 8 and 16 under the roll resamplers): the standalone
             systematic selection in its layout (phase 4's checks), and the
@@ -173,7 +180,21 @@ launch per iteration, and the SPY flagship CLI.  Phases, one line each:
             roll family's twins, every functor under both resamplers at
             N=32 to 4096: the same barriers besides the selections' votes
             and tail barriers, the layout, clock64 spans, the outputs the
-            plain instances' bits.
+            plain instances' bits;
+32. smoother    ``filters.fixed_lag_smoother`` on the LGSSM on the card
+            (T=500, N=4096, lag 10, 8 replicate smoothers as one batch):
+            the smoothed means within the Monte-Carlo and truncation
+            tolerance of ``tests/test_smoothing.py`` of the RTS smoother,
+            closer than the filtered means, the log-likelihood within 4
+            standard errors of the Kalman filter's; wall seconds;
+33. tune-variance   ``examples.tune_variance`` in-process over SPY at
+            N=512, 256 singles in two launches of 128 rows, R = 1, 2, 4:
+            two SVOL-kernel launches, finite variances falling with R;
+34. tune-pmmh   ``examples.tune_pmmh`` in-process over SPY (8 chains, N=512,
+            R=2, 200 iterations in chunks of 50) under ``profiling.trace``:
+            one SVOL-kernel launch per iteration and one for the init, a
+            record with an accept rate in (0, 1), and a Chrome trace that
+            names the SVOL kernel.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -197,13 +218,17 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from ssme_tpu_torch.bench import device_share, gpu_identity  # noqa: E402
+from ssme_tpu_torch import profiling  # noqa: E402
+from ssme_tpu_torch.bench import (device_share, gpu_identity,  # noqa: E402
+                                  max_sm_clock_hz)
 from ssme_tpu_torch.examples import estimate_svol_leverage as lev_cli  # noqa: E402,E501
 from ssme_tpu_torch.examples import liu_west_leverage as lw_cli  # noqa: E402
+from ssme_tpu_torch.examples import tune_pmmh, tune_variance  # noqa: E402
+from ssme_tpu_torch.filters import fixed_lag_smoother  # noqa: E402
 from ssme_tpu_torch.inference import (AdaptivePMMH,  # noqa: E402
                                       forecast_from_cloud)
 from ssme_tpu_torch.io import ParamSampler, read_data  # noqa: E402
-from ssme_tpu_torch.models import (factor_svol, svol,  # noqa: E402
+from ssme_tpu_torch.models import (factor_svol, lgssm, svol,  # noqa: E402
                                    svol_leverage, svol_t)
 from ssme_tpu_torch.ops import _cuda, _prng, _select  # noqa: E402
 from ssme_tpu_torch.ops import filter_megakernel as fmk  # noqa: E402
@@ -260,6 +285,21 @@ ROLL_N = (2048, 4096)
 ROLL_SIS_N = (512,) + ROLL_N
 LARGE_N, LARGE_ITERS = 2048, 10
 STEP_B, STEP_N = 256, 512
+# the fused step's shapes (phase 24): the moments' and two where bytes
+# and not the launch set the pace; ops/svol_kernel.py::digest of the
+# outputs on fixed_inputs, seed words (5, 0), y 0.37, of the kernel
+# before its loads and stores went through the non-coherent and
+# streaming paths (scripts/k5_timing.py --bits)
+STEP_SHAPES = {(256, 512): "08a3fe0fa99ad1bf",
+               (1024, 2048): "73b50b47aa01738c",
+               (4096, 4096): "a8681edfc72c921f"}
+STEP_ROTATE_BYTES, STEP_REPS = 200e6, 50
+# the smoother on the card (phase 32) and the tuning CLIs (33-34)
+SMOOTH_T, SMOOTH_N, SMOOTH_LAG, SMOOTH_R = 500, 4096, 10, 8
+SMOOTH_PARAMS = (0.8, 0.5, 0.7)
+TUNE_N, TUNE_SINGLES, TUNE_ROWS = 512, 256, 128
+TUNE_PMMH = ("smoke", 8, 512, 2, 1000)
+TUNE_ITERS, TUNE_CHUNK = 200, 50
 # K1 and K3 above 1024 particles, the q instance, the flagship CLI
 # (phases 25-29)
 K3_SIS_F, K3_LARGE_T = 16, 128
@@ -338,9 +378,6 @@ STEP_OPS = {
     # poisson_ar: lookahead 2 each, weights 4 each
     "filter_megakernel/poisson_ar/apf": NORMAL_OPS + 3 + 4 + 8 + 2 * 2
                                         + 2 * 4 + 2 + 20,
-    # the fused step: a normal, the transition (2), sd (exp, mul), the
-    # divide, log, square and the weight (7)
-    "svol_step": NORMAL_OPS + 2 + 2 + 7,
 }
 
 
@@ -1734,6 +1771,59 @@ def _proposal_sweeps(proposals, ys):
             "twin_ms_per_launch": ms}
 
 
+def _device_ms(run, name):
+    """Device ms a launch of kernel ``name`` over the STEP_REPS launches
+    of ``run()``, by torch.profiler."""
+    _, top = device_share(run, STEP_REPS)
+    require(name in top, f"no {name} in the trace: {top}")
+    return top[name]
+
+
+def _step_shape(dev, b, n, sms, clock):
+    """The fused step at (B, N): digest and x' against the plain version
+    on fixed inputs, device ms a launch over inputs cycled through
+    STEP_ROTATE_BYTES, the empty kernel on its grid, its bounds."""
+    seed = torch.tensor([5, 0], dtype=torch.int64, device=dev)
+    params, x, lw = k5.fixed_inputs(b, n, dev)
+    got = k5.fused_svol_propagate_weight(seed, 0.37, params, x, lw)
+    digest = k5.digest(*got)
+    require(digest == STEP_SHAPES[(b, n)], f"svol_step ({b}, {n}): digest "
+            f"{digest}, want {STEP_SHAPES[(b, n)]}")
+    want = k5.fused_svol_propagate_weight_reference(seed, 0.37, params, x,
+                                                    lw)
+    require(torch.equal(got[0], want[0]),
+            f"svol_step ({b}, {n}): x' differs from the plain version's")
+    err = float((got[1] - want[1]).abs().max())
+    del x, lw, got, want
+    copies = max(1, math.ceil(STEP_ROTATE_BYTES / (16 * b * n)))
+    gen = torch.Generator(device=dev).manual_seed(b * 7919 + n)
+    bufs = [(torch.randn((b, n), generator=gen, device=dev),
+             torch.randn((b, n), generator=gen, device=dev))
+            for _ in range(copies)]
+
+    def launches():
+        for k in range(STEP_REPS):
+            k5.fused_svol_propagate_weight(seed, 0.37, params,
+                                           *bufs[k % copies])
+
+    launches()
+    ms = _device_ms(launches, "svol_step_kernel")
+    grid = k5.launch_grid(b, n)
+
+    def empties():
+        for _ in range(STEP_REPS):
+            k5.empty_launch(grid, dev)
+
+    empties()
+    floor_ms = _device_ms(empties, "empty_kernel")
+    del bufs
+    torch.cuda.empty_cache()
+    bnd, by, byte_ms, issue_ms = k5.step_bounds(b, n, sms, clock)
+    return {"ms": ms, "floor_ms": floor_ms, "bound_ms": bnd, "bound_by": by,
+            "byte_bound_ms": byte_ms, "issue_bound_ms": issue_ms,
+            "digest": digest, "logw_max_abs_err": err, "grid": list(grid)}
+
+
 def phase_svol_step(dev, ident):
     gen = torch.Generator().manual_seed(24)
     x = torch.randn((STEP_B, STEP_N), generator=gen).to(dev)
@@ -1762,25 +1852,142 @@ def phase_svol_step(dev, ident):
             f"sigma eps moments: mean {mean:.5f}, sd {sd:.5f} (want 0, 0.2)")
     require(not torch.equal(xs[0], xs[1]), "two seeds drew the same normals")
     # events around back-to-back calls time the wrapper (the host enqueue
-    # paces it at this size); the profiler gives the kernel's own time
+    # paces it at this size)
     call_ms = cuda_ms(lambda: k5.fused_svol_propagate_weight(
         3, y, params, x, lw), 200)
-    _, top = device_share(lambda: [k5.fused_svol_propagate_weight(
-        3, y, params, x, lw) for _ in range(50)], 50)
-    require("svol_step_kernel" in top, f"no svol_step_kernel in {top}")
-    ms = top["svol_step_kernel"]
     plain_ms = cuda_ms(lambda: k5.fused_svol_propagate_weight_reference(
         3, y, params, x, lw), 20)
-    bnd = bound("svol_step", STEP_B, STEP_N, 1, 8 * STEP_B * STEP_N
-                + 12 * STEP_B + 4 + 16, 8 * STEP_B * STEP_N)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    shapes = {f"{b}x{n}": _step_shape(dev, b, n, sms, clock)
+              for b, n in STEP_SHAPES}
+    top = shapes[f"{STEP_B}x{STEP_N}"]
+    big = shapes["4096x4096"]
     phase(24, "svol-step", f"B={STEP_B} N={STEP_N}: kernel vs plain max abs "
           f"err {err:.3e}; 8 seeds at y=0: mean {mean:.6f}, sd {sd:.6f} "
-          f"(sigma 0.2); kernel {ms:.5f} ms on the device (profiler), "
-          f"{call_ms:.5f} ms per call (events), plain {plain_ms:.5f} ms, "
-          f"bound {bnd[0]:.5f} ms ({bnd[1]}) ({ident})")
-    return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1]}
+          f"(sigma 0.2); {call_ms:.5f} ms per call (events), plain "
+          f"{plain_ms:.5f} ms; digests equal the earlier kernel's and x' "
+          "the plain version's at " + ", ".join(shapes) + "; device ms "
+          "(profiler) / empty-kernel floor / bound (bytes, issue): "
+          + "; ".join(
+              f"{k} {v['ms']:.5f} / {v['floor_ms']:.5f} / "
+              f"{v['bound_ms']:.5f} ({v['byte_bound_ms']:.5f}, "
+              f"{v['issue_bound_ms']:.5f})" for k, v in shapes.items())
+          + f"; {big['bound_ms'] / big['ms']:.1%} of the bound at 4096x4096 "
+          f"({ident})")
+    return {"launches": launches, "max_abs_err": err, "ms": top["ms"],
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "floor_ms": top["floor_ms"],
+            "byte_bound_ms": top["byte_bound_ms"],
+            "issue_bound_ms": top["issue_bound_ms"], "per_shape": shapes,
+            "max_sm_clock_hz": clock}
+
+
+def phase_smoother(dev, ident):
+    params = torch.tensor(SMOOTH_PARAMS, device=dev)
+    _, ys = lgssm.simulate(torch.Generator().manual_seed(32),
+                           torch.tensor(SMOOTH_PARAMS), SMOOTH_T)
+    ys = ys.to(dev)
+    smooth = fixed_lag_smoother(lgssm.make_model(), num_particles=SMOOTH_N,
+                                lag=SMOOTH_LAG)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm, filt, ll = smooth(gen, params.expand(SMOOTH_R, 3), ys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(sm.device.type == dev.type
+            and sm.shape == (SMOOTH_R, SMOOTH_T, 1)
+            and bool(torch.isfinite(sm).all())
+            and bool(torch.isfinite(ll).all()),
+            f"smoother outputs {tuple(sm.shape)} on {sm.device}")
+    rts, _ = lgssm.kalman_smoother(params, ys)
+    kf_lls, _, _ = lgssm.kalman_filter(params, ys)
+    inner = slice(0, SMOOTH_T - SMOOTH_LAG)
+    err_sm = (sm[:, inner, 0] - rts[inner]).abs()
+    err_filt = (filt[:, inner, 0] - rts[inner]).abs()
+    mean_err, max_err = float(err_sm.mean()), float(err_sm.max())
+    ratio = mean_err / float(err_filt.mean())
+    # tests/test_smoothing.py's tolerances at N=4096 (lag 8 there: lag 10
+    # truncates less)
+    require(mean_err < 0.05 and max_err < 0.25 and ratio < 0.5,
+            f"smoothed means vs RTS: mean {mean_err:.4f} (< 0.05), max "
+            f"{max_err:.4f} (< 0.25), against the filter {ratio:.3f} (< 0.5)")
+    gap = float(ll.mean() - kf_lls.sum())
+    four_se = 4 * float(ll.std()) / math.sqrt(SMOOTH_R)
+    require(abs(gap) < four_se, f"log-likelihood {float(ll.mean()):.4f} vs "
+            f"Kalman {float(kf_lls.sum()):.4f}: beyond 4 SE {four_se:.4f}")
+    phase(32, "smoother", f"LGSSM T={SMOOTH_T} N={SMOOTH_N} lag {SMOOTH_LAG}"
+          f" x{SMOOTH_R} on {sm.device}: smoothed vs RTS mean abs "
+          f"{mean_err:.4f}, max {max_err:.4f}, {ratio:.3f} of the filter's; "
+          f"log-likelihood {float(ll.mean()):.4f} vs Kalman "
+          f"{float(kf_lls.sum()):.4f} (4 SE {four_se:.4f}); {wall:.3f} s "
+          f"({ident})")
+    return {"wall_s": wall, "mean_abs_err": mean_err, "max_abs_err": max_err,
+            "ll_gap": gap}
+
+
+def _json_lines(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def phase_tune_variance(tmp, ident):
+    out = os.path.join(tmp, "tune_variance.jsonl")
+    sfk.svol_filter.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        tune_variance.main(["--particles", str(TUNE_N), "--singles",
+                            str(TUNE_SINGLES), "--launch-rows",
+                            str(TUNE_ROWS), "--replicates", "1", "2", "4",
+                            "--out", out])
+    launches = sfk.svol_filter.launches
+    want = math.ceil(TUNE_SINGLES / TUNE_ROWS)
+    require(launches == want, f"tune_variance: {launches} SVOL-kernel "
+            f"launches, want {want}")
+    recs = _json_lines(out)
+    var = [r["var_logl"] for r in recs]
+    require([r["R"] for r in recs] == [1, 2, 4]
+            and all(math.isfinite(v) and v > 0 for v in var)
+            and var[0] > var[1] > var[2] and recs[0]["T"] == 3084,
+            f"tune_variance records: {recs}")
+    phase(33, "tune-variance", f"N={TUNE_N} T=3084 {TUNE_SINGLES} singles in "
+          f"{launches} launches: Var[log L] at R=1, 2, 4: " + ", ".join(
+              f"{v:.3f}" for v in var) + f"; {recs[0]['sec_per_row']:.3e} s "
+          f"a row ({ident})")
+    return launches, recs
+
+
+def phase_tune_pmmh(tmp, ident):
+    out = os.path.join(tmp, "tune_pmmh.jsonl")
+    trace_dir = os.path.join(tmp, "trace")
+    sfk.svol_filter.launches = 0
+    with profiling.trace(trace_dir), \
+            contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        tune_pmmh.main(["--iters", str(TUNE_ITERS), "--chunk",
+                        str(TUNE_CHUNK), "--configs",
+                        ",".join(map(str, TUNE_PMMH)), "--out", out])
+    launches = sfk.svol_filter.launches
+    require(launches == TUNE_ITERS + 1, f"tune_pmmh: {launches} SVOL-kernel "
+            f"launches, want {TUNE_ITERS + 1}")
+    (rec,) = _json_lines(out)
+    require(0.0 < rec["accept_rate"] < 1.0 and rec["sec_per_iter"] > 0
+            and all(math.isfinite(v) for v in rec["posterior_mean"])
+            and rec["device"] == torch.cuda.get_device_name(0),
+            f"tune_pmmh record: {rec}")
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k1 = sorted(n for n in names if "svol_filter_sys_kernel" in n)
+    require(k1, "the trace names no SVOL-kernel launch")
+    phase(34, "tune-pmmh", f"{TUNE_PMMH[0]} C={TUNE_PMMH[1]} "
+          f"N={TUNE_PMMH[2]} R={TUNE_PMMH[3]} {TUNE_ITERS} iters: {launches} "
+          f"launches, accept {rec['accept_rate']:.3f}, "
+          f"{rec['sec_per_iter'] * 1e3:.3f} ms an iteration, min ESS "
+          f"{rec['min_ess']:.1f}; the trace names {len(k1)} SVOL-kernel "
+          f"instance(s) ({ident})")
+    return launches, rec
 
 
 def phase_k1_large_sis(dev, ys_all):
@@ -2411,6 +2618,10 @@ def main():
     k2_layout, k2_barriers, k2_vs_k1, k2_roll, k1_roll = phase_k2_layout(
         dev, ys)
     k3_layout, k3_barriers, k3_spans, k3_roll = phase_k3_layout(dev, ys)
+    smoother = phase_smoother(dev, ident)
+    with tempfile.TemporaryDirectory() as tmp:
+        tune_var_launches, tune_var = phase_tune_variance(tmp, ident)
+        tune_pmmh_launches, tune_rec = phase_tune_pmmh(tmp, ident)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -2431,10 +2642,15 @@ def main():
         "roll_source": "ssme_tpu_torch/csrc/svol_filter_sys.cu",
         "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/svol_filter_kernel.py:317",
-        "launches": launches + k1_pmmh_launches + flagship_launches,
+        "launches": (launches + k1_pmmh_launches + flagship_launches
+                     + tune_var_launches + tune_pmmh_launches),
         "main_path_launches": {"pmmh": launches,
                                "pmmh/N2048": k1_pmmh_launches,
-                               "spy_flagship": flagship_launches},
+                               "spy_flagship": flagship_launches,
+                               "tune_variance": tune_var_launches,
+                               "tune_pmmh": tune_pmmh_launches},
+        "tune_variance": tune_var,
+        "tune_pmmh": tune_rec,
         "max_abs_err": max(sis_err, k1_large_err),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2551,9 +2767,15 @@ def main():
         "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"],
         "library_ms": None,
-        "ms_source": "torch.profiler device time per launch",
+        "ms_source": "torch.profiler device time per launch, inputs "
+                     "cycled through 200 MB",
         "call_ms": step["call_ms"],
-    }]}), flush=True)
+        "floor_ms": step["floor_ms"],
+        "byte_bound_ms": step["byte_bound_ms"],
+        "issue_bound_ms": step["issue_bound_ms"],
+        "max_sm_clock_hz": step["max_sm_clock_hz"],
+        "per_shape": step["per_shape"],
+    }], "smoother": smoother}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

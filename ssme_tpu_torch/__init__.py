@@ -16,4 +16,34 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+# the subpackages, as ssme_tpu imports its own; none builds or loads
+# anything here (the CUDA kernels build at their first launch on a CUDA
+# tensor, ops/_cuda.py, and the native IO library at its first use)
+from ssme_tpu_torch import transforms  # noqa: E402
+from ssme_tpu_torch import rv  # noqa: E402
+from ssme_tpu_torch import resampling  # noqa: E402
+from ssme_tpu_torch import utils  # noqa: E402
+from ssme_tpu_torch import models  # noqa: E402
+from ssme_tpu_torch import filters  # noqa: E402
+from ssme_tpu_torch import inference  # noqa: E402
+from ssme_tpu_torch import io  # noqa: E402
+from ssme_tpu_torch import native  # noqa: E402
+from ssme_tpu_torch import diagnostics  # noqa: E402
+from ssme_tpu_torch import profiling  # noqa: E402
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "transforms",
+    "rv",
+    "resampling",
+    "utils",
+    "models",
+    "filters",
+    "inference",
+    "io",
+    "native",
+    "diagnostics",
+    "profiling",
+    "__version__",
+]

@@ -50,6 +50,15 @@ def gpu_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def _short(kernel_name: str) -> str:
     """A kernel's name without its template and argument lists."""
     name = kernel_name.replace("(anonymous namespace)::", "")

@@ -11,13 +11,24 @@
 // sine to 2k + 1.
 //
 // What bounds it: bytes.  It reads x and logw and writes x' and logw', 16
-// bytes a particle, against one Philox call and three transcendentals per
-// pair; at the shapes it is called with, a launch is a few microseconds.
-// The products and sums are rounded one by one (__fmul_rn, __fadd_rn), so
-// that with the same normals the plain version's x' is equal bit for bit
-// and logw' differs only by the libraries' exp and log.  y is read from
-// device memory when y_ptr is not null, so a device scalar is never copied
-// to the host.
+// bytes a particle: 80 us at (4096, 4096) over 3.35 TB/s, against 20 us
+// for the special functions (four a pair, three a particle, at 16 a clock
+// an SM) and 10 for the Philox call's 20 wide multiplies a pair.  But the
+// accurate expf, logf, sincosf and divide that keep the bits issue far
+// more than their special-function operations, so a pair is long work and
+// the step needs every warp an SM holds to keep enough bytes in flight:
+// one pair a thread on 27 registers, 64 warps an SM, reaches 84% of the
+// byte bound at (4096, 4096).
+// Layouts that gave a thread 2 or 4 neighbouring pairs in 16-byte
+// accesses, or one wave of blocks walking the rows in a grid-stride loop,
+// held 40-76 registers (24-48 warps an SM) and ran 2-33% slower; forcing 8
+// blocks an SM on them spilled and ran up to twice as long (PERF.md, PR
+// 12).  The inputs are read once through the non-coherent path and the
+// outputs written as streaming stores.  The products and sums are rounded
+// one by one (__fmul_rn, __fadd_rn), so that with the same normals the
+// plain version's x' is equal bit for bit and logw' differs only by the
+// libraries' exp and log.  y is read from device memory when y_ptr is not
+// null, so a device scalar is never copied to the host.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -43,8 +54,9 @@ __device__ __forceinline__ void step_one(float beta, float phi, float sigma,
 }
 
 __global__ void __launch_bounds__(kThreads)
-svol_step_kernel(const int64_t* __restrict__ seed, const float* __restrict__ y_ptr,
-                 float y_val, const float* __restrict__ params,
+svol_step_kernel(const int64_t* __restrict__ seed,
+                 const float* __restrict__ y_ptr, float y_val,
+                 const float* __restrict__ params,
                  const float* __restrict__ x, const float* __restrict__ logw,
                  int num_pairs, float* __restrict__ x_out,
                  float* __restrict__ logw_out) {
@@ -59,30 +71,56 @@ svol_step_kernel(const int64_t* __restrict__ seed, const float* __restrict__ y_p
   const float sigma = params[3 * b + 2];
   const float y = y_ptr != nullptr ? *y_ptr : y_val;
   const size_t at = (static_cast<size_t>(b) * num_pairs + k) * 2;
-  const float2 xv = *reinterpret_cast<const float2*>(x + at);
-  const float2 lv = *reinterpret_cast<const float2*>(logw + at);
+  const float2 xv = __ldg(reinterpret_cast<const float2*>(x + at));
+  const float2 lv = __ldg(reinterpret_cast<const float2*>(logw + at));
   float2 xo, lo;
   step_one(beta, phi, sigma, y, eps.x, xv.x, lv.x, &xo.x, &lo.x);
   step_one(beta, phi, sigma, y, eps.y, xv.y, lv.y, &xo.y, &lo.y);
-  *reinterpret_cast<float2*>(x_out + at) = xo;
-  *reinterpret_cast<float2*>(logw_out + at) = lo;
+  __stcs(reinterpret_cast<float2*>(x_out + at), xo);
+  __stcs(reinterpret_cast<float2*>(logw_out + at), lo);
+}
+
+// nothing: the card's floor for a launch of a grid
+__global__ void empty_kernel() {}
+
+dim3 step_grid(int num_rows, int num_particles) {
+  return dim3((num_particles / 2 + kThreads - 1) / kThreads, num_rows);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  All arrays are device arrays
 // the caller allocated: params (B, 3), x, logw, x_out, logw_out (B, N),
-// N even; y_ptr a one-element device array, or null to use y_val.  The
-// kernel allocates nothing and runs on `stream`.  Returns
-// cudaGetLastError() after the launch.
+// N even, each 8-byte aligned; y_ptr a one-element device array, or null
+// to use y_val.  The kernel allocates nothing and runs on `stream`.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ssme_svol_step(const int64_t* seed, const float* y_ptr,
                               float y_val, const float* params,
                               const float* x, const float* logw,
                               int num_rows, int num_particles, float* x_out,
                               float* logw_out, void* stream) {
-  const int pairs = num_particles / 2;
-  const dim3 grid((pairs + kThreads - 1) / kThreads, num_rows);
-  svol_step_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, y_ptr, y_val, params, x, logw, pairs, x_out, logw_out);
+  svol_step_kernel<<<step_grid(num_rows, num_particles), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      seed, y_ptr, y_val, params, x, logw, num_particles / 2, x_out,
+      logw_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry ssme_svol_step uses for (B, N): grid x, grid y and
+// threads a block, written to out[0..2].
+extern "C" int ssme_svol_step_grid(int num_rows, int num_particles,
+                                   int* out) {
+  const dim3 grid = step_grid(num_rows, num_particles);
+  out[0] = static_cast<int>(grid.x);
+  out[1] = static_cast<int>(grid.y);
+  out[2] = kThreads;
+  return 0;
+}
+
+// An empty kernel on a (gx, gy) grid of `threads`-thread blocks: the
+// card's launch floor for that geometry.
+extern "C" int ssme_empty_launch(int gx, int gy, int threads, void* stream) {
+  empty_kernel<<<dim3(gx, gy), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ from ssme_tpu_torch.filters.bootstrap import (BootstrapFilter, FilterResult,
                                               replicated_log_like_fn)
 from ssme_tpu_torch.filters.liu_west import (LiuWestFilter, LiuWestResult,
                                              LWState)
+from ssme_tpu_torch.filters.smoothing import fixed_lag_smoother
 
-__all__ = ["AuxiliaryParticleFilter", "BootstrapFilter", "FilterResult", "log_likelihood_fn",
-           "replicated_log_like_fn", "LiuWestFilter", "LiuWestResult",
-           "LWState"]
+__all__ = ["AuxiliaryParticleFilter", "BootstrapFilter", "FilterResult",
+           "log_likelihood_fn", "replicated_log_like_fn", "LiuWestFilter",
+           "LiuWestResult", "LWState", "fixed_lag_smoother"]

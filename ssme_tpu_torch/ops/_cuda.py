@@ -69,6 +69,10 @@ _SIGNATURES = {
     # seed, y (device pointer or null), y value, params, x, logw, B, N,
     # x_out, logw_out, stream
     "ssme_svol_step": [_P, _P, _F, _P, _P, _P, _I, _I, _P, _P, _P],
+    # B, N, out (3 host ints: grid x, grid y, threads)
+    "ssme_svol_step_grid": [_I, _I, _P],
+    # grid x, grid y, threads, stream
+    "ssme_empty_launch": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

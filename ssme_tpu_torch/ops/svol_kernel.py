@@ -10,14 +10,18 @@ phi, sigma] and one observation y shared by every row:
 
 with eps the Philox normals of ``ops/_prng.py``: normal i of row b under
 the seed's key, counter (i >> 1, 0, b, 0).  The kernel is
-``csrc/svol_step.cu`` (one thread per particle pair); with the same seed
-the plain version draws the same normals, so x' agrees bit for bit and
-logw' up to the libraries' log, exp, sin and cos.  Like the JAX kernel it
-lies on no entry point's path: the whole-sequence filter kernels fuse
-this step themselves.
+``csrc/svol_step.cu`` (one thread per particle pair, the layout that
+keeps every warp an SM holds busy; its note says why wider layouts lost
+on the card).  With the same seed the plain version draws the same
+normals, so x' agrees bit for bit and logw' up to the libraries' log,
+exp, sin and cos.  Like the JAX kernel it lies on no entry point's path:
+the whole-sequence filter kernels fuse this step themselves.
 """
 
 from __future__ import annotations
+
+import ctypes
+import hashlib
 
 import torch
 
@@ -115,5 +119,88 @@ def fused_svol_propagate_weight(seed, y, params, x, logw):
 
 fused_svol_propagate_weight.launches = 0
 
+
+# the card's rates the bound uses (H100 SXM: the data sheet's HBM rate;
+# per SM and clock, the CUDA C++ Programming Guide's throughput table at
+# compute capability 9.0 for special functions and 32-bit multiplies)
+PEAK_BYTES_PER_S = 3.35e12
+SPECIAL_PER_CLOCK_SM = 16
+IMUL_PER_CLOCK_SM = 64
+
+
+def step_bounds(num_rows, num_particles, sms, clock_hz):
+    """The least time of one launch at (B, N), in ms: (bound, "bytes" or
+    "operations", byte bound, issue bound), counted from the law.  Bytes:
+    x and logw read once, x' and logw' written once, the parameter rows,
+    y and the seed.  Issue: the slower of two pipes at ``sms`` SMs and
+    ``clock_hz`` (the card's highest SM clock), the special functions
+    (per pair a Box-Muller's log, sqrt, sin and cos; per particle the
+    weight's exp, log and divide) and the 32 x 32 -> 64-bit multiplies
+    (per pair one Philox4x32-10 call, 10 rounds of two), so it stays a
+    lower bound whatever else the kernel issues."""
+    pairs = num_rows * num_particles // 2
+    num_bytes = 16 * num_rows * num_particles + 12 * num_rows + 4 + 16
+    byte_ms = num_bytes / PEAK_BYTES_PER_S * 1e3
+    issue_ms = max((4 + 2 * 3) * pairs / SPECIAL_PER_CLOCK_SM,
+                   20 * pairs / IMUL_PER_CLOCK_SM) / (sms * clock_hz) * 1e3
+    return (max(byte_ms, issue_ms),
+            "bytes" if byte_ms >= issue_ms else "operations", byte_ms,
+            issue_ms)
+
+
+def launch_grid(num_rows, num_particles):
+    """(grid x, grid y, threads a block) of the kernel's launch at (B, N)
+    on the current card."""
+    out = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.library().ssme_svol_step_grid(num_rows, num_particles,
+                                                    out),
+                "ssme_svol_step_grid")
+    return tuple(out)
+
+
+def empty_launch(grid, device):
+    """One launch of an empty kernel on ``grid`` (as :func:`launch_grid`
+    gives it): the card's floor for a launch of that geometry."""
+    _cuda.check(_cuda.library().ssme_empty_launch(*grid,
+                                                  _cuda.stream_ptr(device)),
+                "ssme_empty_launch")
+
+
+def fixed_inputs(num_rows, num_particles, device):
+    """(params, x, logw) of the bit checks, made from an integer hash of
+    the element index with exact float arithmetic, so that every machine
+    makes the same floats: beta in [0.5, 1.5), phi in [0.8, 0.99), sigma
+    in [0.05, 0.35), x in [-2, 2), logw in (-8, 0]."""
+    def unit(i, c):  # 24 random bits in [0, 1), exact
+        return (((i * 2654435761 + c) & 0xFFFFFFFF) >> 8).to(
+            torch.float32) * 2.0 ** -24
+    i = torch.arange(num_rows * num_particles, dtype=torch.int64,
+                     device=device)
+    r = torch.arange(num_rows, dtype=torch.int64, device=device)
+    params = torch.stack([0.5 + unit(r, 3), 0.8 + 0.19 * unit(r, 4),
+                          0.05 + 0.3 * unit(r, 5)], dim=-1).contiguous()
+    x = (unit(i, 1) * 4.0 - 2.0).reshape(num_rows, num_particles)
+    logw = (unit(i, 2) * -8.0).reshape(num_rows, num_particles)
+    return params, x, logw
+
+
+_DIGEST_P = 2147483629  # a prime below 2^31
+
+
+def digest(*tensors):
+    """16 hex digits that change with any bit of the tensors' float32
+    values or their order, computed with integer sums on the tensors'
+    device (the order of an integer sum does not change it)."""
+    parts = []
+    for t in tensors:
+        v = t.contiguous().view(torch.int32).reshape(-1).to(
+            torch.int64) & 0xFFFFFFFF
+        w = (torch.arange(v.numel(), dtype=torch.int64, device=v.device)
+             * 40503 + 1) % _DIGEST_P
+        parts += [int(v.sum()), int((v * w % _DIGEST_P).sum())]
+    return hashlib.sha256(repr(parts).encode()).hexdigest()[:16]
+
+
 __all__ = ["fused_svol_propagate_weight",
-           "fused_svol_propagate_weight_reference"]
+           "fused_svol_propagate_weight_reference", "step_bounds",
+           "launch_grid", "empty_launch", "fixed_inputs", "digest"]

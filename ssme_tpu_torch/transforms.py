@@ -120,8 +120,99 @@ class ParamTransform:
         return log_det_jacobian(trans_params, self.codes)
 
 
+class ParamPack:
+    """Eager container mirroring the reference ``param::pack``.
+
+    Stores the parameter vector in the transformed (unconstrained) space
+    (``parameters.h:159``) beside its :class:`ParamTransform`: host-side
+    sugar for scripts and tests, on the device of the values it is given.
+    """
+
+    def __init__(self, params, transform: Union[ParamTransform,
+                                                Sequence[str]],
+                 from_transformed: bool = True):
+        # pack(params, transform_names, from_transformed)
+        # (parameters.h:463-485)
+        self.transform = ParamTransform(transform)
+        params = torch.as_tensor(params)
+        if params.shape[-1] != self.transform.dim:
+            raise ValueError("params needs to be the right size (full)")
+        self._trans = (params if from_transformed
+                       else self.transform.unconstrain(params))
+        self._capacity = self.transform.dim
+
+    @classmethod
+    def empty(cls, numelem: int) -> "ParamPack":
+        """An empty pack of fixed capacity for incremental construction,
+        the reference's default-constructed ``pack<float_t, numelem>()``
+        (``parameters.h:503-507``), filled by
+        :meth:`add_param_and_transform`."""
+        if numelem < 1:
+            raise ValueError("numelem must be >= 1")
+        self = cls.__new__(cls)
+        self.transform = None
+        self._trans = torch.zeros((0,))
+        self._capacity = int(numelem)
+        return self
+
+    def add_param_and_transform(self, elem, transform_name: str,
+                                is_transformed: bool = True) -> "ParamPack":
+        """Append one (value, transform) element, reference semantics
+        (``parameters.h:511-537``): the value is stored in the transformed
+        space, converted first when ``is_transformed=False``; adding past
+        the declared capacity raises (``std::length_error``,
+        ``parameters.h:521,536``).  Returns ``self`` for chaining."""
+        filled = 0 if self.transform is None else self.transform.dim
+        if filled >= self._capacity:
+            raise ValueError("can't add any more transformations")
+        names = () if self.transform is None else self.transform.names
+        new_tf = ParamTransform(names + (transform_name,))
+        elem = torch.as_tensor(elem, dtype=torch.get_default_dtype(),
+                               device=self._trans.device if filled else None)
+        elem = elem.reshape(1)
+        if not is_transformed:
+            elem = unconstrain(elem, codes_from_names((transform_name,)))
+        self.transform = new_tf
+        self._trans = torch.cat([self._trans.reshape(-1).to(elem), elem])
+        return self
+
+    def _require_full(self):
+        filled = 0 if self.transform is None else self.transform.dim
+        if filled != self._capacity:
+            raise ValueError(
+                f"pack is not fully constructed: {filled} of "
+                f"{self._capacity} elements added")
+
+    @property
+    def dim(self) -> int:
+        return self._capacity
+
+    def get_trans_params(self, start: int = None,
+                         end: int = None) -> torch.Tensor:
+        # subset semantics of parameters.h:598-602 (inclusive end)
+        self._require_full()
+        if start is None:
+            return self._trans
+        end = start if end is None else end
+        return self._trans[..., start:end + 1]
+
+    def get_untrans_params(self, start: int = None,
+                           end: int = None) -> torch.Tensor:
+        # parameters.h:587-618 (inclusive end)
+        self._require_full()
+        p = self.transform.constrain(self._trans)
+        if start is None:
+            return p
+        end = start if end is None else end
+        return p[..., start:end + 1]
+
+    def get_log_jacobian(self) -> torch.Tensor:
+        self._require_full()
+        return self.transform.log_det_jacobian(self._trans)
+
+
 __all__ = [
     "TT_NULL", "TT_LOG", "TT_LOGIT", "TT_TWICE_FISHER",
     "codes_from_names", "constrain", "unconstrain", "log_det_jacobian",
-    "ParamTransform",
+    "ParamTransform", "ParamPack",
 ]

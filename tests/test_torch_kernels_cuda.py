@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from ssme_tpu_torch.models import factor_svol
+from ssme_tpu_torch.filters import fixed_lag_smoother
+from ssme_tpu_torch.models import factor_svol, lgssm
 from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import _prng, _select
 from ssme_tpu_torch.ops import filter_megakernel as fm
@@ -24,6 +25,7 @@ from ssme_tpu_torch.ops import svol_leverage_lw_kernel as k4
 from ssme_tpu_torch.ops import svol_filter_kernel as sfk
 from ssme_tpu_torch.ops.svol_filter_kernel import (svol_filter,
                                                    svol_filter_reference)
+from ssme_tpu_torch.transforms import ParamPack
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -646,6 +648,48 @@ def test_svol_step_equals_plain(dev):
         k5.fused_svol_propagate_weight(5, 0.0, params, x[:, :511], lw)
 
 
+# ops/svol_kernel.py::digest of the outputs of the kernel before its
+# loads and stores went through the non-coherent and streaming paths, on
+# fixed_inputs with seed words (5, 0) and y 0.37 (scripts/k5_timing.py
+# --bits): one and 65535 rows, an odd count of pairs, rows off 16 bytes
+# (odd rows at N = 4m + 2)
+K5_PARENT_DIGESTS = {
+    (1, 2): "126bf0d768509143", (1, 6): "49299b55f11808c1",
+    (1, 130): "885d6a0628570cb9", (1, 4098): "b12e8eb35a02ab68",
+    (65535, 2): "22f741e8a7ca1100", (65535, 6): "a00de4a0fad66bbb",
+    (65535, 130): "226ad2c92e656f13", (65535, 4098): "1ea52398ccbcb8c6",
+    (3, 4098): "7e48262e43ac2194", (3, 516): "6e59cdd82022eab7",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(K5_PARENT_DIGESTS))
+def test_svol_step_bits_equal_the_parent_kernel(dev, shape):
+    b, n = shape
+    params, x, lw = k5.fixed_inputs(b, n, dev)
+    seed = torch.tensor([5, 0], dtype=torch.int64, device=dev)
+    got = k5.fused_svol_propagate_weight(seed, 0.37, params, x, lw)
+    assert k5.digest(*got) == K5_PARENT_DIGESTS[shape]
+    plain_x, _ = k5.fused_svol_propagate_weight_reference(seed, 0.37,
+                                                          params, x, lw)
+    assert torch.equal(got[0], plain_x)
+
+
+def test_svol_step_inputs_off_16_bytes_keep_their_bits_off_8_raise(dev):
+    b, n = 3, 516
+    params, x, lw = k5.fixed_inputs(b, n, dev)
+    seed = torch.tensor([5, 0], dtype=torch.int64, device=dev)
+    buf = torch.zeros(2 * b * n + 8, device=dev)
+    # 8 bytes past a 16-byte boundary
+    xs = buf[2:2 + b * n].view(b, n)
+    ls = buf[b * n + 6:2 * b * n + 6].view(b, n)
+    xs.copy_(x)
+    ls.copy_(lw)
+    got = k5.fused_svol_propagate_weight(seed, 0.37, params, xs, ls)
+    assert k5.digest(*got) == K5_PARENT_DIGESTS[(b, n)]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        k5.fused_svol_propagate_weight(seed, 0.37, params,
+                                       buf[1:1 + b * n].view(b, n), lw)
+
 
 @pytest.mark.parametrize("n", [2048, 4096])
 @pytest.mark.parametrize("resampler", ["systematic", "metropolis",
@@ -927,3 +971,39 @@ def test_k3_roll_twins_record_layout_and_barriers(dev, name, n):
             plain = lwm.lw_megakernel(km, 6, ys, zs, 8, n, **kw, **roll)
             for key in ("log_cond_likes", "cloud"):
                 assert torch.equal(plain[key], rec["outputs"][key]), key
+
+
+def test_param_pack_runs_on_cuda_tensors(dev):
+    names = ("null", "log", "logit", "twice_fisher")
+    vals = torch.tensor([1.0, -1.3, 9.5, 0.89])
+    pp = ParamPack(vals.to(dev), names)
+    cpu = ParamPack(vals, names)
+    for got, want in ((pp.get_untrans_params(), cpu.get_untrans_params()),
+                      (pp.get_untrans_params(1, 2),
+                       cpu.get_untrans_params(1, 2)),
+                      (pp.get_log_jacobian(), cpu.get_log_jacobian())):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    inc = ParamPack.empty(2).add_param_and_transform(
+        torch.tensor(0.5, device=dev), "log").add_param_and_transform(
+        0.3, "logit", is_transformed=False)
+    assert inc.get_trans_params().device.type == "cuda"
+    torch.testing.assert_close(inc.get_untrans_params().cpu(),
+                               torch.tensor([math.exp(0.5), 0.3]))
+
+
+def test_fixed_lag_smoother_runs_on_cuda_tensors(dev):
+    params = torch.tensor([0.8, 0.5, 0.7], device=dev)
+    _, ys = lgssm.simulate(torch.Generator(device=dev).manual_seed(7),
+                           params, 120)
+    smooth = fixed_lag_smoother(lgssm.make_model(), num_particles=4096,
+                                lag=8)
+    sm, filt, ll = smooth(torch.Generator(device=dev).manual_seed(3),
+                          params, ys)
+    assert sm.device.type == filt.device.type == ll.device.type == "cuda"
+    assert sm.shape == filt.shape == (120, 1)
+    rts, _ = lgssm.kalman_smoother(params, ys)
+    kf_lls, _, _ = lgssm.kalman_filter(params, ys)
+    # the Monte-Carlo tolerances of tests/test_smoothing.py at N=4096
+    assert float((sm[:112, 0] - rts[:112]).abs().mean()) < 0.05
+    assert abs(float(ll) - float(kf_lls.sum())) < 1.5

@@ -32,7 +32,7 @@ print("imported", len({modules!r}) + 1 + len({scripts!r}))
 # the port's own scripts (the JAX yardstick scripts import JAX by design)
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
            for name in ("k3_roll_fullsize.py", "kernel_timing.py",
-                        "roll_sweeps.py")]
+                        "roll_sweeps.py", "k5_timing.py")]
 
 
 def _port_modules():
@@ -52,6 +52,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.examples.liu_west_leverage",
             "ssme_tpu_torch.examples.spy_flagship",
             "ssme_tpu_torch.examples.accuracy_gate",
+            "ssme_tpu_torch.examples.tune_variance",
+            "ssme_tpu_torch.examples.tune_pmmh",
+            "ssme_tpu_torch.profiling",
+            "ssme_tpu_torch.filters.smoothing",
             "ssme_tpu_torch.filters.liu_west",
             "ssme_tpu_torch.ops.liu_west_megakernel",
             "ssme_tpu_torch.ops.svol_leverage_lw_kernel",
@@ -75,3 +79,40 @@ def test_port_and_chip_smoke_import_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == \
         f"imported {len(modules) + 1 + len(SCRIPTS)}"
+
+
+_PACKAGE_SCRIPT = """
+import sys
+sys.modules["jax"] = None          # any "import jax" now raises
+sys.path.insert(0, {root!r})
+import ssme_tpu_torch
+from ssme_tpu_torch import native
+from ssme_tpu_torch.ops import _cuda
+names = {names!r}
+assert all(n in ssme_tpu_torch.__all__ for n in names), ssme_tpu_torch.__all__
+missing = [n for n in names if not hasattr(ssme_tpu_torch, n)]
+assert not missing, missing
+assert ssme_tpu_torch.transforms.ParamPack
+assert ssme_tpu_torch.filters.fixed_lag_smoother
+assert ssme_tpu_torch.profiling.PhaseTimer
+# nothing built or loaded by the import
+assert _cuda._lib is None and not _cuda.build_info, _cuda.build_info
+assert native._lib is None and not native._build_attempted
+assert not any(m == "jax" or m.startswith(("jax.", "ssme_tpu."))
+               or m == "ssme_tpu" for m in sys.modules if sys.modules[m])
+import torch
+assert not torch.backends.cuda.matmul.allow_tf32
+assert not torch.backends.cudnn.allow_tf32
+print("ok")
+"""
+
+
+def test_package_import_exposes_its_subpackages_and_builds_nothing():
+    names = ["transforms", "rv", "resampling", "utils", "models", "filters",
+             "inference", "io", "native", "diagnostics", "profiling"]
+    out = subprocess.run(
+        [sys.executable, "-c", _PACKAGE_SCRIPT.format(root=ROOT,
+                                                      names=names)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
