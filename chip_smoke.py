@@ -20,7 +20,8 @@ particles through one generic-kernel launch per iteration, and the fused
 SVOL step kernel; then the SVOL and Liu-West kernels at up to 4096
 particles, adaptive PMMH on SVOL at N=2048 through one SVOL-kernel
 launch per iteration, and the SPY flagship CLI; then the fixed-lag
-smoother and the two tuning CLIs.  Phases, one line each:
+smoother and the two tuning CLIs; then the parallel package at one rank
+over NCCL.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
@@ -194,7 +195,26 @@ smoother and the two tuning CLIs.  Phases, one line each:
             R=2, 200 iterations in chunks of 50) under ``profiling.trace``:
             one SVOL-kernel launch per iteration and one for the init, a
             record with an accept rate in (0, 1), and a Chrome trace that
-            names the SVOL kernel.
+            names the SVOL kernel;
+35. parallel    ``ssme_tpu_torch.parallel`` at one rank over NCCL (a
+            ``file://`` store in a temporary directory; the group is
+            destroyed at the end of the phase), at the flagship width
+            (SPY T=3084, C=64, R=4, N=512): (a) the chain-sharded hooks
+            ``sharded_megakernel_log_like`` (the generic kernel's svol
+            instance) and ``shard_batched_log_like`` around the SVOL
+            kernel's hook, each bit for bit its inner hook on the folded
+            generator, one launch a call, without a host wait, and ms a
+            call of the sharded and the inner hook; (b) ``sharded_pmmh``
+            through the SVOL kernel for 20 iterations, bit for bit the
+            rank's own ``run_from``, ms an iteration of both; (c) the
+            particle-sharded bootstrap filter on CUDA tensors at N=4096
+            over SPY at ESS 0.5, ring and allgather bit for bit on one
+            seed, the ring's 16 seeds within 4 standard errors of the
+            port's ``BootstrapFilter``, wall seconds; (d)
+            ``ShardedLiuWest`` on SVOL with leverage over SPY (one
+            filter, N=512, ESS 0.5), the constant functional 42 to 1e-3;
+            (e) ``BENCH_MODE=scaling python -m ssme_tpu_torch.bench``:
+            its row at D=1.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -333,6 +353,22 @@ K3_ROLL_INSTANCES = 3 * 2 * 3
 # N at which phase 6 reads the systematic kernel's record: each of its
 # instances
 K1_RECORD_N = (32, N, 1024) + ROLL_N
+
+# the parallel phase (35): sharded PMMH iterations held to run_from, the
+# iterations of each timing window and the turns of four windows
+# (sharded, run_from, run_from, sharded, and the reverse every other
+# turn: each turn's ratio cancels the host's drift), timing calls of the hooks, the scaling bench's
+# iterations a window, the sharded bootstrap filter's particles and
+# seeds, the sharded Liu-West filter's particles
+PAR_ITERS, PAR_TIME_ITERS, PAR_TURNS, PAR_REPS = 20, 100, 16, 10
+PAR_SCALING_ITERS = 200
+PAR_PF_N, PAR_PF_SEEDS, PAR_PF_ALLGATHER = 4096, 16, 1
+PAR_LW_N = 512
+PAR_POINT = (0.849, 0.9744, 0.0659)
+# the filters resample when the global ESS falls under half the cloud
+# (the flagship's schedule): the sharded filters' steps are host-bound,
+# and a step that does not resample issues fewer operations
+PAR_ESS = 0.5
 
 # the least time of a kernel's work: the larger of its bytes over the HBM
 # rate and its operations over the float32 rate outside the tensor cores
@@ -2578,6 +2614,232 @@ def _k3_roll_twins(ys, functors, f):
     return {"layout": layout, "barriers_per_step": counted, "spans": spans}
 
 
+def _copy(gen):
+    """A generator in ``gen``'s state."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _sharded_hook_checks(dev, ys, counter, name, sharded, inner, params):
+    """One sharded hook against its inner hook on the folded generator:
+    bit for bit, one launch a call (``counter``'s), no host wait; then
+    ms a call of each."""
+    from ssme_tpu_torch.ops._prng import fold_generator
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    ref = _copy(gen)
+    before = counter.launches
+    got = sharded(gen, params, ys)
+    launches = counter.launches - before
+    require(launches == 1, f"{name}: {launches} launches a call, want 1")
+    want = inner(fold_generator(ref, 0), params, ys)
+    require(torch.equal(got, want), f"{name}: the sharded hook is not its "
+            "inner hook on the folded generator")
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        before = counter.launches
+        sharded(gen, params, ys)
+        launches += counter.launches - before
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    before = counter.launches
+    ms = cuda_ms(lambda: sharded(gen, params, ys), PAR_REPS)
+    launches += counter.launches - before
+    inner_ms = cuda_ms(lambda: inner(gen, params, ys), PAR_REPS)
+    return launches, {"ms": ms, "inner_ms": inner_ms}
+
+
+def phase_parallel(dev, ys, ident):
+    """Phase 35: the parallel package at one rank over NCCL."""
+    import torch.distributed as dist
+
+    from ssme_tpu_torch import parallel
+    from ssme_tpu_torch.filters import BootstrapFilter
+    from ssme_tpu_torch.parallel.sharded_pf import sharded_log_likelihood_fn
+
+    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    model = svol.make_model()
+    rng = np.random.default_rng(35)
+    trans = torch.tensor(svol.START_TRANS_THETA) + 0.05 * torch.as_tensor(
+        rng.normal(size=(C, 3)), dtype=torch.float32)
+    params = model.transform.constrain(trans).to(dev)
+    out = {"nvidia_smi": ident}
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize_distributed(
+            "file://" + os.path.join(tmp, "store"), 1, 0, "cuda")
+        try:
+            mesh = parallel.make_mesh(1, 1)
+            require(dist.get_backend() == "nccl", dist.get_backend())
+            # (a) the chain-sharded hooks, adaptive schedule
+            inner_k1 = sfk.svol_batched_log_like(N, R, ess_threshold=0.5,
+                                                 gate_stride=8)
+            k1_hook, out["k1_hook"] = _sharded_hook_checks(
+                dev, ys, sfk.svol_filter, "K1",
+                parallel.shard_batched_log_like(inner_k1, mesh), inner_k1,
+                params)
+            inner_k2 = fmk.megakernel_log_like(
+                fmk.svol_kernel_model(), N, R, constrain=sfk._kernel_rows,
+                ess_threshold=0.5, gate_stride=8)
+            k2_hook, out["k2_hook"] = _sharded_hook_checks(
+                dev, ys, fmk.filter_megakernel, "K2 svol",
+                parallel.sharded_megakernel_log_like(
+                    fmk.svol_kernel_model(), N, R, mesh,
+                    constrain=sfk._kernel_rows, ess_threshold=0.5,
+                    gate_stride=8), inner_k2, params)
+            # (b) sharded_pmmh through K1 against the rank's run_from
+            pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=R,
+                                t0=150, t1=1000, batched_log_like=inner_k1)
+            run = parallel.sharded_pmmh(pmmh, mesh, PAR_ITERS)
+            a = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
+            b = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
+            before = sfk.svol_filter.launches
+            res = run(parallel.shard_chain_state(a, mesh), ys)
+            pmmh_launches = sfk.svol_filter.launches - before
+            require(pmmh_launches == PAR_ITERS, f"sharded PMMH: "
+                    f"{pmmh_launches} launches, want {PAR_ITERS}")
+            ref = pmmh.run_from(b, PAR_ITERS, ys)
+            for k in ("samples", "log_likes", "accepted"):
+                require(torch.equal(getattr(res, k), getattr(ref, k)),
+                        f"sharded PMMH {k} differ from run_from's")
+            # windows of PAR_TIME_ITERS in PAR_TURNS turns: sharded,
+            # unsharded, unsharded, sharded, then the reverse
+            run = parallel.sharded_pmmh(pmmh, mesh, PAR_TIME_ITERS)
+            states = {"sharded": res.final_state,
+                      "run_from": ref.final_state}
+            ms = {"sharded": [], "run_from": []}
+            abba = ("sharded", "run_from", "run_from", "sharded")
+            for side in (abba + abba[::-1]) * (PAR_TURNS // 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                before = sfk.svol_filter.launches
+                if side == "sharded":
+                    states[side] = run(states[side], ys).final_state
+                    pmmh_launches += sfk.svol_filter.launches - before
+                else:
+                    states[side] = pmmh.run_from(states[side], PAR_TIME_ITERS,
+                                                 ys).final_state
+                torch.cuda.synchronize()
+                ms[side].append(1e3 * (time.perf_counter() - t0)
+                                / PAR_TIME_ITERS)
+            med = {k: float(np.median(v)) for k, v in ms.items()}
+            ratio = [sum(ms["sharded"][2 * i:2 * i + 2])
+                     / sum(ms["run_from"][2 * i:2 * i + 2])
+                     for i in range(PAR_TURNS)]
+            out["pmmh"] = {"ms_per_iteration": ms["sharded"],
+                           "run_from_ms_per_iteration": ms["run_from"],
+                           "median_ms": med, "turn_ratios": ratio,
+                           "median_ratio": float(np.median(ratio)),
+                           "iters_per_window": PAR_TIME_ITERS,
+                           "accepted": int(res.accepted.sum())}
+            # (c) the particle-sharded bootstrap filter at N=4096
+            point = torch.tensor(PAR_POINT, device=dev)
+            group = mesh.get_group("particle")
+            lls, secs = {}, {}
+            for exchange, seeds in (("ring", PAR_PF_SEEDS),
+                                    ("allgather", PAR_PF_ALLGATHER)):
+                ll = sharded_log_likelihood_fn(model, PAR_PF_N, group,
+                                               ess_threshold=PAR_ESS,
+                                               exchange=exchange)
+                vals = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for seed in range(seeds):
+                    gen = torch.Generator(device=dev)
+                    gen.manual_seed(seed)
+                    vals.append(float(ll(gen, point, ys)))
+                secs[exchange] = (time.perf_counter() - t0) / seeds
+                lls[exchange] = np.asarray(vals)
+            require(np.array_equal(lls["allgather"],
+                                   lls["ring"][:PAR_PF_ALLGATHER]),
+                    f"ring {lls['ring'][:PAR_PF_ALLGATHER]} != allgather "
+                    f"{lls['allgather']}")
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = BootstrapFilter(model, PAR_PF_N,
+                                    ess_threshold=PAR_ESS).run(
+                gen, point.expand(PAR_PF_SEEDS, 3), ys).log_likelihood
+            plain = plain.cpu().numpy().astype(np.float64)
+            plain_s = time.perf_counter() - t0
+            ring = lls["ring"]
+            se = math.sqrt(ring.var(ddof=1) / len(ring)
+                           + plain.var(ddof=1) / len(plain))
+            d = abs(ring.mean() - plain.mean())
+            require(np.isfinite(ring).all() and d <= 4 * se,
+                    f"sharded PF {ring.mean():.4f} vs BootstrapFilter "
+                    f"{plain.mean():.4f}: {d:.4f} > 4 SE {4 * se:.4f}")
+            out["sharded_pf"] = {
+                "mean": float(ring.mean()), "sd": float(ring.std(ddof=1)),
+                "plain_mean": float(plain.mean()),
+                "plain_sd": float(plain.std(ddof=1)), "se": se,
+                "s_per_run": secs, "plain_s_for_16_as_one_batch": plain_s}
+            # (d) the particle-sharded Liu-West filter, one filter
+            lev = svol_leverage.make_model()
+            lw = parallel.ShardedLiuWest(lev, PAR_LW_N, ess_threshold=PAR_ESS,
+                                         functionals=(
+                lambda x, z, p: torch.full(x.shape[:-1] + (1,), 42.0,
+                                           device=x.device),))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(7)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lw_res = parallel.make_sharded_lw_runner(lw, mesh)(
+                gen, ys, svol_leverage.lagged_covariates(ys))
+            torch.cuda.synchronize()
+            lw_s = time.perf_counter() - t0
+            lw42 = float((lw_res.expectations[0] - 42.0).abs().max())
+            require(lw42 < 1e-3 and bool(torch.isfinite(
+                lw_res.log_cond_likes).all()),
+                f"sharded Liu-West: |E[42] - 42| = {lw42}")
+            out["sharded_lw"] = {"log_likelihood": float(
+                lw_res.log_likelihood), "abs_err_42": lw42, "s": lw_s}
+        finally:
+            dist.destroy_process_group()
+    # (e) the scaling mode of the bench, in a process of its own
+    res = subprocess.run([sys.executable, "-m", "ssme_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(
+                             os.environ, BENCH_MODE="scaling",
+                             BENCH_ITERS=str(PAR_SCALING_ITERS)))
+    require(res.returncode == 0, f"scaling bench exited {res.returncode}:\n"
+            f"{res.stderr[-4000:]}")
+    scaling = json.loads(res.stdout.strip().splitlines()[-1])
+    rows = scaling["rows"]
+    require(scaling["metric"] == "pmmh_chain_scaling" and len(rows) == 1
+            and rows[0]["devices"] == 1
+            and math.isfinite(rows[0]["props_per_sec"]),
+            f"scaling bench rows {rows}")
+    out["scaling"] = scaling
+    out["launches"] = {"svol_filter": k1_hook + pmmh_launches,
+                       "filter_megakernel": k2_hook}
+    phase(35, "parallel", "NCCL at one rank: sharded K1 / K2 hooks bit for "
+          f"bit their inner hooks, {k1_hook} / {k2_hook} launches, ms a call "
+          f"{out['k1_hook']['ms']:.4f} / {out['k1_hook']['inner_ms']:.4f} "
+          f"(K1 sharded / inner), {out['k2_hook']['ms']:.4f} / "
+          f"{out['k2_hook']['inner_ms']:.4f} (K2); sharded_pmmh {PAR_ITERS} "
+          f"iters equal to run_from, ms an iteration over {2 * PAR_TURNS} "
+          f"windows of {PAR_TIME_ITERS} each, median (least-most) sharded "
+          f"{med['sharded']:.4f} ({min(ms['sharded']):.4f}-"
+          f"{max(ms['sharded']):.4f}), run_from {med['run_from']:.4f} "
+          f"({min(ms['run_from']):.4f}-{max(ms['run_from']):.4f}), "
+          f"sharded / run_from a turn median {np.median(ratio):.4f} "
+          f"({min(ratio):.4f}-{max(ratio):.4f}); "
+          f"sharded PF N={PAR_PF_N} {ring.mean():.4f} +- {se:.4f} vs "
+          f"{plain.mean():.4f}, {secs['ring']:.3f} s a run (ring), "
+          f"{secs['allgather']:.3f} (allgather); sharded Liu-West |E[42]-42| "
+          f"{lw42:.2g} in {lw_s:.3f} s; scaling D=1 "
+          f"{rows[0]['props_per_sec']:.6e} props/s (median "
+          f"{rows[0]['props_per_sec_median']:.6e}, least "
+          f"{rows[0]['props_per_sec_min']:.6e} of {rows[0]['windows']} "
+          f"windows of {PAR_SCALING_ITERS} iterations) ({ident})")
+    return out
+
+
 def main():
     ident = phase_device()
     dev = torch.device("cuda")
@@ -2622,6 +2884,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tune_var_launches, tune_var = phase_tune_variance(tmp, ident)
         tune_pmmh_launches, tune_rec = phase_tune_pmmh(tmp, ident)
+    par = phase_parallel(dev, ys, ident)
+    par_launches = par["launches"]
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -2643,12 +2907,14 @@ def main():
         "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/svol_filter_kernel.py:317",
         "launches": (launches + k1_pmmh_launches + flagship_launches
-                     + tune_var_launches + tune_pmmh_launches),
+                     + tune_var_launches + tune_pmmh_launches
+                     + par_launches["svol_filter"]),
         "main_path_launches": {"pmmh": launches,
                                "pmmh/N2048": k1_pmmh_launches,
                                "spy_flagship": flagship_launches,
                                "tune_variance": tune_var_launches,
-                               "tune_pmmh": tune_pmmh_launches},
+                               "tune_pmmh": tune_pmmh_launches,
+                               "parallel": par_launches["svol_filter"]},
         "tune_variance": tune_var,
         "tune_pmmh": tune_rec,
         "max_abs_err": max(sis_err, k1_large_err),
@@ -2682,7 +2948,7 @@ def main():
         "roll_selection": "ssme_tpu_torch/csrc/roll_select.cuh",
         "replaces": "ssme_tpu/ops/filter_megakernel.py:466",
         "launches": (k2_launches + swarm_launches + svol_t_launches
-                     + large_launches),
+                     + large_launches + par_launches["filter_megakernel"]),
         "max_abs_err": max(k2_err, fam_err, roll_err),
         "ms": k2_ms,
         "plain_ms": k2_plain,
@@ -2697,7 +2963,8 @@ def main():
         "apf": {k: v for k, v in fam.items() if "/apf" in k},
         "main_path_launches": {"svol_leverage": k2_launches + swarm_launches,
                                "svol_t": svol_t_launches,
-                               "svol/rejection/N2048": large_launches},
+                               "svol/rejection/N2048": large_launches,
+                               "parallel": par_launches["filter_megakernel"]},
         "per_resampler": dict(roll["K2"], sweeps=roll["sweeps"],
                               bias_envelope=roll["bias_envelope"]),
         "pmmh_large_n": large,
@@ -2775,7 +3042,7 @@ def main():
         "issue_bound_ms": step["issue_bound_ms"],
         "max_sm_clock_hz": step["max_sm_clock_hz"],
         "per_shape": step["per_shape"],
-    }], "smoother": smoother}), flush=True)
+    }], "smoother": smoother, "parallel": par}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

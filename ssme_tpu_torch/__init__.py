@@ -18,7 +18,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 # the subpackages, as ssme_tpu imports its own; none builds or loads
 # anything here (the CUDA kernels build at their first launch on a CUDA
-# tensor, ops/_cuda.py, and the native IO library at its first use)
+# tensor, ops/_cuda.py, and the native IO library at its first use), and
+# none forms a process group (parallel/ joins one when asked)
 from ssme_tpu_torch import transforms  # noqa: E402
 from ssme_tpu_torch import rv  # noqa: E402
 from ssme_tpu_torch import resampling  # noqa: E402
@@ -30,6 +31,7 @@ from ssme_tpu_torch import io  # noqa: E402
 from ssme_tpu_torch import native  # noqa: E402
 from ssme_tpu_torch import diagnostics  # noqa: E402
 from ssme_tpu_torch import profiling  # noqa: E402
+from ssme_tpu_torch import parallel  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -45,5 +47,6 @@ __all__ = [
     "native",
     "diagnostics",
     "profiling",
+    "parallel",
     "__version__",
 ]

@@ -22,6 +22,19 @@ limit, the wall time per MH iteration, and from one more window traced
 with ``torch.profiler`` the device's busy share and its time per
 iteration by kernel.  Without a card it raises: it never measures the
 CPU.
+
+``BENCH_MODE=scaling`` (from ``bench.py``'s scaling mode) sweeps the
+chain axis over 1, 2, 4, ... ranks up to D, one card a rank: D is the
+card count, or ``WORLD_SIZE`` under ``torchrun`` (``torchrun
+--nproc-per-node D -m ssme_tpu_torch.bench``); without ``torchrun`` it
+spawns the ranks itself.  Each row runs ``BENCH_CHAINS`` (default 2)
+chains a rank through ``parallel.sharded_pmmh`` with the SVOL kernel's
+hook (N=256, R=2, 10 iterations, the first 512 SPY returns by default)
+and prints JAX's keys: ``pmmh_chain_scaling``, the ``rows`` with
+props/s and parallel efficiency, plus the card's name and power limit.
+A row's props/s is the best of ``SCALING_WINDOWS`` windows (JAX's is the
+best of 2), beside their median and least: the host's jitter spreads
+the windows.
 """
 
 import json
@@ -39,6 +52,7 @@ import torch  # noqa: E402
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "data", "spy_returns.csv")
 BASELINE = 1e8  # north-star props/s per device (BASELINE.json)
+SCALING_WINDOWS = 9
 
 
 def gpu_identity() -> str:
@@ -125,10 +139,127 @@ def measure(num_particles, num_replicates, num_chains, num_iters, ys,
     return best, busy, top
 
 
+def scaling_rank(device_type, counts, num_particles, num_replicates,
+                 chains_per_dev, num_iters, t_sub):
+    """One rank's part of the chain-axis sweep (every rank of the default
+    group runs it): for each d in ``counts`` the first d ranks run
+    ``chains_per_dev * d`` chains, split over a d x 1 mesh, through
+    ``SCALING_WINDOWS`` timed windows after a warm-up; returns the rows (a
+    window's time is its slowest rank's; props/s from the best window,
+    as JAX's, with the median and the range over the windows; a rank
+    outside a row's mesh holds None there, so rank 0's rows are the
+    sweep's)."""
+    import torch.distributed as dist
+
+    from ssme_tpu_torch import parallel
+    from ssme_tpu_torch.inference import AdaptivePMMH
+    from ssme_tpu_torch.io import read_data
+    from ssme_tpu_torch.models import svol
+    from ssme_tpu_torch.ops.svol_filter_kernel import svol_batched_log_like
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    ys = torch.as_tensor(read_data(DATA, num_cols=1)[:t_sub], device=dev)
+    t_len = int(ys.shape[0])
+    pmmh = AdaptivePMMH(svol.make_model(), num_particles=num_particles,
+                        num_replicates=num_replicates, t0=150, t1=1000,
+                        batched_log_like=svol_batched_log_like(
+                            num_particles, num_replicates))
+    rows, base = [], None
+    for d in counts:
+        mesh = parallel.make_mesh(d, 1, ranks=range(d))
+        c = chains_per_dev * d
+        secs = torch.zeros(SCALING_WINDOWS, dtype=torch.float64,
+                           device=dev)
+        if dist.get_rank() < d:
+            run = parallel.sharded_pmmh(pmmh, mesh, num_iters)
+            state = parallel.shard_chain_state(
+                pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=c), mesh)
+            res = run(state, ys)               # warm-up: builds the kernel
+            sync()
+            group = mesh.get_group("chain")
+            for w in range(SCALING_WINDOWS):
+                dist.barrier(group=group)
+                t0 = time.perf_counter()
+                res = run(res.final_state, ys)
+                sync()
+                secs[w] = time.perf_counter() - t0
+            dist.all_reduce(secs, op=dist.ReduceOp.MAX, group=group)
+        dist.barrier()
+        row = {"devices": d, "chains": c, "props_per_sec": None,
+               "parallel_efficiency": None}
+        if dist.get_rank() < d:
+            props = num_iters * c * num_replicates * num_particles * t_len
+            thr = sorted(props / float(x) for x in secs.cpu())
+            row.update(props_per_sec=thr[-1],
+                       props_per_sec_median=thr[len(thr) // 2],
+                       props_per_sec_min=thr[0], windows=SCALING_WINDOWS)
+            if d == counts[0]:
+                base = thr[-1]
+            if base is not None:
+                row["parallel_efficiency"] = thr[-1] / (base * d / counts[0])
+        rows.append(row)
+    return rows
+
+
+def scaling_main():
+    """``BENCH_MODE=scaling``: the sweep on the cards (see the module
+    note); prints one JSON line."""
+    from ssme_tpu_torch import parallel
+
+    args = (int(os.environ.get("BENCH_PARTICLES", 256)),
+            int(os.environ.get("BENCH_REPLICATES", 2)),
+            int(os.environ.get("BENCH_CHAINS", 2)),
+            int(os.environ.get("BENCH_ITERS", 10)),
+            int(os.environ.get("BENCH_T", 512)))
+    under_torchrun = "TORCHELASTIC_RUN_ID" in os.environ
+    world = (int(os.environ["WORLD_SIZE"]) if under_torchrun
+             else torch.cuda.device_count())
+    counts = tuple(d for d in (1, 2, 4, 8, 16, 32) if d <= world)
+    if under_torchrun:
+        parallel.initialize_distributed(device="cuda")
+        rows = scaling_rank("cuda", counts, *args)
+        rank = torch.distributed.get_rank()
+        torch.distributed.destroy_process_group()
+        if rank != 0:
+            return
+    else:
+        rows = parallel.spawn_local(scaling_rank, world, "cuda",
+                                    args=("cuda", counts) + args,
+                                    timeout=1800.0)[0]
+    for r in rows:
+        print(f"devices={r['devices']:3d} chains={r['chains']:4d} "
+              f"props/s={r['props_per_sec']:.6e} (median "
+              f"{r['props_per_sec_median']:.6e}, least "
+              f"{r['props_per_sec_min']:.6e} of {r['windows']} windows) "
+              f"efficiency={r['parallel_efficiency']:.6f}", file=sys.stderr)
+    print(json.dumps({
+        "metric": "pmmh_chain_scaling",
+        "value": rows[-1]["parallel_efficiency"],
+        "unit": "parallel_efficiency_at_max_devices",
+        "vs_baseline": rows[-1]["parallel_efficiency"],
+        "platform": "gpu",
+        "rows": rows,
+        "device": torch.cuda.get_device_name(0),
+        "device_count": torch.cuda.device_count(),
+        "nvidia_smi": gpu_identity(),
+        "config": dict(zip(("particles", "replicates", "chains_per_device",
+                            "iters", "t"), args)),
+    }), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("ssme_tpu_torch.bench: no CUDA device; the "
                          "benchmark measures the card only")
+    if os.environ.get("BENCH_MODE") == "scaling":
+        scaling_main()
+        return
     from ssme_tpu_torch.io import read_data
 
     num_particles = int(os.environ.get("BENCH_PARTICLES", 512))

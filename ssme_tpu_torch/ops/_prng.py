@@ -37,6 +37,10 @@ The mapping (the only place it is written down):
   - 0xE0000000 + s, s < 4096: the same for an auxiliary-PF first-stage
     selection under a roll resampler (the generic and Liu-West kernels'
     APF modes);
+  - 0xA0000000: the shard fold (:func:`fold_generator`, the counterpart
+    of ``jax.random.fold_in(key, shard)``): counter (shard, c1, c2, tag)
+    under key (k0, k1) taken from the generator's host-side state gives
+    the 64-bit seed (w0 << 32) | w1 of the shard's generator;
 - Philox4x32-10 (Salmon et al. 2011; the Random123 constants) gives four
   words (w0, w1, w2, w3);
 - normals: u1 = ((w0 >> 8) + 1) 2^-24 in (0, 1],
@@ -75,6 +79,7 @@ TAG_PRIOR_UNIFORM = 1 << 31
 TAG_SELECT_OFFSET = (1 << 31) + 1
 TAG_ROLL_SWEEP = 0xC0000000
 TAG_ROLL_SELECT = 0xE0000000
+TAG_SHARD_FOLD = 0xA0000000
 ROLL_MAX_ITERS = 4096
 TWO_PI = 6.283185307179586
 HALF_LOG_2PI = 0.9189385332046727
@@ -201,6 +206,44 @@ def roll_sweep_draws(seed, rows, step, sweep, num_particles,
     return w1[:, :, 0], uniform_open_zero(w0)
 
 
+def fold_generator(gen: torch.Generator, index: int) -> torch.Generator:
+    """A new generator on ``gen``'s device for shard ``index``: the
+    counterpart of ``jax.random.fold_in(key, index)``.
+
+    The key words come from ``gen``'s host-side state, so the fold never
+    waits for the device.  A CPU generator draws them: (k0, k1) are two
+    32-bit words of ``gen`` and (c1, c2) = (0, 0).  A CUDA generator's
+    state is its (seed, Philox offset) pair: (k0, k1) are the seed's
+    halves and (c1, c2) the offset's, and the offset then moves on by 4,
+    one Philox call, as a draw would move it.  Either way ``gen``
+    advances, so two folds of one generator differ, and generators in
+    the same state fold to the same one on every rank.  Philox4x32-10 of
+    counter (index, c1, c2, ``TAG_SHARD_FOLD``) under (k0, k1) gives the
+    new generator's seed (w0 << 32) | w1.
+    """
+    if gen.device.type == "cpu":
+        k0, k1 = torch.randint(0, 2 ** 32, (2,), generator=gen,
+                               dtype=torch.int64).tolist()
+        c1 = c2 = 0
+    else:
+        state = gen.get_state()
+        if state.numel() != 16:
+            raise RuntimeError(
+                f"fold_generator: a {gen.device.type} generator's state has "
+                f"{state.numel()} bytes, want 16 (seed, offset)")
+        words = state.view(torch.int64)          # (seed, offset)
+        seed, offset = int(words[0]) & (2 ** 64 - 1), int(words[1])
+        k0, k1 = seed & MASK32, seed >> 32
+        c1, c2 = offset & MASK32, offset >> 32
+        ahead = words.clone()
+        ahead[1] += 4
+        gen.set_state(ahead.view(torch.uint8))
+    w0, w1, _, _ = philox4x32_10(int(index), c1, c2, TAG_SHARD_FOLD, k0, k1)
+    out = torch.Generator(device=gen.device)
+    out.manual_seed((w0 << 32) | w1)
+    return out
+
+
 def offsets(seed, rows, step):
     """Resampling offsets (len(rows),) at one step."""
     steps = torch.tensor([step], device=seed.device)
@@ -268,7 +311,8 @@ philox_fill.launches = 0
 
 __all__ = ["philox4x32_10", "seed_words", "normals_steps", "normal_tag",
            "offsets", "offsets_steps", "prior_uniforms", "roll_sweep_draws",
-           "TAG_ROLL_SWEEP", "TAG_ROLL_SELECT", "ROLL_MAX_ITERS",
+           "TAG_ROLL_SWEEP", "TAG_ROLL_SELECT", "TAG_SHARD_FOLD",
+           "ROLL_MAX_ITERS", "fold_generator",
            "philox_fill", "philox_fill_reference", "uniform_open_zero",
            "uniform_closed_zero", "uniform_offset", "box_muller",
            "TWO_PI", "HALF_LOG_2PI"]

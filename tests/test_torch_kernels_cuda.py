@@ -1007,3 +1007,124 @@ def test_fixed_lag_smoother_runs_on_cuda_tensors(dev):
     # the Monte-Carlo tolerances of tests/test_smoothing.py at N=4096
     assert float((sm[:112, 0] - rts[:112]).abs().mean()) < 0.05
     assert abs(float(ll) - float(kf_lls.sum())) < 1.5
+
+
+# the parallel package at one rank over NCCL (chip_smoke phase 35 at a
+# smaller width)
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    import torch.distributed as dist
+
+    from ssme_tpu_torch import parallel
+
+    parallel.initialize_distributed("file://" + str(tmp_path / "store"), 1,
+                                    0, "cuda", timeout=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield parallel.make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _svol_chain_params(dev, chains):
+    from ssme_tpu_torch.models import svol
+
+    trans = torch.tensor(svol.START_TRANS_THETA) + 0.05 * torch.as_tensor(
+        np.random.default_rng(3).normal(size=(chains, 3)),
+        dtype=torch.float32)
+    return svol.make_model().transform.constrain(trans).to(dev)
+
+
+def test_fold_generator_on_the_card_is_host_only_and_reproducible(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    twin = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = _prng.fold_generator(gen, 3)
+        b = _prng.fold_generator(twin, 3)
+        c = _prng.fold_generator(gen, 3)      # gen has moved on
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert a.device.type == "cuda"
+    assert a.initial_seed() == b.initial_seed() != c.initial_seed()
+
+    def offset(g):
+        return int.from_bytes(bytes(g.get_state()[8:].tolist()), "little")
+
+    # each fold moves its generator's Philox offset on by one call
+    assert offset(gen) == offset(twin) + 4
+
+
+@pytest.mark.parametrize("kernel", ["svol_filter", "filter_megakernel"])
+def test_sharded_hook_is_its_inner_hook_on_the_folded_generator_nccl(
+        dev, nccl_mesh, kernel):
+    from ssme_tpu_torch import parallel
+
+    ys = _ys(256, 4).to(dev)
+    params = _svol_chain_params(dev, 8)
+    if kernel == "svol_filter":
+        inner = sfk.svol_batched_log_like(512, 2, ess_threshold=0.5,
+                                          gate_stride=8)
+        sharded = parallel.shard_batched_log_like(inner, nccl_mesh)
+        counter = sfk.svol_filter
+    else:
+        kw = dict(constrain=sfk._kernel_rows, ess_threshold=0.5,
+                  gate_stride=8)
+        inner = fm.megakernel_log_like(fm.svol_kernel_model(), 512, 2, **kw)
+        sharded = parallel.sharded_megakernel_log_like(
+            fm.svol_kernel_model(), 512, 2, nccl_mesh, **kw)
+        counter = fm.filter_megakernel
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ref = torch.Generator(device=dev)
+    ref.set_state(gen.get_state())
+    before = counter.launches
+    got = sharded(gen, params, ys)
+    assert counter.launches == before + 1
+    want = inner(_prng.fold_generator(ref, 0), params, ys)
+    assert got.device.type == "cuda" and got.shape == (8,)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_sharded_pmmh_is_run_from_at_one_rank_nccl(dev, nccl_mesh):
+    from ssme_tpu_torch import parallel
+    from ssme_tpu_torch.inference import AdaptivePMMH
+    from ssme_tpu_torch.models import svol
+
+    ys = _ys(256, 5).to(dev)
+    pmmh = AdaptivePMMH(svol.make_model(), num_particles=512,
+                        num_replicates=2, t0=2, t1=50,
+                        batched_log_like=sfk.svol_batched_log_like(512, 2))
+    a = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=8)
+    b = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=8)
+    res = parallel.sharded_pmmh(pmmh, nccl_mesh, 5)(
+        parallel.shard_chain_state(a, nccl_mesh), ys)
+    ref = pmmh.run_from(b, 5, ys)
+    for k in ("samples", "log_likes", "accepted", "accept_rate"):
+        assert torch.equal(getattr(res, k), getattr(ref, k)), k
+
+
+def test_initialize_distributed_on_cuda_raises_without_a_card(dev,
+                                                              tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    script = (
+        "import sys; sys.path.insert(0, {root!r})\n"
+        "import torch.distributed as dist\n"
+        "from ssme_tpu_torch.parallel import initialize_distributed\n"
+        "try:\n"
+        "    initialize_distributed({init!r}, 1, 0, 'cuda')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', dist.is_initialized(), e)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", script.format(
+            root=root, init="file://" + str(tmp_path / "store"))],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised False"), out.stdout

@@ -29,10 +29,12 @@ bad = sorted(m for m in sys.modules if m == "ssme_tpu"
 assert not bad, bad
 print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
-# the port's own scripts (the JAX yardstick scripts import JAX by design)
+# the port's own scripts (the JAX yardstick scripts import JAX by design),
+# and the rank programs that the parallel tests' spawned processes import
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
            for name in ("k3_roll_fullsize.py", "kernel_timing.py",
-                        "roll_sweeps.py", "k5_timing.py")]
+                        "roll_sweeps.py", "k5_timing.py")] + [
+    os.path.join(ROOT, "tests", "torch_parallel_ranks.py")]
 
 
 def _port_modules():
@@ -71,7 +73,15 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.models.lgssm",
             "ssme_tpu_torch.filters.auxiliary",
             "ssme_tpu_torch.inference.swarm",
-            "ssme_tpu_torch.io.checkpoint"} <= set(modules)
+            "ssme_tpu_torch.io.checkpoint",
+            "ssme_tpu_torch.parallel",
+            "ssme_tpu_torch.parallel.distributed",
+            "ssme_tpu_torch.parallel.mesh",
+            "ssme_tpu_torch.parallel.kernel_sharded",
+            "ssme_tpu_torch.parallel.sharded_pf",
+            "ssme_tpu_torch.parallel.sharded_lw",
+            "ssme_tpu_torch.examples.dryrun_multichip",
+            "ssme_tpu_torch.examples.dryrun_multihost"} <= set(modules)
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT.format(root=ROOT, modules=modules,
                                                scripts=SCRIPTS)],
@@ -95,6 +105,10 @@ assert not missing, missing
 assert ssme_tpu_torch.transforms.ParamPack
 assert ssme_tpu_torch.filters.fixed_lag_smoother
 assert ssme_tpu_torch.profiling.PhaseTimer
+assert ssme_tpu_torch.parallel.sharded_pmmh
+# no process group formed by the import
+import torch.distributed as dist
+assert not dist.is_initialized()
 # nothing built or loaded by the import
 assert _cuda._lib is None and not _cuda.build_info, _cuda.build_info
 assert native._lib is None and not native._build_attempted
@@ -109,7 +123,8 @@ print("ok")
 
 def test_package_import_exposes_its_subpackages_and_builds_nothing():
     names = ["transforms", "rv", "resampling", "utils", "models", "filters",
-             "inference", "io", "native", "diagnostics", "profiling"]
+             "inference", "io", "native", "diagnostics", "profiling",
+             "parallel"]
     out = subprocess.run(
         [sys.executable, "-c", _PACKAGE_SCRIPT.format(root=ROOT,
                                                       names=names)],
