@@ -21,7 +21,8 @@ SVOL step kernel; then the SVOL and Liu-West kernels at up to 4096
 particles, adaptive PMMH on SVOL at N=2048 through one SVOL-kernel
 launch per iteration, and the SPY flagship CLI; then the fixed-lag
 smoother and the two tuning CLIs; then the parallel package at one rank
-over NCCL.  Phases, one line each:
+over NCCL; then the float64 oracle and the accuracy gate's own oracle
+run.  Phases, one line each:
 
 1. device   the card's name and power limit (no card: exit non-zero);
 2. build    nvcc build of the kernels, with ptxas' register counts; every
@@ -209,12 +210,24 @@ over NCCL.  Phases, one line each:
             rank's own ``run_from``, ms an iteration of both; (c) the
             particle-sharded bootstrap filter on CUDA tensors at N=4096
             over SPY at ESS 0.5, ring and allgather bit for bit on one
-            seed, the ring's 16 seeds within 4 standard errors of the
+            seed, the ring's 4 seeds within 4 standard errors of the
             port's ``BootstrapFilter``, wall seconds; (d)
-            ``ShardedLiuWest`` on SVOL with leverage over SPY (one
-            filter, N=512, ESS 0.5), the constant functional 42 to 1e-3;
+            ``ShardedLiuWest`` on SVOL with leverage over SPY's first
+            1024 returns (one filter, N=512, ESS 0.5), the constant
+            functional 42 to 1e-3;
             (e) ``BENCH_MODE=scaling python -m ssme_tpu_torch.bench``:
-            its row at D=1.
+            its row at D=1;
+36. oracle      the float64 oracle (``ssme_tpu_torch.oracle``) on the card:
+            ``loglike_reps`` over SPY at the committed JAX chains'
+            posterior mean (``data/accuracy_gate.json``), N=500, R=8, on
+            4 seeds on the card and 4 on the CPU, the means within 4
+            combined standard errors; 10 ``oracle_pmmh`` iterations at that
+            width from the posterior mode, seconds an iteration; then
+            ``examples.accuracy_gate`` in-process with its own oracle run
+            (``--oracle-npy`` with no file: 5 iterations, N=500, R=2) and
+            both engines for 300 iterations each: 301 SVOL-kernel
+            launches an engine, finite means, nine comparisons, the draws
+            saved beside its output.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -359,16 +372,24 @@ K1_RECORD_N = (32, N, 1024) + ROLL_N
 # (sharded, run_from, run_from, sharded, and the reverse every other
 # turn: each turn's ratio cancels the host's drift), timing calls of the hooks, the scaling bench's
 # iterations a window, the sharded bootstrap filter's particles and
-# seeds, the sharded Liu-West filter's particles
-PAR_ITERS, PAR_TIME_ITERS, PAR_TURNS, PAR_REPS = 20, 100, 16, 10
+# seeds, the sharded Liu-West filter's particles and steps (cut to keep
+# the script under 600 s)
+PAR_ITERS, PAR_TIME_ITERS, PAR_TURNS, PAR_REPS = 20, 100, 8, 10
 PAR_SCALING_ITERS = 200
-PAR_PF_N, PAR_PF_SEEDS, PAR_PF_ALLGATHER = 4096, 16, 1
-PAR_LW_N = 512
+PAR_PF_N, PAR_PF_SEEDS, PAR_PF_ALLGATHER = 4096, 4, 1
+PAR_LW_N, PAR_LW_T = 512, 1024
 PAR_POINT = (0.849, 0.9744, 0.0659)
 # the filters resample when the global ESS falls under half the cloud
 # (the flagship's schedule): the sharded filters' steps are host-bound,
 # and a step that does not resample issues fewer operations
 PAR_ESS = 0.5
+
+# the float64 oracle (36): the width of the committed JAX chains (N, R),
+# the seeds of its likelihood on each device, the iterations timed, and
+# the gate's own short run (its oracle's and each engine's iterations,
+# the engines' burn-in and adaptation restart)
+ORACLE_N, ORACLE_R, ORACLE_SEEDS, ORACLE_ITERS = 500, 8, 4, 10
+GATE_ORACLE_ITERS, GATE_ENGINE_ITERS, GATE_BURN = 5, 300, 100
 
 # the least time of a kernel's work: the larger of its bytes over the HBM
 # rate and its operations over the float32 rate outside the tensor cores
@@ -2777,7 +2798,7 @@ def phase_parallel(dev, ys, ident):
                 "mean": float(ring.mean()), "sd": float(ring.std(ddof=1)),
                 "plain_mean": float(plain.mean()),
                 "plain_sd": float(plain.std(ddof=1)), "se": se,
-                "s_per_run": secs, "plain_s_for_16_as_one_batch": plain_s}
+                "s_per_run": secs, "plain_s_as_one_batch": plain_s}
             # (d) the particle-sharded Liu-West filter, one filter
             lev = svol_leverage.make_model()
             lw = parallel.ShardedLiuWest(lev, PAR_LW_N, ess_threshold=PAR_ESS,
@@ -2788,8 +2809,9 @@ def phase_parallel(dev, ys, ident):
             gen.manual_seed(7)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            lw_ys = ys[:PAR_LW_T]
             lw_res = parallel.make_sharded_lw_runner(lw, mesh)(
-                gen, ys, svol_leverage.lagged_covariates(ys))
+                gen, lw_ys, svol_leverage.lagged_covariates(lw_ys))
             torch.cuda.synchronize()
             lw_s = time.perf_counter() - t0
             lw42 = float((lw_res.expectations[0] - 42.0).abs().max())
@@ -2797,7 +2819,8 @@ def phase_parallel(dev, ys, ident):
                 lw_res.log_cond_likes).all()),
                 f"sharded Liu-West: |E[42] - 42| = {lw42}")
             out["sharded_lw"] = {"log_likelihood": float(
-                lw_res.log_likelihood), "abs_err_42": lw42, "s": lw_s}
+                lw_res.log_likelihood), "abs_err_42": lw42, "s": lw_s,
+                "t_len": PAR_LW_T}
         finally:
             dist.destroy_process_group()
     # (e) the scaling mode of the bench, in a process of its own
@@ -2832,12 +2855,107 @@ def phase_parallel(dev, ys, ident):
           f"sharded PF N={PAR_PF_N} {ring.mean():.4f} +- {se:.4f} vs "
           f"{plain.mean():.4f}, {secs['ring']:.3f} s a run (ring), "
           f"{secs['allgather']:.3f} (allgather); sharded Liu-West |E[42]-42| "
-          f"{lw42:.2g} in {lw_s:.3f} s; scaling D=1 "
+          f"{lw42:.2g} in {lw_s:.3f} s (T={PAR_LW_T}); scaling D=1 "
           f"{rows[0]['props_per_sec']:.6e} props/s (median "
           f"{rows[0]['props_per_sec_median']:.6e}, least "
           f"{rows[0]['props_per_sec_min']:.6e} of {rows[0]['windows']} "
           f"windows of {PAR_SCALING_ITERS} iterations) ({ident})")
     return out
+
+
+def phase_oracle(ys, ident):
+    """Phase 36: the float64 oracle on the card, against its own CPU run,
+    timed; then the accuracy gate with its own oracle run."""
+    from ssme_tpu_torch import oracle
+    from ssme_tpu_torch.examples import accuracy_gate
+
+    with open(os.path.join(ROOT, "data", "accuracy_gate.json")) as f:
+        theta = json.load(f)["results"]["oracle"]["mean"]
+    z = torch.tensor([theta[0], 2.0 * math.atanh(theta[1]),
+                      math.log(theta[2])], dtype=torch.float64)
+    ys64 = ys.reshape(-1).double()
+    rows = oracle._pf_rows(torch.Generator(device="cuda").manual_seed(0),
+                           oracle.constrain(z), ys64, ORACLE_N, ORACLE_R)
+    require(rows.is_cuda and rows.dtype == torch.float64,
+            f"the oracle's filter ran on {rows.device}, {rows.dtype}")
+    lls, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        y = ys64.to(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lls[device] = np.array([oracle.loglike_reps(
+            torch.Generator(device=device).manual_seed(seed), z, y,
+            ORACLE_N, ORACLE_R) for seed in range(ORACLE_SEEDS)])
+        secs[device] = (time.perf_counter() - t0) / ORACLE_SEEDS
+        require(bool(np.isfinite(lls[device]).all()),
+                f"{device}: log-likelihoods {lls[device]}")
+    se = math.sqrt((lls["cuda"].var(ddof=1) + lls["cpu"].var(ddof=1))
+                   / ORACLE_SEEDS)
+    diff = float(lls["cuda"].mean() - lls["cpu"].mean())
+    require(abs(diff) < 4 * se, f"oracle likelihood card "
+            f"{lls['cuda'].mean():.4f} vs CPU {lls['cpu'].mean():.4f}, "
+            f"4 SE {4 * se:.4f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain = oracle.oracle_pmmh(11, ys64, accuracy_gate.MODE_START_Z,
+                               ORACLE_ITERS, ORACLE_N, ORACLE_R, t0=150,
+                               t1=10 ** 9, device="cuda")
+    s_iter = (time.perf_counter() - t0) / ORACLE_ITERS
+    require(chain.shape == (ORACLE_ITERS, 3) and chain.dtype == np.float64
+            and bool(np.isfinite(chain).all()), f"oracle chain {chain}")
+    # the gate end to end: its oracle stage, then both engines through K1
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = os.path.join(tmp, "gate.json")
+        sfk.svol_filter.launches = 0
+        t0 = time.perf_counter()
+        _, err = _run_in_process(accuracy_gate.main, [
+            "--oracle-npy", "--oracle-iters", str(GATE_ORACLE_ITERS),
+            "--engine-iters", str(GATE_ENGINE_ITERS), "--ext-burn",
+            str(GATE_BURN), "--restart", str(GATE_BURN), "--out", out_json])
+        gate_secs = time.perf_counter() - t0
+        launches = sfk.svol_filter.launches
+        require(launches == 2 * (GATE_ENGINE_ITERS + 1),
+                f"the gate: {launches} SVOL-kernel launches, want "
+                f"{2 * (GATE_ENGINE_ITERS + 1)}")
+        with open(out_json) as f:
+            gate_out = json.load(f)
+        saved = np.load(os.path.join(tmp, "gate_samples.npz"))
+        shapes = {k: saved[k].shape for k in ("oracle", "parity",
+                                              "adaptive")}
+        require(shapes == {"oracle": (GATE_ORACLE_ITERS, 1, 3),
+                           "parity": (GATE_ENGINE_ITERS, 64, 3),
+                           "adaptive": (GATE_ENGINE_ITERS, 64, 3)},
+                f"the gate's saved draws {shapes}")
+    res = gate_out["results"]
+    require(all(np.isfinite(res[k]["mean"]).all()
+                for k in ("oracle", "parity", "adaptive")),
+            f"the gate's means {res}")
+    require(len(gate_out["gate"]["comparisons"]) == 9
+            and gate_out["gate"]["t_len"] == ys.shape[0],
+            f"the gate: {gate_out['gate']}")
+    require(res["oracle"]["device"] == "cuda" and res["oracle"]["secs"] > 0,
+            f"the gate's oracle run {res['oracle']}")
+    out = {"nvidia_smi": ident, "N": ORACLE_N, "R": ORACLE_R,
+           "theta": theta, "loglike_cuda": lls["cuda"].tolist(),
+           "loglike_cpu": lls["cpu"].tolist(), "combined_se": se,
+           "loglike_s_cuda": secs["cuda"], "loglike_s_cpu": secs["cpu"],
+           "pmmh_iters": ORACLE_ITERS, "pmmh_s_per_iter": s_iter,
+           "gate": {"secs": gate_secs, "k1_launches": launches,
+                    "oracle_secs": res["oracle"]["secs"],
+                    "oracle_iters": GATE_ORACLE_ITERS,
+                    "engine_iters": GATE_ENGINE_ITERS,
+                    "pass": gate_out["gate"]["pass"]}}
+    phase(36, "oracle", f"float64 loglike_reps N={ORACLE_N} R={ORACLE_R} "
+          f"T={ys.shape[0]} card {lls['cuda'].mean():.4f} vs CPU "
+          f"{lls['cpu'].mean():.4f} (combined SE {se:.4f}, "
+          f"{ORACLE_SEEDS} seeds each; {secs['cuda']:.3f} / "
+          f"{secs['cpu']:.3f} s a likelihood); oracle_pmmh {s_iter:.4f} s "
+          f"an iteration over {ORACLE_ITERS}; accuracy_gate with its own "
+          f"oracle ({GATE_ORACLE_ITERS} iterations, R=2, "
+          f"{res['oracle']['secs']:.1f} s) and {GATE_ENGINE_ITERS} "
+          f"iterations an engine: {launches} SVOL-kernel launches, "
+          f"{gate_secs:.1f} s ({ident})")
+    return launches, out
 
 
 def main():
@@ -2886,6 +3004,7 @@ def main():
         tune_pmmh_launches, tune_rec = phase_tune_pmmh(tmp, ident)
     par = phase_parallel(dev, ys, ident)
     par_launches = par["launches"]
+    gate_launches, oracle_rec = phase_oracle(ys, ident)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -2908,13 +3027,14 @@ def main():
         "replaces": "ssme_tpu/ops/svol_filter_kernel.py:317",
         "launches": (launches + k1_pmmh_launches + flagship_launches
                      + tune_var_launches + tune_pmmh_launches
-                     + par_launches["svol_filter"]),
+                     + par_launches["svol_filter"] + gate_launches),
         "main_path_launches": {"pmmh": launches,
                                "pmmh/N2048": k1_pmmh_launches,
                                "spy_flagship": flagship_launches,
                                "tune_variance": tune_var_launches,
                                "tune_pmmh": tune_pmmh_launches,
-                               "parallel": par_launches["svol_filter"]},
+                               "parallel": par_launches["svol_filter"],
+                               "accuracy_gate": gate_launches},
         "tune_variance": tune_var,
         "tune_pmmh": tune_rec,
         "max_abs_err": max(sis_err, k1_large_err),
@@ -3042,7 +3162,8 @@ def main():
         "issue_bound_ms": step["issue_bound_ms"],
         "max_sm_clock_hz": step["max_sm_clock_hz"],
         "per_shape": step["per_shape"],
-    }], "smoother": smoother, "parallel": par}), flush=True)
+    }], "smoother": smoother, "parallel": par, "oracle": oracle_rec}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

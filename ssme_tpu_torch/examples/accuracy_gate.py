@@ -1,14 +1,19 @@
 #!/usr/bin/env python
 """The SPY accuracy gate on the PyTorch port's own draws.
 
-The counterpart of ``examples/accuracy_gate.py``'s comparison: three runs
-of the same posterior on the same data, each pair of posterior means of
-(beta, phi, sigma^2) within ``2 * combined MC-SE + 1e-3``:
+The counterpart of ``examples/accuracy_gate.py``: three runs of the same
+posterior on the same data, each pair of posterior means of (beta, phi,
+sigma^2) within ``2 * combined MC-SE + 1e-3``:
 
-- **oracle**: the float64 reference-exact MCMC of the JAX package
-  (``ssme_tpu/oracle.py``, the judge), read from its committed chains
-  ``data/oracle_chain_{11,13}.npy`` (``--oracle-npy``, burn-in
-  ``--oracle-burn``);
+- **oracle**: the float64 reference-exact MCMC.  By default its committed
+  chains ``data/oracle_chain_{11,13}.npy`` (the JAX package's judge), or
+  the chains given to ``--oracle-npy``, pooled after ``--oracle-burn``
+  draws each.  ``--oracle-npy`` with no file runs the port's own oracle
+  here (``ssme_tpu_torch/oracle.py``, seed 11, ``t0=150``): T as
+  ``--t-len``, ``--oracle-particles`` N, ``--replicates`` R,
+  ``--oracle-iters`` iterations from the posterior mode
+  (``--oracle-start mode``) or the reference's cold start, adapting up to
+  ``--oracle-t1`` (0: throughout); its first quarter is dropped;
 - **parity**: the port's engine at the reference schedule (resampling
   every step, ``--ess 1.0``);
 - **adaptive**: the port's flagship schedule (ESS 0.5).
@@ -16,16 +21,19 @@ of the same posterior on the same data, each pair of posterior means of
 Without ``--parity-npy`` / ``--adaptive-npy`` the engines run here, in
 this process, through ``spy_flagship.run_flagship`` at the flagship's
 width (C=64, N=512, R=2; the flagship's adaptation restart at 2000):
-parity for 6000 iterations (seed 23), adaptive for 10000 (seed 29).
-Either way the first ``--ext-burn`` (2500) draws of each engine are
-dropped, as the JAX gate dropped them from the JAX flagship's draws in
-``data/accuracy_gate.json``.  Moments as the
-JAX gate: float64 before averaging, SE = sd / sqrt(Geyer ESS) through
-``ssme_tpu_torch.diagnostics.ess``.
+parity for 6000 iterations (seed 23), adaptive for 10000 (seed 29), or
+``--engine-iters`` each, unless ``--parity-iters`` / ``--adaptive-iters``
+say otherwise.  Either way the first ``--ext-burn`` (2500) draws of each
+engine are dropped, as the JAX gate dropped them from the JAX flagship's
+draws in ``data/accuracy_gate.json``.  The draws of a run here are saved
+in ``<out>_samples.npz`` beside ``--out``; ``--skip-oracle`` and
+``--reuse-engines`` take them from there instead of running again.
+Moments as the JAX gate: float64 before averaging, SE = sd / sqrt(Geyer
+ESS) through ``ssme_tpu_torch.diagnostics.ess``.
 
     python -m ssme_tpu_torch.examples.accuracy_gate [--device cuda|cpu]
-        [--parity-npy P.npy] [--adaptive-npy A.npy]
-        [--out data/torch_accuracy_gate.json]
+        [--oracle-npy [O.npy ...]] [--parity-npy P.npy]
+        [--adaptive-npy A.npy] [--out data/torch_accuracy_gate.json]
 
 Prints the gate as one JSON line on stdout and exits 1 when a pair fails.
 """
@@ -34,6 +42,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -45,6 +54,29 @@ import torch  # noqa: E402
 NAMES = ("beta", "phi", "ss")
 PAIRS = (("oracle", "parity"), ("oracle", "adaptive"), ("parity", "adaptive"))
 ENGINES = {"parity": (1.0, 6000, 23), "adaptive": (0.5, 10000, 29)}
+
+REF_START_Z = (1.0, 2.0 * np.arctanh(0.5), np.log(2e-4))
+# twiceFisher(.5) = log(1.5/.5) = 2*atanh(.5); estimate_univ_svol.h:152-154
+
+MODE_START_Z = (0.849, 2.0 * np.arctanh(0.9744), np.log(0.0659))
+# transformed posterior mode (RESULTS.md posterior means)
+
+
+def run_oracle(ys, iters, n_particles, n_reps, seed, start="mode",
+               t1=10**9, device="cuda"):
+    """One oracle chain (``examples/accuracy_gate.py::run_oracle``): from
+    the posterior mode and adapting throughout by default, which leaves
+    the stationary target the reference's (adaptation changes only the
+    mixing).  Returns ((iters, 1, 3) draws, wall seconds)."""
+    from ssme_tpu_torch.oracle import oracle_pmmh
+
+    t0 = time.perf_counter()
+    z0 = MODE_START_Z if start == "mode" else REF_START_Z
+    samples = oracle_pmmh(seed, torch.as_tensor(ys, dtype=torch.float64),
+                          np.asarray(z0), iters, n_particles, n_reps,
+                          t0=150, t1=t1,
+                          progress_every=max(iters // 10, 1), device=device)
+    return samples[:, None, :], time.perf_counter() - t0
 
 
 def moments(samples, burn):
@@ -79,14 +111,34 @@ def gate(results):
     return out
 
 
+def _path(path):
+    return path if os.path.isabs(path) else os.path.join(ROOT, path)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)
-    ap.add_argument("--oracle-npy", nargs="+", default=[
+    ap.add_argument("--oracle-npy", nargs="*", default=[
         os.path.join("data", "oracle_chain_11.npy"),
-        os.path.join("data", "oracle_chain_13.npy")])
-    ap.add_argument("--oracle-burn", type=int, default=500)
+        os.path.join("data", "oracle_chain_13.npy")],
+        help="oracle chains (.npy, (iters, 3) or (iters, 1, 3) each), "
+             "pooled as chains; given with no file: run the oracle here")
+    ap.add_argument("--oracle-burn", type=int, default=500,
+                    help="per-chain burn-in of --oracle-npy files")
+    ap.add_argument("--oracle-iters", type=int, default=4000)
+    ap.add_argument("--oracle-particles", type=int, default=500,
+                    help="reference NUMPARTS (main.cpp:9)")
+    ap.add_argument("--oracle-start", choices=["mode", "reference"],
+                    default="mode")
+    ap.add_argument("--oracle-t1", type=int, default=0,
+                    help="0 = adapt throughout (mixing only; same "
+                         "stationary target)")
+    ap.add_argument("--skip-oracle", action="store_true",
+                    help="reuse the oracle draws saved beside --out")
+    ap.add_argument("--reuse-engines", action="store_true",
+                    help="reuse the parity/adaptive draws saved beside "
+                         "--out (oracle-only rerun)")
     ap.add_argument("--parity-npy", default=None)
     ap.add_argument("--adaptive-npy", default=None)
     ap.add_argument("--ext-burn", type=int, default=2500,
@@ -94,10 +146,11 @@ def main(argv=None):
     ap.add_argument("--chains", type=int, default=64)
     ap.add_argument("--particles", type=int, default=512)
     ap.add_argument("--replicates", type=int, default=2)
-    ap.add_argument("--parity-iters", type=int,
-                    default=ENGINES["parity"][1])
-    ap.add_argument("--adaptive-iters", type=int,
-                    default=ENGINES["adaptive"][1])
+    ap.add_argument("--engine-iters", type=int, default=None,
+                    help="iterations of each engine run here (default: "
+                         "parity 6000, adaptive 10000)")
+    ap.add_argument("--parity-iters", type=int, default=None)
+    ap.add_argument("--adaptive-iters", type=int, default=None)
     ap.add_argument("--restart", type=int, default=2000,
                     help="adaptation restart of an engine run here")
     ap.add_argument("--samples-dir", default=None,
@@ -106,33 +159,84 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--t-len", type=int, default=0,
-                    help="cut the series (engine runs only; 0: all)")
+                    help="cut the series (runs here only; 0: all)")
     ap.add_argument("--out", default=os.path.join("data",
                                                   "torch_accuracy_gate.json"))
     args = ap.parse_args(argv)
+    iters = {"parity": args.parity_iters, "adaptive": args.adaptive_iters}
+    for label in iters:
+        iters[label] = iters[label] or args.engine_iters or ENGINES[label][1]
+
+    samples_npz = os.path.splitext(args.out)[0] + "_samples.npz"
+    saved = {}
+    if ((args.skip_oracle or args.reuse_engines)
+            and os.path.exists(samples_npz)):
+        saved = dict(np.load(samples_npz))
+    if not args.skip_oracle:
+        saved.pop("oracle", None)
+        saved.pop("oracle_secs", None)
+    if not args.reuse_engines:
+        saved.pop("parity", None)
+        saved.pop("adaptive", None)
+
+    ys = None
+
+    def series():
+        nonlocal ys
+        if ys is None:
+            if args.device == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("--device cuda: no CUDA device is "
+                                   "available")
+            from ssme_tpu_torch.examples.spy_flagship import spy_returns
+            ys = spy_returns(args.device, args.t_len)
+        return ys
+
+    def save():
+        if args.out != os.devnull:
+            np.savez_compressed(samples_npz, **saved)
 
     results = {}
-    chains = []
-    for path in args.oracle_npy:
-        arr = np.load(os.path.join(ROOT, path) if not os.path.isabs(path)
-                      else path)
-        chains.append((arr[:, None, :] if arr.ndim == 2 else arr)
-                      [args.oracle_burn:])
-    n = min(c.shape[0] for c in chains)
-    o_samples = np.concatenate([c[:n] for c in chains], axis=1)
-    mean, se = moments(o_samples, 0)
-    results["oracle"] = {"mean": mean, "mc_se": se,
-                         "iters": int(o_samples.shape[0]),
-                         "chains": int(o_samples.shape[1]), "secs": None,
-                         "files": list(args.oracle_npy)}
+    if args.oracle_npy:
+        chains = []
+        for path in args.oracle_npy:
+            arr = np.load(_path(path))
+            chains.append((arr[:, None, :] if arr.ndim == 2 else arr)
+                          [args.oracle_burn:])
+        n = min(c.shape[0] for c in chains)
+        o_samples = np.concatenate([c[:n] for c in chains], axis=1)
+        mean, se = moments(o_samples, 0)
+        results["oracle"] = {"mean": mean, "mc_se": se,
+                             "iters": int(o_samples.shape[0]),
+                             "chains": int(o_samples.shape[1]), "secs": None,
+                             "files": list(args.oracle_npy)}
+    else:
+        if "oracle" in saved:
+            o_samples = saved["oracle"]
+            o_secs = float(saved.get("oracle_secs", np.nan))
+        else:
+            t_len = series().shape[0]
+            print(f"== oracle: T={t_len} N={args.oracle_particles} "
+                  f"R={args.replicates} iters={args.oracle_iters} "
+                  f"start={args.oracle_start} ==", file=sys.stderr,
+                  flush=True)
+            o_samples, o_secs = run_oracle(
+                series(), args.oracle_iters, args.oracle_particles,
+                args.replicates, seed=11, start=args.oracle_start,
+                t1=(args.oracle_t1 or 10**9), device=args.device)
+            saved["oracle"] = o_samples
+            saved["oracle_secs"] = o_secs
+            save()
+        mean, se = moments(o_samples, args.oracle_iters // 4)
+        results["oracle"] = {"mean": mean, "mc_se": se,
+                             "iters": int(o_samples.shape[0]), "chains": 1,
+                             "secs": o_secs, "seed": 11,
+                             "device": args.device}
 
     ext = {"parity": args.parity_npy, "adaptive": args.adaptive_npy}
-    ys = None
     for label, (ess, _, seed) in ENGINES.items():
         if ext[label]:
             path = ext[label]
-            samples = np.load(os.path.join(ROOT, path)
-                              if not os.path.isabs(path) else path)
+            samples = np.load(_path(path))
             mean, se = moments(samples, args.ext_burn)
             results[label] = {"mean": mean, "mc_se": se,
                               "iters": int(samples.shape[0])
@@ -140,32 +244,30 @@ def main(argv=None):
                               "chains": int(samples.shape[1]), "secs": None,
                               "file": path}
             continue
-        if ys is None:
-            if args.device == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError("--device cuda: no CUDA device is "
-                                   "available")
-            from ssme_tpu_torch.examples.spy_flagship import (run_flagship,
-                                                              spy_returns)
-            ys = spy_returns(args.device, args.t_len)
-        iters = (args.parity_iters if label == "parity"
-                 else args.adaptive_iters)
-        print(f"== engine {label}: ess={ess} N={args.particles} "
-              f"R={args.replicates} C={args.chains} iters={iters} ==",
-              file=sys.stderr, flush=True)
-        samples, state, secs = run_flagship(
-            ys, iters, args.chains, args.particles, args.replicates, ess,
-            seed=seed, burn=args.restart)
-        if args.samples_dir:
-            os.makedirs(args.samples_dir, exist_ok=True)
-            np.save(os.path.join(args.samples_dir,
-                                 f"torch_gate_{label}.npy"), samples)
+        if label in saved:
+            samples = saved[label]
+            extra = {"secs": None, "file": samples_npz}
+        else:
+            from ssme_tpu_torch.examples.spy_flagship import run_flagship
+            print(f"== engine {label}: ess={ess} N={args.particles} "
+                  f"R={args.replicates} C={args.chains} "
+                  f"iters={iters[label]} ==", file=sys.stderr, flush=True)
+            samples, state, secs = run_flagship(
+                series(), iters[label], args.chains, args.particles,
+                args.replicates, ess, seed=seed, burn=args.restart)
+            if args.samples_dir:
+                os.makedirs(args.samples_dir, exist_ok=True)
+                np.save(os.path.join(args.samples_dir,
+                                     f"torch_gate_{label}.npy"), samples)
+            saved[label] = samples
+            save()
+            extra = {"secs": secs, "seed": seed,
+                     "accept_rate": float(state.accept_ma.mean()),
+                     "device": args.device}
         mean, se = moments(samples, args.ext_burn)
         results[label] = {"mean": mean, "mc_se": se,
-                          "iters": iters - args.ext_burn,
-                          "chains": args.chains, "secs": secs,
-                          "seed": seed,
-                          "accept_rate": float(state.accept_ma.mean()),
-                          "device": args.device}
+                          "iters": int(samples.shape[0]) - args.ext_burn,
+                          "chains": int(samples.shape[1]), **extra}
 
     out = {"results": results,
            "gate": dict(t_len=None if ys is None else int(ys.shape[0]),

@@ -77,7 +77,8 @@ def test_gate_engines_run_in_process_and_a_failed_pair_fails(tmp_path):
         "2", "--restart", "2", "--samples-dir", str(tmp_path), "--out",
         str(tmp_path / "gate.json")])
     assert sorted(os.listdir(tmp_path)) == [
-        "gate.json", "torch_gate_adaptive.npy", "torch_gate_parity.npy"]
+        "gate.json", "gate_samples.npz", "torch_gate_adaptive.npy",
+        "torch_gate_parity.npy"]
     assert out["results"]["parity"]["iters"] == 4
     assert len(out["gate"]["comparisons"]) == 9
     res = {k: {"mean": [0.8, 0.97, 0.06], "mc_se": [1e-4] * 3}
@@ -87,6 +88,50 @@ def test_gate_engines_run_in_process_and_a_failed_pair_fails(tmp_path):
     verdict = accuracy_gate.gate(res)
     assert not verdict["pass"]
     assert [c["ok"] for c in verdict["comparisons"]].count(False) == 2
+
+
+def test_gate_runs_its_own_oracle_and_reuses_saved_draws(tmp_path):
+    """``--oracle-npy`` with no file runs the port's oracle (seed 11, the
+    mode start, t0 150, adapting throughout) on the gate's series and
+    drops its first quarter; ``--skip-oracle`` / ``--reuse-engines`` take
+    every draw back from the npz beside ``--out``."""
+    from ssme_tpu_torch.oracle import oracle_pmmh
+
+    argv = ["--device", "cpu", "--t-len", "30", "--chains", "2",
+            "--particles", "32", "--replicates", "1", "--engine-iters", "6",
+            "--ext-burn", "2", "--restart", "2", "--oracle-particles", "16",
+            "--oracle-iters", "8", "--out", str(tmp_path / "gate.json")]
+    out = accuracy_gate.main(["--oracle-npy"] + argv)
+    assert sorted(os.listdir(tmp_path)) == ["gate.json", "gate_samples.npz"]
+    saved = np.load(tmp_path / "gate_samples.npz")
+    assert sorted(saved.files) == ["adaptive", "oracle", "oracle_secs",
+                                   "parity"]
+    assert saved["parity"].shape == saved["adaptive"].shape == (6, 2, 3)
+    ys = spy_flagship.spy_returns("cpu", 30)
+    chain = oracle_pmmh(11, ys.double(), accuracy_gate.MODE_START_Z, 8, 16,
+                        1, t0=150, t1=10 ** 9, device="cpu")
+    np.testing.assert_array_equal(saved["oracle"], chain[:, None, :])
+    oracle = out["results"]["oracle"]
+    assert (oracle["iters"], oracle["chains"], oracle["seed"]) == (8, 1, 11)
+    np.testing.assert_allclose(oracle["mean"], chain[2:].mean(0), rtol=1e-12)
+    assert oracle["secs"] == float(saved["oracle_secs"]) > 0
+    assert out["results"]["parity"]["iters"] == 4
+    assert out["gate"]["t_len"] == 30
+    assert [(c["pair"], c["param"]) for c in out["gate"]["comparisons"]] == [
+        (f"{a}-vs-{b}", p) for a, b in accuracy_gate.PAIRS
+        for p in accuracy_gate.NAMES]
+    with open(tmp_path / "gate.json") as f:     # NaN SEs at 4 draws
+        assert json.dumps(json.load(f)["gate"]) == json.dumps(out["gate"])
+
+    again = accuracy_gate.main(["--oracle-npy", "--skip-oracle",
+                                "--reuse-engines"] + argv)
+    for run in ("oracle", "parity", "adaptive"):
+        assert again["results"][run]["mean"] == out["results"][run]["mean"]
+    assert again["results"]["oracle"]["secs"] == oracle["secs"]
+    assert again["results"]["parity"]["secs"] is None
+    assert again["gate"]["t_len"] is None           # nothing ran here
+    assert (json.dumps(again["gate"]["comparisons"])
+            == json.dumps(out["gate"]["comparisons"]))
 
 
 @pytest.mark.parametrize("main", [spy_flagship.main, accuracy_gate.main])

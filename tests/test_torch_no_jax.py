@@ -33,7 +33,8 @@ print("imported", len({modules!r}) + 1 + len({scripts!r}))
 # and the rank programs that the parallel tests' spawned processes import
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
            for name in ("k3_roll_fullsize.py", "kernel_timing.py",
-                        "roll_sweeps.py", "k5_timing.py")] + [
+                        "roll_sweeps.py", "k5_timing.py",
+                        "torch_oracle_chains.py")] + [
     os.path.join(ROOT, "tests", "torch_parallel_ranks.py")]
 
 
@@ -57,6 +58,7 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.examples.tune_variance",
             "ssme_tpu_torch.examples.tune_pmmh",
             "ssme_tpu_torch.profiling",
+            "ssme_tpu_torch.oracle",
             "ssme_tpu_torch.filters.smoothing",
             "ssme_tpu_torch.filters.liu_west",
             "ssme_tpu_torch.ops.liu_west_megakernel",
