@@ -18,7 +18,9 @@ Chains are a leading batch dimension.  Every chain owns a
 chain 0's likelihood key.  The iteration loop is a Python loop that never
 waits for the device: the iteration counter lives on the host, the
 likelihood kernel reads its seed from a device tensor, and results reach
-the host only at ``sample()``'s chunk boundaries.  JAX's
+the host only at ``sample()``'s chunk boundaries.  Each iteration's host
+work is marked by ``profiling`` spans (``HOST_SPANS``; ``pmmh.draw`` and
+``pmmh.step`` keyed by the iteration's number).  JAX's
 ``MAX_SCAN_ITERS`` chunking guarded a crash of its TPU rig and has no
 counterpart.
 """
@@ -32,11 +34,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ssme_tpu_torch import rv
+from ssme_tpu_torch import profiling, rv
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
 from ssme_tpu_torch.models.base import StateSpaceModel
 from ssme_tpu_torch.ops._prng import TAG_CHAIN, philox4x32_10, seed_words
 from ssme_tpu_torch.utils import logmeanexp
+
+# the profiling spans opened here: ``init``, ``draw`` and ``step`` around
+# the calls of those names, the rest inside ``step``
+HOST_SPANS = ("pmmh.init", "pmmh.draw", "pmmh.step", "pmmh.adapt",
+              "pmmh.propose", "pmmh.prior", "pmmh.likelihood", "pmmh.accept")
 
 
 class PMMHState(NamedTuple):
@@ -193,43 +200,45 @@ class AdaptivePMMH:
         defaults to the device of ``ys``.  ``zs``: (T, dim_cov)
         covariates of a model that has them.
         """
-        ys = torch.as_tensor(ys)
-        zs = self._covariates(zs, ys)
-        device = ys.device if device is None else torch.device(device)
-        d = self.model.dim_param
-        start = torch.as_tensor(start_trans_theta, dtype=torch.float32,
-                                device=device)
-        if start.ndim == 1:
-            start = start.expand(num_chains, d)
-        start = start.contiguous()
-        c = start.shape[0]
-        if c0 is None:
-            c0 = 0.15 * torch.eye(d, dtype=torch.float32)
-        c0 = torch.as_tensor(c0, dtype=torch.float32, device=device)
-        c0 = c0.expand(c, d, d).contiguous()
-        gens = chain_generators(seed, c, device)
-        return PMMHState(
-            trans_theta=start,
-            log_like=self._log_like(gens, start, ys, zs),
-            log_prior=self._log_prior_with_jacobian(start),
-            mean=torch.zeros((c, d), device=device),
-            sigma_hat=torch.zeros((c, d, d), device=device),
-            ct=c0,
-            accept_ma=torch.zeros((c,), device=device),
-            iteration=0,
-            generators=gens,
-        )
+        with profiling.span("pmmh.init"):
+            ys = torch.as_tensor(ys)
+            zs = self._covariates(zs, ys)
+            device = ys.device if device is None else torch.device(device)
+            d = self.model.dim_param
+            start = torch.as_tensor(start_trans_theta, dtype=torch.float32,
+                                    device=device)
+            if start.ndim == 1:
+                start = start.expand(num_chains, d)
+            start = start.contiguous()
+            c = start.shape[0]
+            if c0 is None:
+                c0 = 0.15 * torch.eye(d, dtype=torch.float32)
+            c0 = torch.as_tensor(c0, dtype=torch.float32, device=device)
+            c0 = c0.expand(c, d, d).contiguous()
+            gens = chain_generators(seed, c, device)
+            return PMMHState(
+                trans_theta=start,
+                log_like=self._log_like(gens, start, ys, zs),
+                log_prior=self._log_prior_with_jacobian(start),
+                mean=torch.zeros((c, d), device=device),
+                sigma_hat=torch.zeros((c, d, d), device=device),
+                ct=c0,
+                accept_ma=torch.zeros((c,), device=device),
+                iteration=0,
+                generators=gens,
+            )
 
     def draw(self, state: PMMHState):
         """Each chain's proposal normals (C, d) and log-uniform (C,)."""
-        d = state.trans_theta.shape[-1]
-        kw = dict(dtype=state.trans_theta.dtype,
-                  device=state.trans_theta.device)
-        eps = torch.stack([torch.randn(d, generator=g, **kw)
-                           for g in state.generators])
-        u = torch.stack([torch.rand((), generator=g, **kw)
-                         for g in state.generators])
-        return eps, torch.log(u)
+        with profiling.span("pmmh.draw", key=state.iteration + 1):
+            d = state.trans_theta.shape[-1]
+            kw = dict(dtype=state.trans_theta.dtype,
+                      device=state.trans_theta.device)
+            eps = torch.stack([torch.randn(d, generator=g, **kw)
+                               for g in state.generators])
+            u = torch.stack([torch.rand((), generator=g, **kw)
+                             for g in state.generators])
+            return eps, torch.log(u)
 
     def step(self, state: PMMHState, ys, eps=None, log_u=None, zs=None):
         """One MH iteration of every chain; returns (new state, the
@@ -237,21 +246,29 @@ class AdaptivePMMH:
         to draws from the chains' generators; ``zs`` is used as given (on
         the device of ``ys``)."""
         i = state.iteration + 1
-        if eps is None:
-            eps, log_u = self.draw(state)
-        mean, sig, ct = self._update_moments_and_ct(
-            state.trans_theta, state.mean, state.sigma_hat, state.ct, i)
-        chol = rv.chol_with_jitter(ct)
-        proposed = state.trans_theta + torch.matmul(chol, eps[..., None])[..., 0]
-        new_lp = self._log_prior_with_jacobian(proposed)
-        new_ll = self._log_like(state.generators, proposed, ys, zs)
-        theta, ll, lp, ama, log_accept, accepted = self._accept(
-            state.trans_theta, state.log_like, state.log_prior,
-            state.accept_ma, proposed, new_ll, new_lp, log_u, i)
-        new_state = PMMHState(theta, ll, lp, mean, sig, ct, ama, i,
-                              state.generators)
-        return new_state, (theta, ll, lp, new_ll, new_lp, log_accept,
-                           accepted, ama)
+        with profiling.span("pmmh.step", key=i):
+            if eps is None:
+                eps, log_u = self.draw(state)
+            with profiling.span("pmmh.adapt"):
+                mean, sig, ct = self._update_moments_and_ct(
+                    state.trans_theta, state.mean, state.sigma_hat,
+                    state.ct, i)
+            with profiling.span("pmmh.propose"):
+                chol = rv.chol_with_jitter(ct)
+                proposed = (state.trans_theta
+                            + torch.matmul(chol, eps[..., None])[..., 0])
+            with profiling.span("pmmh.prior"):
+                new_lp = self._log_prior_with_jacobian(proposed)
+            with profiling.span("pmmh.likelihood"):
+                new_ll = self._log_like(state.generators, proposed, ys, zs)
+            with profiling.span("pmmh.accept"):
+                theta, ll, lp, ama, log_accept, accepted = self._accept(
+                    state.trans_theta, state.log_like, state.log_prior,
+                    state.accept_ma, proposed, new_ll, new_lp, log_u, i)
+            new_state = PMMHState(theta, ll, lp, mean, sig, ct, ama, i,
+                                  state.generators)
+            return new_state, (theta, ll, lp, new_ll, new_lp, log_accept,
+                               accepted, ama)
 
     def run_from(self, state: PMMHState, num_iters: int, ys,
                  zs=None) -> PMMHResult:
@@ -360,4 +377,4 @@ class AdaptivePMMH:
 
 
 __all__ = ["AdaptivePMMH", "PMMHResult", "PMMHState", "chain_generators",
-           "generator_from_seed"]
+           "generator_from_seed", "HOST_SPANS"]

@@ -8,7 +8,10 @@ of the sources, loaded with ``ctypes``; ptxas' register and spill lines
 are kept beside it (``build_info["ptxas"]``).  Nothing here runs at import time:
 a machine without ``nvcc`` or a card can import every module, and only a
 call on a CUDA tensor reaches :func:`library`, which raises if the build
-fails.
+fails.  Its first call is the ``profiling`` span ``kernels.library``
+(whose self time is the sources' hash), with the children
+``kernels.library.build`` (nvcc, when it builds) and
+``kernels.library.load`` (``dlopen`` and the signatures).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
+
+from ssme_tpu_torch import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -75,6 +79,10 @@ _SIGNATURES = {
     "ssme_empty_launch": [_I, _I, _I, _P],
 }
 
+# the profiling spans opened here
+HOST_SPANS = ("kernels.library", "kernels.library.build",
+              "kernels.library.load")
+
 _lock = threading.Lock()
 _lib = None
 build_info = {}
@@ -124,7 +132,6 @@ def _run(procs):
 def _build(path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
         try:
@@ -150,7 +157,7 @@ def _build(path: str) -> None:
         with open(path + ".ptxas", "w") as f:
             f.write("\n".join(ptxas))
         os.replace(lib, path)
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_info["ptxas"] = ptxas
 
 
 def library() -> ctypes.CDLL:
@@ -160,21 +167,28 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = _library_path()
-        if not os.path.exists(path):
-            _build(path)
-        else:
-            build_info.setdefault("seconds", 0.0)
-            with open(path + ".ptxas") as f:
-                build_info.setdefault("ptxas", f.read().splitlines())
-        lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        build_info["path"] = path
-        _lib = lib
-        return lib
+        with profiling.span("kernels.library"):
+            path = _library_path()
+            if not os.path.exists(path):
+                with profiling.span("kernels.library.build") as built:
+                    _build(path)
+                # None only for a build after a failed one, with no
+                # recording on: the first occurrence is always recorded
+                if built is not None:
+                    build_info["seconds"] = built.seconds
+            else:
+                build_info.setdefault("seconds", 0.0)
+                with open(path + ".ptxas") as f:
+                    build_info.setdefault("ptxas", f.read().splitlines())
+            with profiling.span("kernels.library.load"):
+                lib = ctypes.CDLL(path)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            build_info["path"] = path
+            _lib = lib
+            return lib
 
 
 def check(err: int, name: str) -> None:

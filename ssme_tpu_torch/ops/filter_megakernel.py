@@ -52,6 +52,7 @@ from typing import Callable
 
 import torch
 
+from ssme_tpu_torch import profiling
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
@@ -65,6 +66,10 @@ from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
                                                    _draw_seed, _kernel_rows,
                                                    resample_rows)
 from ssme_tpu_torch.utils import logmeanexp
+
+# the profiling span opened here: each launch of ``filter_megakernel``,
+# from the model's id to the launch count
+HOST_SPANS = ("filter_megakernel.launch",)
 
 # the dispatch table of csrc/kernel_models.cuh (same names, same numbers;
 # tests/test_torch_megakernel.py parses the header and compares)
@@ -387,32 +392,34 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
     if params.device.type != "cuda":
         raise ValueError(f"filter_megakernel: unsupported device "
                          f"{params.device}")
-    model_id = _model_id(kmodel)
-    lib = _cuda.library()
-    b, t_len, n = params.shape[0], ys.shape[0], int(num_particles)
-    dev = params.device
-    total = torch.empty((b,), dtype=torch.float32, device=dev)
-    lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
-    fmean = torch.empty_like(lcl)
-    cloud = cloud_lw = None
-    if return_cloud:
-        cloud = torch.empty((kmodel.num_state, b, n), dtype=torch.float32,
-                            device=dev)
-        cloud_lw = torch.empty((b, n), dtype=torch.float32, device=dev)
-    err = lib.ssme_filter_megakernel(
-        model_id, int(mode == "apf"), seed.data_ptr(), params.data_ptr(),
-        ys.data_ptr(), None if zs is None else zs.data_ptr(), b, t_len, n,
-        float(ess_threshold) * n, int(ess_threshold >= 1.0),
-        int(gate_stride), RESAMPLER_CODES[resampler], int(metropolis_iters),
-        total.data_ptr(), lcl.data_ptr(),
-        fmean.data_ptr(), None if cloud is None else cloud.data_ptr(),
-        None if cloud_lw is None else cloud_lw.data_ptr(),
-        _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_filter_megakernel")
-    filter_megakernel.launches += 1
-    if return_cloud:
-        return total, lcl, fmean, tuple(cloud.unbind(0)), cloud_lw
-    return total, lcl, fmean
+    with profiling.span("filter_megakernel.launch"):
+        model_id = _model_id(kmodel)
+        lib = _cuda.library()
+        b, t_len, n = params.shape[0], ys.shape[0], int(num_particles)
+        dev = params.device
+        total = torch.empty((b,), dtype=torch.float32, device=dev)
+        lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
+        fmean = torch.empty_like(lcl)
+        cloud = cloud_lw = None
+        if return_cloud:
+            cloud = torch.empty((kmodel.num_state, b, n),
+                                dtype=torch.float32, device=dev)
+            cloud_lw = torch.empty((b, n), dtype=torch.float32, device=dev)
+        err = lib.ssme_filter_megakernel(
+            model_id, int(mode == "apf"), seed.data_ptr(),
+            params.data_ptr(), ys.data_ptr(),
+            None if zs is None else zs.data_ptr(), b, t_len, n,
+            float(ess_threshold) * n, int(ess_threshold >= 1.0),
+            int(gate_stride), RESAMPLER_CODES[resampler],
+            int(metropolis_iters), total.data_ptr(), lcl.data_ptr(),
+            fmean.data_ptr(), None if cloud is None else cloud.data_ptr(),
+            None if cloud_lw is None else cloud_lw.data_ptr(),
+            _cuda.stream_ptr(dev))
+        _cuda.check(err, "ssme_filter_megakernel")
+        filter_megakernel.launches += 1
+        if return_cloud:
+            return total, lcl, fmean, tuple(cloud.unbind(0)), cloud_lw
+        return total, lcl, fmean
 
 
 filter_megakernel.launches = 0

@@ -65,12 +65,17 @@ from typing import Callable
 
 import torch
 
+from ssme_tpu_torch import profiling
 from ssme_tpu_torch.ops import _cuda, _prng
 from ssme_tpu_torch.ops._select import (RESAMPLER_CODES, check_particles,
                                         check_resampler, plain_ancestor_fn)
 from ssme_tpu_torch.ops.filter_megakernel import _as_rows
 from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
                                                    resample_rows)
+
+# the profiling spans opened here: ``lw_megakernel``'s validation (on
+# both paths) and each launch, from the model's id to the C call
+HOST_SPANS = ("lw.validate", "lw_megakernel.launch")
 
 # the dispatch table of csrc/lw_models.cuh (same names, same numbers;
 # tests/test_torch_lw_megakernel.py parses the header and compares)
@@ -516,9 +521,10 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     CUDA instance) and runs :func:`lw_megakernel_reference` for CPU
     tensors.
     """
-    seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
-                             num_particles, resample_every, variant,
-                             ess_threshold, resampler, metropolis_iters)
+    with profiling.span("lw.validate"):
+        seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
+                                 num_particles, resample_every, variant,
+                                 ess_threshold, resampler, metropolis_iters)
     if ys.device.type == "cpu":
         return lw_megakernel_reference(kmodel, seed, ys, zs, num_filters,
                                        num_particles, delta, resample_every,
@@ -540,40 +546,43 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
     ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
     len(SPAN_RECORD))), its instrumented twin
     (``ssme_lw_megakernel_spans``), which writes its record there."""
-    model_id = _model_id(kmodel)
-    bounds = kmodel.prior_bounds
-    if bounds is None or len(bounds) != kmodel.num_params:
-        raise ValueError(f"model {kmodel.name!r}: the CUDA instance needs "
-                         "one (lo, hi) prior bound per parameter")
-    lib = _cuda.library()
-    f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
-    dev = ys.device
-    n_fns = len(kmodel.functionals or ())
-    lcl = torch.empty((f, t_len), dtype=torch.float32, device=dev)
-    fpaths = torch.empty((n_fns, f, t_len), dtype=torch.float32, device=dev)
-    cloud = torch.empty((f, kmodel.tile_rows, n), dtype=torch.float32,
-                        device=dev)
-    lo, scale = _prior_box(bounds)
-    run = (int(variant == "apf"), int(resample_every),
-           float(ess_threshold) * n if ess_threshold > 0.0 else 0.0)
-    host = (_host_floats(_coefficients(delta), 3),
-            _host_floats(lo, _MAX_PARAMS), _host_floats(scale, _MAX_PARAMS),
-            _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS))
-    outs = (lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
-            cloud.data_ptr())
-    zs_ptr = None if zs is None else zs.data_ptr()
-    args = (model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
-            *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
-            *outs)
-    if spans is None:
-        name = "ssme_lw_megakernel"
-        err = lib.ssme_lw_megakernel(*args, _cuda.stream_ptr(dev))
-    else:
-        name = "ssme_lw_megakernel_spans"
-        err = lib.ssme_lw_megakernel_spans(*args, spans.data_ptr(),
-                                           _cuda.stream_ptr(dev))
-    _cuda.check(err, name)
-    return _result(lcl, fpaths, cloud, n_fns)
+    with profiling.span("lw_megakernel.launch"):
+        model_id = _model_id(kmodel)
+        bounds = kmodel.prior_bounds
+        if bounds is None or len(bounds) != kmodel.num_params:
+            raise ValueError(f"model {kmodel.name!r}: the CUDA instance "
+                             "needs one (lo, hi) prior bound per parameter")
+        lib = _cuda.library()
+        f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
+        dev = ys.device
+        n_fns = len(kmodel.functionals or ())
+        lcl = torch.empty((f, t_len), dtype=torch.float32, device=dev)
+        fpaths = torch.empty((n_fns, f, t_len), dtype=torch.float32,
+                             device=dev)
+        cloud = torch.empty((f, kmodel.tile_rows, n), dtype=torch.float32,
+                            device=dev)
+        lo, scale = _prior_box(bounds)
+        run = (int(variant == "apf"), int(resample_every),
+               float(ess_threshold) * n if ess_threshold > 0.0 else 0.0)
+        host = (_host_floats(_coefficients(delta), 3),
+                _host_floats(lo, _MAX_PARAMS),
+                _host_floats(scale, _MAX_PARAMS),
+                _host_floats(kmodel.cuda_args, _MAX_MODEL_ARGS))
+        outs = (lcl.data_ptr(), fpaths.data_ptr() if n_fns else None,
+                cloud.data_ptr())
+        zs_ptr = None if zs is None else zs.data_ptr()
+        args = (model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
+                *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
+                *outs)
+        if spans is None:
+            name = "ssme_lw_megakernel"
+            err = lib.ssme_lw_megakernel(*args, _cuda.stream_ptr(dev))
+        else:
+            name = "ssme_lw_megakernel_spans"
+            err = lib.ssme_lw_megakernel_spans(*args, spans.data_ptr(),
+                                               _cuda.stream_ptr(dev))
+        _cuda.check(err, name)
+        return _result(lcl, fpaths, cloud, n_fns)
 
 
 lw_megakernel.launches = 0

@@ -25,12 +25,17 @@ import math
 
 import torch
 
+from ssme_tpu_torch import profiling
 from ssme_tpu_torch.ops import _cuda, _prng
 from ssme_tpu_torch.ops._select import (MAX_ROLL_PARTICLES, RESAMPLER_CODES,
                                         check_particles, check_resampler,
                                         plain_ancestor_fn)
 from ssme_tpu_torch.utils import logmeanexp
 
+
+# the profiling span opened here: each launch, from the library to the
+# launch count
+HOST_SPANS = ("svol_filter.launch",)
 
 # above the cap the two buffers of N floats would pass the 48 KB of static
 # shared memory (csrc/svol_filter_sys.cu); JAX's kernel has no cap in code
@@ -217,22 +222,24 @@ def _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
     """One K1 launch on validated CUDA inputs: the instance of the
     resampler's family or, with ``spans`` an int64 (B, len(SPAN_RECORD))
     tensor, its instrumented twin."""
-    lib = _cuda.library()
-    b, t_len = params.shape[0], ys.shape[0]
-    dev = params.device
-    total = torch.empty((b,), dtype=torch.float32, device=dev)
-    lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
-    xmean = torch.empty_like(lcl)
-    n = int(num_particles)
-    err = lib.ssme_svol_filter(
-        seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
-        float(ess_threshold) * n, int(ess_threshold >= 1.0), int(gate_stride),
-        RESAMPLER_CODES[resampler], int(metropolis_iters), total.data_ptr(),
-        lcl.data_ptr(), xmean.data_ptr(),
-        None if spans is None else spans.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_svol_filter")
-    svol_filter.launches += 1
-    return total, lcl, xmean
+    with profiling.span("svol_filter.launch"):
+        lib = _cuda.library()
+        b, t_len = params.shape[0], ys.shape[0]
+        dev = params.device
+        total = torch.empty((b,), dtype=torch.float32, device=dev)
+        lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
+        xmean = torch.empty_like(lcl)
+        n = int(num_particles)
+        err = lib.ssme_svol_filter(
+            seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
+            float(ess_threshold) * n, int(ess_threshold >= 1.0),
+            int(gate_stride), RESAMPLER_CODES[resampler],
+            int(metropolis_iters), total.data_ptr(), lcl.data_ptr(),
+            xmean.data_ptr(), None if spans is None else spans.data_ptr(),
+            _cuda.stream_ptr(dev))
+        _cuda.check(err, "ssme_svol_filter")
+        svol_filter.launches += 1
+        return total, lcl, xmean
 
 
 # the barriers a step of the kernel crosses, as its source note states

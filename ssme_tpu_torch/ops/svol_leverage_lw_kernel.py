@@ -14,12 +14,17 @@ the same function.
 
 from __future__ import annotations
 
+from ssme_tpu_torch import profiling
 from ssme_tpu_torch.models.svol_leverage import lagged_covariates
 from ssme_tpu_torch.ops import liu_west_megakernel as _lw
 from ssme_tpu_torch.ops.liu_west_megakernel import (
     lw_megakernel, svol_leverage_lw_kernel_model)
 
 N_PARAM = 4  # phi, mu, sigma, rho
+# the profiling spans opened here: each call, and its lagged covariates
+# (``lw_megakernel`` opens the call's ``lw.validate`` and, on the card,
+# ``lw_megakernel.launch``)
+HOST_SPANS = ("lw.svol_leverage_lw", "lw.covariates")
 
 
 def svol_leverage_lw(seed, ys, num_filters=1, num_particles=512, delta=0.99,
@@ -36,17 +41,20 @@ def svol_leverage_lw(seed, ys, num_filters=1, num_particles=512, delta=0.99,
     the kernel for CUDA tensors and runs the plain version for CPU
     tensors.
     """
-    ys = ys.reshape(-1)
-    bounds = None if prior_bounds is None else tuple(
-        (float(lo), float(hi)) for lo, hi in prior_bounds)
-    out = lw_megakernel(svol_leverage_lw_kernel_model(bounds), seed, ys,
-                        lagged_covariates(ys)[:, 0].contiguous(),
-                        num_filters=num_filters, num_particles=num_particles,
-                        delta=delta, resample_every=resample_every,
-                        variant=variant, ess_threshold=ess_threshold)
-    if ys.device.type == "cuda":
-        svol_leverage_lw.launches += 1
-    return out
+    with profiling.span("lw.svol_leverage_lw"):
+        ys = ys.reshape(-1)
+        bounds = None if prior_bounds is None else tuple(
+            (float(lo), float(hi)) for lo, hi in prior_bounds)
+        with profiling.span("lw.covariates"):
+            zs = lagged_covariates(ys)[:, 0].contiguous()
+        out = lw_megakernel(svol_leverage_lw_kernel_model(bounds), seed, ys,
+                            zs, num_filters=num_filters,
+                            num_particles=num_particles, delta=delta,
+                            resample_every=resample_every, variant=variant,
+                            ess_threshold=ess_threshold)
+        if ys.device.type == "cuda":
+            svol_leverage_lw.launches += 1
+        return out
 
 
 svol_leverage_lw.launches = 0

@@ -1128,3 +1128,73 @@ def test_initialize_distributed_on_cuda_raises_without_a_card(dev,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised False"), out.stdout
+
+
+def _parity_pmmh(dev):
+    """The parity cell's sampler: C=64 chains x R=4 replicates x N=512
+    over the T=3084 SPY returns (x 100), K1's batched hook, resampling
+    every step; and its data on the card."""
+    import os
+
+    from ssme_tpu_torch.inference import AdaptivePMMH
+    from ssme_tpu_torch.models import svol
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ys = torch.as_tensor(np.loadtxt(os.path.join(root, "data",
+                                                 "spy_returns.csv")),
+                         dtype=torch.float32).to(dev)
+    assert ys.shape == (3084,)
+    pmmh = AdaptivePMMH(svol.make_model(), num_particles=512,
+                        num_replicates=4, t0=150, t1=1000,
+                        batched_log_like=sfk.svol_batched_log_like(
+                            512, 4, ess_threshold=1.0))
+    return pmmh, pmmh.init(7, svol.START_TRANS_THETA, ys, num_chains=64), ys
+
+
+def test_pmmh_iteration_never_waits_for_the_device(dev):
+    """Three draw + step iterations at the parity cell's shapes make no
+    synchronising call (``inference/pmmh.py``'s claim), spans and all."""
+    pmmh, state, ys = _parity_pmmh(dev)
+    torch.cuda.synchronize()
+    before = sfk.svol_filter.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eps, log_u = pmmh.draw(state)
+            state, _ = pmmh.step(state, ys, eps, log_u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert state.iteration == 3
+    assert sfk.svol_filter.launches - before == 3
+    assert bool(torch.isfinite(state.log_like).all())
+
+
+def test_k1_launches_lie_inside_their_program_spans(dev):
+    """In a profiler window the host launch of every K1 kernel lies
+    inside a ``svol_filter.launch`` span: the program's spans and the
+    profiler's events share one clock on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssme_tpu_torch import profiling
+
+    pmmh, state, ys = _parity_pmmh(dev)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eps, log_u = pmmh.draw(state)
+            state, _ = pmmh.step(state, ys, eps, log_u)
+        torch.cuda.synchronize()
+    spans = [r for r in profiling.spans() if r.name == sfk.HOST_SPANS[0]]
+    assert len(spans) == 3
+    events = prof.profiler.kineto_results.events()
+    launches = {ev.correlation_id(): ev.start_ns() for ev in events
+                if ev.device_type() == torch.autograd.DeviceType.CPU
+                and ev.name().startswith("cu")}
+    k1 = [ev for ev in events if "svol_filter_sys_kernel" in ev.name()
+          and ev.device_type() != torch.autograd.DeviceType.CPU]
+    assert len(k1) == 3
+    for ev in k1:
+        at = launches[ev.correlation_id()]
+        assert any(r.start_ns <= at <= r.end_ns for r in spans), at
