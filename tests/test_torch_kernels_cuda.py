@@ -1109,8 +1109,9 @@ def test_sharded_pmmh_is_run_from_at_one_rank_nccl(dev, nccl_mesh):
 def test_initialize_distributed_on_cuda_raises_without_a_card(dev,
                                                               tmp_path):
     import os
-    import subprocess
     import sys
+
+    from _bounded import run_bounded
 
     script = (
         "import sys; sys.path.insert(0, {root!r})\n"
@@ -1121,11 +1122,10 @@ def test_initialize_distributed_on_cuda_raises_without_a_card(dev,
         "except RuntimeError as e:\n"
         "    print('raised', dist.is_initialized(), e)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run(
+    out = run_bounded(
         [sys.executable, "-c", script.format(
             root=root, init="file://" + str(tmp_path / "store"))],
-        capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        timeout=120, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised False"), out.stdout
 

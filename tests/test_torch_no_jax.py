@@ -2,10 +2,10 @@
 
 import os
 import pkgutil
-import subprocess
 import sys
 
 import torch
+from _bounded import run_bounded
 
 import ssme_tpu_torch
 
@@ -84,10 +84,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "ssme_tpu_torch.parallel.sharded_lw",
             "ssme_tpu_torch.examples.dryrun_multichip",
             "ssme_tpu_torch.examples.dryrun_multihost"} <= set(modules)
-    out = subprocess.run(
+    out = run_bounded(
         [sys.executable, "-c", _SCRIPT.format(root=ROOT, modules=modules,
                                                scripts=SCRIPTS)],
-        capture_output=True, text=True, timeout=300, cwd=ROOT)
+        timeout=30, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == \
         f"imported {len(modules) + 1 + len(SCRIPTS)}"
@@ -127,9 +127,9 @@ def test_package_import_exposes_its_subpackages_and_builds_nothing():
     names = ["transforms", "rv", "resampling", "utils", "models", "filters",
              "inference", "io", "native", "diagnostics", "profiling",
              "parallel"]
-    out = subprocess.run(
+    out = run_bounded(
         [sys.executable, "-c", _PACKAGE_SCRIPT.format(root=ROOT,
                                                       names=names)],
-        capture_output=True, text=True, timeout=300, cwd=ROOT)
+        timeout=30, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
