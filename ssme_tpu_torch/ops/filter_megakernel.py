@@ -68,7 +68,7 @@ from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
 from ssme_tpu_torch.utils import logmeanexp
 
 # the profiling span opened here: each launch of ``filter_megakernel``,
-# from the model's id to the launch count
+# from the model's id to the launch counts, keyed by the CUDA instance
 HOST_SPANS = ("filter_megakernel.launch",)
 
 # the dispatch table of csrc/kernel_models.cuh (same names, same numbers;
@@ -392,7 +392,8 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
     if params.device.type != "cuda":
         raise ValueError(f"filter_megakernel: unsupported device "
                          f"{params.device}")
-    with profiling.span("filter_megakernel.launch"):
+    with profiling.span("filter_megakernel.launch",
+                        key=kmodel.cuda_instance):
         model_id = _model_id(kmodel)
         lib = _cuda.library()
         b, t_len, n = params.shape[0], ys.shape[0], int(num_particles)
@@ -417,12 +418,19 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
             _cuda.stream_ptr(dev))
         _cuda.check(err, "ssme_filter_megakernel")
         filter_megakernel.launches += 1
+        counts = filter_megakernel.instances.setdefault(
+            kmodel.cuda_instance, {"launches": 0, "props": 0})
+        counts["launches"] += 1
+        counts["props"] += b * n * t_len
         if return_cloud:
             return total, lcl, fmean, tuple(cloud.unbind(0)), cloud_lw
         return total, lcl, fmean
 
 
 filter_megakernel.launches = 0
+# per CUDA instance: {"launches", "props"} (particle propagations, B x N x T
+# a launch)
+filter_megakernel.instances = {}
 
 # the barriers a step crosses, as the source note states them
 # (csrc/filter_megakernel_sys.cuh): under systematic selection a bootstrap

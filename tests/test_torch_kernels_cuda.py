@@ -361,6 +361,47 @@ def test_factor_svol_two_leaf_resampling_matches_plain(dev, n):
     assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se
 
 
+def test_factor_svol_5_hook_at_the_benchmark_cell_size(dev):
+    """K2's factor_svol_5 hook at the benchmark cell's size: T=3084 steps
+    of 5 columns, 64 chains x 4 replicates = 256 rows, N=1024, every-step
+    resampling, at the panel's generating parameters.  Against its plain
+    twin in distribution: the 64 chain log-likelihoods of each side, means
+    within 4 combined standard errors.  The launch's span carries the
+    instance's name as its key, and the instance's counts grow by one
+    launch and B x N x T propagations."""
+    from ssme_tpu_torch import profiling
+    from ssme_tpu_torch.examples.estimate_factor_svol import DATA, START
+    from ssme_tpu_torch.utils import logmeanexp
+
+    ys = torch.as_tensor(np.loadtxt(DATA, delimiter=","),
+                         dtype=torch.float32).contiguous().to(dev)
+    assert tuple(ys.shape) == (3084, 5)
+    km = fm.factor_svol_kernel_model(5)
+    params = torch.tensor(START, device=dev).expand(64, -1).contiguous()
+    hook = fm.megakernel_log_like(km, 1024, 4, ess_threshold=1.0)
+    before = dict(fm.filter_megakernel.instances.get(
+        "factor_svol_5", {"launches": 0, "props": 0}))
+    profiling.reset()
+    with profiling.record():
+        got = hook(torch.Generator(device=dev).manual_seed(5), params, ys)
+    torch.cuda.synchronize()
+    keys = [r.key for r in profiling.spans()
+            if r.name == "filter_megakernel.launch"]
+    assert keys == ["factor_svol_5"]
+    after = fm.filter_megakernel.instances["factor_svol_5"]
+    assert after["launches"] == before["launches"] + 1
+    assert after["props"] == before["props"] + 256 * 1024 * 3084
+    rows = params.repeat_interleave(4, 0).contiguous()
+    tot = fm.filter_megakernel_reference(km, 6, rows, ys,
+                                         num_particles=1024,
+                                         ess_threshold=1.0)[0]
+    want = logmeanexp(tot.reshape(64, 4), dim=-1)
+    assert bool(torch.isfinite(got).all())
+    se = math.sqrt(float(got.var()) / 64 + float(want.var()) / 64)
+    assert abs(float(got.mean()) - float(want.mean())) <= 4 * se, (
+        float(got.mean()), float(want.mean()), se)
+
+
 @pytest.mark.parametrize("n", [256, 1024])
 def test_swarm_evidence_cloud_keeps_its_layout(dev, n):
     """The final cloud through megakernel_swarm_evidence, two leaves, with

@@ -30,12 +30,17 @@ assert not bad, bad
 print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
 # the port's own scripts (the JAX yardstick scripts import JAX by design),
-# and the rank programs that the parallel tests' spawned processes import
+# the rank programs that the parallel tests' spawned processes import, and
+# the benchmark's factor-SVOL reference, driver and data script
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
            for name in ("k3_roll_fullsize.py", "kernel_timing.py",
                         "roll_sweeps.py", "k5_timing.py",
                         "torch_oracle_chains.py")] + [
-    os.path.join(ROOT, "tests", "torch_parallel_ranks.py")]
+    os.path.join(ROOT, "tests", "torch_parallel_ranks.py")] + [
+    os.path.join(ROOT, "benchmark", *parts)
+    for parts in (("reference", "factor_svol.py"),
+                  ("drivers", "pmmh_k2.py"),
+                  ("data", "make_factor_svol_5.py"))]
 
 
 def _port_modules():
@@ -51,6 +56,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {"ssme_tpu_torch.bench",
             "ssme_tpu_torch.examples.estimate_univ_svol",
             "ssme_tpu_torch.examples.estimate_svol_leverage",
+            "ssme_tpu_torch.examples.estimate_factor_svol",
             "ssme_tpu_torch.examples.swarm_forecast",
             "ssme_tpu_torch.examples.liu_west_leverage",
             "ssme_tpu_torch.examples.spy_flagship",
