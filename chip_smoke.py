@@ -32,9 +32,10 @@ run.  Phases, one line each:
             and the instrumented twins) and roll family (the same at 2, 4,
             8 and 16 particles per thread, and its twins) and of the
             Liu-West kernel's systematic family (each functor at 2
-            particles per thread, and each one's twin) and roll family
-            (each functor at 2, 4 and 8, and each one's twin) spills
-            nothing;
+            particles per thread in both layouts, and each one's twin) and
+            roll family (each functor at 2, 4 and 8, and each one's twin)
+            spills nothing; each paired Liu-West instance's static shared
+            memory and its dynamic floor (lw_ring.cuh) fit a block;
 3. philox   the Philox kernel against the plain Philox on 2^20 pairs;
 4. select   the standalone selection kernel in the systematic families'
             layout (kPer neighbouring slots) at N=512 with 2 and 4 slots a
@@ -75,9 +76,11 @@ run.  Phases, one line each:
 14. lw-sis  the Liu-West kernel against its plain version for both
             instances (SISR, a gate that never fires: identical bits),
             and the leverage wrapper (K4) equal to the K3 instance;
-15. lw-full F=64 N=512 over SPY, four schedules: kernel and plain means
-            within 4 combined standard errors; times; a forecast from the
-            kernel's cloud;
+15. lw-full F=64 N=512 over SPY, four schedules, and APF at F=128:
+            kernel and plain means within 4 combined standard errors; each
+            launch in the layout the rule gives (paired at F=64, one CTA a
+            filter at F=128, more filters than the card holds pairs of
+            CTAs); times; a forecast from the kernel's cloud;
 16. lw-cli  ``ssme_tpu_torch.examples.liu_west_leverage`` on the card,
             both engines, against the JAX package's float32 results in
             ``data/spy_liu_west_jax.json``; exactly one kernel launch;
@@ -175,9 +178,11 @@ run.  Phases, one line each:
             tail barriers, the layout, the outputs the plain instances'
             bits;
 31. k3-layout   the Liu-West kernel's systematic family at N=32, 96, 512
-            and 1024, every functor: the instrumented twins' barriers a
-            step (8 / 7 an APF step that does / does not resample, 5 / 4
-            in SISR, 3 / 2 at t = 0), layout (2 particles per thread) and
+            and 1024, every functor, in both layouts (paired at F=16: 2
+            CTAs a filter and a wait on the ring; one CTA a filter at
+            F=128: no wait): the instrumented twins' barriers a step (8 / 7
+            an APF step that does / does not resample, 5 / 4 in SISR, 3 / 2
+            at t = 0), layout (2 particles per thread, CTAs a filter) and
             clock64 spans, their outputs the plain instances' bits; its
             roll family's twins, every functor under both resamplers at
             N=32 to 4096: the same barriers besides the selections' votes
@@ -293,7 +298,11 @@ LW_RUNS = {"apf": ("svol_leverage_lw", dict(variant="apf")),
            "apf-ess": ("svol_leverage_lw",
                        dict(variant="apf", ess_threshold=0.5)),
            "sisr": ("svol_leverage_lw", dict(variant="sisr")),
-           "svol_t-apf": ("svol_t_lw", dict(variant="apf"))}
+           "svol_t-apf": ("svol_t_lw", dict(variant="apf")),
+           # more filters than the card holds pairs of CTAs at once: the
+           # systematic family's one-CTA layout
+           "apf-f128": ("svol_leverage_lw",
+                        dict(variant="apf", num_filters=128))}
 
 # the generic kernel's other families (phases 17-20): the JAX package's
 # float32 yardsticks (scripts/k2_families_jax.py) and the points they are at
@@ -358,10 +367,15 @@ K2_ROLL_INSTANCES = 4 * (7 + 4 + 3)
 K2_RECORD_N = (32, 96, 512, 1024)
 K2_ROLL_RECORD_N = (32, 512, 1024) + ROLL_N
 # instances of the Liu-West kernel's systematic family
-# (csrc/lw_megakernel_sys.cu): the 3 functors and each one's instrumented
-# twin; phase 31 reads the twins at K2_RECORD_N; of its roll family
-# (csrc/lw_megakernel_sys_roll{2,4,8}.cu) the same at each kPer
-K3_SYS_INSTANCES = 2 * 3
+# (csrc/lw_megakernel_sys.cu, and the paired layout's in
+# lw_megakernel_sys_pair.cu): the 3 functors and each one's instrumented
+# twin in each layout; phase 31 reads the twins at K2_RECORD_N; of its
+# roll family (csrc/lw_megakernel_sys_roll{2,4,8}.cu) the 3 functors and
+# their twins at each kPer
+K3_SYS_INSTANCES = 2 * 3 * 2
+# the shared memory an H100 block may take (sharedMemPerBlockOptin), static
+# and dynamic together
+K3_BLOCK_SMEM = 232448
 K3_ROLL_INSTANCES = 3 * 2 * 3
 # N at which phase 6 reads the systematic kernel's record: each of its
 # instances
@@ -528,10 +542,11 @@ def _k3_key(name, roll):
     """The Liu-West kernel's instance of a mangled entry name in the
     systematic family (roll False) or the roll family (roll True)."""
     t = re.search(r"lw_megakernel_sysIN4ssme\d+(\w+?LW)ELi(\d+)ELi(\d+)ELb"
-                  r"(\d)ELb(\d)E", name)
+                  r"(\d)ELb(\d)ELb(\d)E", name)
     if not t or (t.group(5) == "1") != roll:
         return None
     return (f"{t.group(1)}/kper{t.group(2)}/threads{t.group(3)}"
+            + ("/paired" if t.group(6) == "1" else "")
             + ("/twin" if t.group(4) == "1" else ""))
 
 
@@ -554,6 +569,33 @@ def _ptxas_instances(ptxas, key):
             out[name] = (int(m.group(1)),) + spill
             name = spill = None
     return out
+
+
+def _ptxas_smem(ptxas, key):
+    """{instance: static shared memory bytes} of the entries whose mangled
+    name ``key`` maps to an instance, from ptxas' -v lines."""
+    out, name = {}, None
+    for ln in ptxas:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = key(m.group(1))
+            continue
+        m = re.search(r"Used \d+ registers.*?(\d+) bytes smem", ln)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def _k3_pair_floor():
+    """csrc/lw_ring.cuh's kPairFloorBytes: each paired CTA's dynamic shared
+    memory at every N (tests/test_torch_lw_megakernel.py holds the ring
+    inside it)."""
+    with open(os.path.join(ROOT, "ssme_tpu_torch", "csrc",
+                           "lw_ring.cuh")) as f:
+        return 1024 * int(re.search(
+            r"constexpr int kPairFloorBytes = (\d+) \* 1024;",
+            f.read()).group(1))
 
 
 def phase_build():
@@ -581,9 +623,20 @@ def phase_build():
         spilled = {k: v for k, v in inst.items() if v[1] or v[2]}
         require(not spilled, f"{kernel} instances spill: {spilled}")
         found[kernel] = inst
+    # each paired K3 CTA's static arrays and its dynamic floor fit the
+    # card's 227 KB a block
+    floor = _k3_pair_floor()
+    smem = {k: v for k, v in _ptxas_smem(
+        ptxas, lambda n: _k3_key(n, False)).items() if "/paired" in k}
+    require(len(smem) == K3_SYS_INSTANCES // 2 and all(
+        v + floor <= K3_BLOCK_SMEM for v in smem.values()),
+        f"paired K3 instances' static shared memory {smem} + {floor} "
+        f"bytes of ring exceed {K3_BLOCK_SMEM} or are missing")
     phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
-          f"{info.get('seconds', 0.0):.3f} s); (registers, spill stores, "
-          "spill loads) of " + "; ".join(
+          f"{info.get('seconds', 0.0):.3f} s); static shared memory of the "
+          f"paired K3 instances (+ {floor} dynamic, at most {K3_BLOCK_SMEM}):"
+          " " + ", ".join(f"{k} {v}" for k, v in smem.items())
+          + "; (registers, spill stores, spill loads) of " + "; ".join(
               f"the {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                             inst.items())
               for kernel, inst in found.items()) + " | " + " | ".join(ptxas))
@@ -1196,17 +1249,24 @@ def phase_lw_full(dev, ys_all, ident):
     ys = ys_all[:, 0].contiguous()
     zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
     inst = _lw_instances(zs)
-    times, clouds = {}, {}
+    times, clouds, layouts = {}, {}, {}
     for run, (name, kw) in LW_RUNS.items():
         km, z = inst[name]
-        kw = dict(num_filters=LW_F, num_particles=LW_N, **kw)
+        kw = dict(dict(num_filters=LW_F, num_particles=LW_N), **kw)
+        f = kw["num_filters"]
+        before = dict(lwm.lw_megakernel.layouts)
         out = lwm.lw_megakernel(km, 11, ys, z, **kw)
+        layouts[run] = next(k for k, v in lwm.lw_megakernel.layouts.items()
+                            if v > before[k])
+        want = lwm.layout_for(f, lwm._max_clusters(lwm._model_id(km), LW_N))
+        require(layouts[run] == want, f"{run}: F={f} ran the "
+                f"{layouts[run]} layout, the rule gives {want}")
         ref, plain_ms = event_ms(
             lambda: lwm.lw_megakernel_reference(km, 12, ys, z, **kw))
         tot, tot_p = out["log_likelihood"], ref["log_likelihood"]
         require(bool(torch.isfinite(tot).all())
                 and bool(torch.isfinite(tot_p).all()), f"{run}: NaN totals")
-        se = math.sqrt(float(tot.var()) / LW_F + float(tot_p.var()) / LW_F)
+        se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
         d = abs(float(tot.mean()) - float(tot_p.mean()))
         require(d <= 4 * se, f"{run}: means differ by {d:.3f} > 4 SE "
                 f"{4 * se:.3f}")
@@ -1217,6 +1277,8 @@ def phase_lw_full(dev, ys_all, ident):
         times[run] = (cuda_ms(lambda: lwm.lw_megakernel(km, 11, ys, z, **kw),
                               5), plain_ms)
         clouds[run] = out["cloud"]
+    require(set(layouts.values()) == set(lwm.LAYOUTS),
+            f"not every layout ran: {layouts}")
     k4_ms = cuda_ms(lambda: k4.svol_leverage_lw(11, ys, num_filters=LW_F,
                                                 num_particles=LW_N), 5)
     fut = lwm.lw_kernel_sim_future_obs(
@@ -1225,9 +1287,11 @@ def phase_lw_full(dev, ys_all, ident):
         last_obs=ys[-1:])
     require(fut.shape == (LW_F, 10, LW_N, 1)
             and bool(torch.isfinite(fut).all()), "bad Liu-West forecast")
-    phase(15, "lw-full", f"F={LW_F} N={LW_N} T={ys.shape[0]}: " + "; ".join(
-        f"{r} kernel {k:.4f} ms, plain {p:.4f} ms"
-        for r, (k, p) in times.items())
+    phase(15, "lw-full", f"F={LW_F} (apf-f128: F=128) N={LW_N} "
+          f"T={ys.shape[0]}, each within 4 SE of its plain version: "
+          + "; ".join(
+              f"{r} kernel {k:.4f} ms ({layouts[r]} layout), plain "
+              f"{p:.4f} ms" for r, (k, p) in times.items())
         + f"; svol_leverage_lw {k4_ms:.4f} ms; 10-step forecast finite "
         f"({ident})")
     return times, k4_ms
@@ -2508,6 +2572,10 @@ def phase_k2_layout(dev, ys_all):
             k1_roll)
 
 
+# the filters at which phase 31 reads the Liu-West systematic twins, and
+# the CTAs a filter each must run: a few filters, paired; more than the
+# card holds pairs of CTAs at once, one CTA a filter
+K3_RECORD_LAYOUTS = ((16, 2), (128, 1))
 # the schedules phase 31 reads the Liu-West twins at, and the kinds of
 # step each must show
 K3_RECORD_RUNS = {
@@ -2520,57 +2588,66 @@ K3_RECORD_RUNS = {
 
 def phase_k3_layout(dev, ys_all):
     """The Liu-West kernel's systematic twins, every functor at every
-    layout: barriers per kind of step, layout, spans, and their outputs
-    the plain instances' bits."""
+    layout, in both of the family's layouts (K3_RECORD_LAYOUTS): barriers
+    per kind of step, layout, ring wait, spans, and their outputs the
+    plain instances' bits."""
     ys = ys_all[:512, 0].contiguous()
     zs = svol_leverage.lagged_covariates(ys)[:, 0].contiguous()
     functors = dict(_lw_instances(zs), svol_leverage_lw_q=(
         lwm.svol_leverage_lw_q_kernel_model(Q_KAPPA), zs))
-    f = 16
     counted, layout, spans = {}, {}, {}
-    for n in K2_RECORD_N:
-        for name, (km, zs_k) in functors.items():
-            for run, (kw, kinds) in K3_RECORD_RUNS.items():
-                kw = dict(kw)
-                if run == "sisr-no-selection":
-                    kw["ess_threshold"] = 0.5 / n
-                tag = f"K3 {name} N={n} {run}"
-                rec = lwm.step_spans(13, ys, zs_k, f, n, kmodel=km, **kw)
-                seed, ys_, zs_ = lwm._validate(
-                    km, 13, ys, zs_k, f, n, 1, kw["variant"],
-                    kw.get("ess_threshold", 0.0), "systematic")
-                plain = lwm._launch(km, seed, ys_, zs_, f, n, 0.99, 1,
-                                    kw["variant"],
-                                    kw.get("ess_threshold", 0.0))
-                require(all(torch.equal(plain[k], rec["outputs"][k])
-                            for k in ("log_cond_likes", "cloud")),
-                        f"{tag}: the twin's outputs are not the plain "
-                        "instance's bits")
-                want = lwm.BARRIERS_PER_STEP[kw["variant"]]
-                got = rec["barriers_per_step"]
-                for kind, v in got.items():
-                    require(v is None or v == want[kind],
-                            f"{tag}: {v} barriers a {kind} step, the "
-                            f"source note states {want[kind]}")
-                require(all(got[k] is not None for k in kinds),
-                        f"{tag}: no {kinds} step: {got}")
-                require(rec["kper"] == 2
-                        and rec["threads"] == -(-n // 2 // 32) * 32,
-                        f"{tag}: ran kPer {rec['kper']} at "
-                        f"{rec['threads']} threads")
-                counted[f"{name}/N{n}/{run}"] = {
-                    k: v for k, v in got.items() if v is not None}
-                if n == 512:
-                    spans[f"{name}/{run}"] = rec["cycles_per_step"]
-        layout[str(n)] = {"kper": rec["kper"], "threads": rec["threads"]}
+    for f, cluster in K3_RECORD_LAYOUTS:
+        for n in K2_RECORD_N:
+            for name, (km, zs_k) in functors.items():
+                for run, (kw, kinds) in K3_RECORD_RUNS.items():
+                    kw = dict(kw)
+                    if run == "sisr-no-selection":
+                        kw["ess_threshold"] = 0.5 / n
+                    tag = f"K3 {name} F={f} N={n} {run}"
+                    rec = lwm.step_spans(13, ys, zs_k, f, n, kmodel=km, **kw)
+                    seed, ys_, zs_ = lwm._validate(
+                        km, 13, ys, zs_k, f, n, 1, kw["variant"],
+                        kw.get("ess_threshold", 0.0), "systematic")
+                    plain, _ = lwm._launch(km, seed, ys_, zs_, f, n, 0.99, 1,
+                                           kw["variant"],
+                                           kw.get("ess_threshold", 0.0))
+                    require(all(torch.equal(plain[k], rec["outputs"][k])
+                                for k in ("log_cond_likes", "cloud")),
+                            f"{tag}: the twin's outputs are not the plain "
+                            "instance's bits")
+                    want = lwm.BARRIERS_PER_STEP[kw["variant"]]
+                    got = rec["barriers_per_step"]
+                    for kind, v in got.items():
+                        require(v is None or v == want[kind],
+                                f"{tag}: {v} barriers a {kind} step, the "
+                                f"source note states {want[kind]}")
+                    require(all(got[k] is not None for k in kinds),
+                            f"{tag}: no {kinds} step: {got}")
+                    wait = rec["cycles_per_step"]["ring_wait"]
+                    require(rec["kper"] == 2
+                            and rec["threads"] == -(-n // 2 // 32) * 32
+                            and rec["cluster"] == cluster
+                            and (wait > 0) == (cluster == 2),
+                            f"{tag}: ran kPer {rec['kper']} at "
+                            f"{rec['threads']} threads, {rec['cluster']} "
+                            f"CTAs a filter, ring wait {wait:.0f} (want "
+                            f"{cluster} CTAs, a wait iff paired)")
+                    counted[f"{name}/F{f}/N{n}/{run}"] = {
+                        k: v for k, v in got.items() if v is not None}
+                    if n == 512:
+                        spans[f"{name}/F{f}/{run}"] = rec["cycles_per_step"]
+            layout[f"F{f}/N{n}"] = {"kper": rec["kper"],
+                                    "threads": rec["threads"],
+                                    "cluster": rec["cluster"]}
+    f = K3_RECORD_LAYOUTS[0][0]
     roll = _k3_roll_twins(ys, functors, f)
     phase(31, "k3-layout", "twins' barriers a step (first_resample, "
           "first_other, resample, other) " + "; ".join(
               f"{k} {v}" for k, v in counted.items())
-          + "; layout (kPer, threads) " + ", ".join(
-              f"N={n} ({v['kper']}, {v['threads']})"
-              for n, v in layout.items())
-          + " | clock64 cycles a step at N=512 F=16 T=512: " + "; ".join(
+          + "; layout (kPer, threads, CTAs a filter) " + ", ".join(
+              f"{k} ({v['kper']}, {v['threads']}, {v['cluster']})"
+              for k, v in layout.items())
+          + " | clock64 cycles a step at N=512 T=512: " + "; ".join(
               f"{k} " + ", ".join(f"{p} {c:.0f}" for p, c in v.items())
               for k, v in spans.items())
           + " | roll twins' barriers a step besides the selections', votes "

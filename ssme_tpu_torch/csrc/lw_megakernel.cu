@@ -1,7 +1,8 @@
 // The Liu-West kernel's C entry points.  lw_megakernel.cuh has the step
 // recursion and the divergences from the Pallas kernel;
 // lw_megakernel_sys.cuh the template and its two families (instances in
-// lw_megakernel_sys.cu and lw_megakernel_sys_roll{2,4,8}.cu).
+// lw_megakernel_sys.cu, the systematic family's paired layout in
+// lw_megakernel_sys_pair.cu, and lw_megakernel_sys_roll{2,4,8}.cu).
 #include "lw_megakernel.cuh"
 #include "lw_megakernel_sys.cuh"
 
@@ -24,14 +25,18 @@ LWArgs make_args(const float* coefs, const float* prior_lo,
 }
 
 // the instances (or, with a.spans, their twins) of the resampler's family
-// at the layout of N; -3 for a particle count or resampler they do not
-// take
-int dispatch(int model_id, const LWLaunch& a, const LWArgs& args) {
+// at the layout of N, in one CTA a filter or, with cluster 2 (systematic
+// only), the paired layout; -3 for a particle count, resampler or cluster
+// size they do not take
+int dispatch(int model_id, const LWLaunch& a, const LWArgs& args,
+             int cluster) {
   const int n = a.num_particles;
   if (a.resampler == ssme::kResampleSystematic) {
     if (n < 32 || n > kMaxThreads || n % 32) return -3;
-    return dispatch_sys(model_id, a, args);
+    if (cluster == 2) return dispatch_pair(model_id, a, args);
+    return cluster == 1 ? dispatch_sys(model_id, a, args) : -3;
   }
+  if (cluster != 1) return -3;
   if ((a.resampler != ssme::kResampleMetropolis &&
        a.resampler != ssme::kResampleRejection) ||
       n < 32 || n > 4 * kMaxThreads || (n & (n - 1)))
@@ -55,16 +60,21 @@ int dispatch(int model_id, const LWLaunch& a, const LWArgs& args) {
 // gates the resample on ESS < ess_limit, else it follows resample_every.
 // resampler: 0 systematic (N a multiple of 32 up to 1024), 1 metropolis
 // with metropolis_iters sweeps, 2 rejection (both on a power-of-two N up
-// to 4096).  The kernel allocates nothing and runs on `stream`.  Returns
+// to 4096).  cluster: the CTAs a filter, 1, or 2 for the systematic
+// family's paired layout (lw_ring.cuh; the caller checks that the card
+// holds every filter's cluster at once, ssme_lw_megakernel_clusters).  The
+// kernel allocates nothing and runs on `stream`.  Returns
 // cudaGetLastError() after the launch, -1 for an unknown model id, or -3
-// for a particle count the resampler does not take.
+// for a particle count the resampler does not take or another cluster
+// size.
 extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                                   const float* ys, const float* zs,
                                   int num_filters, int num_steps,
                                   int num_particles, int apf,
                                   int resample_every, float ess_limit,
                                   int resampler, int metropolis_iters,
-                                  const float* coefs, const float* prior_lo,
+                                  int cluster, const float* coefs,
+                                  const float* prior_lo,
                                   const float* prior_scale,
                                   const float* model_args, float* lcl,
                                   float* fpaths, float* cloud, void* stream) {
@@ -74,7 +84,20 @@ extern "C" int ssme_lw_megakernel(int model_id, const int64_t* seed,
                    apf, resample_every, ess_limit, resampler,
                    metropolis_iters, lcl, fpaths, cloud,
                    static_cast<cudaStream_t>(stream)};
-  return dispatch(model_id, a, args);
+  return dispatch(model_id, a, args, cluster);
+}
+
+// How many clusters of the paired systematic instance of model_id at
+// num_particles the card holds at once, into *count
+// (cudaOccupancyMaxActiveClusters; nothing is launched).  Returns the
+// query's cudaError_t, -1 for an unknown model id, or -3 for a particle
+// count the systematic family does not take.
+extern "C" int ssme_lw_megakernel_clusters(int model_id, int num_particles,
+                                           int* count) {
+  using namespace ssme_lw;
+  if (num_particles < 32 || num_particles > kMaxThreads || num_particles % 32)
+    return -3;
+  return pair_clusters(model_id, num_particles, count);
 }
 
 // The instrumented twin of the instance ssme_lw_megakernel runs: its
@@ -87,7 +110,7 @@ extern "C" int ssme_lw_megakernel_spans(int model_id, const int64_t* seed,
                                         int num_particles, int apf,
                                         int resample_every, float ess_limit,
                                         int resampler, int metropolis_iters,
-                                        const float* coefs,
+                                        int cluster, const float* coefs,
                                         const float* prior_lo,
                                         const float* prior_scale,
                                         const float* model_args, float* lcl,
@@ -100,5 +123,5 @@ extern "C" int ssme_lw_megakernel_spans(int model_id, const int64_t* seed,
                    apf, resample_every, ess_limit, resampler,
                    metropolis_iters, lcl, fpaths, cloud,
                    static_cast<cudaStream_t>(stream), spans};
-  return dispatch(model_id, a, args);
+  return dispatch(model_id, a, args, cluster);
 }

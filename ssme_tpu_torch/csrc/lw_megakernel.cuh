@@ -13,7 +13,10 @@
 // that resamples; its note gives the design), in two families, one nvcc
 // per file so that they build in parallel:
 //  - systematic selection (N a multiple of 32 up to 1024), kPer 2, the
-//    values in registers: lw_megakernel_sys.cu;
+//    values in registers: lw_megakernel_sys.cu, one CTA a filter, and
+//    lw_megakernel_sys_pair.cu, a cluster of two CTAs a filter, one of
+//    which draws the step's random numbers for the other (lw_ring.cuh),
+//    taken when the card holds every filter's cluster at once;
 //  - the roll resamplers (roll_select.cuh: Metropolis or rejection, chosen
 //    at run time; N a power of two up to 4096, JAX's
 //    MAX_LW_METROPOLIS_PARTICLES), kPer 2, 4 and 8, the values in shared
@@ -123,16 +126,16 @@ struct LWLaunch {
   long long* spans = nullptr;  // a twin's record, or null
 };
 
-// Run<Model>::go for every model id; -1 for an unknown one
-template <template <class> class Run>
-int dispatch_model(int model_id, const LWLaunch& a, const LWArgs& args) {
+// Run<Model>::go(args...) for every model id; -1 for an unknown one
+template <template <class> class Run, class... Args>
+int dispatch_model(int model_id, const Args&... args) {
   switch (model_id) {
     case ssme::kLWModelSvolLeverage:
-      return Run<ssme::SvolLeverageLW>::go(a, args);
+      return Run<ssme::SvolLeverageLW>::go(args...);
     case ssme::kLWModelSvolT:
-      return Run<ssme::SvolTLW>::go(a, args);
+      return Run<ssme::SvolTLW>::go(args...);
     case ssme::kLWModelSvolLeverageQ:
-      return Run<ssme::SvolLeverageQLW>::go(a, args);
+      return Run<ssme::SvolLeverageQLW>::go(args...);
     default:
       return -1;
   }

@@ -15,7 +15,8 @@
 // step recursion and the intended divergences from the Pallas kernel are
 // those of lw_megakernel.cuh's note.
 //
-// Layout: one CTA per filter; thread i owns kPer NEIGHBOURING particles
+// Layout: one CTA per filter (the systematic family's paired layout adds
+// a second, below); thread i owns kPer NEIGHBOURING particles
 // j = kPer * i + p, blockDim = N / kPer rounded up to a warp, the lanes
 // past N / kPer masked (N = 32 or 96 leave part of a warp empty); the
 // Philox counters stay keyed by the particle index, so the prior
@@ -28,7 +29,17 @@
 //    Shared memory holds the CDF and one padded gather buffer per leaf
 //    (row_select.cuh; S + 1 + P leaves, 25 KB at N = 1024 for the
 //    leverage model), the partial buffers of the exchanges and the step's
-//    two selection offsets.
+//    two selection offsets.  Two layouts (lw_ring.cuh), one row and the
+//    same bits: single, one CTA a filter, which draws its own random
+//    numbers; paired, a cluster of two CTAs a filter (grid 2F), whose
+//    rank 1 draws each step's P + kDraws normal pairs and both offsets
+//    into a ring of 4 steps in rank 0's dynamic shared memory (20 KB a
+//    step at N = 1024 for the leverage model) while rank 0 runs the row,
+//    each CTA on an SM of its own (pair_dynamic_bytes).  The wrapper takes
+//    the paired layout when the card holds every filter's cluster at once
+//    (cudaOccupancyMaxActiveClusters, PairClusters), else the single one:
+//    past that count the clusters run in two waves, 60-69% slower than
+//    one CTA a filter at F = 67-132 on the H100 (PERF.md §6).
 //  - roll (lw_roll_row): kPer 2 to N = 1024, then 4 and 8 (roll_kper_for,
 //    from the grid measured on the card), at most 512 threads.  At 8
 //    particles a thread the particles' values (S + P floats each, the
@@ -47,20 +58,28 @@
 //    the second stage reads its ancestor's there; the ancestor's shrunk
 //    theta is recomputed from its gathered theta (the same operations,
 //    the same bits).
-// Instances (lw_megakernel_sys.cu, lw_megakernel_sys_roll{2,4,8}.cu): every
-// functor, and beside each an instrumented twin (kRecord), which counts
+// Instances (lw_megakernel_sys.cu, lw_megakernel_sys_pair.cu,
+// lw_megakernel_sys_roll{2,4,8}.cu): every functor, and beside each an
+// instrumented twin (kRecord), which counts
 // the barriers a step crosses (a roll selection's votes and tail barriers
 // apart, with its sweeps and tail slots) and times its parts by clock64
-// on thread 0.  A twin must compute its plain instance's bits: ptxas
-// fused the Cholesky's multiply-subtracts in one compilation and not in
-// the other, so they are written as fmaf, and the shrinkage's products
-// are rounded apart.
+// on thread 0 (the paired layout's waits on its ring apart).  A twin must
+// compute its plain instance's bits, and the paired layout the single
+// one's: ptxas fused the Cholesky's multiply-subtracts in one compilation
+// and not in the other, so they are written as fmaf, the shrinkage's
+// products are rounded apart, and so is the Student-t transition's
+// (lw_models.cuh).
 //
 // What bounds it: per-step latency, not bytes.  At F <= 64 each row has an
-// SM to itself, so the wall time is T times one row's step, and on the
-// H100 that step waits on dependent arithmetic (transforms, Philox,
-// Box-Muller, the Cholesky) more than on its barriers: 8 warps a row at
-// N = 512 hide less of it than 16 (PERF.md §6).  Under the roll
+// SM to itself (two in the paired layout), so the wall time is T times one
+// row's step, and on the H100 that step waits on dependent arithmetic
+// more than on its barriers: 8 warps a row at N = 512 hide less of it than
+// 16 (PERF.md §6).  The paired layout takes the step's random numbers
+// (five Philox calls and Box-Mullers a pair, and the offsets) off that
+// chain: at F = 64, N = 512 the twins' draws part fell from about 3650 to
+// 1300 cycles a step, the ring's wait costs about 220, and what is left
+// is the model's arithmetic (transforms, densities, the Cholesky), the
+// exchanges and the selection (PERF.md §6).  Under the roll
 // resamplers the selections add one Philox call a pending slot and sweep
 // (roll_select.cuh).  The design cuts the step's chain of barriers and
 // its random-number work:
@@ -102,8 +121,11 @@
 //    32 sweeps, a vote per chunk, a sweep-parallel tail), the row's
 //    largest weight exactly 1;
 //  - the two systematic offsets (first stage, tag 2^31 + 1; resample, tag
-//    1) drawn by thread 0 ahead of the max that precedes their use, and
-//    read after it; y_{t+1} and z_{t+1} loaded a step ahead.
+//    1) drawn by thread 0 (paired: read off the ring) ahead of the max
+//    that precedes their use, and read after it; y_{t+1} and z_{t+1}
+//    loaded a step ahead;
+//  - the paired layout, where the card holds every filter's cluster:
+//    draws computed off the row's SM, ahead of their use (lw_ring.cuh).
 #pragma once
 
 #include <cstdint>
@@ -112,6 +134,7 @@
 
 #include "lw_megakernel.cuh"
 #include "lw_models.cuh"
+#include "lw_ring.cuh"
 #include "philox.cuh"
 #include "roll_select.cuh"
 #include "row_select.cuh"
@@ -125,19 +148,21 @@ constexpr int kLWPer = 2;
 
 // The twins record, per row, by thread 0 in shared memory:
 // the clock64 cycles of the step's parts (t = 0: the prior and init draws
-// count under draws), the rows' resamples at t = 0 and at t > 0, the
+// count under draws; the paired layout's waits on its ring apart, 0 in the
+// single layout), the rows' resamples at t = 0 and at t > 0, the
 // barriers crossed at t = 0 in a step that resamples and in one that does
 // not, and at t > 0 likewise (a roll selection's apart), the roll
 // selections' votes and tail barriers, the sweeps they ran (1 + the last
 // accept sweep, 4096 at the cap) and the slots their tails took, and the
-// layout the launch ran (kPer, blockDim).
+// layout the launch ran (kPer, blockDim, CTAs a filter).
 enum LWSpan { kLWSpanMoments, kLWSpanCholesky, kLWSpanFirstStage,
-              kLWSpanDraws, kLWSpanWeigh, kLWSpanResample,
+              kLWSpanDraws, kLWSpanWeigh, kLWSpanResample, kLWSpanRingWait,
               kLWSpanFirstResamples, kLWSpanResamples,
               kLWSpanBarFirstResample, kLWSpanBarFirstOther,
               kLWSpanBarResample, kLWSpanBarOther, kLWSpanVotes,
               kLWSpanTailBars, kLWSpanSweeps, kLWSpanTailSlots,
-              kLWSpanLayoutPer, kLWSpanLayoutThreads, kNumLWSpans };
+              kLWSpanLayoutPer, kLWSpanLayoutThreads, kLWSpanCluster,
+              kNumLWSpans };
 
 // one vector store of a thread's kPer neighbouring values of a cloud row
 template <int kPer>
@@ -184,14 +209,17 @@ __device__ __forceinline__ float shrink(const LWArgs& args, float th,
   return __fadd_rn(__fmul_rn(args.a, th), __fmul_rn(args.one_minus_a, tbar));
 }
 
-// one row of the systematic family (the kernel's note above)
-template <class Model, int kPer, bool kRecord>
+// one row of the systematic family (the kernel's note above): filter b of
+// num_filters, its draws at t >= 1 from `draws` (lw_ring.cuh: OwnDraws in
+// the single layout, RingDraws in the paired one)
+template <class Model, int kPer, bool kRecord, class Draws>
 __device__ __forceinline__ void lw_sys_row(
     const int64_t* __restrict__ seed, const float* __restrict__ ys,
     const float* __restrict__ zs, int num_steps, int num_particles, int apf,
     int resample_every, float ess_limit, const LWArgs& args,
     float* __restrict__ lcl, float* __restrict__ fpaths,
-    float* __restrict__ cloud, long long* __restrict__ spans) {
+    float* __restrict__ cloud, long long* __restrict__ spans, uint32_t b,
+    int num_filters, const Draws& draws) {
   static_assert(kPer == 2 || kPer == 4, "whole Philox pairs, kPer | 32");
   constexpr int kPairs = kPer / 2;
   constexpr int P = Model::kNumParams;
@@ -213,17 +241,16 @@ __device__ __forceinline__ void lw_sys_row(
   __shared__ float4 sums_b[32 * cmax(ssme::wide_stride(kGram),
                                     ssme::wide_stride(K + 3)) / 4];
   __shared__ float offsets[2];  // first stage, resample; thread 0 draws
+                                // them (paired: reads them off the ring)
   // the twin's record: the spans, then the last clock read and this
   // step's barriers
   constexpr int kMark = kNumLWSpans, kStepBars = kNumLWSpans + 1;
   __shared__ long long rec[kRecord ? kNumLWSpans + 2 : 1];
   long long* const bars = kRecord ? &rec[kRecord ? kStepBars : 0] : nullptr;
 
-  const uint32_t b = blockIdx.x;
   const uint32_t i = threadIdx.x;
   const int n = num_particles;
   const bool active = static_cast<int>(kPer * i) < n;
-  const int num_filters = gridDim.x;
   const uint32_t k0 = static_cast<uint32_t>(seed[0]);
   const uint32_t k1 = static_cast<uint32_t>(seed[1]);
   const Model model(args.model);
@@ -271,13 +298,17 @@ __device__ __forceinline__ void lw_sys_row(
   // by thread 0; lw = lw_new - max; and, when the row resamples, the stage
   // of the CDF with (state, theta), the walk and the gather, lw = 0.
   // lcl_of(lse) gives column t's value from LSE(lw_new).  Returns whether
-  // the row resampled.
+  // the row resampled.  At t > 0 the max's barrier follows every read of
+  // the step's draws, so the paired layout frees its ring slot there.
   auto weigh_and_resample = [&](int t, auto lcl_of) -> bool {
+    const uint32_t tu = static_cast<uint32_t>(t);
     const bool may_fire = ess_limit > 0.0f || resample_every == 1 ||
                           (t + 1) % resample_every == 0;
     if (may_fire && i == 0)
-      offsets[1] = ssme::offset_at(k0, k1, static_cast<uint32_t>(t), b);
+      offsets[1] = t == 0 ? ssme::offset_at(k0, k1, 0u, b)
+                          : draws.offset(tu, ssme::kTagOffset);
     const float m = ssme::row_max<kPer>(lw_new, active, max_part, bars);
+    if (t > 0) draws.release(tu);
     float w[kPer];
     float v[K + 2];
 #pragma unroll
@@ -376,6 +407,11 @@ __device__ __forceinline__ void lw_sys_row(
   if (num_steps > 1) load_step<Model>(ys, zs, 1, y_next, z_next);
   for (int t = 1; t < num_steps; ++t) {
     const uint32_t tu = static_cast<uint32_t>(t);
+    if constexpr (Draws::kPaired) {
+      tick(kLWSpanMoments);  // the loop's top, as in the single layout
+      draws.wait(tu);
+      tick(kLWSpanRingWait);
+    }
 #pragma unroll
     for (int k = 0; k < Model::kDimObs; ++k) y[k] = y_next[k];
 #pragma unroll
@@ -443,8 +479,7 @@ __device__ __forceinline__ void lw_sys_row(
       // theta): the ancestor's lookahead density moves with it, the value
       // the second stage would recompute from the gathered lookahead and
       // shrunk theta
-      if (i == 0) offsets[0] = ssme::offset_at(k0, k1, tu, b,
-                                               ssme::kTagSelectOffset);
+      if (i == 0) offsets[0] = draws.offset(tu, ssme::kTagSelectOffset);
       float g[kPer][kLook];
       float lfs[kPer];
 #pragma unroll
@@ -500,15 +535,15 @@ __device__ __forceinline__ void lw_sys_row(
       }
 #pragma unroll
       for (int k = 0; k < P; ++k) {
-        const float2 e = ssme::normal_pair_at(k0, k1, qg, tu, b, k);
+        const float2 e = draws.kernel_normal(qg, tu, k);
 #pragma unroll
         for (int r = k; r < P; ++r) {
           th[p0][r] = th[p0][r] + chol[r][k] * e.x;
           th[p1][r] = th[p1][r] + chol[r][k] * e.y;
         }
       }
-      ssme::for_pair<kDraws>(
-          k0, k1, qg, tu, b,
+      draws.template for_pair<kDraws>(
+          qg, tu,
           [&](auto& rng, int e) {
             const int p = 2 * q + e;
             float cp[P];
@@ -546,6 +581,7 @@ __device__ __forceinline__ void lw_sys_row(
   if (kRecord && i == 0) {
     rec[kLWSpanLayoutPer] = kPer;
     rec[kLWSpanLayoutThreads] = blockDim.x;
+    rec[kLWSpanCluster] = Draws::kPaired ? 2 : 1;
 #pragma unroll
     for (int k = 0; k < kNumLWSpans; ++k)
       spans[kNumLWSpans * b + k] = rec[k];
@@ -969,6 +1005,7 @@ __device__ __forceinline__ void lw_roll_row(
   if (kRecord && i == 0) {
     rec[kLWSpanLayoutPer] = kPer;
     rec[kLWSpanLayoutThreads] = blockDim.x;
+    rec[kLWSpanCluster] = 1;
 #pragma unroll
     for (int k = 0; k < kNumLWSpans; ++k)
       spans[kNumLWSpans * b + k] = rec[k];
@@ -989,9 +1026,59 @@ __device__ __forceinline__ void lw_roll_row(
   }
 }
 
+// The paired layout of the systematic family (lw_ring.cuh): filter
+// blockIdx.x / 2 on a cluster of two CTAs; rank 0 runs the row on the
+// draws rank 1 writes into its ring.  Both set up their barriers and cross
+// a cluster barrier before either touches the other's shared memory, and
+// another before either exits.
+template <class Model, int kPer, bool kRecord>
+__device__ __forceinline__ void lw_pair_row(
+    const int64_t* __restrict__ seed, const float* __restrict__ ys,
+    const float* __restrict__ zs, int num_steps, int num_particles, int apf,
+    int resample_every, float ess_limit, const LWArgs& args,
+    float* __restrict__ lcl, float* __restrict__ fpaths,
+    float* __restrict__ cloud, long long* __restrict__ spans) {
+  static_assert(kPer == 2, "one producer thread a pair of a filter thread");
+  constexpr int kAll = Model::kNumParams + Model::kDraws;
+  extern __shared__ __align__(16) unsigned long long lw_ring_area[];
+  const uint32_t rank = cluster_rank();
+  const uint32_t b = blockIdx.x / 2;
+  const int threads = blockDim.x;
+  const uint32_t ring = smem_addr(lw_ring_area);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kRingSlots; ++s) {
+      if (rank == 0)
+        ring_bar_init(ring + 8 * s, threads / 32);  // full: producer warps
+      else
+        ring_bar_init(ring + 8 * (kRingSlots + s), 1);  // empty: thread 0
+    }
+    ring_bar_init_fence();
+  }
+  cluster_sync();
+  if (rank == 0) {
+    const RingDraws draws{
+        reinterpret_cast<const float2*>(lw_ring_area + 2 * kRingSlots), ring,
+        map_rank(ring + 8 * kRingSlots, 1), threads,
+        ring_slot_pairs(kAll, threads)};
+    lw_sys_row<Model, kPer, kRecord>(seed, ys, zs, num_steps, num_particles,
+                                     apf, resample_every, ess_limit, args,
+                                     lcl, fpaths, cloud, spans, b,
+                                     static_cast<int>(gridDim.x / 2), draws);
+  } else {
+    lw_ring_produce<kAll>(static_cast<uint32_t>(seed[0]),
+                          static_cast<uint32_t>(seed[1]), num_steps,
+                          num_particles, b, ring);
+  }
+  cluster_sync();
+}
+
 // The kernel: one row per CTA, the systematic family (kRoll false) or the
-// roll family at kPer particles a thread and up to kThreads threads
-template <class Model, int kPer, int kThreads, bool kRecord, bool kRoll>
+// roll family at kPer particles a thread and up to kThreads threads; or,
+// kPaired, the systematic family's paired layout, one row per cluster of
+// two CTAs
+template <class Model, int kPer, int kThreads, bool kRecord, bool kRoll,
+          bool kPaired>
 __global__ void __launch_bounds__(kThreads, 1)
 lw_megakernel_sys(const int64_t* __restrict__ seed,
                   const float* __restrict__ ys, const float* __restrict__ zs,
@@ -1001,59 +1088,136 @@ lw_megakernel_sys(const int64_t* __restrict__ seed,
                   float* __restrict__ lcl, float* __restrict__ fpaths,
                   float* __restrict__ cloud, long long* __restrict__ spans) {
   if constexpr (kRoll) {
+    static_assert(!kPaired, "the roll family runs one CTA a row");
     lw_roll_row<Model, kPer, kThreads, kRecord>(
         seed, ys, zs, num_steps, num_particles, apf, resample_every,
         ess_limit, resampler, metropolis_iters, args, lcl, fpaths, cloud,
         spans);
+  } else if constexpr (kPaired) {
+    static_assert(kThreads * kPer == kMaxThreads, "the systematic row");
+    lw_pair_row<Model, kPer, kRecord>(seed, ys, zs, num_steps, num_particles,
+                                      apf, resample_every, ess_limit, args,
+                                      lcl, fpaths, cloud, spans);
   } else {
     static_assert(kThreads * kPer == kMaxThreads, "the systematic row");
+    const OwnDraws draws{static_cast<uint32_t>(seed[0]),
+                         static_cast<uint32_t>(seed[1]), blockIdx.x};
     lw_sys_row<Model, kPer, kRecord>(seed, ys, zs, num_steps, num_particles,
                                      apf, resample_every, ess_limit, args,
-                                     lcl, fpaths, cloud, spans);
+                                     lcl, fpaths, cloud, spans, blockIdx.x,
+                                     static_cast<int>(gridDim.x), draws);
   }
 }
 
-// one launch of an instance (a.spans: its twin's record, or null)
-template <class Model, int kPer, int kThreads, bool kRecord, bool kRoll>
-int launch_row(const LWLaunch& a, const LWArgs& args) {
-  auto* kernel = lw_megakernel_sys<Model, kPer, kThreads, kRecord, kRoll>;
-  int dynamic = 0;
+// the paired layout's configuration of `filters` filters: clusters of two
+// CTAs of `threads` threads and `dynamic` bytes of dynamic shared memory
+inline cudaLaunchConfig_t pair_config(int filters, int threads, int dynamic,
+                                      cudaStream_t stream,
+                                      cudaLaunchAttribute* cluster) {
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = 2;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * filters);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = dynamic;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// an instance's dynamic shared memory at `threads` threads, admitted with
+// cudaFuncSetAttribute above 48 KB; the attribute's error, or cudaSuccess
+template <class Model, int kPer, int kThreads, bool kRecord, bool kRoll,
+          bool kPaired>
+cudaError_t admit_dynamic(int threads, int* dynamic) {
+  *dynamic = 0;
   if constexpr (kRoll) {
-    dynamic = roll_row_bytes<Model, kPer, kThreads>();
-    if (dynamic > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+    *dynamic = roll_row_bytes<Model, kPer, kThreads>();
+  } else if constexpr (kPaired) {
+    *dynamic = pair_dynamic_bytes(Model::kNumParams + Model::kDraws, threads);
   }
+  if (*dynamic <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      lw_megakernel_sys<Model, kPer, kThreads, kRecord, kRoll, kPaired>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, *dynamic);
+}
+
+// one launch of an instance (a.spans: its twin's record, or null); the
+// paired layout launches clusters of two CTAs
+template <class Model, int kPer, int kThreads, bool kRecord, bool kRoll,
+          bool kPaired>
+int launch_row(const LWLaunch& a, const LWArgs& args) {
+  auto* kernel =
+      lw_megakernel_sys<Model, kPer, kThreads, kRecord, kRoll, kPaired>;
   const int threads = (a.num_particles / kPer + 31) / 32 * 32;
-  kernel<<<a.num_filters, threads, dynamic, a.stream>>>(
-      a.seed, a.ys, a.zs, a.num_steps, a.num_particles, a.apf,
-      a.resample_every, a.ess_limit, a.resampler, a.metropolis_iters, args,
-      a.lcl, a.fpaths, a.cloud, a.spans);
+  int dynamic;
+  cudaError_t e = admit_dynamic<Model, kPer, kThreads, kRecord, kRoll,
+                                kPaired>(threads, &dynamic);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if constexpr (kPaired) {
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg =
+        pair_config(a.num_filters, threads, dynamic, a.stream, &cluster);
+    e = cudaLaunchKernelEx(&cfg, kernel, a.seed, a.ys, a.zs, a.num_steps,
+                           a.num_particles, a.apf, a.resample_every,
+                           a.ess_limit, a.resampler, a.metropolis_iters, args,
+                           a.lcl, a.fpaths, a.cloud, a.spans);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    kernel<<<a.num_filters, threads, dynamic, a.stream>>>(
+        a.seed, a.ys, a.zs, a.num_steps, a.num_particles, a.apf,
+        a.resample_every, a.ess_limit, a.resampler, a.metropolis_iters,
+        args, a.lcl, a.fpaths, a.cloud, a.spans);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// Run<Model>::go of dispatch_model: how many clusters of Model's paired
+// systematic instance at num_particles the card holds at once, into
+// *count (cudaOccupancyMaxActiveClusters; launches nothing)
+template <class Model>
+struct PairClusters {
+  static int go(int num_particles, int* count) {
+    constexpr int kThreads = kMaxThreads / kLWPer;
+    const int threads = (num_particles / kLWPer + 31) / 32 * 32;
+    int dynamic;
+    cudaError_t e = admit_dynamic<Model, kLWPer, kThreads, false, false,
+                                  true>(threads, &dynamic);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchAttribute cluster;
+    const cudaLaunchConfig_t cfg =
+        pair_config(1, threads, dynamic, nullptr, &cluster);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(
+        count,
+        lw_megakernel_sys<Model, kLWPer, kThreads, false, false, true>,
+        &cfg));
+  }
+};
+
 // Run<Model>::go of dispatch_model for one layout and family
-template <int kPer, int kThreads, bool kRecord, bool kRoll>
+template <int kPer, int kThreads, bool kRecord, bool kRoll, bool kPaired>
 struct LayoutAt {
   template <class Model>
   struct Run {
     static int go(const LWLaunch& a, const LWArgs& args) {
-      return launch_row<Model, kPer, kThreads, kRecord, kRoll>(a, args);
+      return launch_row<Model, kPer, kThreads, kRecord, kRoll, kPaired>(
+          a, args);
     }
   };
 };
 
 // the instances of every model id in one layout and family or, with
 // a.spans, their instrumented twins; -1 for an unknown id
-template <int kPer, int kThreads, bool kRoll>
+template <int kPer, int kThreads, bool kRoll, bool kPaired = false>
 int dispatch_layout(int model_id, const LWLaunch& a, const LWArgs& args) {
   if (a.spans == nullptr)
-    return dispatch_model<LayoutAt<kPer, kThreads, false, kRoll>::template
-                              Run>(model_id, a, args);
-  return dispatch_model<LayoutAt<kPer, kThreads, true, kRoll>::template Run>(
-      model_id, a, args);
+    return dispatch_model<LayoutAt<kPer, kThreads, false, kRoll,
+                                   kPaired>::template Run>(model_id, a, args);
+  return dispatch_model<LayoutAt<kPer, kThreads, true, kRoll,
+                                 kPaired>::template Run>(model_id, a, args);
 }
 
 // The roll family's layout at each N, from the grid measured on the card
@@ -1061,9 +1225,12 @@ int dispatch_layout(int model_id, const LWLaunch& a, const LWArgs& args) {
 inline int roll_kper_for(int n) { return n <= 1024 ? 2 : n <= 2048 ? 4 : 8; }
 constexpr int kRollThreads = 512;
 
-// the systematic instances (lw_megakernel_sys.cu) and the roll ones, one
-// file per kPer (lw_megakernel_sys_roll{2,4,8}.cu)
+// the systematic instances (lw_megakernel_sys.cu), their paired layout
+// and its occupancy query (lw_megakernel_sys_pair.cu), and the roll ones, one file per kPer
+// (lw_megakernel_sys_roll{2,4,8}.cu)
 int dispatch_sys(int model_id, const LWLaunch& a, const LWArgs& args);
+int dispatch_pair(int model_id, const LWLaunch& a, const LWArgs& args);
+int pair_clusters(int model_id, int num_particles, int* count);
 int dispatch_roll2(int model_id, const LWLaunch& a, const LWArgs& args);
 int dispatch_roll4(int model_id, const LWLaunch& a, const LWArgs& args);
 int dispatch_roll8(int model_id, const LWLaunch& a, const LWArgs& args);

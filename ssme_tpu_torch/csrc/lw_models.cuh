@@ -149,7 +149,10 @@ struct SvolTLW {
   template <class Rng>
   __device__ void propagate(Rng& rng, const float* cp, float* x,
                             const float*, const float*) const {
-    x[0] = cp[1] * x[0] + cp[2] * rng.normal();
+    // one product fused, the other rounded, written out: left to the
+    // compiler, the fused product depended on where the normal came from,
+    // and the two layouts of lw_megakernel_sys.cuh rounded apart
+    x[0] = fmaf(cp[2], rng.normal(), __fmul_rn(cp[1], x[0]));
   }
   __device__ void prop_mu(const float* cp, const float* x, const float*,
                           const float*, float* out) const {

@@ -47,16 +47,18 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
-    # resampler, metropolis_iters, coefs, prior_lo, prior_scale,
+    # resampler, metropolis_iters, cluster, coefs, prior_lo, prior_scale,
     # model_args (host arrays), lcl, fpaths, cloud, stream
     "ssme_lw_megakernel": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                           _P, _P, _P, _P, _P, _P, _P, _P],
+                           _I, _P, _P, _P, _P, _P, _P, _P, _P],
     # model id, seed, ys, zs, F, T, N, apf, resample_every, ess_limit,
-    # resampler, metropolis_iters, coefs, prior_lo, prior_scale,
+    # resampler, metropolis_iters, cluster, coefs, prior_lo, prior_scale,
     # model_args (host arrays), lcl, fpaths, cloud, spans, stream
     "ssme_lw_megakernel_spans": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P],
+                                 _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P],
+    # model id, N, count (host int)
+    "ssme_lw_megakernel_clusters": [_I, _I, _P],
     # seed, params, ys, B, T, N, ess_limit, always, gate_stride,
     # resampler, metropolis_iters, total, lcl, xmean, spans (or null),
     # stream

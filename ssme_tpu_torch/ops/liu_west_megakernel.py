@@ -36,9 +36,13 @@ The kernel is one template over the functors of ``csrc/lw_models.cuh``,
 ``csrc/lw_megakernel_sys.cuh`` (kPer neighbouring particles per thread,
 paired draws, 8 barriers in an APF step that resamples), in two families:
 systematic (2 particles a thread, the values in registers) and roll (2, 4
-or 8 a thread, the values in shared memory);
-``csrc/lw_megakernel.cuh`` gives the step recursion and the intended
-divergences from the Pallas kernel.  On a CUDA tensor only a
+or 8 a thread, the values in shared memory); the systematic family runs
+in one of two layouts (:func:`layout_for`): "paired", each filter on a
+cluster of two CTAs, one drawing the step's normals and offsets into the
+other's shared memory (``csrc/lw_ring.cuh``), when the card holds every
+filter's cluster at once, else "single", one CTA a filter; both give the
+same bits.  ``csrc/lw_megakernel.cuh`` gives the step recursion and the
+intended divergences from the Pallas kernel.  On a CUDA tensor only a
 model whose ``cuda_instance`` names a functor there runs (a custom SISR
 proposal too: the functor's, ``svol_leverage_lw_q_kernel_model``);
 anything else raises.  Selection (``resampler``): "systematic" at N up
@@ -74,8 +78,13 @@ from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
                                                    resample_rows)
 
 # the profiling spans opened here: ``lw_megakernel``'s validation (on
-# both paths) and each launch, from the model's id to the C call
+# both paths) and each launch, from the prior box to the C call, keyed by
+# its layout (LAYOUTS)
 HOST_SPANS = ("lw.validate", "lw_megakernel.launch")
+
+# the launch layouts (csrc/lw_megakernel_sys.cuh): the systematic family's
+# cluster of two CTAs a filter, and one CTA a filter (every roll launch)
+LAYOUTS = ("paired", "single")
 
 # the dispatch table of csrc/lw_models.cuh (same names, same numbers;
 # tests/test_torch_lw_megakernel.py parses the header and compares)
@@ -84,7 +93,7 @@ CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1,
 # the instances whose functor has a SISR proposal (kHasProposal)
 _CUDA_LW_PROPOSALS = frozenset({"svol_leverage_lw_q"})
 
-# the systematic selection: one CTA per filter (JAX's cap)
+# the systematic selection: N up to this (JAX's cap)
 MAX_LW_KERNEL_PARTICLES = 1024
 # the roll resamplers: a power of two up to this, several particles per
 # thread above 1024 (JAX's name and cap)
@@ -494,6 +503,27 @@ def _host_floats(values, width):
     return arr
 
 
+def layout_for(num_filters, max_clusters):
+    """The layout of a systematic launch of ``num_filters`` filters:
+    "paired" when the card holds all their clusters at once
+    (``max_clusters``, what ``cudaOccupancyMaxActiveClusters`` reports for
+    the paired instance), else "single" (a count of 0 included): past the
+    count, clusters would wait for a second wave of SMs."""
+    return "paired" if num_filters <= max_clusters else "single"
+
+
+@functools.cache
+def _max_clusters(model_id, num_particles):
+    """The card's count of co-resident clusters of the paired instance of
+    ``model_id`` at N (its twin takes the same layout), asked once; a
+    failed query raises."""
+    count = ctypes.c_int(0)
+    err = _cuda.library().ssme_lw_megakernel_clusters(
+        model_id, num_particles, ctypes.byref(count))
+    _cuda.check(err, "ssme_lw_megakernel_clusters")
+    return count.value
+
+
 def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
                   num_particles=512, delta=0.99, resample_every=1,
                   variant="apf", ess_threshold=0.0, resampler="systematic",
@@ -518,8 +548,8 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     means.
 
     Launches the kernel for CUDA tensors (raising for a model without a
-    CUDA instance) and runs :func:`lw_megakernel_reference` for CPU
-    tensors.
+    CUDA instance; ``lw_megakernel.layouts`` counts the launches by
+    layout) and runs :func:`lw_megakernel_reference` for CPU tensors.
     """
     with profiling.span("lw.validate"):
         seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
@@ -532,10 +562,11 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
                                        metropolis_iters)
     if ys.device.type != "cuda":
         raise ValueError(f"lw_megakernel: unsupported device {ys.device}")
-    out = _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
-                  resample_every, variant, ess_threshold, resampler,
-                  metropolis_iters)
+    out, layout = _launch(kmodel, seed, ys, zs, num_filters, num_particles,
+                          delta, resample_every, variant, ess_threshold,
+                          resampler, metropolis_iters)
     lw_megakernel.launches += 1
+    lw_megakernel.layouts[layout] += 1
     return out
 
 
@@ -545,9 +576,15 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
     """One launch on the card of validated arguments: the instance
     ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
     len(SPAN_RECORD))), its instrumented twin
-    (``ssme_lw_megakernel_spans``), which writes its record there."""
-    with profiling.span("lw_megakernel.launch"):
-        model_id = _model_id(kmodel)
+    (``ssme_lw_megakernel_spans``), which writes its record there, in
+    the layout :func:`layout_for` gives.  Returns (the result dict, the
+    layout)."""
+    model_id = _model_id(kmodel)
+    layout = "single"
+    if resampler == "systematic":
+        layout = layout_for(num_filters,
+                            _max_clusters(model_id, int(num_particles)))
+    with profiling.span("lw_megakernel.launch", key=layout):
         bounds = kmodel.prior_bounds
         if bounds is None or len(bounds) != kmodel.num_params:
             raise ValueError(f"model {kmodel.name!r}: the CUDA instance "
@@ -572,8 +609,8 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
                 cloud.data_ptr())
         zs_ptr = None if zs is None else zs.data_ptr()
         args = (model_id, seed.data_ptr(), ys.data_ptr(), zs_ptr, f, t_len, n,
-                *run, RESAMPLER_CODES[resampler], int(metropolis_iters), *host,
-                *outs)
+                *run, RESAMPLER_CODES[resampler], int(metropolis_iters),
+                2 if layout == "paired" else 1, *host, *outs)
         if spans is None:
             name = "ssme_lw_megakernel"
             err = lib.ssme_lw_megakernel(*args, _cuda.stream_ptr(dev))
@@ -582,10 +619,12 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
             err = lib.ssme_lw_megakernel_spans(*args, spans.data_ptr(),
                                                _cuda.stream_ptr(dev))
         _cuda.check(err, name)
-        return _result(lcl, fpaths, cloud, n_fns)
+        return _result(lcl, fpaths, cloud, n_fns), layout
 
 
 lw_megakernel.launches = 0
+# launches by layout (LAYOUTS)
+lw_megakernel.layouts = dict.fromkeys(LAYOUTS, 0)
 
 # the barriers a step crosses, as the source note states them
 # (csrc/lw_megakernel_sys.cuh), in both families (a roll selection's
@@ -596,15 +635,17 @@ BARRIERS_PER_STEP = {
             "other": 7},
     "sisr": {"first_resample": 3, "first_other": 2, "resample": 5,
              "other": 4}}
-# the parts of a step its clock64 spans time, then the rest of the
-# instrumented twins' record per filter (csrc/lw_megakernel_sys.cuh LWSpan)
+# the parts of a step its clock64 spans time (the paired layout's waits on
+# its ring apart), then the rest of the instrumented twins' record per
+# filter (csrc/lw_megakernel_sys.cuh LWSpan)
 SPAN_PARTS = ("moments", "cholesky", "first_stage", "draws", "weigh",
-              "resample")
+              "resample", "ring_wait")
 SPAN_RECORD = SPAN_PARTS + ("first_resamples", "resamples",
                             "barriers_first_resample",
                             "barriers_first_other", "barriers_resample",
                             "barriers_other", "votes", "tail_barriers",
-                            "sweeps", "tail_slots", "kper", "threads")
+                            "sweeps", "tail_slots", "kper", "threads",
+                            "cluster")
 
 
 def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
@@ -615,15 +656,17 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
     svol_leverage_lw) in the resampler's family, recorded by thread 0 of
     each filter.  Returns {"cycles_per_step": {part: mean clock64 cycles
     a step} over SPAN_PARTS (the barriers' waits inside the part that
-    ends in them; a roll selection counts in its part), "resamples": mean
-    resamples a filter at t > 0, "first_resamples": the share of filters
-    that resampled at t = 0, "barriers_per_step": {"first_resample",
-    "first_other", "resample", "other": barriers a step of that kind
-    crossed besides a roll selection's, mean over the filters' steps of
-    that kind, or None where there was none}, "votes", "tail_barriers",
-    "sweeps", "tail_slots": the roll selections' totals over the filters
-    (0 under systematic selection), "kper", "threads": the layout the
-    launch ran, "outputs": the result dict, the plain instance's bits}."""
+    ends in them; a roll selection counts in its part; "ring_wait" the
+    paired layout's waits for its draws, 0 in the single one),
+    "resamples": mean resamples a filter at t > 0, "first_resamples": the
+    share of filters that resampled at t = 0, "barriers_per_step":
+    {"first_resample", "first_other", "resample", "other": barriers a
+    step of that kind crossed besides a roll selection's, mean over the
+    filters' steps of that kind, or None where there was none}, "votes",
+    "tail_barriers", "sweeps", "tail_slots": the roll selections' totals
+    over the filters (0 under systematic selection), "kper", "threads",
+    "cluster": the layout the launch ran (CTAs a filter: 2 paired, 1
+    single), "outputs": the result dict, the plain instance's bits}."""
     kmodel = svol_leverage_lw_kernel_model() if kmodel is None else kmodel
     seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
                              num_particles, resample_every, variant,
@@ -633,9 +676,9 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
     f, t_len = int(num_filters), ys.shape[0]
     spans = torch.zeros((f, len(SPAN_RECORD)), dtype=torch.int64,
                         device=ys.device)
-    out = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
-                  resample_every, variant, ess_threshold, resampler,
-                  metropolis_iters, spans=spans)
+    out, _ = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
+                     resample_every, variant, ess_threshold, resampler,
+                     metropolis_iters, spans=spans)
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     layout = spans[:, SPAN_RECORD.index("kper"):]
     if not bool((layout == layout[:1]).all()):
@@ -652,7 +695,7 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
             **{k: rec[k] for k in ("votes", "tail_barriers", "sweeps",
                                    "tail_slots")},
             "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
-            "outputs": out}
+            "cluster": int(layout[0, 2]), "outputs": out}
 
 
 def lw_cloud_params(kmodel: LWKernelModel, cloud):
@@ -862,6 +905,7 @@ def svol_t_lw_kernel_model(
 __all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
            "lw_kernel_sim_future_obs", "step_spans", "BARRIERS_PER_STEP",
+           "LAYOUTS", "layout_for",
            "SPAN_PARTS", "SPAN_RECORD", "svol_leverage_lw_kernel_model",
            "svol_leverage_lw_q_kernel_model", "svol_t_lw_kernel_model",
            "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",

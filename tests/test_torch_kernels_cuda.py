@@ -910,6 +910,79 @@ def test_k3_systematic_twins_record_layout_and_barriers(dev, name, n):
             assert torch.equal(plain[key], rec["outputs"][key]), key
 
 
+K3_SCHEDULES = (dict(variant="apf"), dict(variant="apf", ess_threshold=0.5),
+                dict(variant="sisr"), dict(variant="sisr", ess_threshold=0.5))
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+@pytest.mark.parametrize("name", K3_FUNCTORS)
+def test_k3_paired_layout_gives_the_single_layouts_bits(dev, name, n):
+    """The systematic family's paired layout (F=8: a cluster of two CTAs a
+    filter, one drawing the other's normals and offsets) gives the bits of
+    the one-CTA layout (rows 0-7 of an F=128 launch, more clusters than
+    the card holds at once; rows are keyed by their index): conditional
+    likelihoods, cloud and functional paths, APF and SISR, every step and
+    gated, each launch counted under its layout."""
+    ys = _ys(40, 29).to(dev)
+    km, zs = _k3_functor(name, ys)
+    for kw in K3_SCHEDULES:
+        before = dict(lwm.lw_megakernel.layouts)
+        paired = lwm.lw_megakernel(km, 21, ys, zs, 8, n, **kw)
+        single = lwm.lw_megakernel(km, 21, ys, zs, 128, n, **kw)
+        assert lwm.lw_megakernel.layouts == {
+            "paired": before["paired"] + 1, "single": before["single"] + 1}
+        for key in ("log_cond_likes", "cloud"):
+            assert torch.equal(paired[key], single[key][:8]), (kw, key)
+        fp, fs = (paired.get("functional_paths", ()),
+                  single.get("functional_paths", ()))
+        assert len(fp) == len(fs) == len(km.functionals or ())
+        for a, b in zip(fp, fs):
+            assert torch.equal(a, b[:8]), kw
+
+
+def test_k3_layout_counter_and_span_key(dev):
+    """Each launch counts under the layout it took and keys its
+    ``lw_megakernel.launch`` span by it: paired at F=8 and at the
+    benchmark's F=64, single at F=128 and under a roll resampler."""
+    from ssme_tpu_torch import profiling
+    ys = _ys(20, 31).to(dev)
+    km, zs = _k3_functor("svol_leverage_lw", ys)
+    assert lwm._max_clusters(0, 512) >= 64
+    runs = ((8, dict(), "paired"), (64, dict(), "paired"),
+            (128, dict(), "single"), (8, dict(resampler="rejection"),
+                                      "single"))
+    before = dict(lwm.lw_megakernel.layouts)
+    with profiling.record():
+        for f, kw, _ in runs:
+            if kw:
+                lwm.lw_megakernel(km, 3, ys, zs, f, 512, **kw)
+            else:
+                k4.svol_leverage_lw(3, ys, num_filters=f, num_particles=512)
+        keys = [r.key for r in profiling.spans()
+                if r.name == "lw_megakernel.launch"][-len(runs):]
+    assert keys == [want for _, _, want in runs]
+    assert lwm.lw_megakernel.layouts == {
+        "paired": before["paired"] + 2, "single": before["single"] + 2}
+
+
+@pytest.mark.parametrize("n", [32, 512, 1024])
+def test_k3_twins_report_the_ring_wait_and_cluster(dev, n):
+    """The twin records the paired layout's waits on its ring and the
+    CTAs a filter: 2 and a wait at F=8, 1 and no wait at F=128, the same
+    barriers a step and the same bits in both."""
+    ys = _ys(40, 33).to(dev)
+    km, zs = _k3_functor("svol_leverage_lw", ys)
+    paired = lwm.step_spans(4, ys, zs, 8, n, kmodel=km)
+    single = lwm.step_spans(4, ys, zs, 128, n, kmodel=km)
+    assert (paired["cluster"], single["cluster"]) == (2, 1)
+    assert paired["cycles_per_step"]["ring_wait"] > 0
+    assert single["cycles_per_step"]["ring_wait"] == 0
+    assert paired["barriers_per_step"] == single["barriers_per_step"]
+    for key in ("log_cond_likes", "cloud"):
+        assert torch.equal(paired["outputs"][key],
+                           single["outputs"][key][:8]), key
+
+
 # the roll families' kPer at each N (svol_filter_sys.cu kper_for,
 # lw_megakernel_sys.cuh roll_kper_for)
 K1_ROLL_KPER = {32: 2, 512: 2, 1024: 4, 2048: 8, 4096: 16}

@@ -571,3 +571,92 @@ def test_q_instance_at_kappa_one_is_the_sisr_path_and_unbiased_above():
     assert lwm._model_id(lwm.svol_leverage_lw_q_kernel_model()) == 2
     with pytest.raises(ValueError, match="kappa"):
         lwm.svol_leverage_lw_q_kernel_model(0.0)
+
+
+@pytest.mark.parametrize("num_filters,max_clusters,want", [
+    (8, 66, "paired"), (64, 66, "paired"), (66, 66, "paired"),
+    (67, 66, "single"), (128, 66, "single"), (1, 1, "paired"),
+    (8, 0, "single"), (1, 0, "single")])
+def test_layout_rule_pairs_only_what_the_card_holds(num_filters,
+                                                    max_clusters, want):
+    """A systematic launch takes the paired layout iff the card holds all
+    its filters' clusters at once; with a count of 0, one CTA a filter."""
+    assert lwm.layout_for(num_filters, max_clusters) == want
+    assert want in lwm.LAYOUTS
+
+
+def test_plain_version_counts_no_layout():
+    """On the CPU the plain version runs: no launch, no layout counted."""
+    ys, zs = _leverage_data(12, 3)
+    before = dict(lwm.lw_megakernel.layouts)
+    _run(lwm.svol_leverage_lw_kernel_model(), 1, ys, zs, num_filters=2,
+         num_particles=64)
+    assert lwm.lw_megakernel.layouts == before
+    assert set(before) == set(lwm.LAYOUTS)
+
+
+def test_span_record_keeps_the_ring_fields_in_the_enum_order():
+    """The twins' record reads the ring's wait as the last part of a step
+    and the CTAs a filter after the threads, where LWSpan has them."""
+    src = open(os.path.join(CSRC, "lw_megakernel_sys.cuh")).read()
+    enum = re.search(r"enum LWSpan \{(.*?)\};", src, re.S).group(1)
+    names = [e.strip() for e in enum.split(",") if e.strip()]
+    assert names[len(lwm.SPAN_PARTS) - 1] == "kLWSpanRingWait"
+    assert names[-2:] == ["kLWSpanCluster", "kNumLWSpans"]
+    assert lwm.SPAN_PARTS[-1] == "ring_wait"
+    assert lwm.SPAN_RECORD[-3:] == ("kper", "threads", "cluster")
+    assert len(names) - 1 == len(lwm.SPAN_RECORD)
+
+
+def _c_params(src, name):
+    """The parameters of the C entry ``name`` in a source."""
+    body = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
+                     re.S).group(1)
+    return [p.strip() for p in body.split(",")]
+
+
+def test_c_entries_take_the_cluster_size_where_ctypes_passes_it():
+    """ssme_lw_megakernel and its twin's entry take the CTAs a filter
+    after metropolis_iters, and ctypes binds every Liu-West entry with as
+    many arguments as the source declares."""
+    from ssme_tpu_torch.ops import _cuda
+    src = open(os.path.join(CSRC, "lw_megakernel.cu")).read()
+    for name in ("ssme_lw_megakernel", "ssme_lw_megakernel_spans"):
+        params = _c_params(src, name)
+        at = params.index("int metropolis_iters")
+        assert params[at + 1] == "int cluster", name
+        assert len(params) == len(_cuda._SIGNATURES[name]), name
+    params = _c_params(src, "ssme_lw_megakernel_clusters")
+    assert params == ["int model_id", "int num_particles", "int* count"]
+    assert len(_cuda._SIGNATURES["ssme_lw_megakernel_clusters"]) == 3
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_paired_ring_fits_a_block_and_keeps_an_sm_to_each_cta(n):
+    """Each CTA of the paired layout takes more than half an H100 SM's
+    228 KB of shared memory, so no SM holds two of a launch's CTAs, and
+    rank 0's ring of kRingSlots steps (P + kDraws normal pairs a thread,
+    the offsets, the barriers) fits inside that floor for every functor,
+    so each CTA's dynamic shared memory is the floor at every N.  Whether
+    the floor and the row's static arrays fit a block the card says: its
+    launch, and chip_smoke phase 2 from ptxas' figures."""
+    ring_src = open(os.path.join(CSRC, "lw_ring.cuh")).read()
+    slots = int(re.search(r"constexpr int kRingSlots = (\d+);",
+                          ring_src).group(1))
+    floor = 1024 * int(re.search(
+        r"constexpr int kPairFloorBytes = (\d+) \* 1024;", ring_src).group(1))
+    assert 2 <= slots <= 4 and 228 * 1024 // 2 < floor <= 232448
+    models = open(os.path.join(CSRC, "lw_models.cuh")).read()
+    structs = dict(re.findall(r"struct (\w+LW) \{(.*?)\n\};", models, re.S))
+    threads = -(-n // 2 // 32) * 32
+    for kmodel in (lwm.svol_leverage_lw_kernel_model(),
+                   lwm.svol_t_lw_kernel_model(),
+                   lwm.svol_leverage_lw_q_kernel_model()):
+        body = next(b for b in structs.values()
+                    if f'"{kmodel.cuda_instance}"' in b)
+        traits = dict(re.findall(r"static constexpr int (k\w+) = (\w+);",
+                                 body))
+        draws = kmodel.num_params + int(traits.get(traits["kDraws"],
+                                                   traits["kDraws"]))
+        ring = 16 * slots + 8 * slots * (1 + draws * threads)
+        assert ring <= floor, (kmodel.name, n, ring)
