@@ -505,6 +505,22 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
+# the filter kernels' entries in the launch table of ops/_cuda.py
+K1, K2, K3 = "ssme_svol_filter", "ssme_filter_megakernel", "ssme_lw_megakernel"
+_ZERO = {}
+
+
+def zero_launches(*entries):
+    """Count the launches of ``entries`` from 0 from here on."""
+    for entry in entries:
+        _ZERO[entry] = _cuda.launches(entry)
+
+
+def launched(entry):
+    """The launches of ``entry`` since :func:`zero_launches` zeroed it."""
+    return _cuda.launches(entry) - _ZERO.get(entry, 0)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke runs on the card only")
@@ -845,10 +861,10 @@ def _require_barriers(tag, rec):
 
 def phase_pmmh(dev, ys, ident, plain_start):
     props_per_run = ITERS * C * R * N * ys.shape[0]   # init not timed
-    sfk.svol_filter.launches = 0
+    zero_launches(K1)
     rates, counts = {}, {}
     for sched, (ess, g) in SCHEDULES.items():
-        before = sfk.svol_filter.launches
+        before = launched(K1)
         pmmh = AdaptivePMMH(svol.make_model(), num_particles=N,
                             num_replicates=R, t0=150, t1=1000,
                             batched_log_like=sfk.svol_batched_log_like(
@@ -870,7 +886,7 @@ def phase_pmmh(dev, ys, ident, plain_start):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts[sched] = sfk.svol_filter.launches - before
+        counts[sched] = launched(K1) - before
         require(counts[sched] == 2 * ITERS + 1,
                 f"{sched}: {counts[sched]} kernel launches, want "
                 f"{2 * ITERS + 1}")
@@ -890,7 +906,7 @@ def phase_pmmh(dev, ys, ident, plain_start):
         print(f"  {sched}: {counts[sched]} launches, {n_acc} accepts, "
               f"{secs:.4f} s, {rates[sched]:.6e} props/s on {ident}",
               flush=True)
-    total = sfk.svol_filter.launches
+    total = launched(K1)
     phase(7, "pmmh", f"C={C} R={R} N={N} T={ys.shape[0]} {ITERS} iters "
           "after as many of warm-up: "
           + "; ".join(f"{s} {r:.6e} props/s" for s, r in rates.items())
@@ -1041,10 +1057,10 @@ def phase_pmmh_leverage(dev, ys_all, ident):
     start = model.transform.unconstrain(torch.tensor(lev_cli.START))
     props_per_run = ITERS * LC * LR * N * ys.shape[0]   # init not timed
     # the counts start at 0 just before this path and are read just after
-    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    zero_launches(K1, K2)
     rates = {}
     for g in (1, 8):
-        before = fmk.filter_megakernel.launches
+        before = launched(K2)
         pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=LR,
                             t0=150, t1=10 ** 9,
                             batched_log_like=fmk.megakernel_log_like(
@@ -1060,7 +1076,7 @@ def phase_pmmh_leverage(dev, ys_all, ident):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        count = fmk.filter_megakernel.launches - before
+        count = launched(K2) - before
         require(count == ITERS + 1,
                 f"g={g}: {count} kernel launches, want {ITERS + 1}")
         require(bool(torch.isfinite(state.log_like).all())
@@ -1071,8 +1087,8 @@ def phase_pmmh_leverage(dev, ys_all, ident):
         rates[g] = props_per_run / secs
         print(f"  g={g}: {count} launches, {n_acc} accepts, {secs:.4f} s, "
               f"{rates[g]:.6e} props/s on {ident}", flush=True)
-    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
-    launches = fmk.filter_megakernel.launches
+    require(launched(K1) == 0, "the SVOL kernel ran on this path")
+    launches = launched(K2)
     phase(11, "pmmh-leverage", f"C={LC} R={LR} N={N} T={ys.shape[0]} {ITERS} "
           f"iters: " + "; ".join(f"g{g} {r:.6e} props/s"
                                  for g, r in rates.items()) + f" ({ident})")
@@ -1159,11 +1175,11 @@ def phase_swarm(dev, ys_all, samples_csv, ident):
     draws = ParamSampler(samples_csv, dim_param=4).samp(
         torch.Generator(device=dev).manual_seed(3), SWARM_M).contiguous()
     # the counts start at 0 just before this path and are read just after
-    fmk.filter_megakernel.launches = 0
+    zero_launches(K2)
     ev = fmk.megakernel_swarm_evidence(km, 21, draws, ys, zs,
                                        num_particles=SWARM_N,
                                        return_cloud=True)
-    launches = fmk.filter_megakernel.launches
+    launches = launched(K2)
     require(launches == 1, f"{launches} kernel launches for the swarm")
     obs = forecast_from_cloud(svol_leverage.make_model(), draws,
                               ev["final_cloud"], ev["final_log_weights"],
@@ -1254,10 +1270,10 @@ def phase_lw_full(dev, ys_all, ident):
         km, z = inst[name]
         kw = dict(dict(num_filters=LW_F, num_particles=LW_N), **kw)
         f = kw["num_filters"]
-        before = dict(lwm.lw_megakernel.layouts)
+        before = {k: _cuda.launches(K3, k) for k in lwm.LAYOUTS}
         out = lwm.lw_megakernel(km, 11, ys, z, **kw)
-        layouts[run] = next(k for k, v in lwm.lw_megakernel.layouts.items()
-                            if v > before[k])
+        layouts[run] = next(k for k in lwm.LAYOUTS
+                            if _cuda.launches(K3, k) > before[k])
         want = lwm.layout_for(f, lwm._max_clusters(lwm._model_id(km), LW_N))
         require(layouts[run] == want, f"{run}: F={f} ran the "
                 f"{layouts[run]} layout, the rule gives {want}")
@@ -1316,13 +1332,14 @@ def phase_lw_cli(ident):
         ref = json.load(f)
     # the kernel engine: the counts start at 0 just before and are read
     # just after
-    lwm.lw_megakernel.launches = k4.svol_leverage_lw.launches = 0
+    zero_launches(K3)
+    k4.svol_leverage_lw.launches = 0
     t0 = time.perf_counter()
     out, err = _run_in_process(lw_cli.main, [
         data, "--engine", "kernel", "--filters", str(LW_F), "--particles",
         str(LW_N), "--device", "cuda"])
     secs = time.perf_counter() - t0
-    launches = (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches)
+    launches = (launched(K3), k4.svol_leverage_lw.launches)
     require(launches == (1, 1), f"{launches} kernel launches, want 1")
     m = re.search(r"log-likelihood: ([-\d.]+) \+- ([\d.]+) \((\d+) "
                   r"filters\)", out)
@@ -1482,9 +1499,9 @@ def phase_families_full(dev, ys_all, ident):
         rows = rows.contiguous().to(dev)
         b = rows.shape[0]
         kw = dict(num_particles=N, ess_threshold=1.0, mode=mode)
-        before = fmk.filter_megakernel.launches
+        before = launched(K2)
         tot = fmk.filter_megakernel(km, 11, rows, y, **kw)[0]
-        launches = fmk.filter_megakernel.launches - before
+        launches = launched(K2) - before
         out_p, plain_ms = event_ms(lambda: fmk.filter_megakernel_reference(
             km, 12, rows, y, **kw))
         tot_p = out_p[0]
@@ -1524,10 +1541,10 @@ def phase_pmmh_svol_t(dev, ys_all, ident):
     model = svol_t.make_model()
     props_per_run = ITERS * C * R * N * ys.shape[0]   # init not timed
     # the counts start at 0 just before this path and are read just after
-    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    zero_launches(K1, K2)
     rates = {}
     for g in (1, 8):
-        before = fmk.filter_megakernel.launches
+        before = launched(K2)
         pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=R,
                             t0=150, t1=1000,
                             batched_log_like=fmk.megakernel_log_like(
@@ -1544,7 +1561,7 @@ def phase_pmmh_svol_t(dev, ys_all, ident):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        count = fmk.filter_megakernel.launches - before
+        count = launched(K2) - before
         require(count == ITERS + 1,
                 f"g={g}: {count} kernel launches, want {ITERS + 1}")
         require(bool(torch.isfinite(state.log_like).all())
@@ -1556,8 +1573,8 @@ def phase_pmmh_svol_t(dev, ys_all, ident):
         print(f"  g={g}: {count} launches, {n_acc} accepts, init mean "
               f"log-likelihood {float(state.log_like.mean()):.4f}, "
               f"{secs:.4f} s, {rates[g]:.6e} props/s on {ident}", flush=True)
-    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
-    launches = fmk.filter_megakernel.launches
+    require(launched(K1) == 0, "the SVOL kernel ran on this path")
+    launches = launched(K2)
     phase(19, "pmmh-svol_t", f"C={C} R={R} N={N} T={ys.shape[0]} {ITERS} "
           f"iters: " + "; ".join(f"g{g} {r:.6e} props/s"
                                  for g, r in rates.items()) + f" ({ident})")
@@ -1569,14 +1586,14 @@ def phase_large_n(dev, ys_all, ident):
     km = fmk.svol_t_kernel_model()
     params = model.transform.constrain(torch.tensor(SVOL_T_START)).expand(
         2, 4).contiguous().to(dev)
-    before = fmk.filter_megakernel.launches
+    before = launched(K2)
     ll = fmk.megakernel_log_like(km, 2048, 2, constrain=fmk.svol_t_param_rows,
                                  model=model)
     out, ms = event_ms(lambda: ll(torch.Generator(device=dev).manual_seed(6),
                                   params, ys_all))
     require(out.shape == (2,) and bool(torch.isfinite(out).all()),
             f"large-N bridge: {out}")
-    require(fmk.filter_megakernel.launches == before,
+    require(launched(K2) == before,
             "the large-N bridge launched the kernel")
     refused = False
     try:
@@ -1815,7 +1832,7 @@ def phase_pmmh_large_n(dev, ys_all, ident, bridge_ms):
         return log_like(gen, params, ys, zs)
 
     # the counts start at 0 just before this path and are read just after
-    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    zero_launches(K1, K2)
     pmmh = AdaptivePMMH(model, num_particles=LARGE_N, num_replicates=R,
                         t0=150, t1=1000, batched_log_like=recorded)
     state = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
@@ -1828,10 +1845,10 @@ def phase_pmmh_large_n(dev, ys_all, ident, bridge_ms):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = fmk.filter_megakernel.launches
+    launches = launched(K2)
     require(launches == LARGE_ITERS + 1,
             f"{launches} kernel launches, want {LARGE_ITERS + 1}")
-    require(sfk.svol_filter.launches == 0, "the SVOL kernel ran on this path")
+    require(launched(K1) == 0, "the SVOL kernel ran on this path")
     require(bool(torch.isfinite(state.log_like).all())
             and bool(torch.isfinite(res.log_likes).all()),
             "non-finite log-likelihoods")
@@ -1961,10 +1978,10 @@ def phase_svol_step(dev, ident):
               float((got[1] - want[1]).abs().max()))
     # the op itself is this kernel's path: 8 seeds at y = 0 from x = 0
     zeros = torch.zeros_like(x)
-    k5.fused_svol_propagate_weight.launches = 0
+    zero_launches("ssme_svol_step")
     xs = torch.stack([k5.fused_svol_propagate_weight(
         seed, 0.0, params, zeros, zeros)[0] for seed in range(8)])
-    launches = k5.fused_svol_propagate_weight.launches
+    launches = launched("ssme_svol_step")
     require(launches == 8, f"{launches} svol_step launches, want 8")
     mean, sd = float(xs.mean()), float(xs.std())
     # five standard errors of the mean and of the sd of 0.2 eps
@@ -2056,14 +2073,14 @@ def _json_lines(path):
 
 def phase_tune_variance(tmp, ident):
     out = os.path.join(tmp, "tune_variance.jsonl")
-    sfk.svol_filter.launches = 0
+    zero_launches(K1)
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
         tune_variance.main(["--particles", str(TUNE_N), "--singles",
                             str(TUNE_SINGLES), "--launch-rows",
                             str(TUNE_ROWS), "--replicates", "1", "2", "4",
                             "--out", out])
-    launches = sfk.svol_filter.launches
+    launches = launched(K1)
     want = math.ceil(TUNE_SINGLES / TUNE_ROWS)
     require(launches == want, f"tune_variance: {launches} SVOL-kernel "
             f"launches, want {want}")
@@ -2083,14 +2100,14 @@ def phase_tune_variance(tmp, ident):
 def phase_tune_pmmh(tmp, ident):
     out = os.path.join(tmp, "tune_pmmh.jsonl")
     trace_dir = os.path.join(tmp, "trace")
-    sfk.svol_filter.launches = 0
+    zero_launches(K1)
     with profiling.trace(trace_dir), \
             contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
         tune_pmmh.main(["--iters", str(TUNE_ITERS), "--chunk",
                         str(TUNE_CHUNK), "--configs",
                         ",".join(map(str, TUNE_PMMH)), "--out", out])
-    launches = sfk.svol_filter.launches
+    launches = launched(K1)
     require(launches == TUNE_ITERS + 1, f"tune_pmmh: {launches} SVOL-kernel "
             f"launches, want {TUNE_ITERS + 1}")
     (rec,) = _json_lines(out)
@@ -2307,7 +2324,7 @@ def phase_pmmh_large_n_k1(dev, ys_all, ident):
     model = svol.make_model()
     props_per_run = LARGE_ITERS * C * R * LARGE_N * ys.shape[0]
     # the counts start at 0 just before this path and are read just after
-    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    zero_launches(K1, K2)
     pmmh = AdaptivePMMH(model, num_particles=LARGE_N, num_replicates=R,
                         t0=150, t1=1000,
                         batched_log_like=sfk.svol_batched_log_like(
@@ -2322,10 +2339,10 @@ def phase_pmmh_large_n_k1(dev, ys_all, ident):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = sfk.svol_filter.launches
+    launches = launched(K1)
     require(launches == LARGE_ITERS + 1,
             f"{launches} kernel launches, want {LARGE_ITERS + 1}")
-    require(fmk.filter_megakernel.launches == 0,
+    require(launched(K2) == 0,
             "the generic kernel ran on this path")
     require(bool(torch.isfinite(state.log_like).all())
             and bool(torch.isfinite(res.log_likes).all()),
@@ -2356,7 +2373,7 @@ def phase_flagship_cli(dev, ident):
     with tempfile.TemporaryDirectory() as tmp:
         for ess in (1.0, 0.5):
             tag = f"smoke_ess{ess}"
-            sfk.svol_filter.launches = 0
+            zero_launches(K1)
             t0 = time.perf_counter()
             out, _ = _run_in_process(spy_flagship.main, [
                 "--iters", str(FLAGSHIP_ITERS), "--burn",
@@ -2364,7 +2381,7 @@ def phase_flagship_cli(dev, ident):
                 str(FLAGSHIP_ITERS // 2), "--ess", str(ess), "--tag", tag,
                 "--out-dir", tmp, "--device", dev.type])
             secs = time.perf_counter() - t0
-            count = sfk.svol_filter.launches
+            count = launched(K1)
             launches += count
             require(count == FLAGSHIP_ITERS + 1, f"ess {ess}: {count} kernel "
                     f"launches, want {FLAGSHIP_ITERS + 1}")
@@ -2608,9 +2625,9 @@ def phase_k3_layout(dev, ys_all):
                     seed, ys_, zs_ = lwm._validate(
                         km, 13, ys, zs_k, f, n, 1, kw["variant"],
                         kw.get("ess_threshold", 0.0), "systematic")
-                    plain, _ = lwm._launch(km, seed, ys_, zs_, f, n, 0.99, 1,
-                                           kw["variant"],
-                                           kw.get("ess_threshold", 0.0))
+                    plain = lwm._launch(km, seed, ys_, zs_, f, n, 0.99, 1,
+                                        kw["variant"],
+                                        kw.get("ess_threshold", 0.0))
                     require(all(torch.equal(plain[k], rec["outputs"][k])
                                 for k in ("log_cond_likes", "cloud")),
                             f"{tag}: the twin's outputs are not the plain "
@@ -2721,16 +2738,16 @@ def _copy(gen):
 
 def _sharded_hook_checks(dev, ys, counter, name, sharded, inner, params):
     """One sharded hook against its inner hook on the folded generator:
-    bit for bit, one launch a call (``counter``'s), no host wait; then
-    ms a call of each."""
+    bit for bit, one launch of the entry ``counter`` a call, no host
+    wait; then ms a call of each."""
     from ssme_tpu_torch.ops._prng import fold_generator
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     ref = _copy(gen)
-    before = counter.launches
+    before = _cuda.launches(counter)
     got = sharded(gen, params, ys)
-    launches = counter.launches - before
+    launches = _cuda.launches(counter) - before
     require(launches == 1, f"{name}: {launches} launches a call, want 1")
     want = inner(fold_generator(ref, 0), params, ys)
     require(torch.equal(got, want), f"{name}: the sharded hook is not its "
@@ -2739,14 +2756,14 @@ def _sharded_hook_checks(dev, ys, counter, name, sharded, inner, params):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        before = counter.launches
+        before = _cuda.launches(counter)
         sharded(gen, params, ys)
-        launches += counter.launches - before
+        launches += _cuda.launches(counter) - before
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    before = counter.launches
+    before = _cuda.launches(counter)
     ms = cuda_ms(lambda: sharded(gen, params, ys), PAR_REPS)
-    launches += counter.launches - before
+    launches += _cuda.launches(counter) - before
     inner_ms = cuda_ms(lambda: inner(gen, params, ys), PAR_REPS)
     return launches, {"ms": ms, "inner_ms": inner_ms}
 
@@ -2759,7 +2776,7 @@ def phase_parallel(dev, ys, ident):
     from ssme_tpu_torch.filters import BootstrapFilter
     from ssme_tpu_torch.parallel.sharded_pf import sharded_log_likelihood_fn
 
-    sfk.svol_filter.launches = fmk.filter_megakernel.launches = 0
+    zero_launches(K1, K2)
     model = svol.make_model()
     rng = np.random.default_rng(35)
     trans = torch.tensor(svol.START_TRANS_THETA) + 0.05 * torch.as_tensor(
@@ -2776,17 +2793,17 @@ def phase_parallel(dev, ys, ident):
             inner_k1 = sfk.svol_batched_log_like(N, R, ess_threshold=0.5,
                                                  gate_stride=8)
             k1_hook, out["k1_hook"] = _sharded_hook_checks(
-                dev, ys, sfk.svol_filter, "K1",
+                dev, ys, K1, "K1",
                 parallel.shard_batched_log_like(inner_k1, mesh), inner_k1,
                 params)
             inner_k2 = fmk.megakernel_log_like(
-                fmk.svol_kernel_model(), N, R, constrain=sfk._kernel_rows,
+                fmk.svol_kernel_model(), N, R, constrain=svol.kernel_rows,
                 ess_threshold=0.5, gate_stride=8)
             k2_hook, out["k2_hook"] = _sharded_hook_checks(
-                dev, ys, fmk.filter_megakernel, "K2 svol",
+                dev, ys, K2, "K2 svol",
                 parallel.sharded_megakernel_log_like(
                     fmk.svol_kernel_model(), N, R, mesh,
-                    constrain=sfk._kernel_rows, ess_threshold=0.5,
+                    constrain=svol.kernel_rows, ess_threshold=0.5,
                     gate_stride=8), inner_k2, params)
             # (b) sharded_pmmh through K1 against the rank's run_from
             pmmh = AdaptivePMMH(model, num_particles=N, num_replicates=R,
@@ -2794,9 +2811,9 @@ def phase_parallel(dev, ys, ident):
             run = parallel.sharded_pmmh(pmmh, mesh, PAR_ITERS)
             a = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
             b = pmmh.init(0, svol.START_TRANS_THETA, ys, num_chains=C)
-            before = sfk.svol_filter.launches
+            before = launched(K1)
             res = run(parallel.shard_chain_state(a, mesh), ys)
-            pmmh_launches = sfk.svol_filter.launches - before
+            pmmh_launches = launched(K1) - before
             require(pmmh_launches == PAR_ITERS, f"sharded PMMH: "
                     f"{pmmh_launches} launches, want {PAR_ITERS}")
             ref = pmmh.run_from(b, PAR_ITERS, ys)
@@ -2813,10 +2830,10 @@ def phase_parallel(dev, ys, ident):
             for side in (abba + abba[::-1]) * (PAR_TURNS // 2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                before = sfk.svol_filter.launches
+                before = launched(K1)
                 if side == "sharded":
                     states[side] = run(states[side], ys).final_state
-                    pmmh_launches += sfk.svol_filter.launches - before
+                    pmmh_launches += launched(K1) - before
                 else:
                     states[side] = pmmh.run_from(states[side], PAR_TIME_ITERS,
                                                  ys).final_state
@@ -2983,14 +3000,14 @@ def phase_oracle(ys, ident):
     # the gate end to end: its oracle stage, then both engines through K1
     with tempfile.TemporaryDirectory() as tmp:
         out_json = os.path.join(tmp, "gate.json")
-        sfk.svol_filter.launches = 0
+        zero_launches(K1)
         t0 = time.perf_counter()
         _, err = _run_in_process(accuracy_gate.main, [
             "--oracle-npy", "--oracle-iters", str(GATE_ORACLE_ITERS),
             "--engine-iters", str(GATE_ENGINE_ITERS), "--ext-burn",
             str(GATE_BURN), "--restart", str(GATE_BURN), "--out", out_json])
         gate_secs = time.perf_counter() - t0
-        launches = sfk.svol_filter.launches
+        launches = launched(K1)
         require(launches == 2 * (GATE_ENGINE_ITERS + 1),
                 f"the gate: {launches} SVOL-kernel launches, want "
                 f"{2 * (GATE_ENGINE_ITERS + 1)}")

@@ -114,7 +114,8 @@ def _run_chain(torch, fmk, kernel, ys, iters, extra):
         launches.append((seed.clone(), params.clone()))
         return kernel(kmodel, seed, params, *a, **k)
 
-    # the kernel adds to the count of the name it is bound to
+    # a ROOT older than ops/_cuda.py's launch table counts each launch on
+    # the name the kernel is bound to, here this function
     recording.launches = 0
     model = svol.make_model()
     pmmh = AdaptivePMMH(model, num_particles=PHASE23["particles"],

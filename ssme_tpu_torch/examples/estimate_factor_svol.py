@@ -87,8 +87,9 @@ def main(argv=None):
     from ssme_tpu_torch.inference import AdaptivePMMH
     from ssme_tpu_torch.io import read_data
     from ssme_tpu_torch.models import factor_svol
+    from ssme_tpu_torch.ops import _cuda
     from ssme_tpu_torch.ops.filter_megakernel import (
-        factor_svol_kernel_model, filter_megakernel, megakernel_log_like)
+        factor_svol_kernel_model, megakernel_log_like)
 
     ys = torch.as_tensor(read_data(args.datafile, num_cols=N_ASSETS),
                          device=device).contiguous()
@@ -120,7 +121,7 @@ def main(argv=None):
         "N": args.particles, "R": args.replicates, "T": int(ys.shape[0]),
         "init_secs": init_secs, "secs": secs,
         "accept": float(state.accept_ma.mean()),
-        "launches": filter_megakernel.launches,
+        "launches": _cuda.launches("ssme_filter_megakernel"),
         "posterior": summarize(kept, names=NAMES),
     }
     print(json.dumps(out, indent=1))

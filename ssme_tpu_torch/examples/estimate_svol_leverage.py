@@ -138,8 +138,9 @@ def main(argv=None):
           f"{float(state.accept_ma.mean()):.3f}",
           file=sys.stderr, flush=True)
     if engine == "kernel":
-        from ssme_tpu_torch.ops.filter_megakernel import filter_megakernel
-        print(f"filter_megakernel launches: {filter_megakernel.launches}",
+        from ssme_tpu_torch.ops import _cuda
+        print("filter_megakernel launches: "
+              f"{_cuda.launches('ssme_filter_megakernel')}",
               file=sys.stderr, flush=True)
     samples = np.concatenate(chunks)[: args.iters]
 

@@ -70,7 +70,7 @@ def main(argv=None):
     model = svol_leverage.make_model()
 
     if engine == "kernel":
-        from ssme_tpu_torch.ops.liu_west_megakernel import lw_megakernel
+        from ssme_tpu_torch.ops import _cuda
         from ssme_tpu_torch.ops.svol_leverage_lw_kernel import (
             lw_cloud_params, svol_leverage_lw)
         out = svol_leverage_lw(args.seed, ys, num_filters=args.filters,
@@ -80,7 +80,8 @@ def main(argv=None):
         print(f"log-likelihood: {ll.mean():.2f} +- {ll.std():.2f} "
               f"({args.filters} filters)")
         params = lw_cloud_params(out["cloud"]).cpu().numpy().reshape(-1, 4)
-        print(f"lw_megakernel launches: {lw_megakernel.launches}",
+        print("lw_megakernel launches: "
+              f"{_cuda.launches('ssme_lw_megakernel')}",
               file=sys.stderr)
     else:
         from ssme_tpu_torch.filters import LiuWestFilter

@@ -122,10 +122,10 @@ def main(argv=None):
         ap.error("--burn must lie in (0, --iters)")
 
     from ssme_tpu_torch.diagnostics import summarize
-    from ssme_tpu_torch.ops.svol_filter_kernel import svol_filter
+    from ssme_tpu_torch.ops import _cuda
 
     ys = spy_returns(args.device, args.t_len)
-    before = svol_filter.launches
+    before = _cuda.launches("ssme_svol_filter")
     samples, state, wall = run_flagship(
         ys, args.iters, args.chains, args.particles, args.replicates,
         args.ess, args.gate_stride, args.seed, args.burn, args.chunk)
@@ -147,7 +147,7 @@ def main(argv=None):
         "posterior": stats,
         "min_ess": min_ess,
         "ess_per_sec": min_ess / wall,
-        "kernel_launches": svol_filter.launches - before,
+        "kernel_launches": _cuda.launches("ssme_svol_filter") - before,
     }
     os.makedirs(args.out_dir, exist_ok=True)
     np.save(os.path.join(args.out_dir,

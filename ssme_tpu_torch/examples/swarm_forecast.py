@@ -95,6 +95,7 @@ def main(argv=None):
 
     if engine == "kernel":
         from ssme_tpu_torch.inference import forecast_from_cloud
+        from ssme_tpu_torch.ops import _cuda
         from ssme_tpu_torch.ops import filter_megakernel as fm
         if (args.state_particles % 32 != 0
                 or not 32 <= args.state_particles <= 1024):
@@ -118,7 +119,7 @@ def main(argv=None):
         print(f"filtered state (last 5): "
               f"{np.array2string(vol[-5:], precision=3)}")
         print(f"filter_megakernel launches: "
-              f"{fm.filter_megakernel.launches}", file=sys.stderr)
+              f"{_cuda.launches('ssme_filter_megakernel')}", file=sys.stderr)
         if args.gate_stride > 1:
             print(f"note: with --gate-stride {args.gate_stride} the "
                   "filtered-state path is zero off the check columns",

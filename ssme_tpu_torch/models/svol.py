@@ -121,6 +121,13 @@ def sample_prior(gen, shape=()):
     return torch.stack([beta, phi, ss.to(beta.dtype)], dim=-1)
 
 
+def kernel_rows(params):
+    """Constrained (beta, phi, ss) rows -> the filter kernels' (beta, phi,
+    sigma) rows."""
+    return torch.stack([params[..., 0], params[..., 1],
+                        torch.sqrt(params[..., 2])], dim=-1)
+
+
 def make_model() -> StateSpaceModel:
     return StateSpaceModel(
         dim_state=1,
@@ -142,4 +149,4 @@ def make_model() -> StateSpaceModel:
 
 
 __all__ = ["make_model", "TRANSFORMS", "START_TRANS_THETA", "log_prior",
-           "sample_prior"]
+           "sample_prior", "kernel_rows"]

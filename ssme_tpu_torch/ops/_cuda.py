@@ -12,6 +12,13 @@ fails.  Its first call is the ``profiling`` span ``kernels.library``
 (whose self time is the sources' hash), with the children
 ``kernels.library.build`` (nvcc, when it builds) and
 ``kernels.library.load`` (``dlopen`` and the signatures).
+
+Every C call of ``ops/`` goes through :func:`call`, and every kernel
+launch through :func:`launch`, which counts it in one table by (entry,
+key): the CUDA instance for the generic filter kernel, the layout for
+the Liu-West kernel, None elsewhere.  An instrumented twin counts under
+its own ``*_spans`` entry, so a kernel's count leaves its twins out.
+:func:`launches` reads the table.
 """
 
 from __future__ import annotations
@@ -85,9 +92,15 @@ _SIGNATURES = {
 HOST_SPANS = ("kernels.library", "kernels.library.build",
               "kernels.library.load")
 
+# entries that share another's C function: the SVOL kernel's twin is
+# its entry with a record pointer
+_ALIASES = {"ssme_svol_filter_spans": "ssme_svol_filter"}
+
 _lock = threading.Lock()
 _lib = None
 build_info = {}
+# launches by (entry, key), written by launch() alone
+_launches = {}
 
 
 def _sources():
@@ -204,4 +217,27 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-__all__ = ["library", "check", "stream_ptr", "build_info", "BUILD_DIR"]
+def call(entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and raise through
+    :func:`check` on an error: the path of every launch, and of the
+    queries that launch nothing, which are not counted."""
+    check(getattr(library(), _ALIASES.get(entry, entry))(*args), entry)
+
+
+def launch(entry: str, *args, device, key=None) -> None:
+    """Launch ``entry`` on ``device``'s current stream (appended to
+    ``args``) and count it under (``entry``, ``key``)."""
+    call(entry, *args, stream_ptr(device))
+    _launches[entry, key] = _launches.get((entry, key), 0) + 1
+
+
+def launches(entry: str, key=...) -> int:
+    """The launches of ``entry`` under ``key``, or under every key when
+    none is given."""
+    if key is ...:
+        return sum(n for (e, _), n in _launches.items() if e == entry)
+    return _launches.get((entry, key), 0)
+
+
+__all__ = ["library", "check", "stream_ptr", "call", "launch", "launches",
+           "build_info", "BUILD_DIR"]

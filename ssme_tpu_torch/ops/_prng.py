@@ -3,7 +3,9 @@
 Replaces the TPU hardware PRNG helpers of ``ssme_tpu/ops/_prng.py``.  The
 CUDA side is ``csrc/philox.cuh``; this module holds the plain PyTorch
 version, which consumes exactly the same bits, and the wrapper of the
-standalone ``philox_fill`` kernel.
+standalone ``philox_fill`` kernel; :func:`draw_seed`, how a hook turns a
+chain's generator into the kernel's key words; and :class:`StepBlocks`,
+the plain filters' cache of a block of steps' draws.
 
 The mapping (the only place it is written down):
 
@@ -244,6 +246,73 @@ def fold_generator(gen: torch.Generator, index: int) -> torch.Generator:
     return out
 
 
+def draw_seed(gen: torch.Generator, device) -> torch.Tensor:
+    """(2,) int64 key words drawn on ``device`` with ``gen``: a hook's
+    seed for one launch, drawn without a host read."""
+    return torch.randint(0, 2 ** 32, (2,), generator=gen, dtype=torch.int64,
+                         device=device)
+
+
+# elements of Philox output the plain filters draw at once (a block of
+# steps), so the bits cost a few large tensor operations, not many small
+BLOCK_ELEMENTS = 1 << 22
+
+
+class StepBlocks:
+    """The plain filters' draws of the rows ``rows`` at step ``t``, each
+    stream drawn for a block of steps at its first use in the block.
+
+    A block holds ``BLOCK_ELEMENTS`` over len(rows) x N x ``width``
+    steps (``width``: the normal draws a step the caller keeps) and
+    starts at the first step asked outside the last block, so the steps
+    are asked in order.  A step's numbers are the same in any block.
+    As a hook's ``rng``, :meth:`at` begins a call at step t and
+    :meth:`normal` returns its next draw, from ``first_draw`` on.
+    """
+
+    def __init__(self, seed, rows, num_particles, num_steps, width=1,
+                 first_draw=0):
+        self.seed, self.rows, self.n = seed, rows, num_particles
+        self.num_steps, self.first_draw = num_steps, first_draw
+        self.span = max(1, BLOCK_ELEMENTS // (
+            rows.numel() * num_particles * width))
+        self.start = None
+        self.t, self.draw = 0, first_draw
+
+    def _block(self, t, stream, make):
+        if self.start is None or not self.start <= t < self.start + self.span:
+            self.start, self.drawn = t, {}
+            self.steps = torch.arange(t, min(t + self.span, self.num_steps),
+                                      device=self.seed.device)
+        if stream not in self.drawn:
+            self.drawn[stream] = make(self.steps)
+        return self.drawn[stream][t - self.start]
+
+    def normals(self, t, draw=0):
+        """(len(rows), N) normals of draw ``draw`` at step ``t``."""
+        return self._block(t, ("normal", draw), lambda steps: normals_steps(
+            self.seed, self.rows, steps, self.n, draw=draw))
+
+    def offsets(self, t, tag=TAG_OFFSET):
+        """(len(rows),) offsets of stream ``tag`` at step ``t``."""
+        return self._block(t, ("offset", tag), lambda steps: offsets_steps(
+            self.seed, self.rows, steps, tag))
+
+    def at(self, t):
+        """Begin one hook call at step ``t``."""
+        self.t, self.draw = t, self.first_draw
+        return self
+
+    def normal(self, shape):
+        """The call's next normal draw, one per particle."""
+        z = self.normals(self.t, self.draw)
+        self.draw += 1
+        if tuple(shape) != tuple(z.shape):
+            raise ValueError(f"rng.normal({tuple(shape)}): the kernel draws "
+                             f"one normal per particle, {tuple(z.shape)}")
+        return z
+
+
 def offsets(seed, rows, step):
     """Resampling offsets (len(rows),) at one step."""
     steps = torch.tensor([step], device=seed.device)
@@ -288,7 +357,6 @@ def philox_fill(seed, num_rows, num_particles, step):
         return philox_fill_reference(seed, num_rows, num_particles, step)
     if seed.device.type != "cuda":
         raise ValueError(f"philox_fill: unsupported device {seed.device}")
-    lib = _cuda.library()
     half = num_particles // 2
     dev = seed.device
     bits = torch.empty((num_rows, half, 4), dtype=torch.int32, device=dev)
@@ -297,22 +365,17 @@ def philox_fill(seed, num_rows, num_particles, step):
     nrm = torch.empty((num_rows, num_particles), dtype=torch.float32,
                       device=dev)
     offs = torch.empty((num_rows,), dtype=torch.float32, device=dev)
-    err = lib.ssme_philox_fill(seed.data_ptr(), num_rows, half, int(step),
-                               bits.data_ptr(), u1.data_ptr(),
-                               u2.data_ptr(), nrm.data_ptr(),
-                               offs.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_philox_fill")
-    philox_fill.launches += 1
+    _cuda.launch("ssme_philox_fill", seed.data_ptr(), num_rows, half,
+                 int(step), bits.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+                 nrm.data_ptr(), offs.data_ptr(), device=dev)
     return {"bits": bits.to(torch.int64) & MASK32, "u1": u1, "u2": u2,
             "normals": nrm, "offsets": offs}
-
-
-philox_fill.launches = 0
 
 __all__ = ["philox4x32_10", "seed_words", "normals_steps", "normal_tag",
            "offsets", "offsets_steps", "prior_uniforms", "roll_sweep_draws",
            "TAG_ROLL_SWEEP", "TAG_ROLL_SELECT", "TAG_SHARD_FOLD",
-           "ROLL_MAX_ITERS", "fold_generator",
+           "ROLL_MAX_ITERS", "fold_generator", "draw_seed", "StepBlocks",
+           "BLOCK_ELEMENTS",
            "philox_fill", "philox_fill_reference", "uniform_open_zero",
            "uniform_closed_zero", "uniform_offset", "box_muller",
            "TWO_PI", "HALF_LOG_2PI"]

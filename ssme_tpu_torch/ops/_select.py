@@ -7,9 +7,10 @@ and the Metropolis sweep budget (``metropolis_bias_estimate``,
 ``metropolis_sweeps_for``).  The CUDA sides are ``csrc/row_select.cuh``
 and ``csrc/roll_select.cuh`` (inlined by the filter kernels; launched
 alone by :func:`systematic_select` and :func:`roll_select`); this module
-holds their plain PyTorch versions and those wrappers, and
+holds their plain PyTorch versions and those wrappers,
 :func:`roll_schedule`, the plain model of the order in which the roll
-kernels test their sweeps.
+kernels test their sweeps, the filter kernels' shared input checks and
+:func:`resample_rows`, the plain filters' resample of their leaves.
 
 Systematic law, per row: cdf = inclusive float32 cumulative sum of w,
 total = cdf[-1], points u_j = min((j + u0) * (total / N), total) and
@@ -94,6 +95,61 @@ def check_particles(n: int, resampler: str = "systematic",
         raise ValueError(f"num_particles={n}: resampler={resampler!r} needs "
                          f"a power of two in [32, {roll_cap}] (its roll "
                          f"decomposition masks the shift to [0, N)){tail}")
+
+
+def as_rows(name, v, t_len, width, dev):
+    """(T,) or (T, width) -> (T, width) view; raises on other shapes."""
+    if not isinstance(v, torch.Tensor):
+        raise ValueError(f"{name} must be a tensor")
+    if v.ndim == 1 and width == 1:
+        v = v[:, None]
+    if v.ndim != 2 or v.shape[1] != width or v.shape[0] < 1 or (
+            t_len is not None and v.shape[0] != t_len):
+        want = f"({t_len or 'T'}, {width})"
+        raise ValueError(f"{name} must be {want}, got {tuple(v.shape)}")
+    if v.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {v.dtype}")
+    if v.device != dev:
+        raise ValueError(f"{name} is on {v.device}, params on {dev}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return v
+
+
+def resample_rows(ancestors, wn, leaves, lw, carry, fire, log_n,
+                  subset=False):
+    """Resample every leaf (a tuple of (B, N)) of the rows where ``fire``
+    (a (B, 1) bool tensor, or True for all rows) by ``ancestors(w, sub)``
+    (:func:`plain_ancestor_fn`); lw resets to 0 and the carried log-sum
+    (B, 1), if not None, to log N.  With ``subset`` only the firing rows
+    select (the roll laws' sweep loops), else every row selects and
+    ``torch.where`` keeps the others."""
+    if fire is True or not subset:
+        anc = ancestors(wn, None)
+        picked = tuple(torch.gather(v, 1, anc) for v in leaves)
+        if fire is True:
+            return (picked, torch.zeros_like(lw),
+                    None if carry is None else torch.full_like(carry, log_n))
+        return (tuple(torch.where(fire, new, old)
+                      for new, old in zip(picked, leaves)),
+                torch.where(fire, torch.zeros_like(lw), lw),
+                None if carry is None else
+                torch.where(fire, torch.full_like(carry, log_n), carry))
+    sub = fire[:, 0].nonzero()[:, 0]
+    if sub.numel() == 0:
+        return leaves, lw, carry
+    anc = ancestors(wn[sub], sub)
+    out = []
+    for v in leaves:
+        v = v.clone()
+        v[sub] = torch.gather(v[sub], 1, anc)
+        out.append(v)
+    lw = lw.clone()
+    lw[sub] = 0.0
+    if carry is not None:
+        carry = carry.clone()
+        carry[sub] = log_n
+    return tuple(out), lw, carry
 
 
 def _points(cdf, u0):
@@ -270,21 +326,15 @@ def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
             else (picked, anc)
     if w.device.type != "cuda":
         raise ValueError(f"systematic_select: unsupported device {w.device}")
-    lib = _cuda.library()
     num_leaves, b, n = leaves.shape
     picked = torch.empty_like(leaves)
     anc = torch.empty((b, n), dtype=torch.int32, device=w.device)
     cdf = torch.empty_like(w) if return_cdf else None
-    err = lib.ssme_systematic_select(
-        w.data_ptr(), leaves.data_ptr(), u0.data_ptr(), num_leaves, b, n,
-        kper, picked.data_ptr(), anc.data_ptr(),
-        None if cdf is None else cdf.data_ptr(), _cuda.stream_ptr(w.device))
-    _cuda.check(err, "ssme_systematic_select")
-    systematic_select.launches += 1
+    _cuda.launch("ssme_systematic_select", w.data_ptr(), leaves.data_ptr(),
+                 u0.data_ptr(), num_leaves, b, n, kper, picked.data_ptr(),
+                 anc.data_ptr(), None if cdf is None else cdf.data_ptr(),
+                 device=w.device)
     return (picked, anc, cdf) if return_cdf else (picked, anc)
-
-
-systematic_select.launches = 0
 
 
 def _check_pow2(n):
@@ -571,22 +621,15 @@ def roll_select(w, leaves, seed, step=0, resampler="rejection",
                                      metropolis_iters, tag)
     if w.device.type != "cuda":
         raise ValueError(f"roll_select: unsupported device {w.device}")
-    lib = _cuda.library()
     num_leaves, b, n = leaves.shape
     picked = torch.empty_like(leaves)
     anc = torch.empty((b, n), dtype=torch.int32, device=w.device)
-    err = lib.ssme_roll_select(w.data_ptr(), leaves.data_ptr(),
-                               seed.data_ptr(), int(step), int(tag),
-                               RESAMPLER_CODES[resampler],
-                               int(metropolis_iters), num_leaves, b, n,
-                               picked.data_ptr(), anc.data_ptr(),
-                               _cuda.stream_ptr(w.device))
-    _cuda.check(err, "ssme_roll_select")
-    roll_select.launches += 1
+    _cuda.launch("ssme_roll_select", w.data_ptr(), leaves.data_ptr(),
+                 seed.data_ptr(), int(step), int(tag),
+                 RESAMPLER_CODES[resampler], int(metropolis_iters),
+                 num_leaves, b, n, picked.data_ptr(), anc.data_ptr(),
+                 device=w.device)
     return picked, anc
-
-
-roll_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +680,8 @@ def metropolis_sweeps_for(bias_budget, t_len, ess_threshold=0.5,
 
 __all__ = ["systematic_select", "systematic_select_reference",
            "systematic_ancestors", "systematic_ancestors_walk",
-           "systematic_points", "check_particles",
+           "systematic_points", "check_particles", "as_rows",
+           "resample_rows",
            "check_resampler", "roll_select", "roll_select_reference",
            "roll_ancestors", "plain_ancestor_fn", "metropolis_ancestors",
            "rejection_ancestors", "rejection_accepts", "roll_schedule",

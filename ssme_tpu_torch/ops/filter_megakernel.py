@@ -54,21 +54,19 @@ import torch
 
 from ssme_tpu_torch import profiling
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
+from ssme_tpu_torch.models.svol import kernel_rows
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
 from ssme_tpu_torch.ops._select import (MAX_PARTICLES, MAX_ROLL_PARTICLES,
-                                        RESAMPLER_CODES, check_particles,
-                                        check_resampler,
+                                        RESAMPLER_CODES, as_rows,
+                                        check_particles, check_resampler,
                                         metropolis_bias_estimate,
                                         metropolis_sweeps_for,
-                                        plain_ancestor_fn)
-from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
-                                                   _draw_seed, _kernel_rows,
-                                                   resample_rows)
+                                        plain_ancestor_fn, resample_rows)
 from ssme_tpu_torch.utils import logmeanexp
 
 # the profiling span opened here: each launch of ``filter_megakernel``,
-# from the model's id to the launch counts, keyed by the CUDA instance
+# from the model's id to the launch count, keyed by the CUDA instance
 HOST_SPANS = ("filter_megakernel.launch",)
 
 # the dispatch table of csrc/kernel_models.cuh (same names, same numbers;
@@ -112,74 +110,6 @@ class KernelModel:
         return (self.functional or (lambda p, state: state[0]),)
 
 
-class _PlainRng:
-    """The ``rng`` the plain version hands to the hooks: ``normal(shape)``
-    returns the (B, N) Philox normals the kernel draws at the current
-    step, draw 0 on a hook's first call, draw 1 on its second, and so on.
-    Normals and resampling offsets are drawn for blocks of steps."""
-
-    HALF_LOG_2PI = _prng.HALF_LOG_2PI
-
-    def __init__(self, seed, rows, num_particles, num_steps):
-        self._seed, self._rows, self._n = seed, rows, num_particles
-        self._t_len = num_steps
-        self._span = max(1, _BLOCK_ELEMENTS // (rows.numel() * num_particles))
-        self._start = None
-        self.t = 0
-        self._draw = 0
-
-    def at(self, t):
-        """Begin one hook call at step ``t``."""
-        self.t, self._draw = t, 0
-        return self
-
-    def _fill(self, t):
-        if self._start is None or not (
-                self._start <= t < self._start + self._span):
-            self._start = t
-            self._steps = torch.arange(t, min(t + self._span, self._t_len),
-                                       device=self._seed.device)
-            self._normals = {}
-            self._offsets = _prng.offsets_steps(self._seed, self._rows,
-                                                self._steps)
-
-    def normal(self, shape):
-        draw, t = self._draw, self.t
-        self._draw += 1
-        self._fill(t)
-        if draw not in self._normals:
-            self._normals[draw] = _prng.normals_steps(
-                self._seed, self._rows, self._steps, self._n, draw=draw)
-        z = self._normals[draw][t - self._start]
-        if tuple(shape) != tuple(z.shape):
-            raise ValueError(f"rng.normal({tuple(shape)}): the kernel draws "
-                             f"one normal per particle, {tuple(z.shape)}")
-        return z
-
-    def offsets(self, t):
-        self._fill(t)
-        return self._offsets[t - self._start]
-
-
-def _as_rows(name, v, t_len, width, dev):
-    """(T,) or (T, width) -> (T, width) view; raises on other shapes."""
-    if not isinstance(v, torch.Tensor):
-        raise ValueError(f"{name} must be a tensor")
-    if v.ndim == 1 and width == 1:
-        v = v[:, None]
-    if v.ndim != 2 or v.shape[1] != width or v.shape[0] < 1 or (
-            t_len is not None and v.shape[0] != t_len):
-        want = f"({t_len or 'T'}, {width})"
-        raise ValueError(f"{name} must be {want}, got {tuple(v.shape)}")
-    if v.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {v.dtype}")
-    if v.device != dev:
-        raise ValueError(f"{name} is on {v.device}, params on {dev}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return v
-
-
 def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
               gate_stride, mode, resampler, metropolis_iters=16):
     if mode not in ("bootstrap", "apf"):
@@ -195,11 +125,11 @@ def _validate(kmodel, seed, params, ys, zs, num_particles, ess_threshold,
     if params.dtype != torch.float32 or not params.is_contiguous():
         raise ValueError("params must be contiguous float32")
     dev = params.device
-    ys = _as_rows("ys", ys, None, kmodel.dim_obs, dev)
+    ys = as_rows("ys", ys, None, kmodel.dim_obs, dev)
     if kmodel.dim_cov:
         if zs is None:
             raise ValueError(f"model {kmodel.name!r} needs covariates zs")
-        zs = _as_rows("zs", zs, ys.shape[0], kmodel.dim_cov, dev)
+        zs = as_rows("zs", zs, ys.shape[0], kmodel.dim_cov, dev)
     elif zs is not None:
         raise ValueError(f"model {kmodel.name!r} has dim_cov=0 but "
                          "covariates zs were supplied")
@@ -250,7 +180,7 @@ def filter_megakernel_reference(kmodel, seed, params, ys, zs=None,
     ess_limit = float(ess_threshold) * n
     fns = kmodel.functional_list
     rows = torch.arange(b, device=dev)
-    rng = _PlainRng(seed, rows, n, t_len)
+    rng = _prng.StepBlocks(seed, rows, n, t_len)
 
     def ancestors(t, tag=_prng.TAG_ROLL_SWEEP):
         return plain_ancestor_fn(resampler, metropolis_iters, seed, rows, t,
@@ -395,7 +325,6 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
     with profiling.span("filter_megakernel.launch",
                         key=kmodel.cuda_instance):
         model_id = _model_id(kmodel)
-        lib = _cuda.library()
         b, t_len, n = params.shape[0], ys.shape[0], int(num_particles)
         dev = params.device
         total = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -406,31 +335,20 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
             cloud = torch.empty((kmodel.num_state, b, n),
                                 dtype=torch.float32, device=dev)
             cloud_lw = torch.empty((b, n), dtype=torch.float32, device=dev)
-        err = lib.ssme_filter_megakernel(
-            model_id, int(mode == "apf"), seed.data_ptr(),
-            params.data_ptr(), ys.data_ptr(),
+        _cuda.launch(
+            "ssme_filter_megakernel", model_id, int(mode == "apf"),
+            seed.data_ptr(), params.data_ptr(), ys.data_ptr(),
             None if zs is None else zs.data_ptr(), b, t_len, n,
             float(ess_threshold) * n, int(ess_threshold >= 1.0),
             int(gate_stride), RESAMPLER_CODES[resampler],
             int(metropolis_iters), total.data_ptr(), lcl.data_ptr(),
             fmean.data_ptr(), None if cloud is None else cloud.data_ptr(),
             None if cloud_lw is None else cloud_lw.data_ptr(),
-            _cuda.stream_ptr(dev))
-        _cuda.check(err, "ssme_filter_megakernel")
-        filter_megakernel.launches += 1
-        counts = filter_megakernel.instances.setdefault(
-            kmodel.cuda_instance, {"launches": 0, "props": 0})
-        counts["launches"] += 1
-        counts["props"] += b * n * t_len
+            device=dev, key=kmodel.cuda_instance)
         if return_cloud:
             return total, lcl, fmean, tuple(cloud.unbind(0)), cloud_lw
         return total, lcl, fmean
 
-
-filter_megakernel.launches = 0
-# per CUDA instance: {"launches", "props"} (particle propagations, B x N x T
-# a launch)
-filter_megakernel.instances = {}
 
 # the barriers a step crosses, as the source note states them
 # (csrc/filter_megakernel_sys.cuh): under systematic selection a bootstrap
@@ -487,7 +405,6 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
                              metropolis_iters)
     if params.device.type != "cuda":
         raise ValueError("step_spans: the record is the card's")
-    lib = _cuda.library()
     b, t_len, n = params.shape[0], ys.shape[0], int(num_particles)
     dev = params.device
     total = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -498,16 +415,16 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
     if family == "roll":
         sweeps = torch.zeros((b, t_len), dtype=torch.int32, device=dev)
         ratio = torch.zeros((b, t_len), dtype=torch.float32, device=dev)
-    err = lib.ssme_filter_megakernel_spans(
-        CUDA_MODEL_IDS[kmodel.cuda_instance], int(mode == "apf"),
-        seed.data_ptr(), params.data_ptr(), ys.data_ptr(),
-        None if zs is None else zs.data_ptr(), b, t_len, n,
+    _cuda.launch(
+        "ssme_filter_megakernel_spans", CUDA_MODEL_IDS[kmodel.cuda_instance],
+        int(mode == "apf"), seed.data_ptr(), params.data_ptr(),
+        ys.data_ptr(), None if zs is None else zs.data_ptr(), b, t_len, n,
         float(ess_threshold) * n, int(ess_threshold >= 1.0),
         int(gate_stride), RESAMPLER_CODES[resampler], int(metropolis_iters),
         total.data_ptr(), lcl.data_ptr(), fmean.data_ptr(), spans.data_ptr(),
         None if sweeps is None else sweeps.data_ptr(),
-        None if ratio is None else ratio.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, "ssme_filter_megakernel_spans")
+        None if ratio is None else ratio.data_ptr(), device=dev,
+        key=kmodel.cuda_instance)
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     layout = spans[:, SPAN_RECORD.index("kper"):]
     if not bool((layout == layout[:1]).all()):
@@ -608,14 +525,11 @@ def megakernel_log_like(kmodel, num_particles: int, num_replicates: int,
         p = constrain(params) if constrain is not None else params
         rows = p[:, None].expand(c, r, p.shape[1]).reshape(
             c * r, p.shape[1]).contiguous()
-        vals, _, _ = filter_megakernel(kmodel, _draw_seed(gen, p.device),
-                                       rows, ys, zs,
-                                       num_particles=num_particles,
-                                       ess_threshold=ess_threshold,
-                                       gate_stride=gate_stride,
-                                       resampler=resampler,
-                                       metropolis_iters=int(sweeps(
-                                           int(ys.shape[0]))))
+        vals, _, _ = filter_megakernel(
+            kmodel, _prng.draw_seed(gen, p.device), rows, ys, zs,
+            num_particles=num_particles, ess_threshold=ess_threshold,
+            gate_stride=gate_stride, resampler=resampler,
+            metropolis_iters=int(sweeps(int(ys.shape[0]))))
         return logmeanexp(vals.reshape(c, r), dim=-1)
 
     return ll
@@ -704,7 +618,7 @@ def svol_kernel_model() -> KernelModel:
 
 
 # constrained (beta, phi, ss) rows -> svol_kernel_model rows (beta, phi, sigma)
-svol_kernel_rows = _kernel_rows
+svol_kernel_rows = kernel_rows
 
 
 def _leverage_mean(p, x, z):

@@ -71,11 +71,9 @@ import torch
 
 from ssme_tpu_torch import profiling
 from ssme_tpu_torch.ops import _cuda, _prng
-from ssme_tpu_torch.ops._select import (RESAMPLER_CODES, check_particles,
-                                        check_resampler, plain_ancestor_fn)
-from ssme_tpu_torch.ops.filter_megakernel import _as_rows
-from ssme_tpu_torch.ops.svol_filter_kernel import (_BLOCK_ELEMENTS,
-                                                   resample_rows)
+from ssme_tpu_torch.ops._select import (RESAMPLER_CODES, as_rows,
+                                        check_particles, check_resampler,
+                                        plain_ancestor_fn, resample_rows)
 
 # the profiling spans opened here: ``lw_megakernel``'s validation (on
 # both paths) and each launch, from the prior box to the C call, keyed by
@@ -189,75 +187,34 @@ class LWKernelModel:
                             for i, c in enumerate(self.transform_codes)])
 
 
-class _PlainRng:
+class _PlainRng(_prng.StepBlocks):
     """The ``rng`` the plain version hands to the hooks: the kernel's
     prior uniforms, and its normals of the current step starting at draw
     P (draws 0 .. P-1 are the kernel draws of theta).  Draws 0 .. P and
-    both offsets are made for blocks of steps."""
-
-    HALF_LOG_2PI = _prng.HALF_LOG_2PI
+    both offsets (``offsets(t, tag)``, tags 1 and ``TAG_SELECT_OFFSET``)
+    come in blocks of steps; later draws a step at a time."""
 
     def __init__(self, seed, rows, num_particles, num_steps, num_params):
-        self._seed, self._rows, self._n = seed, rows, num_particles
-        self._t_len, self._p = num_steps, num_params
-        self._span = max(1, _BLOCK_ELEMENTS // (
-            rows.numel() * num_particles * (num_params + 1)))
-        self._start = None
-        self.t = 0
-        self._draw = num_params
+        super().__init__(seed, rows, num_particles, num_steps,
+                         width=num_params + 1, first_draw=num_params)
+        self.num_params = num_params
 
-    def at(self, t):
-        """Begin one hook call at step ``t``."""
-        self.t, self._draw = t, self._p
-        return self
-
-    def _fill(self, t):
-        if self._start is not None and \
-                self._start <= t < self._start + self._span:
-            return
-        self._start = t
-        steps = torch.arange(t, min(t + self._span, self._t_len),
-                             device=self._seed.device)
-        self._normals = [_prng.normals_steps(self._seed, self._rows, steps,
-                                             self._n, draw=d)
-                         for d in range(self._p + 1)]
-        self._offsets = [_prng.offsets_steps(self._seed, self._rows, steps,
-                                             tag=tag)
-                         for tag in (_prng.TAG_OFFSET,
-                                     _prng.TAG_SELECT_OFFSET)]
-
-    def normals(self, t, draw):
+    def normals(self, t, draw=0):
         """(F, N) normals of draw ``draw`` at step ``t``."""
-        if draw <= self._p:
-            self._fill(t)
-            return self._normals[draw][t - self._start]
+        if draw <= self.num_params:
+            return super().normals(t, draw)
         return _prng.normals_steps(
-            self._seed, self._rows,
-            torch.arange(t, t + 1, device=self._seed.device), self._n,
+            self.seed, self.rows,
+            torch.arange(t, t + 1, device=self.seed.device), self.n,
             draw=draw)[0]
 
-    def normal(self, shape):
-        z = self.normals(self.t, self._draw)
-        self._draw += 1
-        if tuple(shape) != tuple(z.shape):
-            raise ValueError(f"rng.normal({tuple(shape)}): the kernel draws "
-                             f"one normal per particle, {tuple(z.shape)}")
-        return z
-
     def uniform(self, shape):
-        u = _prng.prior_uniforms(self._seed, self._rows, self._n, self._p)
+        u = _prng.prior_uniforms(self.seed, self.rows, self.n,
+                                 self.num_params)
         if tuple(shape) != tuple(u.shape):
             raise ValueError(f"rng.uniform({tuple(shape)}): the kernel draws "
                              f"the prior block {tuple(u.shape)}")
         return u
-
-    def resample_offsets(self, t):
-        self._fill(t)
-        return self._offsets[0][t - self._start]
-
-    def select_offsets(self, t):
-        self._fill(t)
-        return self._offsets[1][t - self._start]
 
 
 def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
@@ -268,11 +225,11 @@ def _validate(kmodel, seed, ys, zs, num_filters, num_particles,
     dev = ys.device
     if ys.ndim == 1 and kmodel.dim_obs > 1:
         ys = ys.reshape(-1, kmodel.dim_obs)
-    ys = _as_rows("ys", ys, None, kmodel.dim_obs, dev)
+    ys = as_rows("ys", ys, None, kmodel.dim_obs, dev)
     if kmodel.dim_cov:
         if zs is None:
             raise ValueError(f"model {kmodel.name!r} needs covariates zs")
-        zs = _as_rows("zs", zs, ys.shape[0], kmodel.dim_cov, dev)
+        zs = as_rows("zs", zs, ys.shape[0], kmodel.dim_cov, dev)
     elif zs is not None:
         raise ValueError(
             f"model {kmodel.name!r} has dim_cov=0 but covariates zs were "
@@ -382,7 +339,7 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
             return state, th, lw
         ancestors = plain_ancestor_fn(
             resampler, metropolis_iters, seed, filters, t, n,
-            None if roll else rng.resample_offsets(t))
+            None if roll else rng.offsets(t))
         picked, lw, _ = resample_rows(ancestors, wn, state + tuple(th.unbind()),
                                       lw, None, fire, 0.0, roll)
         return picked[:s_rows], torch.stack(picked[s_rows:]), lw
@@ -417,7 +374,7 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
             wfs = torch.exp(lfs - mfs)
             anc = plain_ancestor_fn(
                 resampler, metropolis_iters, seed, filters, t, n,
-                None if roll else rng.select_offsets(t),
+                None if roll else rng.offsets(t, _prng.TAG_SELECT_OFFSET),
                 _prng.TAG_ROLL_SELECT)(wfs, None)
             # systematic: the CDF's last entry, as the kernel's scan total
             total = (wfs.sum(-1, keepdim=True) if roll
@@ -518,9 +475,8 @@ def _max_clusters(model_id, num_particles):
     ``model_id`` at N (its twin takes the same layout), asked once; a
     failed query raises."""
     count = ctypes.c_int(0)
-    err = _cuda.library().ssme_lw_megakernel_clusters(
-        model_id, num_particles, ctypes.byref(count))
-    _cuda.check(err, "ssme_lw_megakernel_clusters")
+    _cuda.call("ssme_lw_megakernel_clusters", model_id, num_particles,
+               ctypes.byref(count))
     return count.value
 
 
@@ -548,8 +504,8 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     means.
 
     Launches the kernel for CUDA tensors (raising for a model without a
-    CUDA instance; ``lw_megakernel.layouts`` counts the launches by
-    layout) and runs :func:`lw_megakernel_reference` for CPU tensors.
+    CUDA instance; ``_cuda.launches`` counts the launches by layout) and
+    runs :func:`lw_megakernel_reference` for CPU tensors.
     """
     with profiling.span("lw.validate"):
         seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
@@ -562,12 +518,9 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
                                        metropolis_iters)
     if ys.device.type != "cuda":
         raise ValueError(f"lw_megakernel: unsupported device {ys.device}")
-    out, layout = _launch(kmodel, seed, ys, zs, num_filters, num_particles,
-                          delta, resample_every, variant, ess_threshold,
-                          resampler, metropolis_iters)
-    lw_megakernel.launches += 1
-    lw_megakernel.layouts[layout] += 1
-    return out
+    return _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
+                   resample_every, variant, ess_threshold, resampler,
+                   metropolis_iters)
 
 
 def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
@@ -577,8 +530,8 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
     ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
     len(SPAN_RECORD))), its instrumented twin
     (``ssme_lw_megakernel_spans``), which writes its record there, in
-    the layout :func:`layout_for` gives.  Returns (the result dict, the
-    layout)."""
+    the layout :func:`layout_for` gives, counted under that layout.
+    Returns the result dict."""
     model_id = _model_id(kmodel)
     layout = "single"
     if resampler == "systematic":
@@ -589,7 +542,6 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
         if bounds is None or len(bounds) != kmodel.num_params:
             raise ValueError(f"model {kmodel.name!r}: the CUDA instance "
                              "needs one (lo, hi) prior bound per parameter")
-        lib = _cuda.library()
         f, n, t_len = int(num_filters), int(num_particles), ys.shape[0]
         dev = ys.device
         n_fns = len(kmodel.functionals or ())
@@ -612,19 +564,11 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
                 *run, RESAMPLER_CODES[resampler], int(metropolis_iters),
                 2 if layout == "paired" else 1, *host, *outs)
         if spans is None:
-            name = "ssme_lw_megakernel"
-            err = lib.ssme_lw_megakernel(*args, _cuda.stream_ptr(dev))
+            _cuda.launch("ssme_lw_megakernel", *args, device=dev, key=layout)
         else:
-            name = "ssme_lw_megakernel_spans"
-            err = lib.ssme_lw_megakernel_spans(*args, spans.data_ptr(),
-                                               _cuda.stream_ptr(dev))
-        _cuda.check(err, name)
-        return _result(lcl, fpaths, cloud, n_fns), layout
-
-
-lw_megakernel.launches = 0
-# launches by layout (LAYOUTS)
-lw_megakernel.layouts = dict.fromkeys(LAYOUTS, 0)
+            _cuda.launch("ssme_lw_megakernel_spans", *args, spans.data_ptr(),
+                         device=dev, key=layout)
+        return _result(lcl, fpaths, cloud, n_fns)
 
 # the barriers a step crosses, as the source note states them
 # (csrc/lw_megakernel_sys.cuh), in both families (a roll selection's
@@ -676,9 +620,9 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
     f, t_len = int(num_filters), ys.shape[0]
     spans = torch.zeros((f, len(SPAN_RECORD)), dtype=torch.int64,
                         device=ys.device)
-    out, _ = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
-                     resample_every, variant, ess_threshold, resampler,
-                     metropolis_iters, spans=spans)
+    out = _launch(kmodel, seed, ys, zs, f, num_particles, delta,
+                  resample_every, variant, ess_threshold, resampler,
+                  metropolis_iters, spans=spans)
     rec = dict(zip(SPAN_RECORD, spans.double().sum(0).tolist()))
     layout = spans[:, SPAN_RECORD.index("kper"):]
     if not bool((layout == layout[:1]).all()):

@@ -26,10 +26,11 @@ import math
 import torch
 
 from ssme_tpu_torch import profiling
+from ssme_tpu_torch.models.svol import kernel_rows
 from ssme_tpu_torch.ops import _cuda, _prng
 from ssme_tpu_torch.ops._select import (MAX_ROLL_PARTICLES, RESAMPLER_CODES,
                                         check_particles, check_resampler,
-                                        plain_ancestor_fn)
+                                        plain_ancestor_fn, resample_rows)
 from ssme_tpu_torch.utils import logmeanexp
 
 
@@ -79,47 +80,6 @@ def _validate(seed, params, ys, num_particles, ess_threshold, gate_stride,
     return seed, ys
 
 
-def resample_rows(ancestors, wn, leaves, lw, carry, fire, log_n,
-                  subset=False):
-    """Resample every leaf (a tuple of (B, N)) of the rows where ``fire``
-    (a (B, 1) bool tensor, or True for all rows) by ``ancestors(w, sub)``
-    (``_select.plain_ancestor_fn``); lw resets to 0 and the carried
-    log-sum (B, 1), if not None, to log N.  With ``subset`` only the
-    firing rows select (the roll laws' sweep loops), else every row
-    selects and ``torch.where`` keeps the others."""
-    if fire is True or not subset:
-        anc = ancestors(wn, None)
-        picked = tuple(torch.gather(v, 1, anc) for v in leaves)
-        if fire is True:
-            return (picked, torch.zeros_like(lw),
-                    None if carry is None else torch.full_like(carry, log_n))
-        return (tuple(torch.where(fire, new, old)
-                      for new, old in zip(picked, leaves)),
-                torch.where(fire, torch.zeros_like(lw), lw),
-                None if carry is None else
-                torch.where(fire, torch.full_like(carry, log_n), carry))
-    sub = fire[:, 0].nonzero()[:, 0]
-    if sub.numel() == 0:
-        return leaves, lw, carry
-    anc = ancestors(wn[sub], sub)
-    out = []
-    for v in leaves:
-        v = v.clone()
-        v[sub] = torch.gather(v[sub], 1, anc)
-        out.append(v)
-    lw = lw.clone()
-    lw[sub] = 0.0
-    if carry is not None:
-        carry = carry.clone()
-        carry[sub] = log_n
-    return tuple(out), lw, carry
-
-
-# elements of Philox output the plain version draws at once (a block of
-# steps), so the bits cost a few large tensor operations, not many small
-_BLOCK_ELEMENTS = 1 << 22
-
-
 def svol_filter_reference(seed, params, ys, num_particles=512,
                           ess_threshold=1.0, gate_stride=1,
                           resampler="systematic", metropolis_iters=16):
@@ -139,17 +99,12 @@ def svol_filter_reference(seed, params, ys, num_particles=512,
 
     lcl = torch.zeros((b, t_len), dtype=torch.float32, device=params.device)
     xmean = torch.zeros_like(lcl)
-    block = max(1, _BLOCK_ELEMENTS // (b * n))
+    draws = _prng.StepBlocks(seed, rows, n, t_len)
     carry = torch.full_like(beta, log_n)
     s_last = s2_last = torch.ones_like(beta)
     for t in range(t_len):
-        if t % block == 0:
-            steps = torch.arange(t, min(t + block, t_len),
-                                 device=params.device)
-            eps = _prng.normals_steps(seed, rows, steps, n)
-            u0 = _prng.offsets_steps(seed, rows, steps)
         if t == 0:
-            x = eps[0] * (sigma / torch.sqrt(1.0 - phi * phi))
+            x = draws.normals(0) * (sigma / torch.sqrt(1.0 - phi * phi))
             lw = torch.zeros_like(x)
             wn = torch.ones_like(x)
         else:
@@ -157,9 +112,9 @@ def svol_filter_reference(seed, params, ys, num_particles=512,
                 fire = True if always else s_last * s_last / s2_last < ess_limit
                 (x,), lw, carry = resample_rows(
                     plain_ancestor_fn(resampler, metropolis_iters, seed, rows,
-                                      t, n, u0[t % block]),
+                                      t, n, draws.offsets(t)),
                     wn, (x,), lw, carry, fire, log_n, roll)
-            x = phi * x + sigma * eps[t % block]
+            x = phi * x + sigma * draws.normals(t)
         z = (ys[t] / beta) * torch.exp(-0.5 * x)
         lw = lw + ((c0 - 0.5 * x) - 0.5 * z * z)
         if not (g == 1 or t % g == g - 1 or t == t_len - 1):
@@ -176,7 +131,7 @@ def svol_filter_reference(seed, params, ys, num_particles=512,
         if g > 1:
             (x,), lw, carry = resample_rows(
                 plain_ancestor_fn(resampler, metropolis_iters, seed, rows, t,
-                                  n, u0[t % block]),
+                                  n, draws.offsets(t)),
                 wn, (x,), lw, carry, s * s / s2 < ess_limit, log_n, roll)
     return lcl.sum(-1), lcl, xmean
 
@@ -214,31 +169,26 @@ def svol_filter(seed, params, ys, num_particles=512, ess_threshold=1.0,
                    gate_stride, resampler, metropolis_iters)
 
 
-svol_filter.launches = 0
-
-
 def _launch(seed, params, ys, num_particles, ess_threshold, gate_stride,
             resampler, metropolis_iters, spans=None):
     """One K1 launch on validated CUDA inputs: the instance of the
     resampler's family or, with ``spans`` an int64 (B, len(SPAN_RECORD))
-    tensor, its instrumented twin."""
+    tensor, its instrumented twin (counted as ``ssme_svol_filter_spans``)."""
     with profiling.span("svol_filter.launch"):
-        lib = _cuda.library()
         b, t_len = params.shape[0], ys.shape[0]
         dev = params.device
         total = torch.empty((b,), dtype=torch.float32, device=dev)
         lcl = torch.empty((b, t_len), dtype=torch.float32, device=dev)
         xmean = torch.empty_like(lcl)
         n = int(num_particles)
-        err = lib.ssme_svol_filter(
+        _cuda.launch(
+            "ssme_svol_filter" if spans is None else "ssme_svol_filter_spans",
             seed.data_ptr(), params.data_ptr(), ys.data_ptr(), b, t_len, n,
             float(ess_threshold) * n, int(ess_threshold >= 1.0),
             int(gate_stride), RESAMPLER_CODES[resampler],
             int(metropolis_iters), total.data_ptr(), lcl.data_ptr(),
             xmean.data_ptr(), None if spans is None else spans.data_ptr(),
-            _cuda.stream_ptr(dev))
-        _cuda.check(err, "ssme_svol_filter")
-        svol_filter.launches += 1
+            device=dev)
         return total, lcl, xmean
 
 
@@ -296,17 +246,6 @@ def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
             "outputs": out}
 
 
-def _kernel_rows(params):
-    """Constrained (beta, phi, ss) rows -> kernel (beta, phi, sigma)."""
-    return torch.stack([params[..., 0], params[..., 1],
-                        torch.sqrt(params[..., 2])], dim=-1)
-
-
-def _draw_seed(gen, device):
-    return torch.randint(0, 2 ** 32, (2,), generator=gen, dtype=torch.int64,
-                         device=device)
-
-
 def svol_replicated_log_like(num_particles: int, num_replicates: int,
                              ess_threshold: float = 0.5,
                              gate_stride: int = 1):
@@ -315,9 +254,9 @@ def svol_replicated_log_like(num_particles: int, num_replicates: int,
     r = num_replicates
 
     def ll(gen, params, ys):
-        rows = _kernel_rows(params)[None].expand(r, 3).contiguous()
-        vals, _, _ = svol_filter(_draw_seed(gen, params.device), rows, ys,
-                                 num_particles=num_particles,
+        rows = kernel_rows(params)[None].expand(r, 3).contiguous()
+        vals, _, _ = svol_filter(_prng.draw_seed(gen, params.device), rows,
+                                 ys, num_particles=num_particles,
                                  ess_threshold=ess_threshold,
                                  gate_stride=gate_stride)
         return logmeanexp(vals)
@@ -340,10 +279,10 @@ def svol_batched_log_like(num_particles: int, num_replicates: int,
 
     def ll(gen, params, ys):
         c = params.shape[0]
-        rows = _kernel_rows(params)[:, None].expand(c, r, 3).reshape(
+        rows = kernel_rows(params)[:, None].expand(c, r, 3).reshape(
             c * r, 3).contiguous()
-        vals, _, _ = svol_filter(_draw_seed(gen, params.device), rows, ys,
-                                 num_particles=num_particles,
+        vals, _, _ = svol_filter(_prng.draw_seed(gen, params.device), rows,
+                                 ys, num_particles=num_particles,
                                  ess_threshold=ess_threshold,
                                  gate_stride=gate_stride)
         return logmeanexp(vals.reshape(c, r), dim=-1)
@@ -365,7 +304,7 @@ def svol_swarm_evidence(seed, param_draws, ys, num_particles=512,
     1`` the lcls coarsen to per-check block sums and the path is zero off
     the check columns.
     """
-    _, lcls, xmeans = svol_filter(seed, _kernel_rows(param_draws).contiguous(),
+    _, lcls, xmeans = svol_filter(seed, kernel_rows(param_draws).contiguous(),
                                   ys, num_particles=num_particles,
                                   ess_threshold=ess_threshold,
                                   gate_stride=gate_stride)

@@ -102,22 +102,15 @@ def fused_svol_propagate_weight(seed, y, params, x, logw):
         if t.data_ptr() % 8:
             raise ValueError(f"{name} must be 8-byte aligned (the kernel "
                              "reads particle pairs)")
-    lib = _cuda.library()
     b, n = x.shape
     x_out = torch.empty_like(x)
     logw_out = torch.empty_like(logw)
     y_ptr, y_val = (y.data_ptr(), 0.0) if isinstance(y, torch.Tensor) \
         else (None, float(y))
-    err = lib.ssme_svol_step(seed.data_ptr(), y_ptr, y_val,
-                             params.data_ptr(), x.data_ptr(),
-                             logw.data_ptr(), b, n, x_out.data_ptr(),
-                             logw_out.data_ptr(), _cuda.stream_ptr(x.device))
-    _cuda.check(err, "ssme_svol_step")
-    fused_svol_propagate_weight.launches += 1
+    _cuda.launch("ssme_svol_step", seed.data_ptr(), y_ptr, y_val,
+                 params.data_ptr(), x.data_ptr(), logw.data_ptr(), b, n,
+                 x_out.data_ptr(), logw_out.data_ptr(), device=x.device)
     return x_out, logw_out
-
-
-fused_svol_propagate_weight.launches = 0
 
 
 # the card's rates the bound uses (H100 SXM: the data sheet's HBM rate;
@@ -152,18 +145,14 @@ def launch_grid(num_rows, num_particles):
     """(grid x, grid y, threads a block) of the kernel's launch at (B, N)
     on the current card."""
     out = (ctypes.c_int * 3)()
-    _cuda.check(_cuda.library().ssme_svol_step_grid(num_rows, num_particles,
-                                                    out),
-                "ssme_svol_step_grid")
+    _cuda.call("ssme_svol_step_grid", num_rows, num_particles, out)
     return tuple(out)
 
 
 def empty_launch(grid, device):
     """One launch of an empty kernel on ``grid`` (as :func:`launch_grid`
     gives it): the card's floor for a launch of that geometry."""
-    _cuda.check(_cuda.library().ssme_empty_launch(*grid,
-                                                  _cuda.stream_ptr(device)),
-                "ssme_empty_launch")
+    _cuda.launch("ssme_empty_launch", *grid, device=device)
 
 
 def fixed_inputs(num_rows, num_particles, device):

@@ -108,7 +108,7 @@ def test_pair_rng_gives_the_bits_of_normals_steps(kper):
                                       y, ())
             moved_odd = km.propagate(_PairSines(first), p,
                                      tuple(v[:, odd] for v in x), y, ())
-            plain = fm._PlainRng(seed, torch.tensor([b]), n, t + 1)
+            plain = _prng.StepBlocks(seed, torch.tensor([b]), n, t + 1)
             ref = km.propagate(plain.at(t), p, x, y, ())
             for leaf, (a, c) in enumerate(zip(moved_even, moved_odd)):
                 assert torch.equal(a, ref[leaf][:, even]), leaf

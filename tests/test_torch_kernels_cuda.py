@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from ssme_tpu_torch.filters import fixed_lag_smoother
-from ssme_tpu_torch.models import factor_svol, lgssm
+from ssme_tpu_torch.models import factor_svol, lgssm, svol
 from ssme_tpu_torch.models.svol_leverage import lagged_covariates
-from ssme_tpu_torch.ops import _prng, _select
+from ssme_tpu_torch.ops import _cuda, _prng, _select
 from ssme_tpu_torch.ops import filter_megakernel as fm
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm
 from ssme_tpu_torch.ops import svol_kernel as k5
@@ -108,9 +108,9 @@ def test_filter_matches_plain_without_resampling(dev, gate_stride):
 
 def test_filter_launch_counter_and_errors(dev):
     params = torch.tensor([[1.0, 0.9, 0.2]] * 8, device=dev)
-    before = svol_filter.launches
+    before = _cuda.launches("ssme_svol_filter")
     svol_filter(1, params, _ys(20, 2).to(dev), num_particles=64)
-    assert svol_filter.launches == before + 1
+    assert _cuda.launches("ssme_svol_filter") == before + 1
     with pytest.raises(ValueError):      # ys on another device
         svol_filter(1, params, _ys(20, 2), num_particles=64)
 
@@ -240,9 +240,9 @@ def test_systematic_kernel_refuses_other_counts(dev):
 def test_megakernel_launch_counter_and_errors(dev):
     ys = _ys(20, 2).to(dev)
     km, params, zs = _instance("svol_leverage", dev, ys)
-    before = fm.filter_megakernel.launches
+    before = _cuda.launches("ssme_filter_megakernel")
     fm.filter_megakernel(km, 1, params, ys, zs, num_particles=64)
-    assert fm.filter_megakernel.launches == before + 1
+    assert _cuda.launches("ssme_filter_megakernel") == before + 1
     with pytest.raises(ValueError):      # covariates on another device
         fm.filter_megakernel(km, 1, params, ys, zs.cpu(), num_particles=64)
     custom = fm.KernelModel(num_params=4, init=km.init,
@@ -250,7 +250,7 @@ def test_megakernel_launch_counter_and_errors(dev):
                             dim_cov=1, name="custom")
     with pytest.raises(ValueError, match="no CUDA instance"):
         fm.filter_megakernel(custom, 1, params, ys, zs, num_particles=64)
-    assert fm.filter_megakernel.launches == before + 1
+    assert _cuda.launches("ssme_filter_megakernel") == before + 1
 
 
 def _family(name, dev, ys):
@@ -379,8 +379,7 @@ def test_factor_svol_5_hook_at_the_benchmark_cell_size(dev):
     km = fm.factor_svol_kernel_model(5)
     params = torch.tensor(START, device=dev).expand(64, -1).contiguous()
     hook = fm.megakernel_log_like(km, 1024, 4, ess_threshold=1.0)
-    before = dict(fm.filter_megakernel.instances.get(
-        "factor_svol_5", {"launches": 0, "props": 0}))
+    before = _cuda.launches("ssme_filter_megakernel", "factor_svol_5")
     profiling.reset()
     with profiling.record():
         got = hook(torch.Generator(device=dev).manual_seed(5), params, ys)
@@ -388,9 +387,8 @@ def test_factor_svol_5_hook_at_the_benchmark_cell_size(dev):
     keys = [r.key for r in profiling.spans()
             if r.name == "filter_megakernel.launch"]
     assert keys == ["factor_svol_5"]
-    after = fm.filter_megakernel.instances["factor_svol_5"]
-    assert after["launches"] == before["launches"] + 1
-    assert after["props"] == before["props"] + 256 * 1024 * 3084
+    after = _cuda.launches("ssme_filter_megakernel", "factor_svol_5")
+    assert after == before + 1      # 256 x 1024 x 3084 propagations
     rows = params.repeat_interleave(4, 0).contiguous()
     tot = fm.filter_megakernel_reference(km, 6, rows, ys,
                                          num_particles=1024,
@@ -426,7 +424,7 @@ def test_swarm_evidence_cloud_keeps_its_layout(dev, n):
 def test_new_instances_refuse_what_the_card_cannot_run(dev):
     ys = _ys(20, 2).to(dev)
     km, params, obs = _family("factor_svol_4", dev, ys)
-    before = fm.filter_megakernel.launches
+    before = _cuda.launches("ssme_filter_megakernel")
     with pytest.raises(ValueError, match="prop_mu"):
         fm.filter_megakernel(km, 1, params, obs, num_particles=64, mode="apf")
     six = fm.factor_svol_kernel_model(6)
@@ -439,7 +437,7 @@ def test_new_instances_refuse_what_the_card_cannot_run(dev):
     with pytest.raises(ValueError, match="functor's own"):
         fm.filter_megakernel(vec, 1, torch.ones(8, 3, device=dev), ys,
                              num_particles=64)
-    assert fm.filter_megakernel.launches == before
+    assert _cuda.launches("ssme_filter_megakernel") == before
 
 
 def _lw_instance(name, ys):
@@ -487,10 +485,11 @@ def test_svol_leverage_lw_is_the_k3_instance_bit_for_bit(dev):
 def test_lw_launch_counters_and_errors(dev):
     ys = _ys(20, 3).to(dev)
     km, zs = _lw_instance("svol_leverage_lw", ys)
-    before = (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches)
+    before = (_cuda.launches("ssme_lw_megakernel"),
+              k4.svol_leverage_lw.launches)
     k4.svol_leverage_lw(1, ys, num_filters=2, num_particles=64)
-    assert (lwm.lw_megakernel.launches, k4.svol_leverage_lw.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (_cuda.launches("ssme_lw_megakernel"),
+            k4.svol_leverage_lw.launches) == (before[0] + 1, before[1] + 1)
     custom = lwm.LWKernelModel(
         num_params=4, transform_codes=km.transform_codes,
         sample_prior=km.sample_prior, init=km.init, propagate=km.propagate,
@@ -508,7 +507,7 @@ def test_lw_launch_counters_and_errors(dev):
         lwm.lw_megakernel(km, 1, ys, zs, num_particles=2048)
     with pytest.raises(ValueError):      # covariates on another device
         lwm.lw_megakernel(km, 1, ys, zs.cpu(), num_particles=64)
-    assert lwm.lw_megakernel.launches == before[0] + 1
+    assert _cuda.launches("ssme_lw_megakernel") == before[0] + 1
 
 
 @pytest.mark.parametrize("n", [512, 2048, 4096])
@@ -528,7 +527,7 @@ def test_roll_select_equals_plain(dev, resampler, n):
     w = torch.as_tensor(w, device=dev)
     leaves = torch.as_tensor(rng.normal(size=(2, 16, n)).astype(np.float32),
                              device=dev)
-    before = _select.roll_select.launches
+    before = _cuda.launches("ssme_roll_select")
     for tag in (_prng.TAG_ROLL_SWEEP, _prng.TAG_ROLL_SELECT):
         got = _select.roll_select(w, leaves, 4, step=9, resampler=resampler,
                                   metropolis_iters=24, tag=tag)
@@ -539,7 +538,7 @@ def test_roll_select_equals_plain(dev, resampler, n):
         assert torch.equal(got[0], want[0])
         if resampler == "rejection":
             assert torch.equal(got[1][0].long(), torch.arange(n, device=dev))
-    assert _select.roll_select.launches == before + 2
+    assert _cuda.launches("ssme_roll_select") == before + 2
 
 
 ROLL_FUNCTORS = ("svol", "svol_leverage", "svol_t", "poisson_ar",
@@ -678,13 +677,13 @@ def test_svol_step_equals_plain(dev):
     lw = torch.as_tensor(rng.normal(size=(64, 512)).astype(np.float32),
                          device=dev)
     params = torch.tensor([[1.3, 0.7, 0.2]] * 64, device=dev)
-    before = k5.fused_svol_propagate_weight.launches
+    before = _cuda.launches("ssme_svol_step")
     for y in (0.37, torch.full((1,), 0.37, device=dev)):
         got = k5.fused_svol_propagate_weight(5, y, params, x, lw)
         want = k5.fused_svol_propagate_weight_reference(5, y, params, x, lw)
         torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-5)
-    assert k5.fused_svol_propagate_weight.launches == before + 2
+    assert _cuda.launches("ssme_svol_step") == before + 2
     with pytest.raises(ValueError):
         k5.fused_svol_propagate_weight(5, 0.0, params, x[:, :511], lw)
 
@@ -926,11 +925,11 @@ def test_k3_paired_layout_gives_the_single_layouts_bits(dev, name, n):
     ys = _ys(40, 29).to(dev)
     km, zs = _k3_functor(name, ys)
     for kw in K3_SCHEDULES:
-        before = dict(lwm.lw_megakernel.layouts)
+        before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
         paired = lwm.lw_megakernel(km, 21, ys, zs, 8, n, **kw)
         single = lwm.lw_megakernel(km, 21, ys, zs, 128, n, **kw)
-        assert lwm.lw_megakernel.layouts == {
-            "paired": before["paired"] + 1, "single": before["single"] + 1}
+        assert [_cuda.launches("ssme_lw_megakernel", k)
+                for k in lwm.LAYOUTS] == [before[0] + 1, before[1] + 1]
         for key in ("log_cond_likes", "cloud"):
             assert torch.equal(paired[key], single[key][:8]), (kw, key)
         fp, fs = (paired.get("functional_paths", ()),
@@ -951,7 +950,7 @@ def test_k3_layout_counter_and_span_key(dev):
     runs = ((8, dict(), "paired"), (64, dict(), "paired"),
             (128, dict(), "single"), (8, dict(resampler="rejection"),
                                       "single"))
-    before = dict(lwm.lw_megakernel.layouts)
+    before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
     with profiling.record():
         for f, kw, _ in runs:
             if kw:
@@ -961,8 +960,8 @@ def test_k3_layout_counter_and_span_key(dev):
         keys = [r.key for r in profiling.spans()
                 if r.name == "lw_megakernel.launch"][-len(runs):]
     assert keys == [want for _, _, want in runs]
-    assert lwm.lw_megakernel.layouts == {
-        "paired": before["paired"] + 2, "single": before["single"] + 2}
+    assert [_cuda.launches("ssme_lw_megakernel", k)
+            for k in lwm.LAYOUTS] == [before[0] + 2, before[1] + 2]
 
 
 @pytest.mark.parametrize("n", [32, 512, 1024])
@@ -1182,20 +1181,20 @@ def test_sharded_hook_is_its_inner_hook_on_the_folded_generator_nccl(
         inner = sfk.svol_batched_log_like(512, 2, ess_threshold=0.5,
                                           gate_stride=8)
         sharded = parallel.shard_batched_log_like(inner, nccl_mesh)
-        counter = sfk.svol_filter
+        counter = "ssme_svol_filter"
     else:
-        kw = dict(constrain=sfk._kernel_rows, ess_threshold=0.5,
+        kw = dict(constrain=svol.kernel_rows, ess_threshold=0.5,
                   gate_stride=8)
         inner = fm.megakernel_log_like(fm.svol_kernel_model(), 512, 2, **kw)
         sharded = parallel.sharded_megakernel_log_like(
             fm.svol_kernel_model(), 512, 2, nccl_mesh, **kw)
-        counter = fm.filter_megakernel
+        counter = "ssme_filter_megakernel"
     gen = torch.Generator(device=dev).manual_seed(9)
     ref = torch.Generator(device=dev)
     ref.set_state(gen.get_state())
-    before = counter.launches
+    before = _cuda.launches(counter)
     got = sharded(gen, params, ys)
-    assert counter.launches == before + 1
+    assert _cuda.launches(counter) == before + 1
     want = inner(_prng.fold_generator(ref, 0), params, ys)
     assert got.device.type == "cuda" and got.shape == (8,)
     assert torch.equal(got, want)
@@ -1270,7 +1269,7 @@ def test_pmmh_iteration_never_waits_for_the_device(dev):
     synchronising call (``inference/pmmh.py``'s claim), spans and all."""
     pmmh, state, ys = _parity_pmmh(dev)
     torch.cuda.synchronize()
-    before = sfk.svol_filter.launches
+    before = _cuda.launches("ssme_svol_filter")
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(3):
@@ -1280,7 +1279,7 @@ def test_pmmh_iteration_never_waits_for_the_device(dev):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert state.iteration == 3
-    assert sfk.svol_filter.launches - before == 3
+    assert _cuda.launches("ssme_svol_filter") - before == 3
     assert bool(torch.isfinite(state.log_like).all())
 
 

@@ -588,11 +588,13 @@ def test_layout_rule_pairs_only_what_the_card_holds(num_filters,
 def test_plain_version_counts_no_layout():
     """On the CPU the plain version runs: no launch, no layout counted."""
     ys, zs = _leverage_data(12, 3)
-    before = dict(lwm.lw_megakernel.layouts)
+    from ssme_tpu_torch.ops import _cuda
+    before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
     _run(lwm.svol_leverage_lw_kernel_model(), 1, ys, zs, num_filters=2,
          num_particles=64)
-    assert lwm.lw_megakernel.layouts == before
-    assert set(before) == set(lwm.LAYOUTS)
+    assert [_cuda.launches("ssme_lw_megakernel", k)
+            for k in lwm.LAYOUTS] == before
+    assert _cuda.launches("ssme_lw_megakernel") == sum(before)
 
 
 def test_span_record_keeps_the_ring_fields_in_the_enum_order():

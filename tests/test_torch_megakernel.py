@@ -181,7 +181,7 @@ def test_custom_model_runs_on_the_cpu_with_per_draw_tags():
     z0 = _prng.normals_steps(seed, rows, steps, 32)
     z1 = _prng.normals_steps(seed, rows, steps, 32, draw=1)
     assert not torch.equal(z0, z1)
-    rng = fm._PlainRng(seed, rows, 32, 3).at(2)
+    rng = _prng.StepBlocks(seed, rows, 32, 3).at(2)
     torch.testing.assert_close(rng.normal((2, 32)), z0[2], rtol=0, atol=0)
     torch.testing.assert_close(rng.normal((2, 32)), z1[2], rtol=0, atol=0)
     with pytest.raises(ValueError, match="one normal per particle"):

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from ssme_tpu_torch.examples import tune_pmmh, tune_variance
-from ssme_tpu_torch.ops.svol_filter_kernel import svol_filter
+from ssme_tpu_torch.ops import _cuda
 
 torch.set_num_threads(1)
 
@@ -46,12 +46,12 @@ def test_var_of_r_average_equals_the_jax_scripts():
 
 def test_tune_variance_main_on_cpu(tmp_path):
     out = str(tmp_path / "v.jsonl")
-    before = svol_filter.launches
+    before = _cuda.launches("ssme_svol_filter")
     tune_variance.main(["--device", "cpu", "--particles", "32", "64",
                         "--singles", "8", "--launch-rows", "4",
                         "--replicates", "1", "2", "4", "--t-len", "40",
                         "--out", out])
-    assert svol_filter.launches == before   # the plain version on the CPU
+    assert _cuda.launches("ssme_svol_filter") == before   # plain on the CPU
     recs = _records(out)
     assert [(r["N"], r["R"]) for r in recs] == [
         (n, r) for n in (32, 64) for r in (1, 2, 4)]

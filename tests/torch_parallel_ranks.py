@@ -51,7 +51,7 @@ def _hook_pairs(d):
     """(name, sharded hook, inner hook, params, covariates) of the batched
     hooks the wrapper is held on."""
     lev_zs = t(d["lev_zs"])
-    k2 = dict(constrain=sfk._kernel_rows, ess_threshold=0.5)
+    k2 = dict(constrain=svol.kernel_rows, ess_threshold=0.5)
     return [
         ("generic", replicated_log_like_fn(svol.make_model(), 32, 2),
          t(d["svol_params"]), None),
@@ -76,7 +76,7 @@ def chain_checks(d):
         if name == "filter_megakernel":
             sharded = parallel.sharded_megakernel_log_like(
                 fmk.svol_kernel_model(), 32, 2, mesh,
-                constrain=sfk._kernel_rows, ess_threshold=0.5)
+                constrain=svol.kernel_rows, ess_threshold=0.5)
         else:
             sharded = parallel.shard_batched_log_like(inner, mesh)
         data = lev_ys if zs is not None else ys
