@@ -40,15 +40,16 @@ run.  Phases, one line each:
 4. select   the standalone selection kernel in the systematic families'
             layout (kPer neighbouring slots) at N=512 with 2 and 4 slots a
             thread, at N=32, 96 and 1024, on random, dominant and zero-run
-            weights: ancestors bit for bit those of the kernel's own search
-            and walk (the plain model) on the CDF it returns, the leaves
-            moved by them, and against the plain law;
+            weights: ancestors bit for bit those of the kernel's own
+            counts, marks and scan (the plain model) on the CDF it
+            returns, the leaves moved by them, and against the plain law;
 5. filter   the filter kernel against the plain filter with a gate that
             never fires (identical random bits, no resampling);
 6. filter   full size, both schedules, two parameter points: kernel and
             plain means within 4 combined standard errors; times at B=256
             and at the flagship CLI's B=128; clock64 cycles of a step's
-            parts, and at every N of the systematic kernel's instances the
+            parts, the selections' fix-ups and most marks a thread, and
+            at every N of the systematic kernel's instances the
             barriers a step crossed and the layout it ran (``step_spans``:
             the barriers must be those its source note states);
 7. pmmh     ``AdaptivePMMH`` + ``svol_batched_log_like``, a warm-up window
@@ -170,7 +171,7 @@ run.  Phases, one line each:
             step besides the selections' votes (one per chunk of 32
             sweeps) and tail barriers, the layout, the outputs the plain
             instances' bits; its svol instance against the SVOL kernel
-            (the same CDF, walk, paired draws and offsets) at parity and
+            (the same CDF, selection, paired draws and offsets) at parity and
             ESS 0.5 over SPY, B=128: step 0 equal, step 1 within 2e-3 on
             90% of the rows, the means within 4 combined standard errors;
             the SVOL kernel's roll twins under both resamplers at N=32 to
@@ -695,8 +696,9 @@ def _weights(rng, rows, n, case):
 def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
     """The standalone selection kernel at ``kper`` slots per thread on
     ``case`` weights (rows, n): its ancestors are bit for bit those of the
-    plain model of its search and walk (``systematic_ancestors_walk``) on
-    the CDF it returns, which never falls (row_select.cuh);
+    plain model of its counts, marks and scan
+    (``systematic_ancestors_marks``) on the CDF it returns, which never
+    falls (row_select.cuh);
     the ids leaf is the ancestors and the values leaf moves by them; under
     1% of the slots differ from the plain law (torch.cumsum), each within
     1e-5 of the total of a CDF boundary.  Returns (differing slots, their
@@ -713,9 +715,9 @@ def _systematic_agreement(dev, rng, rows, n, kper, case="random"):
     _, anc_plain = _select.systematic_select_reference(w, leaves, u0)
     anc, anc_plain = anc.long(), anc_plain.long()
     tag = f"N={n} kper={kper} {case}"
-    require(torch.equal(anc, _select.systematic_ancestors_walk(
-        cdf_k, u0, kper)), f"{tag}: ancestors differ from the search and "
-            "walk on the kernel's CDF")
+    require(torch.equal(anc, _select.systematic_ancestors_marks(
+        cdf_k, u0, kper).ancestors), f"{tag}: ancestors differ from the "
+            "counts, marks and scan on the kernel's CDF")
     require(bool((cdf_k[:, 1:] >= cdf_k[:, :-1]).all()),
             f"{tag}: the CDF falls")
     require(torch.equal(picked[0].long(), anc), f"{tag}: ids leaf != ancestors")
@@ -765,8 +767,8 @@ def _select_checks(dev, rng, rows, layouts):
 def phase_select(dev):
     sel = _select_checks(dev, np.random.default_rng(4), B, SELECT_LAYOUTS)
     phase(4, "select", f"B={B}, {len(SELECT_LAYOUTS) * len(SELECT_CASES)} "
-          "cases, ancestors bit for bit the search and walk on the kernel's "
-          "CDF; " + "; ".join(sel) + "; leaves move jointly")
+          "cases, ancestors bit for bit the counts, marks and scan on the "
+          "kernel's CDF; " + "; ".join(sel) + "; leaves move jointly")
 
 
 def phase_filter_sis(dev, ys_all):
@@ -842,7 +844,8 @@ def phase_filter_full(dev, ys):
             f"{s} " + ", ".join(f"{k} {v:.1f}" for k, v in
                                 sp["cycles_per_step"].items())
             + f" ({sp['checks']:.0f} checks, {sp['resamples']:.0f} "
-            "resamples)" for s, sp in spans.items())
+            f"resamples; the selections' fix-ups {sp['fixups']:.0f}, most "
+            f"marks a thread {sp['most_marks']})" for s, sp in spans.items())
         + "; barriers a step (resample, check, other) " + "; ".join(
             f"{s} {sp['barriers_per_step']}" for s, sp in spans.items())
         + "; layout (kPer, threads) " + ", ".join(
@@ -2539,9 +2542,10 @@ def phase_k2_layout(dev, ys_all):
                 f"K2 N={n}: {rec['threads']} threads at kPer {rec['kper']}")
     roll_layout, roll_counted = _k2_roll_twins(dev, ys, zs)
     k1_roll = _k1_roll_twins(dev, ys)
-    # the svol instance against K1: the same bits, CDF, walk and offsets,
-    # but each kernel fuses its own multiply-adds, so a point within an ulp
-    # of a CDF entry now and then picks the neighbour and the row parts
+    # the svol instance against K1: the same bits, CDF, selection and
+    # offsets, but each kernel fuses its own multiply-adds, so a point
+    # within an ulp of a CDF entry now and then picks the neighbour and the
+    # row parts
     # (over SPY every row does, some step): phase 25's rule (step 0 equal,
     # step 1 close on 90% of the rows) and the means within 4 combined SE
     rows = _svol_rows((0.9, 0.98, 0.02), LB).to(dev)

@@ -24,9 +24,10 @@
 // empty).  kPer per N is fixed in kper_for() from the grid measured on
 // the card (PERF.md §6): 2 to N = 512, 4 at 1024 (both families), 8 at
 // 2048 and 16 at 4096 (roll).  The state leaves and the carried
-// log-weights live in registers for all T steps; the CDF (roll: the
-// weights) and one gather buffer per state leaf, padded_size(kPer * 256)
-// floats each (row_select.cuh), in static shared memory (12.7 KB at N =
+// log-weights live in registers for all T steps; the systematic
+// selection's marks (roll: the weights) and one gather buffer per state
+// leaf, padded_size(kPer * 256) words each (row_select.cuh), in static
+// shared memory (12.7 KB at N =
 // 1024 with factor SVOL's two leaves), or in dynamic shared memory where
 // they pass kStaticBytes (row_floats(): every bootstrap and APF instance
 // at kPer 16, 50-67 KB), so a two-leaf gather rides the same barrier as a
@@ -56,7 +57,7 @@
 //    the sums' partial buffers alternating, so no leading barrier):
 //      bootstrap, systematic: 3 in a step that resamples (the row max; the
 //      three sums, with the warps' CDF totals riding the same exchange;
-//      the CDF and gather buffers), 2 at a check that does not, 0 in a
+//      the marks and gather buffers), 2 at a check that does not, 0 in a
 //      step without a check;
 //      bootstrap, roll: 2 at every check (the row max; the three sums,
 //      whose barrier also publishes the weights and the states staged
@@ -64,8 +65,8 @@
 //      selection's votes (one per chunk of 32 sweeps) and, in its tail,
 //      two more; Metropolis adds none;
 //      APF, t > 0: systematic 5 (the first-stage max; one sum that carries
-//      the warps' CDF totals, whose chained total gives LSE(fsw); the CDF
-//      and gather buffers, the lookahead's log-density in one more; the
+//      the warps' CDF totals, whose chained total gives LSE(fsw); the
+//      marks and gather buffers, the lookahead's log-density in one more; the
 //      check's max and its two sums), roll 4 and the votes (the
 //      first-stage sum publishes the staged weights and values), and 2 at
 //      t = 0;
@@ -73,12 +74,13 @@
 //    partial buffers still alternate: each is written again only after
 //    the other's barrier, which every thread crosses after its last read;
 //    the stage's barrier lies between and only adds one.  The shared
-//    weights and gather buffers are written once per check (roll) or
-//    resample, after that check's max barrier, which every thread crosses
-//    after its last read of the previous selection;
-//  - selection without a per-slot search (systematic): each thread
-//    searches for its first slot and gallops forward over the rest on a
-//    padded CDF (row_select.cuh systematic_walk), which never falls; the
+//    weights, marks and gather buffers are written once per check (roll)
+//    or resample, after that check's max barrier, which every thread
+//    crosses after its last read of the previous selection;
+//  - selection without a search (systematic): each particle counts the
+//    points at or below its CDF entry in registers and marks its first
+//    slot, and each thread scans its slots' marks after the stage's
+//    barrier (row_select.cuh systematic_marks, systematic_scan); the
 //    roll resamplers read candidates' weights from the padded buffer
 //    (roll_select.cuh: shift scans by chunks, a vote per chunk, a
 //    sweep-parallel tail), with the row's largest weight exactly 1 (the
@@ -91,8 +93,8 @@
 //    ahead.
 // The warps' CDF totals are computed at every bootstrap check (a lane scan
 // and a redux), because whether the row resamples is known only after the
-// sums' barrier; the raise that keeps the CDF from falling, only when it
-// is staged.
+// sums' barrier; the raise that keeps the CDF from falling, only when the
+// row resamples.
 #pragma once
 
 #include <cstdint>
@@ -107,8 +109,8 @@
 namespace ssme_fmk {
 
 constexpr int kSysThreads = 256;  // threads an instance takes at most
-// static shared memory an instance's CDF and gather buffers may take; above
-// it they move to dynamic shared memory
+// static shared memory an instance's marks (roll: weights) and gather
+// buffers may take; above it they move to dynamic shared memory
 constexpr int kStaticBytes = 40 * 1024;
 
 // particles per thread at each N, from the grids measured on the card
@@ -125,10 +127,10 @@ __host__ __device__ constexpr int min_ctas(int leaves, int kper) {
   return leaves > 1 && kper > 8 ? 1 : 2;
 }
 
-// floats of an instance's row arrays in shared memory: the CDF (roll: the
-// weights) and one gather buffer per moved value, padded_size(kPer * 256)
-// each, then, in the bootstrap under the roll resamplers, each thread's
-// carried log-weights (kPer * 256)
+// words of an instance's row arrays in shared memory: the systematic
+// selection's marks (roll: the weights) and one gather buffer per moved
+// value, padded_size(kPer * 256) each, then, in the bootstrap under the
+// roll resamplers, each thread's carried log-weights (kPer * 256)
 template <int kMoved, int kPer, bool kCarried>
 __host__ __device__ constexpr int row_floats() {
   return (1 + kMoved) * ssme::padded_size(kPer * kSysThreads) +
@@ -144,16 +146,19 @@ __host__ __device__ constexpr int row_floats() {
 // resample, in checks that do not (and APF's t = 0), in steps without a
 // check and in APF steps, and of those the roll selections' votes and tail
 // barriers, the sweeps the roll selections ran (1 + the last accept
-// sweep, 4096 at the cap) and the slots their tails took, and the layout
-// the launch ran (kPer, blockDim).  Under the roll resamplers the twins
-// also write each selection's sweeps to sweeps[b * T + t] and the ratio
-// of its largest weight to its mean, N / sum(w), to ratio[b * T + t], t
-// the step of its draws (0 where none).
+// sweep, 4096 at the cap) and the slots their tails took, the systematic
+// selections' fix-ups (counts whose first guess missed) and the most marks
+// one thread wrote in a selection (row_select.cuh note_selection), and
+// the layout the launch ran (kPer, blockDim).  Under the roll resamplers
+// the twins also write each selection's sweeps to sweeps[b * T + t] and
+// the ratio of its largest weight to its mean, N / sum(w), to
+// ratio[b * T + t], t the step of its draws (0 where none).
 enum SysSpan { kSpanPropagate, kSpanMax, kSpanSums, kSpanStage, kSpanWalk,
                kSpanGather, kSpanChecks, kSpanResamples, kSpanApfSteps,
                kSpanBarResample, kSpanBarCheck, kSpanBarOther, kSpanBarApf,
                kSpanVotes, kSpanTailBars, kSpanSweeps, kSpanTailSlots,
-               kSpanLayoutPer, kSpanLayoutThreads, kNumSysSpans };
+               kSpanFixups, kSpanMostMarks, kSpanLayoutPer,
+               kSpanLayoutThreads, kNumSysSpans };
 
 // the step's selection arguments under the roll resamplers
 struct RollArgs {
@@ -193,12 +198,14 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
   constexpr bool kCarried = kRoll && !kApf;
   constexpr bool kDynamic =
       row_floats<kMoved, kPer, kCarried>() * 4 > kStaticBytes;
-  __shared__ float cdf_static[kDynamic ? 1 : kRow];
+  __shared__ __align__(16) float cdf_static[kDynamic ? 1 : kRow];
   __shared__ float buf_static[kDynamic ? 1 : kMoved * kRow];
   __shared__ float carried_static[kDynamic || !kCarried ? 1
                                                         : kPer * kSysThreads];
   extern __shared__ float dynamic_row[];  // row_floats() floats
+  // roll: the weights; systematic: the selection's marks in its place
   float* const cdf = kDynamic ? dynamic_row : cdf_static;
+  int* const marks = reinterpret_cast<int*>(cdf);
   float* const buf = kDynamic ? dynamic_row + kRow : buf_static;
   float* const carried =
       kDynamic ? dynamic_row + (1 + kMoved) * kRow : carried_static;
@@ -210,8 +217,11 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
   constexpr int kMark = kNumSysSpans, kStepBars = kNumSysSpans + 1;
   __shared__ long long rec[kSpans ? kNumSysSpans + 2 : 1];
   long long* const bars = kSpans ? &rec[kSpans ? kStepBars : 0] : nullptr;
-  // a roll selection's record (roll_select.cuh): sweeps, votes, tail slots
+  // a roll selection's record (roll_select.cuh): sweeps, votes, tail
+  // slots; the systematic selections' (note_selection), each warp's
+  // folded at the row's end through sel_part
   __shared__ int roll_rec[kSpans && kRoll ? 3 : 1];
+  __shared__ int sel_part[kSpans && !kRoll ? 64 : 1];
   // the roll selection's ancestors, each thread's own kPer (slot p of
   // thread i at p * kSysThreads + i), in shared memory so that the states
   // need no registers while the selection runs
@@ -309,6 +319,8 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
   float carry = log_n;
   float lse_fs = 0.0f;        // apf: LSE of the step's first-stage weights
   float row_total = 0.0f;
+  if constexpr (!kRoll) ssme::clear_marks<kPer>(marks);
+  if constexpr (kSpans && !kRoll) ssme::clear_selections(sel_part);
   if constexpr (kSpans) {
     if (i == 0) {
 #pragma unroll
@@ -316,6 +328,24 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
       rec[kMark] = clock64();
     }
   }
+  // a systematic selection of this thread's particles on their CDF
+  // entries base + w[p] (warp_cdf raised), offset u0, total: the marks,
+  // staged beside the moved values v, the barrier that publishes both,
+  // the scan to the ancestors, then the gather
+  auto systematic_resample = [&](const float (&w)[kPer], float base,
+                                 float u0, float cdf_total, auto& v) {
+    int fixups = 0;
+    const int wrote = ssme::systematic_marks<kPer>(w, base, u0, cdf_total,
+                                                   n, active, marks, fixups);
+    if constexpr (kSpans) ssme::note_selection(sel_part, fixups, wrote);
+    ssme::row_stage(v, active, buf, kRow);
+    ssme::row_sync(bars);
+    tick(kSpanStage);
+    int anc[kPer];
+    ssme::systematic_scan<kPer>(marks, active, anc);
+    tick(kSpanWalk);
+    ssme::row_gather(v, anc, buf, kRow);
+  };
 
   for (int t = 0; t < num_steps; ++t) {
     const uint32_t tu = static_cast<uint32_t>(t);
@@ -418,13 +448,7 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
                                 bars);
         lse_fs = m_fs + logf(cdf_total);
         tick(kSpanSums);
-        ssme::row_stage<kPer, kMoved>(w, base, v, active, cdf, buf, kRow);
-        ssme::row_sync(bars);
-        tick(kSpanStage);
-        int anc[kPer];
-        ssme::systematic_walk<kPer>(u0, cdf_total, n, cdf, anc);
-        tick(kSpanWalk);
-        ssme::row_gather<kPer, kMoved>(v, anc, buf, kRow);
+        systematic_resample(w, base, u0, cdf_total, v);
 #pragma unroll
         for (int p = 0; p < kPer; ++p) {
 #pragma unroll
@@ -570,13 +594,7 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
         }
       } else if (resample) {
         ssme::warp_cdf_raise<kPer>(w, active);
-        ssme::row_stage<kPer, kLeaves>(w, base, x, active, cdf, buf, kRow);
-        ssme::row_sync(bars);
-        tick(kSpanStage);
-        int anc[kPer];
-        ssme::systematic_walk<kPer>(u0, cdf_total, n, cdf, anc);
-        tick(kSpanWalk);
-        ssme::row_gather<kPer, kLeaves>(x, anc, buf, kRow);
+        systematic_resample(w, base, u0, cdf_total, x);
 #pragma unroll
         for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
         carry = log_n;
@@ -586,6 +604,8 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
       close_step(resample ? kSpanBarResample : kSpanBarCheck);
     }
   }
+  if constexpr (kSpans && !kRoll)
+    ssme::fold_selections(sel_part, rec[kSpanFixups], rec[kSpanMostMarks]);
   if (i == 0) {
     total[b] = row_total;
     if constexpr (kSpans) {

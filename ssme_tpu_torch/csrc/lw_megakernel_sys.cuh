@@ -26,12 +26,12 @@
 //    instances run kLWPer = 2 at every N, from the grid measured on the
 //    card (PERF.md §6: kPer 4 lost 13-32%).  Each particle keeps its
 //    state, theta[P] and its log-weight in registers for all T steps.
-//    Shared memory holds the CDF and one padded gather buffer per leaf
-//    (row_select.cuh; S + 1 + P leaves, 25 KB at N = 1024 for the
-//    leverage model), the partial buffers of the exchanges and the step's
-//    two selection offsets.  Two layouts (lw_ring.cuh), one row and the
-//    same bits: single, one CTA a filter, which draws its own random
-//    numbers; paired, a cluster of two CTAs a filter (grid 2F), whose
+//    Shared memory holds the selections' marks and one padded gather
+//    buffer per leaf (row_select.cuh; S + 1 + P leaves, 25 KB at N = 1024
+//    for the leverage model), the partial buffers of the exchanges and
+//    the step's two selection offsets.  Two layouts (lw_ring.cuh), one
+//    row and the same bits: single, one CTA a filter, which draws its own
+//    random numbers; paired, a cluster of two CTAs a filter (grid 2F), whose
 //    rank 1 draws each step's P + kDraws normal pairs and both offsets
 //    into a ring of 4 steps in rank 0's dynamic shared memory (20 KB a
 //    step at N = 1024 for the leverage model) while rank 0 runs the row,
@@ -92,14 +92,14 @@
 //      APF's first stage, 3: the max, one exchange that carries only the
 //      warps' CDF totals (A; its chained total, bit for bit the CDF's last
 //      entry, gives LSE(fsw); roll: the sum of the weights, whose barrier
-//      publishes them), and the stage of the CDF with the S + 1 + P
+//      publishes them), and the stage of the marks with the S + 1 + P
 //      leaves (state, the lookahead's log-density, shrunk theta), then the
-//      walk and the gather (roll: the selection, then the gather's
+//      scan and the gather (roll: the selection, then the gather's
 //      barrier);
 //      the weights, 2: the max, and one exchange (B) of s, the functional
 //      sums, s^2 and the warps' CDF totals (roll: the weights published);
-//      a step that resamples stages the CDF with the S + P leaves (state,
-//      theta) and crosses 1 more (roll: the gather's);
+//      a step that resamples stages the marks with the S + P leaves
+//      (state, theta) and crosses 1 more (roll: the gather's);
 //    so 8 in an APF step that resamples, 7 in one that does not, 5 and 4
 //    in SISR, 3 and 2 at t = 0, in both families (one particle per thread,
 //    with two barriers an exchange and two a gathered leaf, took about
@@ -114,9 +114,10 @@
 //    Box-Muller give draw k of both, for the P kernel draws and, through
 //    ssme::for_pair from draw P on, the transition's or sample_q's
 //    (step_rng.cuh): half the calls of one particle per thread;
-//  - systematic selection without a per-slot search: each thread
-//    searches for its first slot and gallops over the rest on a padded
-//    CDF that never falls (row_select.cuh systematic_walk); roll
+//  - systematic selection without a search: each particle counts the
+//    points at or below its CDF entry in registers and marks its first
+//    slot, and each thread scans its slots' marks after the stage's
+//    barrier (row_select.cuh systematic_marks, systematic_scan); roll
 //    selection keyed by slot (roll_select.cuh: shift scans by chunks of
 //    32 sweeps, a vote per chunk, a sweep-parallel tail), the row's
 //    largest weight exactly 1;
@@ -153,16 +154,19 @@ constexpr int kLWPer = 2;
 // barriers crossed at t = 0 in a step that resamples and in one that does
 // not, and at t > 0 likewise (a roll selection's apart), the roll
 // selections' votes and tail barriers, the sweeps they ran (1 + the last
-// accept sweep, 4096 at the cap) and the slots their tails took, and the
-// layout the launch ran (kPer, blockDim, CTAs a filter).
+// accept sweep, 4096 at the cap) and the slots their tails took, the
+// systematic selections' fix-ups (counts whose first guess missed, both
+// selections of a step) and the most marks one thread wrote in a
+// selection (row_select.cuh note_selection), and the layout the launch
+// ran (kPer, blockDim, CTAs a filter).
 enum LWSpan { kLWSpanMoments, kLWSpanCholesky, kLWSpanFirstStage,
               kLWSpanDraws, kLWSpanWeigh, kLWSpanResample, kLWSpanRingWait,
               kLWSpanFirstResamples, kLWSpanResamples,
               kLWSpanBarFirstResample, kLWSpanBarFirstOther,
               kLWSpanBarResample, kLWSpanBarOther, kLWSpanVotes,
               kLWSpanTailBars, kLWSpanSweeps, kLWSpanTailSlots,
-              kLWSpanLayoutPer, kLWSpanLayoutThreads, kLWSpanCluster,
-              kNumLWSpans };
+              kLWSpanFixups, kLWSpanMostMarks, kLWSpanLayoutPer,
+              kLWSpanLayoutThreads, kLWSpanCluster, kNumLWSpans };
 
 // one vector store of a thread's kPer neighbouring values of a cloud row
 template <int kPer>
@@ -232,7 +236,7 @@ __device__ __forceinline__ void lw_sys_row(
   constexpr int kLook = S + 1 + P;  // leaves APF's first stage moves
   constexpr int kJoint = S + P;     // leaves the joint resample moves
   constexpr int kRow = ssme::padded_size(kMaxThreads);
-  __shared__ float cdf[kRow];
+  __shared__ __align__(16) int marks[kMaxThreads];  // the selections'
   __shared__ float buf[kLook * kRow];
   __shared__ float max_part[32];
   // A: the moments' first pass, the first stage's scan; B: the Gram, the
@@ -247,6 +251,9 @@ __device__ __forceinline__ void lw_sys_row(
   constexpr int kMark = kNumLWSpans, kStepBars = kNumLWSpans + 1;
   __shared__ long long rec[kRecord ? kNumLWSpans + 2 : 1];
   long long* const bars = kRecord ? &rec[kRecord ? kStepBars : 0] : nullptr;
+  // the selections' record (note_selection), each warp's folded at the
+  // row's end through sel_part
+  __shared__ int sel_part[kRecord ? 64 : 1];
 
   const uint32_t i = threadIdx.x;
   const int n = num_particles;
@@ -280,6 +287,8 @@ __device__ __forceinline__ void lw_sys_row(
       if (i == 0) rec[k] += 1;
     }
   };
+  ssme::clear_marks<kPer>(marks);
+  if constexpr (kRecord) ssme::clear_selections(sel_part);
   if constexpr (kRecord) {
     if (i == 0) {
 #pragma unroll
@@ -287,6 +296,22 @@ __device__ __forceinline__ void lw_sys_row(
       rec[kMark] = clock64();
     }
   }
+  // a systematic selection of this thread's particles on their CDF
+  // entries base + w[p] (warp_cdf raised), offset u0, total: the marks,
+  // staged beside the moved values g, the barrier that publishes both,
+  // the scan to the ancestors, then the gather
+  auto systematic_resample = [&](const float (&w)[kPer], float base,
+                                 float u0, float total, auto& g) {
+    int fixups = 0;
+    const int wrote = ssme::systematic_marks<kPer>(w, base, u0, total, n,
+                                                   active, marks, fixups);
+    if constexpr (kRecord) ssme::note_selection(sel_part, fixups, wrote);
+    ssme::row_stage(g, active, buf, kRow);
+    ssme::row_sync(bars);
+    int anc[kPer];
+    ssme::systematic_scan<kPer>(marks, active, anc);
+    ssme::row_gather(g, anc, buf, kRow);
+  };
 
   float y[Model::kDimObs], z[kCov];
   float x[kPer][S], th[kPer][P], lw[kPer];
@@ -295,8 +320,8 @@ __device__ __forceinline__ void lw_sys_row(
 
   // The weights' max, then one exchange of s, the functional sums, s^2
   // and the warps' CDF totals; lcl and the functional means of column t
-  // by thread 0; lw = lw_new - max; and, when the row resamples, the stage
-  // of the CDF with (state, theta), the walk and the gather, lw = 0.
+  // by thread 0; lw = lw_new - max; and, when the row resamples, the marks
+  // and the stage of (state, theta), the scan and the gather, lw = 0.
   // lcl_of(lse) gives column t's value from LSE(lw_new).  Returns whether
   // the row resampled.  At t > 0 the max's barrier follows every read of
   // the step's draws, so the paired layout frees its ring slot there.
@@ -349,11 +374,7 @@ __device__ __forceinline__ void lw_sys_row(
 #pragma unroll
       for (int k = 0; k < P; ++k) g[p][S + k] = th[p][k];
     }
-    ssme::row_stage<kPer, kJoint>(w, base, g, active, cdf, buf, kRow);
-    ssme::row_sync(bars);
-    int anc[kPer];
-    ssme::systematic_walk<kPer>(offsets[1], total, n, cdf, anc);
-    ssme::row_gather<kPer, kJoint>(g, anc, buf, kRow);
+    systematic_resample(w, base, offsets[1], total, g);
 #pragma unroll
     for (int p = 0; p < kPer; ++p) {
 #pragma unroll
@@ -506,11 +527,7 @@ __device__ __forceinline__ void lw_sys_row(
       ssme::row_sums_wide<0, true>(nullptr, warp_last, sums_a, base, total,
                                    bars);
       lse_fs = mfs + logf(total);
-      ssme::row_stage<kPer, kLook>(lfs, base, g, active, cdf, buf, kRow);
-      ssme::row_sync(bars);
-      int anc[kPer];
-      ssme::systematic_walk<kPer>(offsets[0], total, n, cdf, anc);
-      ssme::row_gather<kPer, kLook>(g, anc, buf, kRow);
+      systematic_resample(lfs, base, offsets[0], total, g);
 #pragma unroll
       for (int p = 0; p < kPer; ++p) {
 #pragma unroll
@@ -578,6 +595,8 @@ __device__ __forceinline__ void lw_sys_row(
     close_step(fired ? kLWSpanBarResample : kLWSpanBarOther);
   }
 
+  if constexpr (kRecord)
+    ssme::fold_selections(sel_part, rec[kLWSpanFixups], rec[kLWSpanMostMarks]);
   if (kRecord && i == 0) {
     rec[kLWSpanLayoutPer] = kPer;
     rec[kLWSpanLayoutThreads] = blockDim.x;

@@ -38,11 +38,12 @@
 // past N / kPer masked (N = 32 or 96 at kPer 2 leave part of a warp
 // empty).  kPer per N is fixed in kper_for() from the grids measured on
 // the card (PERF.md §6).  x and the carried log-weights live in registers
-// for all T steps; the CDF (roll: the weights) and the gather buffer, N
-// floats each plus a pad word per 32 (row_select.cuh padded), and under
-// the roll resamplers each thread's ancestors (uint16 at a constant
-// stride, slot p of thread i at p * kThreads + i, so their addresses take
-// no registers), in static shared memory (42 KB at N = 4096).  Instances
+// for all T steps; the gather buffer, N floats plus a pad word per 32
+// (row_select.cuh padded), and the systematic selection's marks (N ints)
+// or, under the roll resamplers, the weights (padded as the gather
+// buffer) and each thread's ancestors (uint16 at a constant stride, slot
+// p of thread i at p * kThreads + i, so their addresses take no
+// registers), in static shared memory (42 KB at N = 4096).  Instances
 // (launch_for): systematic kPer 2 and 4 at up to 256 threads, kPer 8 at
 // up to 256 and 512; roll kPer 2, 4 and 8 at up to 256 threads and the
 // N = 4096 layout of kper_for; two CTAs share an SM (B = 256 rows fill
@@ -58,7 +59,7 @@
 //    ops/_prng.py normals_steps at half the calls;
 //  - barriers per step: systematic, 3 in a step that resamples (the row
 //    max; the three sums, with the warps' CDF totals riding the same
-//    exchange; the CDF and gather buffer), 2 at a check that does not
+//    exchange; the marks and gather buffer), 2 at a check that does not
 //    resample, 0 in a step without a check; roll, 2 at every check (the
 //    row max; the three sums, whose barrier also publishes the weights
 //    and states staged before it) and in a step that resamples under
@@ -67,10 +68,11 @@
 //    barrier per exchange, two alternating partial buffers, so no leading
 //    barrier; the instrumented instances count them, ops/
 //    svol_filter_kernel.py step_spans);
-//  - systematic selection without a per-slot search: each thread
-//    searches for its first slot and gallops forward over the rest
-//    (row_select.cuh), on a padded layout, so the lanes' reads kPer
-//    entries apart do not meet in a bank;
+//  - systematic selection without a search (row_select.cuh): each
+//    particle counts the points at or below its CDF entry in registers
+//    and marks its first slot (and each warp's first slot in its range),
+//    and each thread scans its own slots' marks after the barrier that
+//    publishes them; no shared load waits on another;
 //  - roll selection keyed by slot (roll_select.cuh, NeighbourSlots): the
 //    row's largest weight is exactly 1 (w = exp(lw - max)), shift scans
 //    by chunks of 32 sweeps, a vote per chunk, a sweep-parallel tail, the
@@ -97,17 +99,20 @@ constexpr int kMaxParticles = 4096;
 
 // The instrumented instances (kSpans) record, per row, by thread 0 in
 // shared memory (no register held across a step): the clock64 cycles of
-// the step's parts (roll: the selection counts as the walk), the counts
-// of checks and resamples, the barriers crossed in steps that resample,
-// in checks that do not and in the other steps (row_sync; a roll
-// selection's apart), the roll selections' votes and tail barriers, the
-// sweeps they ran (1 + the last accept sweep, 4096 at the cap) and the
-// slots their tails took, and the layout the launch ran (kPer,
-// blockDim).
+// the step's parts (systematic: the counts, marks and the states' stage
+// count as the stage, the scan of the marks as the walk; roll: the
+// selection counts as the walk), the counts of checks and resamples, the
+// barriers crossed in steps that resample, in checks that do not and in
+// the other steps (row_sync; a roll selection's apart), the roll
+// selections' votes and tail barriers, the sweeps they ran (1 + the last
+// accept sweep, 4096 at the cap) and the slots their tails took, the
+// systematic selections' fix-ups (counts whose first guess missed) and
+// the most marks one thread wrote in a selection, and the layout the
+// launch ran (kPer, blockDim).
 enum Span { kPropagate, kMax, kSums, kStage, kWalk, kGather, kChecks,
             kResamples, kBarResample, kBarCheck, kBarOther, kVotes,
-            kTailBars, kSweeps, kTailSlots, kLayoutPer, kLayoutThreads,
-            kNumSpans };
+            kTailBars, kSweeps, kTailSlots, kFixups, kMostMarks,
+            kLayoutPer, kLayoutThreads, kNumSpans };
 
 // Two CTAs an SM, but for the instrumented twin of a 512-thread instance:
 // at two CTAs it would spill, so it gives up the second for registers (its
@@ -125,7 +130,9 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
                        long long* __restrict__ spans) {
   static_assert(kPer % 2 == 0, "a thread holds whole Philox pairs");
   constexpr int kPairs = kPer / 2;
-  __shared__ float cdf[ssme::padded_size(kPer * kThreads)];
+  // roll: the weights; systematic: the selection's marks
+  __shared__ float weights[kRoll ? ssme::padded_size(kPer * kThreads) : 1];
+  __shared__ __align__(16) int marks[kRoll ? 1 : kPer * kThreads];
   __shared__ float buf[ssme::padded_size(kPer * kThreads)];
   __shared__ float max_part[32];
   __shared__ float4 sum_part[32];
@@ -135,8 +142,11 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
   constexpr int kMark = kNumSpans, kStepBars = kNumSpans + 1;
   __shared__ long long rec[kSpans ? kNumSpans + 2 : 1];
   long long* const bars = kSpans ? &rec[kSpans ? kStepBars : 0] : nullptr;
-  // a roll selection's record (roll_select.cuh): sweeps, votes, tail slots
+  // a roll selection's record (roll_select.cuh): sweeps, votes, tail
+  // slots; the systematic selections' (note_selection), each warp's
+  // folded at the row's end through sel_part
   __shared__ int roll_rec[kSpans && kRoll ? 3 : 1];
+  __shared__ int sel_part[kSpans && !kRoll ? 64 : 1];
 
   const uint32_t b = blockIdx.x;
   const uint32_t i = threadIdx.x;
@@ -187,6 +197,8 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
   float carry = log_n;
   float row_total = 0.0f;
   float y = ys[0];
+  if constexpr (!kRoll) ssme::clear_marks<kPer>(marks);
+  if constexpr (kSpans && !kRoll) ssme::clear_selections(sel_part);
   if constexpr (kSpans) {
     if (i == 0) {
 #pragma unroll
@@ -226,8 +238,8 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
     }
     // the step word of a resample that may follow and, under systematic
     // selection, its offset, drawn ahead of the reductions so its Philox
-    // rounds overlap them (at kPer 8 after them: its 64 registers have no
-    // room to hold it)
+    // rounds overlap them (at kPer 8 once the row resamples, before the
+    // counts: its 64 registers have no room to hold it across them)
     const uint32_t t_sel = gate_stride == 1 ? t + 1 : t;
     float u0 = 0.0f;
     if constexpr (!kRoll && kPer < 8) u0 = ssme::offset_at(k0, k1, t_sel, b);
@@ -248,7 +260,7 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
         s[1] += x[p] * wp;
         s[2] += wp * wp;
         if (active) {
-          cdf[staged + p] = wp;
+          weights[staged + p] = wp;
           buf[staged + p] = x[p];
         }
       }
@@ -290,8 +302,8 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
         for (int p = 0; p < kPer; ++p)
           ancestor(p) = static_cast<uint16_t>(kPer * i + p);
         ssme::roll_select<kPer, ssme::NeighbourSlots<kPer>>(
-            resampler, metropolis_iters, active, cdf, 1.0f, n, k0, k1, t_sel,
-            b, ssme::kTagRollSweep,
+            resampler, metropolis_iters, active, weights, 1.0f, n, k0, k1,
+            t_sel, b, ssme::kTagRollSweep,
             [&](int p, int a) { ancestor(p) = static_cast<uint16_t>(a); },
             nullptr, kSpans ? roll_rec : nullptr);
         if constexpr (kSpans) {
@@ -309,12 +321,16 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
             x[p] = buf[ssme::padded(ancestor(p))];
         }
       } else {
-        ssme::row_stage<kPer>(w, base, x, active, cdf, buf);
+        if constexpr (kPer >= 8) u0 = ssme::offset_at(k0, k1, t_sel, b);
+        int fixups = 0;
+        const int wrote = ssme::systematic_marks<kPer>(
+            w, base, u0, cdf_total, n, active, marks, fixups);
+        if constexpr (kSpans) ssme::note_selection(sel_part, fixups, wrote);
+        ssme::row_stage<kPer>(x, active, buf);
         ssme::row_sync(bars);  // barrier 3
         tick(kStage);
-        if constexpr (kPer >= 8) u0 = ssme::offset_at(k0, k1, t_sel, b);
         int anc[kPer];
-        ssme::systematic_walk<kPer>(u0, cdf_total, n, cdf, anc);
+        ssme::systematic_scan<kPer>(marks, active, anc);
         tick(kWalk);
         ssme::row_gather<kPer>(x, anc, buf);
       }
@@ -328,6 +344,8 @@ svol_filter_sys_kernel(const int64_t* __restrict__ seed,
     }
     close_step(resample ? kBarResample : kBarCheck);
   }
+  if constexpr (kSpans && !kRoll)
+    ssme::fold_selections(sel_part, rec[kFixups], rec[kMostMarks]);
   if (i == 0) {
     total[b] = row_total;
     if constexpr (kSpans) {
@@ -406,7 +424,7 @@ int launch_for(const Launch& a) {
 // `stream`.  resampler: 0 systematic (num_particles a multiple of 32 up
 // to 1024, of 128 up to 4096), 1 metropolis with metropolis_iters sweeps,
 // 2 rejection (both on a power of two in [32, 4096]).  spans: null, or
-// int64[num_rows * 17] for the instrumented instance's record (enum
+// int64[num_rows * 19] for the instrumented instance's record (enum
 // Span).  Returns cudaGetLastError() after the launch, or -3 for a shape
 // or resampler it does not take.
 extern "C" int ssme_svol_filter(const int64_t* seed, const float* params,

@@ -5,10 +5,11 @@
 //
 // One CTA per row, kPer = 2, 4 or 8 neighbouring slots per thread, the
 // layout of every filter kernel's systematic family (blockDim = N / kPer
-// rounded up to a warp), their CDF, search-then-walk and padded gather
+// rounded up to a warp), their CDF, counts, marks, scan and padded gather
 // buffer from row_select.cuh.  Every leaf moves by the same ancestors;
-// the CDF the ancestors were found on can be written out.  Bound by
-// barrier latency like the filters' resample step.
+// the CDF the ancestors were found on (each thread's entries, from its
+// registers) can be written out.  Bound by barrier latency like the
+// filters' resample step.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -28,7 +29,7 @@ row_select_kernel(const float* __restrict__ w,
                   int num_rows, int n, float* __restrict__ picked,
                   int32_t* __restrict__ ancestors,
                   float* __restrict__ cdf_out) {
-  __shared__ float cdf[ssme::padded_size(kMaxParticles)];
+  __shared__ __align__(16) int marks[kMaxParticles];
   __shared__ float buf[ssme::padded_size(kMaxParticles)];
   __shared__ float4 sum_part[32];
 
@@ -42,15 +43,19 @@ row_select_kernel(const float* __restrict__ w,
     wv[p] = active ? w[row + j0 + p] : 0.0f;
     x[p] = active ? leaves[row + j0 + p] : 0.0f;
   }
+  ssme::clear_marks<kPer>(marks);
   ssme::warp_cdf<kPer>(wv, active);
   const float warp_last = ssme::warp_cdf_raise<kPer>(wv, active);
   float sum[1] = {0.0f};
   float base = 0.0f, total = 0.0f;
   ssme::row_sums<1, true>(sum, warp_last, sum_part, base, total);
-  ssme::row_stage<kPer>(wv, base, x, active, cdf, buf);
+  int fixups = 0;
+  ssme::systematic_marks<kPer>(wv, base, u0[blockIdx.x], total, n, active,
+                               marks, fixups);
+  ssme::row_stage<kPer>(x, active, buf);
   __syncthreads();
   int anc[kPer];
-  ssme::systematic_walk<kPer>(u0[blockIdx.x], total, n, cdf, anc);
+  ssme::systematic_scan<kPer>(marks, active, anc);
   for (int l = 0; l < num_leaves; ++l) {
     if (l > 0) {
       __syncthreads();  // every read of the previous leaf is done
@@ -71,7 +76,7 @@ row_select_kernel(const float* __restrict__ w,
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
     ancestors[row + j0 + p] = anc[p];
-    if (cdf_out) cdf_out[row + j0 + p] = cdf[ssme::padded(j0 + p)];
+    if (cdf_out) cdf_out[row + j0 + p] = base + wv[p];
   }
 }
 

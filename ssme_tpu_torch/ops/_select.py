@@ -20,9 +20,11 @@ The kernels' block scans add in another order than ``torch.cumsum``, so
 a point within rounding of a CDF boundary can pick the neighbour.  The
 systematic families of the SVOL, generic and Liu-West kernels
 (``csrc/row_select.cuh``) give each thread kPer neighbouring slots: they
-build the CDF as :func:`kernel_cdf` models it, search for the first slot
-and walk forward over the rest (:func:`systematic_ancestors_walk`, its
-plain model, which equals the search on a CDF that never falls).
+build the CDF as :func:`kernel_cdf` models it and select without a
+search: each particle counts the points at or below its entry, marks the
+first of its offspring's slots, and each thread scans its slots' marks
+(:func:`systematic_ancestors_marks`, their plain model, which equals the
+search on a CDF that never falls).
 
 Roll laws (Murray, Lee & Jacob's GPU resamplers, in the TPU's roll form),
 per row of power-of-two N, sweep s drawing a shift word and one uniform
@@ -45,6 +47,8 @@ same.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -173,52 +177,100 @@ def systematic_ancestors(w, u0):
     return torch.clamp(idx, max=w.shape[-1] - 1)
 
 
-def _lower_bound(cdf, lo, hi, u):
-    """Per element, the first a in [lo, hi] with cdf[a] >= u, given
-    cdf[hi] >= u: the kernel's binary search, all rows at once."""
+class MarksSelection(NamedTuple):
+    """What :func:`systematic_ancestors_marks` returns, per row."""
+    ancestors: torch.Tensor   # (B, N) int64
+    fixups: torch.Tensor      # (B,) int64: counts whose first guess missed
+    most_marks: torch.Tensor  # (B,) int64: the most marks one thread wrote
+
+
+def _point_counts(cdf, u0):
+    """c(a) = #{j : u_j <= cdf[a]} (B, N) and the first guesses (B, N),
+    as ``csrc/row_select.cuh`` SystematicPoints computes them in float32:
+    the guess floor(cdf * (N / total) - u0) + 1 within [0, N], each
+    operation rounded apart, then walked one point at a time while the
+    point before it lies above the entry or its own at or below, each
+    point ``min((j + u0) * (total / N), total)``."""
+    n = cdf.shape[1]
+    total = cdf[:, -1:]
+    nf = torch.tensor(float(n), dtype=torch.float32, device=cdf.device)
+    step, inv = total / nf, nf / total
+    u0 = u0.to(torch.float32)[:, None]
+
+    def at(j):
+        return torch.fmin((j.to(torch.float32) + u0) * step, total)
+
+    g = torch.floor(cdf * inv - u0) + 1.0
+    guess = torch.fmin(torch.fmax(g, torch.zeros_like(g)), nf).long()
+    return _walk_counts(cdf, guess, at, n), guess
+
+
+def _walk_counts(cdf, c, at, n):
+    """The guesses ``c`` walked to the exact counts, one point a turn."""
     while True:
-        go = lo < hi
-        if not bool(go.any()):
-            return lo
-        mid = (lo + hi) // 2
-        below = torch.gather(cdf, 1, mid) < u
-        lo = torch.where(go & below, mid + 1, lo)
-        hi = torch.where(go & ~below, mid, hi)
+        down = (c > 0) & ~(at(c - 1) <= cdf)
+        if not bool(down.any()):
+            break
+        c = c - down.long()
+    while True:
+        up = (c < n) & (at(c) <= cdf)
+        if not bool(up.any()):
+            return c
+        c = c + up.long()
 
 
-def systematic_ancestors_walk(cdf, u0, kper):
-    """Ancestors (B, N) int64 as the SVOL kernel finds them
-    (``csrc/row_select.cuh::systematic_walk``) on an inclusive CDF (B, N):
-    thread i takes slots kper * i .. kper * i + kper - 1, searches for the
-    first and walks forward over the rest, galloping (1, 2, 4, ...
-    entries past the last ancestor, then a binary search in the last
-    step).  Points and total are :func:`systematic_ancestors`' (total =
-    cdf[:, -1]); on a CDF that never falls the ancestors equal its."""
+def systematic_ancestors_marks(cdf, u0, kper):
+    """Ancestors (B, N) int64 as the kernels select them
+    (``csrc/row_select.cuh`` systematic_marks, then systematic_scan) on an
+    inclusive CDF (B, N) float32 (:func:`kernel_cdf`'s) with offsets u0
+    (B,), thread i holding slots kper * i .. kper * i + kper - 1:
+
+    1. count: c(a) = #{j : u_j <= cdf[a]} (:func:`_point_counts`), so
+       particle a's offspring are the slots [c(a - 1), c(a)), c(-1) = 0;
+    2. mark: a particle with offspring writes its index at its first slot
+       and at every warp's first slot (32 kper w) inside its range, the
+       larger where two write one slot (0: empty);
+    3. scan: each thread's running max over its marks, then the running
+       max of the nearest lane below it in its warp that holds a mark.
+
+    Points and total are :func:`systematic_ancestors`'; on a CDF that
+    never falls the ancestors equal its.  Also returns, per row, the
+    counts whose first guess missed and the most marks one thread wrote
+    (the twins' ``fixups`` and ``most_marks``)."""
     b, n = cdf.shape
     if kper < 1 or n % kper:
         raise ValueError(f"kper={kper} must divide N={n}")
-    u = _points(cdf, u0).reshape(b, n // kper, kper)
-    last = torch.full((b, n // kper), n - 1, dtype=torch.int64,
-                      device=cdf.device)
-    a = _lower_bound(cdf, torch.zeros_like(last), last, u[..., 0])
-    out = [a]
-    for p in range(1, kper):
-        up = u[..., p]
-        need = torch.gather(cdf, 1, a) < up
-        lo = torch.minimum(a + 1, last)
-        span = torch.ones_like(a)
-        while True:
-            probe = lo + span - 1
-            go = need & (probe < n - 1)
-            go &= torch.gather(cdf, 1, torch.minimum(probe, last)) < up
-            if not bool(go.any()):
-                break
-            lo = torch.where(go, lo + span, lo)
-            span = torch.where(go, span * 2, span)
-        found = _lower_bound(cdf, lo, torch.minimum(lo + span - 1, last), up)
-        a = torch.where(need, found, a)
-        out.append(a)
-    return torch.stack(out, dim=-1).reshape(b, n)
+    cdf = cdf.to(torch.float32)
+    c, guess = _point_counts(cdf, u0)
+    prev = torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], dim=1)
+    ids = torch.arange(n, device=cdf.device).expand(b, n)
+    busy = c > prev
+    marks = torch.zeros((b, n + 1), dtype=torch.int64, device=cdf.device)
+    marks.scatter_reduce_(1, torch.where(busy, prev, n), ids, "amax")
+    wrote = busy.long()
+    warp_slots = 32 * kper
+    warps = -(-n // warp_slots)
+    for s in range(warp_slots, warps * warp_slots, warp_slots):
+        inside = (prev < s) & (s < c)
+        marks[:, s] = torch.maximum(
+            marks[:, s], torch.where(inside, ids, 0).amax(dim=1))
+        wrote += inside.long()
+    most = wrote.reshape(b, n // kper, kper).sum(-1).amax(-1)
+    lanes = warps * 32
+    run = torch.zeros((b, lanes, kper), dtype=torch.int64, device=cdf.device)
+    run[:, :n // kper] = torch.cummax(
+        marks[:, :n].reshape(b, n // kper, kper), dim=-1).values
+    run = run.reshape(b, warps, 32, kper)
+    last = run[..., -1]
+    lane = torch.arange(32, device=cdf.device)
+    held = torch.cummax(torch.where(last > 0, lane, -1), dim=-1).values
+    src = torch.cat([torch.full_like(held[..., :1], -1), held[..., :-1]],
+                    dim=-1)
+    carried = torch.where(src >= 0, torch.gather(last, -1, src.clamp(min=0)),
+                          0)
+    anc = torch.maximum(run, carried[..., None]).reshape(b, lanes * kper)
+    return MarksSelection(anc[:, :n].contiguous(),
+                          (c != guess).long().sum(1), most)
 
 
 def kernel_cdf(w, kper):
@@ -310,9 +362,9 @@ def systematic_select(w, leaves, u0, kper=None, return_cdf=False):
     1024 or of 128 up to 4096; ``leaves``: (L, B, N) float32, moved by the
     same ancestors; ``u0``: (B,) offsets in (0, 1).  ``kper``: the
     neighbouring slots per thread (2, 4 or 8) of the device code a CUDA
-    call runs (``csrc/row_select.cuh``, the CDF, search and walk of every
-    filter kernel's systematic family); None: 2 up to 512 particles, 4 up
-    to 1024, 8 above.
+    call runs (``csrc/row_select.cuh``, the CDF, counts, marks and scan of
+    every filter kernel's systematic family); None: 2 up to 512 particles,
+    4 up to 1024, 8 above.
     Returns (picked (L, B, N), ancestors (B, N) int32) and, with
     ``return_cdf``, the inclusive CDF (B, N) they were found on.  Launches
     the CUDA kernel for CUDA tensors and runs the plain version (whose CDF
@@ -679,7 +731,8 @@ def metropolis_sweeps_for(bias_budget, t_len, ess_threshold=0.5,
 
 
 __all__ = ["systematic_select", "systematic_select_reference",
-           "systematic_ancestors", "systematic_ancestors_walk",
+           "systematic_ancestors", "systematic_ancestors_marks",
+           "MarksSelection",
            "systematic_points", "check_particles", "as_rows",
            "resample_rows",
            "check_resampler", "roll_select", "roll_select_reference",

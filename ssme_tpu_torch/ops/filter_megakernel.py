@@ -365,8 +365,8 @@ SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
 SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "apf_steps",
                             "barriers_resample", "barriers_check",
                             "barriers_other", "barriers_apf", "votes",
-                            "tail_barriers", "sweeps", "tail_slots", "kper",
-                            "threads")
+                            "tail_barriers", "sweeps", "tail_slots",
+                            "fixups", "most_marks", "kper", "threads")
 # the twins' (functor, mode) under each selection family
 SPAN_TWINS = {"systematic": (("svol_leverage", "bootstrap"),
                              ("svol_leverage", "apf")),
@@ -387,7 +387,10 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
     "barriers_per_step": {"resample", "check", "other", "apf": barriers a
     step of that kind crossed, mean over the rows' steps of that kind, or
     None where there was none; under a roll resampler without the
-    selections' votes and tail barriers}, "kper", "threads": the layout the
+    selections' votes and tail barriers}, "fixups": the systematic
+    selections' counts whose first guess missed, summed over the rows,
+    "most_marks": the most marks one thread wrote in a selection, over
+    the rows (0 under a roll resampler), "kper", "threads": the layout the
     launch ran, "outputs": (total, lcl, fmean), the plain instance's bits}
     and, under a roll resampler, "votes", "tail_barriers", "tail_slots":
     their totals over the rows, "sweeps": (B, T) int32, the sweeps each
@@ -442,6 +445,8 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
            "apf_steps": rec["apf_steps"] / b,
            "barriers_per_step": {k: bars[k] / v if v else None
                                  for k, v in steps.items()},
+           "fixups": rec["fixups"],
+           "most_marks": int(spans[:, SPAN_RECORD.index("most_marks")].max()),
            "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
            "outputs": (total, lcl, fmean)}
     if sweeps is not None:

@@ -588,8 +588,8 @@ SPAN_RECORD = SPAN_PARTS + ("first_resamples", "resamples",
                             "barriers_first_resample",
                             "barriers_first_other", "barriers_resample",
                             "barriers_other", "votes", "tail_barriers",
-                            "sweeps", "tail_slots", "kper", "threads",
-                            "cluster")
+                            "sweeps", "tail_slots", "fixups", "most_marks",
+                            "kper", "threads", "cluster")
 
 
 def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
@@ -608,7 +608,11 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
     step of that kind crossed besides a roll selection's, mean over the
     filters' steps of that kind, or None where there was none}, "votes",
     "tail_barriers", "sweeps", "tail_slots": the roll selections' totals
-    over the filters (0 under systematic selection), "kper", "threads",
+    over the filters (0 under systematic selection), "fixups": the
+    systematic selections' counts whose first guess missed (both a step's
+    selections), summed over the filters, "most_marks": the most marks one
+    thread wrote in a selection, over the filters (0 under a roll
+    resampler), "kper", "threads",
     "cluster": the layout the launch ran (CTAs a filter: 2 paired, 1
     single), "outputs": the result dict, the plain instance's bits}."""
     kmodel = svol_leverage_lw_kernel_model() if kmodel is None else kmodel
@@ -637,7 +641,8 @@ def step_spans(seed, ys, zs, num_filters=8, num_particles=512, delta=0.99,
             "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
                                   for k, v in steps.items()},
             **{k: rec[k] for k in ("votes", "tail_barriers", "sweeps",
-                                   "tail_slots")},
+                                   "tail_slots", "fixups")},
+            "most_marks": int(spans[:, SPAN_RECORD.index("most_marks")].max()),
             "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
             "cluster": int(layout[0, 2]), "outputs": out}
 

@@ -202,8 +202,8 @@ ROLL_BARRIERS_PER_STEP = {"resample": 2, "check": 2, "other": 0}
 SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
 SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "barriers_resample",
                             "barriers_check", "barriers_other", "votes",
-                            "tail_barriers", "sweeps", "tail_slots", "kper",
-                            "threads")
+                            "tail_barriers", "sweeps", "tail_slots",
+                            "fixups", "most_marks", "kper", "threads")
 
 
 def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
@@ -218,7 +218,10 @@ def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
     selection's votes and tail barriers, mean over the rows' steps of that
     kind, or None where there was none}, "votes", "tail_barriers",
     "sweeps", "tail_slots": the roll selections' totals over the rows (0
-    under systematic selection), "kper", "threads": the layout the launch
+    under systematic selection), "fixups": the systematic selections'
+    counts whose first guess missed, summed over the rows, "most_marks":
+    the most marks one thread wrote in a selection, over the rows (0
+    under the roll resamplers), "kper", "threads": the layout the launch
     ran, "outputs": (total, lcl, xmean), the plain instance's bits}."""
     seed, ys = _validate(seed, params, ys, num_particles, ess_threshold,
                          gate_stride, resampler, metropolis_iters)
@@ -241,7 +244,8 @@ def step_spans(seed, params, ys, num_particles=512, ess_threshold=1.0,
             "barriers_per_step": {k: rec[f"barriers_{k}"] / v if v else None
                                   for k, v in steps.items()},
             **{k: rec[k] for k in ("votes", "tail_barriers", "sweeps",
-                                   "tail_slots")},
+                                   "tail_slots", "fixups")},
+            "most_marks": int(spans[:, SPAN_RECORD.index("most_marks")].max()),
             "kper": int(layout[0, 0]), "threads": int(layout[0, 1]),
             "outputs": out}
 

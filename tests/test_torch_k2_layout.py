@@ -1,6 +1,6 @@
 """Plain models of the generic filter kernel's systematic family for Hopper
 (``ssme_tpu_torch/csrc/filter_megakernel_sys.cuh`` on ``csrc/row_select.cuh``):
-paired draws for a functor of any number of draws, the walk and the
+paired draws for a functor of any number of draws, the selection and the
 gather of a multi-leaf state through one padded buffer per leaf, and the
 APF first stage's LSE from the CDF's total; and the plain K2 under
 systematic selection against the JAX package's filters.
@@ -27,7 +27,7 @@ from ssme_tpu_torch.models import factor_svol
 from ssme_tpu_torch.ops import _prng
 from ssme_tpu_torch.ops import filter_megakernel as fm
 from ssme_tpu_torch.ops._select import (kernel_cdf, systematic_ancestors,
-                                        systematic_ancestors_walk)
+                                        systematic_ancestors_marks)
 
 torch.set_num_threads(1)
 KPERS = (2, 4)
@@ -121,10 +121,11 @@ def _padded(j):
 
 
 def _walk_and_gather(w, leaves, u0, kper):
-    """The kernel's resample of a multi-leaf state: the CDF and every
-    leaf staged in padded shared arrays (leaf l at l * stride), the walk
-    on the CDF, and each leaf gathered by the same ancestors.  Returns
-    (moved leaves (L, B, N), ancestors (B, N), the CDF)."""
+    """The kernel's resample of a multi-leaf state: every leaf staged in
+    padded shared arrays (leaf l at l * stride) beside the selection's
+    marks, the count-and-mark selection on the CDF, and each leaf gathered
+    by the same ancestors.  Returns (moved leaves (L, B, N), ancestors
+    (B, N), the CDF)."""
     num_leaves, b, n = leaves.shape
     cdf, total = kernel_cdf(w, kper)
     assert torch.equal(cdf[:, -1], total)
@@ -133,7 +134,7 @@ def _walk_and_gather(w, leaves, u0, kper):
     at = _padded(torch.arange(n))
     for leaf in range(num_leaves):
         buf[:, leaf * stride + at] = leaves[leaf]
-    anc = systematic_ancestors_walk(cdf, u0, kper)
+    anc = systematic_ancestors_marks(cdf, u0, kper).ancestors
     moved = torch.stack([torch.gather(buf, 1, leaf * stride + _padded(anc))
                          for leaf in range(num_leaves)])
     return moved, anc, cdf

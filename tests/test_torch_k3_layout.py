@@ -2,7 +2,7 @@
 (``ssme_tpu_torch/csrc/lw_megakernel_sys.cuh`` on ``csrc/row_select.cuh``):
 paired draws for the P kernel draws and every functor's transition,
 init and ``sample_q`` draws, the wide row sums (the moments' exchanges)
-and the Cholesky every thread takes from them, the walk and gather of the
+and the Cholesky every thread takes from them, the selection and gather of the
 (2S + P)-leaf APF stage and the (S + P)-leaf joint resample through one
 padded buffer per leaf, and the APF first stage's LSE from the scan total.
 
@@ -17,7 +17,7 @@ import torch
 
 from ssme_tpu_torch.ops import _prng
 from ssme_tpu_torch.ops import liu_west_megakernel as lwm
-from ssme_tpu_torch.ops._select import kernel_cdf, systematic_ancestors_walk
+from ssme_tpu_torch.ops._select import kernel_cdf, systematic_ancestors_marks
 
 torch.set_num_threads(1)
 # the kPer the kernel's template takes; its instances run 2 at every N
@@ -275,9 +275,9 @@ def test_leaf_walk_and_gather_move_every_leaf_by_one_ancestry(what, n, kper):
     """The APF stage's 2S + P leaves (state, lookahead, shrunk theta: 6 for
     the leverage model) and the joint resample's S + P (state, theta: 5),
     each staged in its own padded shared array (leaf l at l * stride),
-    the walk on the CDF, and every leaf gathered by the same ancestors,
-    which are the binary search's on the kernel's CDF (which never
-    falls)."""
+    the count-and-mark selection on the CDF, and every leaf gathered by
+    the same ancestors, which are the binary search's on the kernel's CDF
+    (which never falls)."""
     rng = np.random.default_rng(n + 7 * kper + (what == "apf_stage"))
     rows, num_leaves = 8, 6 if what == "apf_stage" else 5
     u0 = torch.from_numpy(rng.uniform(0.0, 1.0, rows).astype(np.float32))
@@ -295,7 +295,7 @@ def test_leaf_walk_and_gather_move_every_leaf_by_one_ancestry(what, n, kper):
     at = _padded(torch.arange(n))
     for leaf in range(num_leaves):
         buf[:, leaf * stride + at] = leaves[leaf]
-    anc = systematic_ancestors_walk(cdf, u0, kper)
+    anc = systematic_ancestors_marks(cdf, u0, kper).ancestors
     moved = torch.stack([torch.gather(buf, 1, leaf * stride + _padded(anc))
                          for leaf in range(num_leaves)])
     u = torch.minimum((torch.arange(n)[None] + u0[:, None])

@@ -64,7 +64,7 @@ def test_philox_fill_matches_plain_bitwise(dev):
 def test_systematic_select_matches_plain_away_from_boundaries(dev, n, kper):
     """The standalone selection in each layout (kPer neighbouring slots,
     the systematic families'): ancestors bit for bit those of the plain
-    model of its search and walk on the CDF it returns (which never
+    model of its counts, marks and scan on the CDF it returns (which never
     falls), the leaves moved by them, and the plain law's but where a
     point lies within rounding of a CDF boundary (another scan order)."""
     rng = np.random.default_rng(n + kper)
@@ -79,8 +79,8 @@ def test_systematic_select_matches_plain_away_from_boundaries(dev, n, kper):
     picked, anc, cdf = _select.systematic_select(w, leaves, u0, kper=kper,
                                                  return_cdf=True)
     _, anc_p = _select.systematic_select_reference(w, leaves, u0)
-    assert torch.equal(anc.long(),
-                       _select.systematic_ancestors_walk(cdf, u0, kper))
+    assert torch.equal(anc.long(), _select.systematic_ancestors_marks(
+        cdf, u0, kper).ancestors)
     assert bool((cdf[:, 1:] >= cdf[:, :-1]).all())
     assert bool((anc[1::4] == 7).all())
     torch.testing.assert_close(cdf, torch.cumsum(w, -1), rtol=1e-5,
@@ -980,6 +980,44 @@ def test_k3_twins_report_the_ring_wait_and_cluster(dev, n):
     for key in ("log_cond_likes", "cloud"):
         assert torch.equal(paired["outputs"][key],
                            single["outputs"][key][:8]), key
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024, 2048, 4096])
+def test_systematic_twins_record_fixups_and_most_marks(dev, n):
+    """Every systematic twin records its selections' fix-ups (counts whose
+    first guess missed) and the most marks one thread wrote: K1 at each
+    layout, and to N = 1024 K2's (svol_leverage, bootstrap and APF) and
+    K3's (svol_leverage_lw, paired at F=8 and single at F=128), on SPY-like
+    data and with every observation far in the tail (y = 1e4, no
+    leverage).  A thread writes at most kPer + N / (32 kPer) - 1 marks.
+    In K1's tail rows every step's weight sits on one particle, whose
+    thread writes one mark a warp: at most 1 + N / (32 kPer).  (K2's and
+    K3's tail rows may tie a few particles at the state's clamp.)"""
+    ys = _ys(48, 41).to(dev)
+    tail = torch.full((48,), 1e4, device=dev)
+
+    def check(rec):
+        warps = -(-n // (32 * rec["kper"]))
+        assert rec["fixups"] >= 0
+        assert 1 <= rec["most_marks"] <= rec["kper"] + warps - 1, rec
+        return warps
+
+    params = torch.tensor([[1.0, 0.9, math.sqrt(0.05)]] * 16, device=dev)
+    check(sfk.step_spans(6, params, ys, n, 1.0, 1))
+    rec = sfk.step_spans(6, params, tail, n, 1.0, 1)
+    assert rec["most_marks"] == check(rec)
+    assert rec["most_marks"] <= 1 + n / (32 * rec["kper"])
+    if n > 1024:
+        return
+    _, lev, zs = _instance("svol_leverage", dev, ys)
+    lev = lev[:16].contiguous()
+    for data, z in ((ys, zs), (tail, torch.zeros_like(zs))):
+        for mode in ("bootstrap", "apf"):
+            check(fm.step_spans(6, lev, data, z, n, mode=mode))
+    km, zk = _k3_functor("svol_leverage_lw", ys)
+    for f in (8, 128):
+        for data, z in ((ys, zk), (tail, torch.zeros_like(zk))):
+            check(lwm.step_spans(6, data, z, f, n, kmodel=km))
 
 
 # the roll families' kPer at each N (svol_filter_sys.cu kper_for,
