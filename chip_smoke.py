@@ -373,7 +373,11 @@ K2_ROLL_RECORD_N = (32, 512, 1024) + ROLL_N
 # twin in each layout; phase 31 reads the twins at K2_RECORD_N; of its
 # roll family (csrc/lw_megakernel_sys_roll{2,4,8}.cu) the 3 functors and
 # their twins at each kPer
-K3_SYS_INSTANCES = 2 * 3 * 2
+K3_SYS_INSTANCES = 2 * 4 * 2
+# of them in the paired layout: the 3 functors whose row keeps theta in
+# registers (the ring's floor of dynamic shared memory) and
+# factor_svol_5_lw's wide row (its cloud and a one-step ring, phase 37)
+K3_PAIRED_INSTANCES = 2 * 4
 # the shared memory an H100 block may take (sharedMemPerBlockOptin), static
 # and dynamic together
 K3_BLOCK_SMEM = 232448
@@ -645,14 +649,31 @@ def phase_build():
     floor = _k3_pair_floor()
     smem = {k: v for k, v in _ptxas_smem(
         ptxas, lambda n: _k3_key(n, False)).items() if "/paired" in k}
-    require(len(smem) == K3_SYS_INSTANCES // 2 and all(
-        v + floor <= K3_BLOCK_SMEM for v in smem.values()),
-        f"paired K3 instances' static shared memory {smem} + {floor} "
-        f"bytes of ring exceed {K3_BLOCK_SMEM} or are missing")
+    factor = lwm.factor_svol_lw_kernel_model()
+    wide_bytes = {False: lwm.wide_row_bytes(factor, 1024),
+                  True: lwm.wide_row_bytes(factor, 1024, paired=True)}
+
+    def dynamic(k):
+        if "FactorSvolLW" in k:
+            return wide_bytes["/paired" in k]
+        return floor if "/paired" in k else 0
+
+    smem = _ptxas_smem(ptxas, lambda n: _k3_key(n, False))
+    paired = [k for k in smem if "/paired" in k]
+    wide = {k: v for k, v in smem.items() if "FactorSvolLW" in k}
+    require(len(paired) == K3_PAIRED_INSTANCES and len(wide) == 4 and all(
+        v + dynamic(k) <= K3_BLOCK_SMEM for k, v in smem.items()),
+        f"K3's static shared memory {smem} and its dynamic bytes (the ring's "
+        f"floor {floor}, the wide row's {wide_bytes} at N=1024) exceed "
+        f"{K3_BLOCK_SMEM} or instances are missing")
     phase(2, "build", f"{time.perf_counter() - t0:.3f} s (nvcc "
           f"{info.get('seconds', 0.0):.3f} s); static shared memory of the "
           f"paired K3 instances (+ {floor} dynamic, at most {K3_BLOCK_SMEM}):"
-          " " + ", ".join(f"{k} {v}" for k, v in smem.items())
+          " " + ", ".join(f"{k} {v}" for k, v in smem.items()
+                          if "/paired" in k and k not in wide)
+          + f"; of the wide ones (+ {wide_bytes[False]} dynamic at N=1024, "
+          f"{wide_bytes[True]} paired): "
+          + ", ".join(f"{k} {v}" for k, v in wide.items())
           + "; (registers, spill stores, spill loads) of " + "; ".join(
               f"the {kernel}: " + ", ".join(f"{k} {v}" for k, v in
                                             inst.items())
@@ -1273,10 +1294,11 @@ def phase_lw_full(dev, ys_all, ident):
         km, z = inst[name]
         kw = dict(dict(num_filters=LW_F, num_particles=LW_N), **kw)
         f = kw["num_filters"]
-        before = {k: _cuda.launches(K3, k) for k in lwm.LAYOUTS}
+        keys = {k: lwm.launch_key(km.cuda_instance, k) for k in lwm.LAYOUTS}
+        before = {k: _cuda.launches(K3, keys[k]) for k in lwm.LAYOUTS}
         out = lwm.lw_megakernel(km, 11, ys, z, **kw)
         layouts[run] = next(k for k in lwm.LAYOUTS
-                            if _cuda.launches(K3, k) > before[k])
+                            if _cuda.launches(K3, keys[k]) > before[k])
         want = lwm.layout_for(f, lwm._max_clusters(lwm._model_id(km), LW_N))
         require(layouts[run] == want, f"{run}: F={f} ran the "
                 f"{layouts[run]} layout, the rule gives {want}")
@@ -2607,6 +2629,111 @@ K3_RECORD_RUNS = {
 }
 
 
+# phase 37: factor_svol_5_lw, K3's wide row, over the 5-column panel of
+# benchmark/data: the kernel against its plain version at F=16 T=64 (both
+# N) and at the benchmark cell's F=64 N=1024 over the whole panel, then
+# there the twin and the launch in both layouts (single at F=128, more
+# clusters than the card holds: one CTA a filter, one wave)
+FACTOR_LW_CHECK = (16, 64)
+FACTOR_LW_F, FACTOR_LW_N = 64, 1024
+
+
+def _factor_vs_plain(km, seed, ys, f, n, out=None):
+    """The factor kernel's outputs (``out``, else launched here) against
+    its plain version on the same seed: finite totals, phase 25's
+    step-one rule (step 0 within float32 rounding, step 1 within 2e-3 in
+    90% of the filters) and the mean totals within 4 SE; the means, 4 SE
+    and the plain version's ms."""
+    what = f"factor F={f} N={n} T={ys.shape[0]}"
+    if out is None:
+        out = lwm.lw_megakernel(km, seed, ys, None, f, n)
+    ref, plain_ms = event_ms(
+        lambda: lwm.lw_megakernel_reference(km, seed, ys, None, f, n))
+    tot, tot_p = out["log_likelihood"], ref["log_likelihood"]
+    require(bool(torch.isfinite(tot).all())
+            and bool(torch.isfinite(tot_p).all()), f"{what}: NaN totals")
+    lcl, lcl_p = out["log_cond_likes"], ref["log_cond_likes"]
+    require(bool(torch.allclose(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4))
+            and float(((lcl[:, 1] - lcl_p[:, 1]).abs() <= 2e-3).float()
+                      .mean()) >= 0.9, f"{what}: step-one rule")
+    se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
+    d = abs(float(tot.mean()) - float(tot_p.mean()))
+    require(d <= 4 * se, f"{what}: means differ by {d:.3f} > 4 SE "
+            f"{4 * se:.3f}")
+    return {"kernel_mean": float(tot.mean()),
+            "plain_mean": float(tot_p.mean()), "four_se": 4 * se,
+            "plain_ms": plain_ms}
+
+
+def phase_k3_factor(dev, ident, k3_ptxas):
+    """K3's factor_svol_5_lw instance (21 parameters a particle, the wide
+    row): its ptxas figures (phase 2 holds them at 0 spills), the kernel
+    within 4 SE of its plain version and by phase 25's step-one rule at
+    F=16 T=64 (APF, N=512 and 1024) and at the benchmark cell's F=64
+    N=1024 over all 3084 x 5 steps; there the twin's parts, barriers and
+    layout (its outputs the plain instance's bits) and the launch's ms in
+    the layout the rule takes and, at F=128, in the single one (each
+    counted under factor_svol_5_lw.<layout>)."""
+    path = os.path.join(ROOT, "benchmark", "data", "factor_svol_5_returns.csv")
+    panel = torch.as_tensor(np.loadtxt(path, delimiter=",", ndmin=2),
+                            dtype=torch.float32, device=dev).contiguous()
+    km = lwm.factor_svol_lw_kernel_model()
+    f_check, t_check = FACTOR_LW_CHECK
+    f, n = FACTOR_LW_F, FACTOR_LW_N
+    checks = {f"N{m}/T{t_check}": _factor_vs_plain(km, 31, panel[:t_check],
+                                                  f_check, m)
+              for m in (512, 1024)}
+    clusters = lwm._max_clusters(lwm._model_id(km), n)
+    layouts = {f: lwm.layout_for(f, clusters),
+               2 * f: lwm.layout_for(2 * f, clusters)}
+    require(layouts[2 * f] == "single", f"factor: F={2 * f} ran paired")
+    keys = {g: lwm.launch_key("factor_svol_5_lw", k)
+            for g, k in layouts.items()}
+    before = {g: _cuda.launches(K3, k) for g, k in keys.items()}
+    # the whole panel: the launch in the rule's layout, timed, then its
+    # plain version
+    out, ms_rule = event_ms(lambda: lwm.lw_megakernel(km, 34, panel, None,
+                                                      f, n))
+    checks[f"N{n}/T{panel.shape[0]}"] = _factor_vs_plain(km, 34, panel, f, n,
+                                                         out)
+    ms = {f: ms_rule,
+          2 * f: cuda_ms(lambda: lwm.lw_megakernel(km, 35, panel, None,
+                                                   2 * f, n), 1)}
+    require(_cuda.launches(K3, keys[f]) == before[f] + 1
+            and _cuda.launches(K3, keys[2 * f]) == before[2 * f] + 2,
+            f"factor launches not counted under {keys}")
+    rec = lwm.step_spans(32, panel, None, f, n, kmodel=km)
+    plain = lwm.lw_megakernel(km, 32, panel, None, f, n)
+    require(all(torch.equal(plain[k], rec["outputs"][k])
+                for k in ("log_cond_likes", "cloud")),
+            "factor twin: outputs are not the plain instance's bits")
+    want = lwm.barriers_per_step(km, "apf")
+    got = {k: v for k, v in rec["barriers_per_step"].items() if v is not None}
+    require(got == {k: want[k] for k in got}
+            and rec["cluster"] == (2 if layouts[f] == "paired" else 1)
+            and rec["kper"] == 2 and rec["threads"] == n // 2,
+            f"factor twin: barriers {got}, layout ({rec['kper']}, "
+            f"{rec['threads']}, {rec['cluster']})")
+    ptx = {k: v for k, v in k3_ptxas.items() if "FactorSvolLW" in k}
+    cycles = rec["cycles_per_step"]
+    phase(37, "k3-factor", "factor_svol_5_lw within 4 SE of plain and by "
+          "the step-one rule: " + "; ".join(
+              f"F={f_check if k.endswith(f'T{t_check}') else f} {k} kernel "
+              f"{v['kernel_mean']:.3f} plain {v['plain_mean']:.3f} (4 SE "
+              f"{v['four_se']:.3f}, plain {v['plain_ms']:.0f} ms)"
+              for k, v in checks.items())
+          + f" | N={n} T={panel.shape[0]} x 5 APF: ms a launch " + ", ".join(
+              f"{keys[g]} F={g} {v:.3f}" for g, v in ms.items())
+          + "; twin cycles a step " + ", ".join(
+              f"{p} {c:.0f}" for p, c in cycles.items())
+          + f" (sum {sum(cycles.values()):.0f}); barriers {got}; ptxas "
+          "(registers, spill stores, spill loads) " + ", ".join(
+              f"{k} {v}" for k, v in ptx.items()) + f" ({ident})")
+    return {"ms": {keys[g]: v for g, v in ms.items()},
+            "layout": layouts[f], "check": checks, "clock64_spans": cycles,
+            "barriers_per_step": got, "ptxas": ptx}
+
+
 def phase_k3_layout(dev, ys_all):
     """The Liu-West kernel's systematic twins, every functor at every
     layout, in both of the family's layouts (K3_RECORD_LAYOUTS): barriers
@@ -3103,6 +3230,7 @@ def main():
     par = phase_parallel(dev, ys, ident)
     par_launches = par["launches"]
     gate_launches, oracle_rec = phase_oracle(ys, ident)
+    k3_factor = phase_k3_factor(dev, ident, k3_ptxas)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -3216,6 +3344,7 @@ def main():
         "per_resampler": roll["K3"],
         "per_kper": k3_large,
         "svol_leverage_lw_q": lw_q,
+        "factor_svol_5_lw": k3_factor,
         "layout": k3_layout,
         "barriers_per_step": k3_barriers,
         "clock64_spans": k3_spans,

@@ -74,6 +74,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -403,6 +405,36 @@ def _bits(torch, ys, dev):
             (k2_sys if r == "systematic" else k2_roll)[key] = digest(
                 *fmk.filter_megakernel(km, 3, p, ys, z, num_particles=512,
                                        mode=mode, resampler=r)[:2])
+    # the other K2 instances, systematic: svol_t, Poisson AR and factor
+    # SVOL at each count compiled (its first n columns and parameters of
+    # the benchmark's 5-asset generating point)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        fmk.__file__))))
+    with open(os.path.join(root, "data", "k2_families_jax.json")) as f:
+        ref = json.load(f)
+    svt = fmk.svol_t_param_rows(torch.tensor(
+        [(0.868, 0.975, 0.064, 10.0)] * 64)).to(dev)
+    counts = fmk.poisson_obs_rows(torch.tensor(
+        ref["poisson_ar_counts"])).to(dev).contiguous()
+    prows = torch.tensor([(0.9, 1.0, 0.3)] * 64, device=dev)
+    k2_sys["K2/svol_t/bootstrap/systematic"] = digest(*fmk.filter_megakernel(
+        fmk.svol_t_kernel_model(), 3, svt, ys, num_particles=512)[:2])
+    k2_sys["K2/poisson_ar/apf/systematic"] = digest(*fmk.filter_megakernel(
+        fmk.poisson_ar_kernel_model(), 3, prows, counts, num_particles=512,
+        mode="apf")[:2])
+    panel = torch.as_tensor(np.loadtxt(os.path.join(
+        root, "benchmark", "data", "factor_svol_5_returns.csv"),
+        delimiter=",", ndmin=2)[:512], dtype=torch.float32, device=dev)
+    ell = [(0.9, 0.0), (0.8, 0.3), (0.7, 0.5), (0.6, -0.4), (0.5, 0.6)]
+    d = [0.30, 0.25, 0.35, 0.40, 0.30]
+    for na in fmk.FACTOR_ASSET_COUNTS:
+        row = ([0.98, 0.95, -0.5, -1.5, 0.15, 0.25]
+               + [v for pair in ell[:na] for v in pair] + d[:na])
+        frows = torch.tensor([row] * 64, device=dev)
+        k2_sys[f"K2/factor_svol_{na}/bootstrap/systematic"] = digest(
+            *fmk.filter_megakernel(fmk.factor_svol_kernel_model(na), 3, frows,
+                                   panel[:, :na].contiguous(),
+                                   num_particles=1024)[:2])
     km = lwm.svol_leverage_lw_kernel_model()
     for variant in ("apf", "sisr"):
         o = lwm.lw_megakernel(km, 3, ys, zs[:, 0].contiguous(),
@@ -410,6 +442,29 @@ def _bits(torch, ys, dev):
                               variant=variant)
         k3_sys[f"K3/{variant}/systematic"] = digest(o["log_cond_likes"],
                                                     o["cloud"])
+    # K3's three register-row instances in both layouts: paired at F=16,
+    # one CTA a filter at F=128 (more clusters than the card holds)
+    for name, kmodel, z in (
+            ("svol_leverage_lw", km, zs[:, 0].contiguous()),
+            ("svol_t_lw", lwm.svol_t_lw_kernel_model(), None),
+            ("svol_leverage_lw_q", lwm.svol_leverage_lw_q_kernel_model(1.5),
+             zs[:, 0].contiguous())):
+        for variant in ("apf", "sisr"):
+            for f in (16, 128):
+                o = lwm.lw_megakernel(kmodel, 3, ys, z, num_filters=f,
+                                      num_particles=512, variant=variant)
+                k3_sys[f"K3/{name}/{variant}/F{f}"] = digest(
+                    o["log_cond_likes"], o["cloud"],
+                    *o.get("functional_paths", ()))
+    # the wide row (factor_svol_5_lw) in both layouts at N=1024 over the
+    # panel's first 128 steps
+    fkm = lwm.factor_svol_lw_kernel_model()
+    for variant in ("apf", "sisr"):
+        for f in (16, 128):
+            o = lwm.lw_megakernel(fkm, 3, panel[:128], None, num_filters=f,
+                                  num_particles=1024, variant=variant)
+            k3_sys[f"K3/factor_svol_5_lw/{variant}/F{f}"] = digest(
+                o["log_cond_likes"], o["cloud"], *o["functional_paths"])
     for r in ("metropolis", "rejection"):
         for n in (512, 2048):
             for variant in ("apf", "sisr"):

@@ -224,44 +224,34 @@ struct PoissonArModel {
   __device__ float functional(const float* x) const { return x[0]; }
 };
 
-// Factor SVOL with kAssets assets and two factors, a two-leaf state;
-// row [phi (2), mu (2), sigma (2), vec(L) (2 kAssets, row-major),
-// d (kAssets)]:
-//   x'_j = mu_j + phi_j (x_j - mu_j) + sigma_j eps_j,
-//   y ~ N(0, L diag(e^x) L' + diag(d)).
-// The explicit 2 x 2 Woodbury of the JAX instance: per row A = L' D^-1 L
-// and sum log d (registers, from the row), per step v = L' D^-1 y and
-// y' D^-1 y from the row's l1/d, l2/d and 1/d (shared memory: 3 kAssets
-// floats would not fit in registers beside the rest), then a handful of
-// operations per particle.  No lookahead, as in JAX.
+// The factor SVOL observation density y ~ N(0, L diag(e^x) L' + diag(d))
+// by the explicit 2 x 2 Woodbury of the JAX instance, on a parameter row
+// [phi (2), mu (2), sigma (2), vec(L) (2 kAssets, row-major), d
+// (kAssets)], in the float operations of the plain hook
+// (ops/filter_megakernel.py _factor_log_density).  Shared by K2's
+// FactorSvolModel, which takes the pieces once a filter row, and K3's
+// FactorSvolLW (lw_models.cuh), whose parameters are a particle's and
+// move every step, so it takes them at every call:
+//  - piece(p, j): [l1 / d (kAssets), l2 / d (kAssets), 1 / d (kAssets)]
+//    entry j, the observation's weights in v = L' D^-1 y and y' D^-1 y;
+//  - matrix(p, ...): A = L' D^-1 L and sum log d;
+//  - log_density(...): a step's v and y' D^-1 y from the pieces, then
+//    det and inverse of M = diag(e^-x) + A, a handful of operations.
 template <int kAssets>
-struct FactorSvolModel {
-  static constexpr int kNumParams = 6 + 3 * kAssets;
-  static constexpr int kNumState = 2;
-  static constexpr int kDimObs = kAssets;
-  static constexpr int kDimCov = 0;
-  static constexpr int kRowShared = 3 * kAssets;
-  static constexpr bool kHasPropMu = false;
-  static constexpr int kDraws = 2;
+struct FactorWoodbury {
   static constexpr float kConst =
       static_cast<float>(-kAssets * 0.9189385332046727);
   static constexpr int kD = 6 + 2 * kAssets;  // the first d column
 
-  // [l1 / d (kAssets), l2 / d (kAssets), 1 / d (kAssets)]
-  __device__ static float row_shared(const float* p, int j) {
+  __device__ static float piece(const float* p, int j) {
     const int i = j % kAssets;
     const float dinv = 1.0f / p[kD + i];
     return j < kAssets ? p[6 + 2 * i] * dinv
                        : (j < 2 * kAssets ? p[7 + 2 * i] * dinv : dinv);
   }
-
-  float phi[2], mu[2], sigma[2];
-  float a11, a12, a22, sum_log_d;
-  const float* s;
-
-  __device__ FactorSvolModel(const float* p, const float* shared)
-      : phi{p[0], p[1]}, mu{p[2], p[3]}, sigma{p[4], p[5]},
-        a11(0.0f), a12(0.0f), a22(0.0f), sum_log_d(0.0f), s(shared) {
+  __device__ static void matrix(const float* p, float& a11, float& a12,
+                                float& a22, float& sum_log_d) {
+    a11 = a12 = a22 = sum_log_d = 0.0f;
 #pragma unroll
     for (int i = 0; i < kAssets; ++i) {
       const float l1 = p[6 + 2 * i], l2 = p[7 + 2 * i];
@@ -271,6 +261,61 @@ struct FactorSvolModel {
       a22 = a22 + l2 * l2 * dinv;
       sum_log_d = sum_log_d + logf(p[kD + i]);
     }
+  }
+  // s: the pieces (piece(p, j) at s[j]), x: the two factors' state
+  __device__ static float log_density(float a11, float a12, float a22,
+                                      float sum_log_d, const float* s,
+                                      const float* x, const float* y) {
+    float v1 = 0.0f, v2 = 0.0f, yy = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kAssets; ++i) {
+      v1 = v1 + s[i] * y[i];
+      v2 = v2 + s[kAssets + i] * y[i];
+      yy = yy + y[i] * y[i] * s[2 * kAssets + i];
+    }
+    const float m11 = expf(-x[0]) + a11;
+    const float m22 = expf(-x[1]) + a22;
+    const float det = m11 * m22 - a12 * a12;
+    const float quad_corr =
+        (m22 * v1 * v1 - 2.0f * a12 * v1 * v2 + m11 * v2 * v2) / det;
+    const float logdet = ((logf(det) + x[0]) + x[1]) + sum_log_d;
+    return (kConst - 0.5f * logdet) - 0.5f * (yy - quad_corr);
+  }
+};
+
+// Factor SVOL with kAssets assets and two factors, a two-leaf state;
+// row [phi (2), mu (2), sigma (2), vec(L) (2 kAssets, row-major),
+// d (kAssets)]:
+//   x'_j = mu_j + phi_j (x_j - mu_j) + sigma_j eps_j,
+//   y ~ N(0, L diag(e^x) L' + diag(d)).
+// The density is FactorWoodbury's: per row A = L' D^-1 L and sum log d
+// (registers, from the row), per step v = L' D^-1 y and y' D^-1 y from
+// the row's l1/d, l2/d and 1/d (shared memory: 3 kAssets floats would not
+// fit in registers beside the rest), then a handful of operations per
+// particle.  No lookahead, as in JAX.
+template <int kAssets>
+struct FactorSvolModel {
+  using Density = FactorWoodbury<kAssets>;
+  static constexpr int kNumParams = 6 + 3 * kAssets;
+  static constexpr int kNumState = 2;
+  static constexpr int kDimObs = kAssets;
+  static constexpr int kDimCov = 0;
+  static constexpr int kRowShared = 3 * kAssets;
+  static constexpr bool kHasPropMu = false;
+  static constexpr int kDraws = 2;
+
+  // [l1 / d (kAssets), l2 / d (kAssets), 1 / d (kAssets)]
+  __device__ static float row_shared(const float* p, int j) {
+    return Density::piece(p, j);
+  }
+
+  float phi[2], mu[2], sigma[2];
+  float a11, a12, a22, sum_log_d;
+  const float* s;
+
+  __device__ FactorSvolModel(const float* p, const float* shared)
+      : phi{p[0], p[1]}, mu{p[2], p[3]}, sigma{p[4], p[5]}, s(shared) {
+    Density::matrix(p, a11, a12, a22, sum_log_d);
   }
 
   template <class Rng>
@@ -289,20 +334,7 @@ struct FactorSvolModel {
   }
   __device__ float log_weight(const float* x, const float* y,
                               const float*) const {
-    float v1 = 0.0f, v2 = 0.0f, yy = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kAssets; ++i) {
-      v1 = v1 + s[i] * y[i];
-      v2 = v2 + s[kAssets + i] * y[i];
-      yy = yy + y[i] * y[i] * s[2 * kAssets + i];
-    }
-    const float m11 = expf(-x[0]) + a11;
-    const float m22 = expf(-x[1]) + a22;
-    const float det = m11 * m22 - a12 * a12;
-    const float quad_corr =
-        (m22 * v1 * v1 - 2.0f * a12 * v1 * v2 + m11 * v2 * v2) / det;
-    const float logdet = ((logf(det) + x[0]) + x[1]) + sum_log_d;
-    return (kConst - 0.5f * logdet) - 0.5f * (yy - quad_corr);
+    return Density::log_density(a11, a12, a22, sum_log_d, s, x, y);
   }
   __device__ float functional(const float* x) const { return x[0]; }
 };

@@ -16,7 +16,9 @@
 //    values in registers: lw_megakernel_sys.cu, one CTA a filter, and
 //    lw_megakernel_sys_pair.cu, a cluster of two CTAs a filter, one of
 //    which draws the step's random numbers for the other (lw_ring.cuh),
-//    taken when the card holds every filter's cluster at once;
+//    taken when the card holds every filter's cluster at once; a functor
+//    of more than kRegParams parameters (factor_svol_5_lw's 21) runs the
+//    wide row, theta and the moments in shared memory, in both layouts;
 //  - the roll resamplers (roll_select.cuh: Metropolis or rejection, chosen
 //    at run time; N a power of two up to 4096, JAX's
 //    MAX_LW_METROPOLIS_PARTICLES), kPer 2, 4 and 8, the values in shared
@@ -70,7 +72,11 @@
 //    row has maximum 0);
 //  - the hooks are compiled functors, so only the instances of
 //    lw_models.cuh run here (the SISR proposal too: a functor's sample_q
-//    and log_fq, not any Python hook).
+//    and log_fq, not any Python hook);
+//  - the wide row's Cholesky leaves a column 0 below a pivot at or below
+//    1e-4 of its diagonal (lw_megakernel_sys.cuh kRankRel), where float32
+//    rounding would otherwise blow the factor up on a cloud that spans
+//    fewer than P directions.
 #pragma once
 
 #include <cstdint>
@@ -83,7 +89,7 @@
 namespace ssme_lw {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxParams = 8;
+constexpr int kMaxParams = 21;  // factor_svol_5_lw's 21
 constexpr int kMaxModelArgs = 4;
 constexpr float kEpsChol = 1e-9f;
 
@@ -136,6 +142,8 @@ int dispatch_model(int model_id, const Args&... args) {
       return Run<ssme::SvolTLW>::go(args...);
     case ssme::kLWModelSvolLeverageQ:
       return Run<ssme::SvolLeverageQLW>::go(args...);
+    case ssme::kLWModelFactorSvol5:
+      return Run<ssme::FactorSvolLW>::go(args...);
     default:
       return -1;
   }

@@ -1,7 +1,8 @@
 // Model functors of the Liu-West filter kernel (lw_megakernel_sys.cuh):
 // the CUDA counterparts of the LWKernelModel hooks of
 // ssme_tpu/ops/liu_west_megakernel.py (svol_leverage_lw_kernel_model :739,
-// svol_t_lw_kernel_model :792), with the same float operations in the
+// svol_t_lw_kernel_model :792; factor SVOL, which JAX runs only through
+// its generic filter, is new here), with the same float operations in the
 // same order as the plain hooks of
 // ssme_tpu_torch/ops/liu_west_megakernel.py.
 //
@@ -41,6 +42,7 @@ namespace ssme {
 constexpr int kLWModelSvolLeverage = 0;  // "svol_leverage_lw"
 constexpr int kLWModelSvolT = 1;         // "svol_t_lw"
 constexpr int kLWModelSvolLeverageQ = 2;  // "svol_leverage_lw_q"
+constexpr int kLWModelFactorSvol5 = 3;    // "factor_svol_5_lw"
 
 // transform codes (ssme_tpu_torch/transforms.py numbering)
 constexpr int kTransNull = 0;
@@ -233,6 +235,91 @@ struct SvolLeverageQLW {
     const float ef = d / sd;
     const float eq = d / sq;
     return (-logf(sd) - 0.5f * ef * ef) - (-logf(sq) - 0.5f * eq * eq);
+  }
+};
+
+// Two-factor SVOL over 5 assets (K2's FactorSvolModel<5>,
+// kernel_models.cuh), learned online: each particle carries its own 21
+// parameters [phi (2), mu (2), sigma (2), vec(L) (10, row-major), d (5)]
+// under the transforms of models/factor_svol.py, a two-leaf state (the
+// factors' log-volatilities) and a 5-column observation:
+//   x'_j = mu_j + phi_j (x_j - mu_j) + sigma_j eps_j,
+//   y ~ N(0, L diag(e^x) L' + diag(d)),
+// the density FactorWoodbury<5>'s, its pieces taken from the particle's
+// parameters at every call (Liu-West moves them every step; K2 takes them
+// once a row).  The lookahead is the transition's mean, the functionals
+// the two factors' log-volatilities.  The state and the lookahead are
+// clamped to +-40 (kStateClamp, the leverage model's bound): the kernel
+// draws move sigma and mu freely, and a factor the data hardly identify
+// walked to x = -83 in 313 steps at N = 1024 (sigma 7), where e^-x
+// overflows float32 and the density turns NaN; past 40 a factor's
+// variance, e^-40 or e^40 of the others', changes no density in float32.  Only the 5-asset count is compiled,
+// as K2 compiles the counts it has; at 21 parameters the systematic
+// family runs it through its wide row (lw_megakernel_sys.cuh
+// lw_wide_row).  The means are rounded as the plain hooks round them, and
+// each draw's product fused once, written out so that every compilation
+// rounds alike.
+struct FactorSvolLW {
+  static constexpr int kNumParams = 21;
+  static constexpr int kNumState = 2;
+  static constexpr int kDimObs = 5;
+  static constexpr int kDimCov = 0;
+  static constexpr int kNumFunctionals = 2;
+  static constexpr bool kHasProposal = false;
+  static constexpr int kDraws = kNumState;  // normals per init/propagate
+  static constexpr int kAssets = kDimObs;
+  using Density = FactorWoodbury<kAssets>;
+  __host__ __device__ static constexpr int code(int k) {
+    constexpr int codes[kNumParams] = {  // "factor_svol_5_lw"
+        kTransTwiceFisher, kTransTwiceFisher, kTransNull, kTransNull,
+        kTransLog, kTransLog,
+        kTransNull, kTransNull, kTransNull, kTransNull, kTransNull,
+        kTransNull, kTransNull, kTransNull, kTransNull, kTransNull,
+        kTransLog, kTransLog, kTransLog, kTransLog, kTransLog};
+    return codes[k];
+  }
+
+  __device__ explicit FactorSvolLW(const float*) {}
+
+  // factor j's transition mean mu_j + phi_j (x_j - mu_j), unclamped
+  __device__ static float mean(const float* cp, const float* x, int j) {
+    return __fadd_rn(cp[2 + j], __fmul_rn(cp[j], __fsub_rn(x[j], cp[2 + j])));
+  }
+  template <class Rng>
+  __device__ void init(Rng& rng, const float* cp, const float*,
+                       const float*, float* x) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      x[j] = fmaf(rng.normal(), cp[4 + j] / sqrtf(1.0f - cp[j] * cp[j]),
+                  cp[2 + j]);
+  }
+  template <class Rng>
+  __device__ void propagate(Rng& rng, const float* cp, float* x,
+                            const float*, const float*) const {
+    float m[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) m[j] = mean(cp, x, j);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      x[j] = clamp_state(fmaf(cp[4 + j], rng.normal(), m[j]));
+  }
+  __device__ void prop_mu(const float* cp, const float* x, const float*,
+                          const float*, float* out) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) out[j] = clamp_state(mean(cp, x, j));
+  }
+  __device__ float log_weight(const float* cp, const float* x,
+                              const float* y, const float*) const {
+    float s[3 * kAssets];
+#pragma unroll
+    for (int j = 0; j < 3 * kAssets; ++j) s[j] = Density::piece(cp, j);
+    float a11, a12, a22, sum_log_d;
+    Density::matrix(cp, a11, a12, a22, sum_log_d);
+    return Density::log_density(a11, a12, a22, sum_log_d, s, x, y);
+  }
+  // the filtered mean log-volatility of factor k
+  __device__ float functional(int k, const float*, const float* x) const {
+    return x[k];
   }
 };
 

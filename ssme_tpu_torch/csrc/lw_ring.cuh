@@ -39,19 +39,34 @@
 namespace ssme_lw {
 
 constexpr int kRingSlots = 4;
+// the wide row's ring (lw_megakernel_sys.cuh lw_wide_row): one step, which
+// fits beside its cloud at N = 1024 (94 KB at P + kDraws = 23 normal
+// pairs a thread); the row waits on it only at its kernel draws, so the
+// producer fills step t + 1 while the row runs step t + 1's moments,
+// Cholesky and first stage
+constexpr int kWideRingSlots = 1;
 // the least dynamic shared memory of each CTA of a pair: more than half of
 // an H100 SM's 228 KB, so that no SM holds two of the launch's CTAs and
 // the producer never takes the filter's SM
 constexpr int kPairFloorBytes = 116 * 1024;
 
-// float2 entries of a slot, and bytes of the ring, for `draws` normals a
-// pair (P + kDraws) at `threads` threads (one a pair)
+// the most shared memory one block takes on the H100, static and dynamic
+constexpr int kBlockBytes = 232448;
+
+// float2 entries of a slot, and bytes of a ring of `slots` steps (of the
+// ring, kRingSlots), for `draws` normals a pair (P + kDraws) at `threads`
+// threads (one a pair)
 __host__ __device__ constexpr int ring_slot_pairs(int draws, int threads) {
   return 1 + draws * threads;
 }
-__host__ __device__ constexpr int ring_bytes(int draws, int threads) {
-  return 16 * kRingSlots + 8 * kRingSlots * ring_slot_pairs(draws, threads);
+__host__ __device__ constexpr int ring_bytes_of(int slots, int draws,
+                                                int threads) {
+  return 16 * slots + 8 * slots * ring_slot_pairs(draws, threads);
 }
+__host__ __device__ constexpr int ring_bytes(int draws, int threads) {
+  return ring_bytes_of(kRingSlots, draws, threads);
+}
+
 __host__ __device__ constexpr int pair_dynamic_bytes(int draws, int threads) {
   return ring_bytes(draws, threads) > kPairFloorBytes
              ? ring_bytes(draws, threads)
@@ -164,20 +179,22 @@ struct RingPairRng {
   }
 };
 
-// the paired layout's filter (rank 0): the step's draws from the ring
-struct RingDraws {
+// the paired layout's filter (rank 0): the step's draws from a ring of
+// kSlots steps (kRingSlots; the wide row's ring holds one, kWideRingSlots)
+template <int kSlots = kRingSlots>
+struct RingDrawsT {
   static constexpr bool kPaired = true;
   const float2* slots;  // slot 0
   uint32_t full;        // full barrier 0, this CTA's
   uint32_t empty;       // empty barrier 0, the producer's (map_rank)
   int threads, slot_pairs;
-  __device__ uint32_t slot(uint32_t t) const { return (t - 1) % kRingSlots; }
+  __device__ uint32_t slot(uint32_t t) const { return (t - 1) % kSlots; }
   __device__ const float2* at(uint32_t t) const {
     return slots + slot(t) * slot_pairs;
   }
   // every thread: until the producer has filled step t's slot
   __device__ void wait(uint32_t t) const {
-    ring_bar_wait(full + 8 * slot(t), ((t - 1) / kRingSlots) & 1);
+    ring_bar_wait(full + 8 * slot(t), ((t - 1) / kSlots) & 1);
   }
   // thread 0, after a barrier that every thread crosses after its last
   // read of step t's slot: the slot is free
@@ -202,6 +219,7 @@ struct RingDraws {
     hook(second, 1);
   }
 };
+using RingDraws = RingDrawsT<>;
 
 // The paired layout's producer (rank 1) of filter b: for t = 1 .. T-1 in
 // order, waits for a free slot; then each warp's lane 0 arrives on the
@@ -209,7 +227,7 @@ struct RingDraws {
 // stores pair q's `kAll` normals (P + kDraws) into rank 0's slot and
 // thread 0 the two offsets, each store completing its bytes on that
 // barrier.  `ring` is this CTA's ring (the same offsets as rank 0's).
-template <int kAll>
+template <int kAll, int kSlots = kRingSlots>
 __device__ __forceinline__ void lw_ring_produce(uint32_t k0, uint32_t k1,
                                                 int num_steps,
                                                 int num_particles, uint32_t b,
@@ -218,8 +236,8 @@ __device__ __forceinline__ void lw_ring_produce(uint32_t k0, uint32_t k1,
   const int threads = blockDim.x;
   const bool active = static_cast<int>(2 * q) < num_particles;
   const uint32_t full = map_rank(ring, 0);
-  const uint32_t empty = ring + 8 * kRingSlots;
-  const uint32_t slots = full + 16 * kRingSlots;
+  const uint32_t empty = ring + 8 * kSlots;
+  const uint32_t slots = full + 16 * kSlots;
   const uint32_t slot_bytes = 8 * ring_slot_pairs(kAll, threads);
   // the bytes this warp stores a step: its active lanes' normals, and
   // warp 0 the offsets
@@ -227,7 +245,7 @@ __device__ __forceinline__ void lw_ring_produce(uint32_t k0, uint32_t k1,
       8 * (kAll * __popc(__ballot_sync(0xffffffffu, active)) + (q < 32));
   for (int t = 1; t < num_steps; ++t) {
     const uint32_t tu = static_cast<uint32_t>(t);
-    const uint32_t s = (tu - 1) % kRingSlots, use = (tu - 1) / kRingSlots;
+    const uint32_t s = (tu - 1) % kSlots, use = (tu - 1) / kSlots;
     if (use > 0) ring_bar_wait(empty + 8 * s, (use - 1) & 1);
     const uint32_t slot = slots + s * slot_bytes, bar = full + 8 * s;
     if ((q & 31) == 0) ring_bar_arrive_expect_remote(bar, warp_bytes);

@@ -154,6 +154,35 @@ def make_model(n_assets: int = 5, k_factors: int = 2) -> StateSpaceModel:
     )
 
 
+def two_factor_log_g(loadings, d, x1, x2, y):
+    """log N(y; 0, L diag(e^x) L' + diag(d)) at k = 2 by the explicit 2 x 2
+    Woodbury of the kernels (``csrc/kernel_models.cuh`` FactorWoodbury), in
+    their float operations and order: M = diag(e^-x) + A with A =
+    L' D^-1 L, v = L' D^-1 y and y' D^-1 y, det and inverse written out.
+    ``loadings``: n pairs (l_i1, l_i2), ``d``: n entries, ``y``: n
+    observation scalars, each entry a tensor (or float) broadcasting
+    against the states ``x1``, ``x2``.  K2's factor hook (one parameter
+    row a filter) and K3's (one a particle) share it."""
+    n = len(d)
+    a11 = a12 = a22 = v1 = v2 = yy = sum_log_d = 0.0
+    for i in range(n):
+        l1, l2 = loadings[i]
+        dinv = 1.0 / d[i]
+        a11 = a11 + l1 * l1 * dinv
+        a12 = a12 + l1 * l2 * dinv
+        a22 = a22 + l2 * l2 * dinv
+        v1 = v1 + l1 * dinv * y[i]
+        v2 = v2 + l2 * dinv * y[i]
+        yy = yy + y[i] * y[i] * dinv
+        sum_log_d = sum_log_d + torch.log(d[i])
+    m11 = torch.exp(-x1) + a11
+    m22 = torch.exp(-x2) + a22
+    det = m11 * m22 - a12 * a12
+    quad_corr = (m22 * v1 * v1 - 2.0 * a12 * v1 * v2 + m11 * v2 * v2) / det
+    logdet = torch.log(det) + x1 + x2 + sum_log_d
+    return -n * _HALF_LOG_2PI - 0.5 * logdet - 0.5 * (yy - quad_corr)
+
+
 def simulate(gen, params, num_steps, n_assets=5, k_factors=2):
     """(xs (num_steps, k), ys (num_steps, n)): a stationary draw, then
     num_steps transitions each followed by an observation."""
@@ -168,4 +197,4 @@ def simulate(gen, params, num_steps, n_assets=5, k_factors=2):
     return torch.stack(xs), torch.stack(ys)
 
 
-__all__ = ["make_model", "simulate", "transforms"]
+__all__ = ["make_model", "simulate", "transforms", "two_factor_log_g"]

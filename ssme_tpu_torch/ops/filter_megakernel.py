@@ -54,6 +54,7 @@ import torch
 
 from ssme_tpu_torch import profiling
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
+from ssme_tpu_torch.models.factor_svol import two_factor_log_g
 from ssme_tpu_torch.models.svol import kernel_rows
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
@@ -673,8 +674,9 @@ def factor_svol_kernel_model(n_assets: int = 5) -> KernelModel:
     The Woodbury density y ~ N(0, L diag(e^x) L' + diag(d)) becomes
     explicit 2 x 2 formulas per particle: M = diag(e^-x) + A with the
     per-row A = L' D^-1 L, v = L' D^-1 y and y' D^-1 y, so det and
-    inverse are a handful of elementwise operations.  No ``prop_mu``, as
-    in JAX.  CUDA instance ``FactorSvolModel<n_assets>`` for the counts of
+    inverse are a handful of elementwise operations
+    (``models/factor_svol.py::two_factor_log_g``, which K3's
+    ``factor_svol_5_lw`` shares).  No ``prop_mu``, as in JAX.  CUDA instance ``FactorSvolModel<n_assets>`` for the counts of
     :data:`FACTOR_ASSET_COUNTS`; another count runs on CPU tensors only
     and raises on a CUDA tensor."""
     na = int(n_assets)
@@ -703,26 +705,7 @@ def factor_svol_kernel_model(n_assets: int = 5) -> KernelModel:
 
     def log_weight(p, state, y, z):
         _, _, _, ell, d = unpack(p)
-        x1, x2 = state
-        a11 = a12 = a22 = v1 = v2 = yy = sum_log_d = 0.0
-        for i in range(na):
-            l1, l2 = ell[i]
-            dinv = 1.0 / d[i]
-            a11 = a11 + l1 * l1 * dinv
-            a12 = a12 + l1 * l2 * dinv
-            a22 = a22 + l2 * l2 * dinv
-            v1 = v1 + l1 * dinv * y[i]
-            v2 = v2 + l2 * dinv * y[i]
-            yy = yy + y[i] * y[i] * dinv
-            sum_log_d = sum_log_d + torch.log(d[i])
-        m11 = torch.exp(-x1) + a11
-        m22 = torch.exp(-x2) + a22
-        det = m11 * m22 - a12 * a12
-        quad_corr = (m22 * v1 * v1 - 2.0 * a12 * v1 * v2
-                     + m11 * v2 * v2) / det
-        logdet = torch.log(det) + x1 + x2 + sum_log_d
-        return (-na * _prng.HALF_LOG_2PI - 0.5 * logdet
-                - 0.5 * (yy - quad_corr))
+        return two_factor_log_g(ell, d, state[0], state[1], y)
 
     return KernelModel(num_params=num_params, init=init,
                        propagate=propagate, log_weight=log_weight,

@@ -77,7 +77,7 @@ from ssme_tpu_torch.ops._select import (RESAMPLER_CODES, as_rows,
 
 # the profiling spans opened here: ``lw_megakernel``'s validation (on
 # both paths) and each launch, from the prior box to the C call, keyed by
-# its layout (LAYOUTS)
+# its instance and layout (launch_key)
 HOST_SPANS = ("lw.validate", "lw_megakernel.launch")
 
 # the launch layouts (csrc/lw_megakernel_sys.cuh): the systematic family's
@@ -87,7 +87,7 @@ LAYOUTS = ("paired", "single")
 # the dispatch table of csrc/lw_models.cuh (same names, same numbers;
 # tests/test_torch_lw_megakernel.py parses the header and compares)
 CUDA_LW_MODEL_IDS = {"svol_leverage_lw": 0, "svol_t_lw": 1,
-                     "svol_leverage_lw_q": 2}
+                     "svol_leverage_lw_q": 2, "factor_svol_5_lw": 3}
 # the instances whose functor has a SISR proposal (kHasProposal)
 _CUDA_LW_PROPOSALS = frozenset({"svol_leverage_lw_q"})
 
@@ -100,8 +100,41 @@ MAX_LW_METROPOLIS_PARTICLES = 4096
 _EPS_CHOL = 1e-9
 _CODES = ("null", "log", "logit", "twice_fisher")
 # the kernel's argument block: prior box and model constants
-_MAX_PARAMS = 8
+# (csrc/lw_megakernel.cuh kMaxParams: factor_svol_5_lw's 21)
+_MAX_PARAMS = 21
 _MAX_MODEL_ARGS = 4
+# parameters above which the systematic family runs its wide row, theta
+# in shared memory (csrc/lw_megakernel_sys.cuh kRegParams, lw_wide_row):
+# both layouts, and no roll form
+REG_PARAMS = 8
+# the wide row's Cholesky: a pivot at or below this share of its column's
+# diagonal leaves the rest of the column 0 (csrc/lw_megakernel_sys.cuh
+# kRankRel, the semi-definite factor of a cloud that spans fewer than P
+# directions)
+_RANK_REL = 1e-4
+
+
+def wide_row_bytes(kmodel, num_particles, paired=False):
+    """Dynamic shared memory of the wide row of ``kmodel`` at N (csrc/
+    lw_megakernel_sys.cuh WideRowLayout::bytes): theta's P leaves and the
+    gather buffer's S + 1, each the padded row in whole float4 words,
+    then the single layout's stash of the step's P + kDraws normal pairs
+    a thread (single_bytes) or, ``paired``, rank 0's ring of one step
+    (pair_bytes: P + kDraws normal pairs a thread and the offsets)."""
+    n, p, s = int(num_particles), kmodel.num_params, kmodel.num_state
+    leaf = (n + n // 32 + 3) // 4 * 4
+    threads = -(-n // 2 // 32) * 32
+    dynamic = 4 * (p + s + 1) * leaf
+    if not paired:
+        return dynamic + 8 * (p + s) * threads   # the stash of normals
+    return dynamic + 16 + 8 * (1 + (p + kmodel.num_state) * threads)
+
+
+def launch_key(instance, layout):
+    """The key of a launch's count (``_cuda.launches("ssme_lw_megakernel",
+    key)``) and of its ``lw_megakernel.launch`` span: the CUDA instance
+    and the layout, e.g. ``factor_svol_5_lw.single``."""
+    return f"{instance}.{layout}"
 
 
 def _to_transformed(code, row):
@@ -268,21 +301,38 @@ def _coefficients(delta):
     return a, 1.0 - a, 1.0 - a * a
 
 
-def _cholesky(gram, h2, p):
+def _cholesky(gram, h2, p, rank_rel=None):
     """Lower P x P Cholesky of h^2 * gram with the floored diagonal, on
-    lists of (F, 1) entries; every thread of the kernel does the same."""
-    lmat = [[None] * p for _ in range(p)]
+    lists of (F, 1) entries; every thread of the kernel does the same.
+    With ``rank_rel`` (the wide row's rule, csrc/lw_megakernel_sys.cuh
+    kRankRel) a pivot at or below rank_rel of its column's h^2 gram_jj
+    leaves the rest of its column 0.  A column's entries below the
+    diagonal are computed as one (F, P - jj - 1) tensor, each with the
+    operations of an entry's own loop (a product and a subtraction a term,
+    k in order, then the divide): the entries of an entry-by-entry loop,
+    in P^2 / 2 torch operations rather than P^3 / 3."""
+    cols = []  # column k: rows k .. p-1, (F, p - k)
     for jj in range(p):
-        s = h2 * gram[jj][jj]
+        diag = h2 * gram[jj][jj]
+        s = diag
         for k in range(jj):
-            s = s - lmat[jj][k] * lmat[jj][k]
-        lmat[jj][jj] = torch.sqrt(torch.clamp(s, min=_EPS_CHOL))
-        for i in range(jj + 1, p):
-            s = h2 * gram[i][jj]
-            for k in range(jj):
-                s = s - lmat[i][k] * lmat[jj][k]
-            lmat[i][jj] = s / lmat[jj][jj]
-    return lmat
+            ljk = cols[k][:, jj - k:jj - k + 1]
+            s = s - ljk * ljk
+        d = torch.sqrt(torch.clamp(s, min=_EPS_CHOL))
+        if jj + 1 == p:
+            cols.append(d)
+            break
+        below = h2 * torch.cat([gram[i][jj] for i in range(jj + 1, p)], -1)
+        for k in range(jj):
+            below = (below - cols[k][:, jj - k + 1:]
+                     * cols[k][:, jj - k:jj - k + 1])
+        below = below / d
+        if rank_rel is not None:
+            below = torch.where(s > rank_rel * diag, below,
+                                torch.zeros_like(below))
+        cols.append(torch.cat([d, below], -1))
+    return [[cols[k][:, i - k:i - k + 1] if k <= i else None
+             for k in range(p)] for i in range(p)]
 
 
 def _gather(leaves, anc):
@@ -361,10 +411,19 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
         ww = torch.exp(lw)
         wsum = ww.sum(-1, keepdim=True)
         tbar = [(th[k] * ww).sum(-1, keepdim=True) / wsum for k in range(p)]
-        cen = [th[k] - tbar[k] for k in range(p)]
-        gram = [[((cen[i] * ww) * cen[j]).sum(-1, keepdim=True) / wsum
-                 if j <= i else None for j in range(p)] for i in range(p)]
-        lmat = _cholesky(gram, h2, p)
+        # the Gram's entry (i, j <= i): sum over the particles of (cen_i
+        # w) cen_j, over sum w; row i's products and quotients one torch
+        # operation each, its sums one a column, as entry by entry
+        cen = th - torch.stack(tbar)
+        gram = []
+        for i in range(p):
+            prod = (cen[i] * ww) * cen[:i + 1]
+            row = torch.cat([prod[j].sum(-1, keepdim=True)
+                             for j in range(i + 1)], -1) / wsum
+            gram.append([row[:, j:j + 1] for j in range(i + 1)]
+                        + [None] * (p - i - 1))
+        lmat = _cholesky(gram, h2, p,
+                         _RANK_REL if p > REG_PARAMS else None)
         shrunk = torch.stack([a * th[k] + one_minus_a * tbar[k]
                               for k in range(p)])
         if apf:
@@ -386,13 +445,12 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
             shrunk_anc = picked[2 * s_rows:]
         else:
             state_anc, shrunk_anc = state, tuple(shrunk.unbind())
-        rows = []
-        for i in range(p):
-            acc = shrunk_anc[i]
-            for k in range(i + 1):
-                acc = acc + lmat[i][k] * rng.normals(t, k)
-            rows.append(acc)
-        th_new = torch.stack(rows)
+        # theta' row i = shrunk_anc[i] + sum over k <= i, in k order, of
+        # L[i][k] e_k: the rows k .. p-1 take draw k's term together
+        th_new = torch.stack(tuple(shrunk_anc))
+        for k in range(p):
+            col = torch.stack([lmat[i][k] for i in range(k, p)])
+            th_new[k:] += col * rng.normals(t, k)
         cp = kmodel.constrain(th_new)
         prop = (kmodel.sample_q if not apf and kmodel.sample_q is not None
                 else kmodel.propagate)
@@ -465,7 +523,10 @@ def layout_for(num_filters, max_clusters):
     "paired" when the card holds all their clusters at once
     (``max_clusters``, what ``cudaOccupancyMaxActiveClusters`` reports for
     the paired instance), else "single" (a count of 0 included): past the
-    count, clusters would wait for a second wave of SMs."""
+    count, clusters would wait for a second wave of SMs.  The wide row's
+    paired form holds a ring of one step after its cloud (109 KB and 94
+    KB at N = 1024; csrc/lw_megakernel_sys.cuh wide_pair_fits weighs the
+    ring's bytes beside the row's), so the count covers it too."""
     return "paired" if num_filters <= max_clusters else "single"
 
 
@@ -504,8 +565,9 @@ def lw_megakernel(kmodel, seed, ys, zs=None, num_filters=1,
     means.
 
     Launches the kernel for CUDA tensors (raising for a model without a
-    CUDA instance; ``_cuda.launches`` counts the launches by layout) and
-    runs :func:`lw_megakernel_reference` for CPU tensors.
+    CUDA instance; ``_cuda.launches`` counts the launches by instance and
+    layout, :func:`launch_key`) and runs :func:`lw_megakernel_reference`
+    for CPU tensors.
     """
     with profiling.span("lw.validate"):
         seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
@@ -530,14 +592,20 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
     ``ssme_lw_megakernel`` picks or, given ``spans`` (int64 (F,
     len(SPAN_RECORD))), its instrumented twin
     (``ssme_lw_megakernel_spans``), which writes its record there, in
-    the layout :func:`layout_for` gives, counted under that layout.
-    Returns the result dict."""
+    the layout :func:`layout_for` gives, counted under the instance and
+    that layout (:func:`launch_key`).  Returns the result dict."""
     model_id = _model_id(kmodel)
+    if kmodel.num_params > REG_PARAMS and resampler != "systematic":
+        raise ValueError(
+            f"model {kmodel.name!r}: at {kmodel.num_params} parameters the "
+            "kernel runs systematic selection only (its wide row has no "
+            f"roll form); resampler={resampler!r} runs on CPU tensors")
     layout = "single"
     if resampler == "systematic":
         layout = layout_for(num_filters,
                             _max_clusters(model_id, int(num_particles)))
-    with profiling.span("lw_megakernel.launch", key=layout):
+    key = launch_key(kmodel.cuda_instance, layout)
+    with profiling.span("lw_megakernel.launch", key=key):
         bounds = kmodel.prior_bounds
         if bounds is None or len(bounds) != kmodel.num_params:
             raise ValueError(f"model {kmodel.name!r}: the CUDA instance "
@@ -564,10 +632,10 @@ def _launch(kmodel, seed, ys, zs, num_filters, num_particles, delta,
                 *run, RESAMPLER_CODES[resampler], int(metropolis_iters),
                 2 if layout == "paired" else 1, *host, *outs)
         if spans is None:
-            _cuda.launch("ssme_lw_megakernel", *args, device=dev, key=layout)
+            _cuda.launch("ssme_lw_megakernel", *args, device=dev, key=key)
         else:
             _cuda.launch("ssme_lw_megakernel_spans", *args, spans.data_ptr(),
-                         device=dev, key=layout)
+                         device=dev, key=key)
         return _result(lcl, fpaths, cloud, n_fns)
 
 # the barriers a step crosses, as the source note states them
@@ -579,6 +647,24 @@ BARRIERS_PER_STEP = {
             "other": 7},
     "sisr": {"first_resample": 3, "first_other": 2, "resample": 5,
              "other": 4}}
+# the wide row's (more than REG_PARAMS parameters): the moments over the
+# staged cloud take 3 where the registers' exchanges take 2, theta's
+# gathers one each (the ancestors read before it, the own slots written
+# after it: the kernel draws and the joint resample), and SISR one more to
+# publish the factor
+WIDE_BARRIERS_PER_STEP = {
+    "apf": {"first_resample": 4, "first_other": 2, "resample": 11,
+            "other": 9},
+    "sisr": {"first_resample": 4, "first_other": 2, "resample": 9,
+             "other": 7}}
+
+
+def barriers_per_step(kmodel, variant):
+    """The barriers a step of each kind crosses in ``kmodel``'s systematic
+    instance (the source note's counts)."""
+    table = (WIDE_BARRIERS_PER_STEP if kmodel.num_params > REG_PARAMS
+             else BARRIERS_PER_STEP)
+    return table[variant]
 # the parts of a step its clock64 spans time (the paired layout's waits on
 # its ring apart), then the rest of the instrumented twins' record per
 # filter (csrc/lw_megakernel_sys.cuh LWSpan)
@@ -851,10 +937,96 @@ def svol_t_lw_kernel_model(
         prior_bounds=tuple(prior_bounds), cuda_args=(c_nu, nu, half_nu1))
 
 
+# the uniform prior box of factor_svol_lw_kernel_model, in the parameter
+# order [phi (2), mu (2), sigma (2), vec(L) (5 x 2, row-major), d (5)]: it
+# holds the generating point of benchmark/data/factor_svol_5_returns.csv
+# and picks one of the likelihood's sign and swap modes (column 1
+# positive, l52 positive)
+FACTOR_SVOL_5_PRIOR_BOUNDS = (
+    (0.80, 0.995), (0.80, 0.995), (-3.0, 1.0), (-3.0, 1.0),
+    (0.05, 0.5), (0.05, 0.5),
+    (0.1, 1.5), (-1.0, 1.0), (0.1, 1.5), (-1.0, 1.0), (0.1, 1.5),
+    (-1.0, 1.0), (0.1, 1.5), (-1.0, 1.0), (0.1, 1.5), (0.1, 1.0),
+    (0.05, 1.0), (0.05, 1.0), (0.05, 1.0), (0.05, 1.0), (0.05, 1.0))
+
+
+@functools.lru_cache(maxsize=None)
+def factor_svol_lw_kernel_model(n_assets: int = 5,
+                                prior_bounds=None) -> LWKernelModel:
+    """Two-factor SVOL (``models/factor_svol.py``, k = 2) learned online:
+    each particle carries its 6 + 3 n parameters [phi (2), mu (2), sigma
+    (2), vec(L) (2 n, row-major), d (n)] under the model's transforms
+    (twice_fisher x 2, null x 2, log x 2, null x 2n, log x n), the state is
+    the two factors' log-volatilities, the observation n columns.  The
+    density is the explicit 2 x 2 Woodbury of K2's factor hook
+    (``models/factor_svol.py::two_factor_log_g``), on each particle's own
+    parameters; the lookahead is the transition's mean mu + phi (x - mu);
+    the functionals are the two factors' filtered log-volatilities.  The
+    state and the lookahead are clamped to +-40 (the leverage model's
+    STATE_CLAMP): Liu-West moves sigma and mu freely, and a factor the data
+    hardly identify can walk to where e^-x overflows float32 (x = -83 at
+    sigma 7 in 313 steps, F=64 N=1024 on the card); past 40 no density
+    changes in float32.  The
+    prior is a uniform box (default :data:`FACTOR_SVOL_5_PRIOR_BOUNDS` at
+    n = 5).  CUDA instance ``FactorSvolLW`` (``factor_svol_5_lw``) at n = 5,
+    the count the kernel compiles; another count runs on CPU tensors
+    only."""
+    from ssme_tpu_torch.models.factor_svol import (transforms,
+                                                   two_factor_log_g)
+    from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
+    na = int(n_assets)
+    num_params = 6 + 3 * na
+    if prior_bounds is None:
+        if na != 5:
+            raise ValueError("factor_svol_lw_kernel_model: give prior_bounds "
+                             f"for n_assets={na} (the default box is 5's)")
+        prior_bounds = FACTOR_SVOL_5_PRIOR_BOUNDS
+    if len(prior_bounds) != num_params:
+        raise ValueError(f"prior_bounds needs {num_params} (lo, hi) pairs")
+
+    def mean(cp, x, j):
+        return cp[2 + j] + cp[j] * (x - cp[2 + j])
+
+    def clamp(v):
+        return torch.clamp(v, -STATE_CLAMP, STATE_CLAMP)
+
+    def init(rng, cp, y, shape):
+        return tuple(cp[2 + j] + rng.normal(shape)
+                     * (cp[4 + j] / torch.sqrt(1.0 - cp[j] * cp[j]))
+                     for j in range(2))
+
+    def propagate(rng, cp, state, y, z):
+        means = [mean(cp, state[j], j) for j in range(2)]
+        return tuple(clamp(means[j] + cp[4 + j] * rng.normal(state[j].shape))
+                     for j in range(2))
+
+    def prop_mu(cp, state, y, z):
+        return tuple(clamp(mean(cp, state[j], j)) for j in range(2))
+
+    def log_weight(cp, state, y, z):
+        ell = [(cp[6 + 2 * i], cp[7 + 2 * i]) for i in range(na)]
+        d = [cp[6 + 2 * na + i] for i in range(na)]
+        return two_factor_log_g(ell, d, state[0], state[1], y)
+
+    return LWKernelModel(
+        num_params=num_params, transform_codes=transforms(na, 2),
+        sample_prior=_uniform_box_prior(prior_bounds),
+        init=init, propagate=propagate, log_weight=log_weight,
+        prop_mu=prop_mu,
+        functionals=(lambda cp, state: state[0],
+                     lambda cp, state: state[1]),
+        num_state=2, dim_obs=na, name=f"factor_svol_{na}x2_lw",
+        cuda_instance="factor_svol_5_lw" if na == 5 else None,
+        prior_bounds=tuple(tuple(b) for b in prior_bounds))
+
+
 __all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
            "lw_kernel_sim_future_obs", "step_spans", "BARRIERS_PER_STEP",
-           "LAYOUTS", "layout_for",
+           "LAYOUTS", "layout_for", "launch_key", "barriers_per_step",
+           "wide_row_bytes",
+           "WIDE_BARRIERS_PER_STEP", "REG_PARAMS",
+           "factor_svol_lw_kernel_model", "FACTOR_SVOL_5_PRIOR_BOUNDS",
            "SPAN_PARTS", "SPAN_RECORD", "svol_leverage_lw_kernel_model",
            "svol_leverage_lw_q_kernel_model", "svol_t_lw_kernel_model",
            "CUDA_LW_MODEL_IDS", "MAX_LW_KERNEL_PARTICLES",

@@ -924,12 +924,13 @@ def test_k3_paired_layout_gives_the_single_layouts_bits(dev, name, n):
     gated, each launch counted under its layout."""
     ys = _ys(40, 29).to(dev)
     km, zs = _k3_functor(name, ys)
+    keys = [lwm.launch_key(name, k) for k in lwm.LAYOUTS]
     for kw in K3_SCHEDULES:
-        before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
+        before = [_cuda.launches("ssme_lw_megakernel", k) for k in keys]
         paired = lwm.lw_megakernel(km, 21, ys, zs, 8, n, **kw)
         single = lwm.lw_megakernel(km, 21, ys, zs, 128, n, **kw)
         assert [_cuda.launches("ssme_lw_megakernel", k)
-                for k in lwm.LAYOUTS] == [before[0] + 1, before[1] + 1]
+                for k in keys] == [before[0] + 1, before[1] + 1]
         for key in ("log_cond_likes", "cloud"):
             assert torch.equal(paired[key], single[key][:8]), (kw, key)
         fp, fs = (paired.get("functional_paths", ()),
@@ -940,28 +941,30 @@ def test_k3_paired_layout_gives_the_single_layouts_bits(dev, name, n):
 
 
 def test_k3_layout_counter_and_span_key(dev):
-    """Each launch counts under the layout it took and keys its
-    ``lw_megakernel.launch`` span by it: paired at F=8 and at the
-    benchmark's F=64, single at F=128 and under a roll resampler."""
+    """Each launch counts under its instance and the layout it took and
+    keys its ``lw_megakernel.launch`` span by them: paired at F=8 and at
+    the benchmark's F=64, single at F=128 and under a roll resampler."""
     from ssme_tpu_torch import profiling
     ys = _ys(20, 31).to(dev)
     km, zs = _k3_functor("svol_leverage_lw", ys)
     assert lwm._max_clusters(0, 512) >= 64
-    runs = ((8, dict(), "paired"), (64, dict(), "paired"),
-            (128, dict(), "single"), (8, dict(resampler="rejection"),
-                                      "single"))
-    before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
+    runs = ((8, dict(), "svol_leverage_lw.paired"),
+            (64, dict(), "svol_leverage_lw.paired"),
+            (128, dict(), "svol_leverage_lw.single"),
+            (8, dict(resampler="rejection"), "svol_leverage_lw.single"))
+    keys = [lwm.launch_key("svol_leverage_lw", k) for k in lwm.LAYOUTS]
+    before = [_cuda.launches("ssme_lw_megakernel", k) for k in keys]
     with profiling.record():
         for f, kw, _ in runs:
             if kw:
                 lwm.lw_megakernel(km, 3, ys, zs, f, 512, **kw)
             else:
                 k4.svol_leverage_lw(3, ys, num_filters=f, num_particles=512)
-        keys = [r.key for r in profiling.spans()
-                if r.name == "lw_megakernel.launch"][-len(runs):]
-    assert keys == [want for _, _, want in runs]
+        got = [r.key for r in profiling.spans()
+               if r.name == "lw_megakernel.launch"][-len(runs):]
+    assert got == [want for _, _, want in runs]
     assert [_cuda.launches("ssme_lw_megakernel", k)
-            for k in lwm.LAYOUTS] == [before[0] + 2, before[1] + 2]
+            for k in keys] == [before[0] + 2, before[1] + 2]
 
 
 @pytest.mark.parametrize("n", [32, 512, 1024])
@@ -1349,3 +1352,124 @@ def test_k1_launches_lie_inside_their_program_spans(dev):
     for ev in k1:
         at = launches[ev.correlation_id()]
         assert any(r.start_ns <= at <= r.end_ns for r in spans), at
+
+
+# -- K3's wide row: factor SVOL, 21 parameters a particle --------------------
+
+def _factor_panel(t_len, dev):
+    """The benchmark's 5-column panel's first t_len rows."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "data",
+        "factor_svol_5_returns.csv")
+    ys = np.loadtxt(path, delimiter=",", ndmin=2)[:t_len]
+    return torch.as_tensor(ys, dtype=torch.float32, device=dev).contiguous()
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_k3_factor_matches_plain(dev, n):
+    """The factor_svol_5_lw instance (the wide row: theta, the Gram's
+    blocks and the factor in shared memory) against its plain version on
+    the same bits, as K3's other functors: SISR with a gate that never
+    fires within 2e-3 (the totals; plus 2e-5 of the total, the same
+    tolerance a nat: the 5-column densities sum to ~300 nats over these
+    48 steps where the one-column instances' sum to ~100) and 1e-3 (the
+    cloud, the weights and the two functional paths; the Gram sums in
+    another order and the draws' products fused); APF and SISR
+    resampling every step by phase 25's rule and the means within 4
+    combined standard errors.  The no-selection comparison runs at N =
+    512 and 1024: at N = 32 and 96 the weights of SISR without a resample
+    settle on a few particles within these steps, Vt spans fewer than 21
+    directions, and whether a pivot falls under the Cholesky's rank rule
+    (1e-4 of its diagonal) is a matter of rounding, so the two versions'
+    kernel draws part by a few 1e-3 there."""
+    ys = _factor_panel(48, dev)
+    km = lwm.factor_svol_lw_kernel_model()
+    f = 16
+    if n >= 512:
+        got, want = _k3_pair(km, 12, ys, None, f, n, variant="sisr",
+                             ess_threshold=0.5 / n)
+        torch.testing.assert_close(got["log_likelihood"],
+                                   want["log_likelihood"], rtol=2e-5,
+                                   atol=2e-3)
+        s = km.num_state
+        for rows in (slice(0, s), slice(s + 1, None)):
+            torch.testing.assert_close(got["cloud"][:, rows],
+                                       want["cloud"][:, rows], rtol=0,
+                                       atol=1e-3)
+        torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                                   lwm.lw_cloud_weights(km, want["cloud"]),
+                                   rtol=0, atol=1e-3)
+        for a, b in zip(got["functional_paths"], want["functional_paths"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for variant in ("apf", "sisr"):
+        got, want = _k3_pair(km, 13, ys, None, f, n, variant=variant)
+        tot, tot_p = got["log_likelihood"], want["log_likelihood"]
+        assert torch.isfinite(tot).all()
+        _step_one_rule(got["log_cond_likes"], want["log_cond_likes"])
+        se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
+        assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_k3_factor_twin_records_parts_and_gives_the_instance_bits(dev, n):
+    """The wide row's instrumented twin at each N and schedule, in both
+    layouts (F=8 paired, F=128 one CTA a filter): kPer 2, its threads and
+    CTAs a filter, the barriers the source note states (11 / 9 an APF step
+    that does / does not resample, 9 / 7 in SISR, 4 / 2 at t = 0), the
+    moments and the Cholesky timed apart, a ring wait iff paired, and its
+    outputs the plain instance's bits."""
+    ys = _factor_panel(40, dev)
+    km = lwm.factor_svol_lw_kernel_model()
+    for f, cluster in ((8, 2), (128, 1)):
+        for kw in K3_SCHEDULES:
+            rec = lwm.step_spans(6, ys, None, f, n, kmodel=km, **kw)
+            assert (rec["kper"], rec["threads"], rec["cluster"]) == (
+                2, -(-n // 2 // 32) * 32, cluster)
+            want = lwm.barriers_per_step(km, kw["variant"])
+            got = {k: v for k, v in rec["barriers_per_step"].items()
+                   if v is not None}
+            assert got == {k: want[k] for k in got}, (f, kw)
+            cycles = rec["cycles_per_step"]
+            assert cycles["moments"] > 0 and cycles["cholesky"] > 0
+            assert (cycles["ring_wait"] > 0) == (cluster == 2)
+            plain = lwm.lw_megakernel(km, 6, ys, None, f, n, **kw)
+            for key in ("log_cond_likes", "cloud"):
+                assert torch.equal(plain[key], rec["outputs"][key]), (
+                    f, kw, key)
+            for a, b in zip(plain["functional_paths"],
+                            rec["outputs"]["functional_paths"]):
+                assert torch.equal(a, b), (f, kw)
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_k3_factor_layouts_agree_where_both_launch(dev, n):
+    """The wide row's paired layout (F=8: a cluster of two CTAs a filter,
+    its ring of one step after the cloud) gives the bits of the one-CTA
+    layout (rows 0-7 of an F=128 launch), every schedule, each launch
+    counted and its span keyed under factor_svol_5_lw and its layout; the
+    card holds at least the benchmark's 64 clusters; a roll resampler
+    raises."""
+    from ssme_tpu_torch import profiling
+    ys = _factor_panel(24, dev)
+    km = lwm.factor_svol_lw_kernel_model()
+    assert lwm._max_clusters(lwm.CUDA_LW_MODEL_IDS["factor_svol_5_lw"],
+                             n) >= 64
+    keys = [lwm.launch_key("factor_svol_5_lw", k) for k in lwm.LAYOUTS]
+    for kw in K3_SCHEDULES:
+        before = [_cuda.launches("ssme_lw_megakernel", k) for k in keys]
+        with profiling.record():
+            paired = lwm.lw_megakernel(km, 21, ys, None, 8, n, **kw)
+            single = lwm.lw_megakernel(km, 21, ys, None, 128, n, **kw)
+            spans = [r.key for r in profiling.spans()
+                     if r.name == "lw_megakernel.launch"][-2:]
+        assert spans == keys
+        assert [_cuda.launches("ssme_lw_megakernel", k)
+                for k in keys] == [before[0] + 1, before[1] + 1]
+        for k in ("log_cond_likes", "cloud"):
+            assert torch.equal(paired[k], single[k][:8]), (kw, k)
+        for a, b in zip(paired["functional_paths"],
+                        single["functional_paths"]):
+            assert torch.equal(a, b[:8]), kw
+    with pytest.raises(ValueError, match="systematic"):
+        lwm.lw_megakernel(km, 1, ys, None, 8, 512, resampler="rejection")

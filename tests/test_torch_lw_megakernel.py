@@ -406,6 +406,7 @@ def test_model_ids_and_transform_codes_match_the_cuda_header():
     assert len(dispatch) == len(ids) == len(codes) == len(structs)
     factories = {inst: tmodel for inst, (tmodel, _) in INSTANCES.items()}
     factories["svol_leverage_lw_q"] = lwm.svol_leverage_lw_q_kernel_model
+    factories["factor_svol_5_lw"] = lwm.factor_svol_lw_kernel_model
     assert set(factories) == set(ids)
     for inst, tmodel in factories.items():
         km = tmodel()
@@ -589,11 +590,11 @@ def test_plain_version_counts_no_layout():
     """On the CPU the plain version runs: no launch, no layout counted."""
     ys, zs = _leverage_data(12, 3)
     from ssme_tpu_torch.ops import _cuda
-    before = [_cuda.launches("ssme_lw_megakernel", k) for k in lwm.LAYOUTS]
+    keys = [lwm.launch_key("svol_leverage_lw", k) for k in lwm.LAYOUTS]
+    before = [_cuda.launches("ssme_lw_megakernel", k) for k in keys]
     _run(lwm.svol_leverage_lw_kernel_model(), 1, ys, zs, num_filters=2,
          num_particles=64)
-    assert [_cuda.launches("ssme_lw_megakernel", k)
-            for k in lwm.LAYOUTS] == before
+    assert [_cuda.launches("ssme_lw_megakernel", k) for k in keys] == before
     assert _cuda.launches("ssme_lw_megakernel") == sum(before)
 
 
