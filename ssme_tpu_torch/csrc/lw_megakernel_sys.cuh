@@ -153,8 +153,9 @@ constexpr int kLWPer = 2;
 
 // The twins record, per row, by thread 0 in shared memory:
 // the clock64 cycles of the step's parts (t = 0: the prior and init draws
-// count under draws; the paired layout's waits on its ring apart, 0 in the
-// single layout), the rows' resamples at t = 0 and at t > 0, the
+// count under draws; the wide row's fold of the moments apart, 0 in the
+// other rows; the paired layout's waits on its ring apart, 0 in the single
+// layout), the rows' resamples at t = 0 and at t > 0, the
 // barriers crossed at t = 0 in a step that resamples and in one that does
 // not, and at t > 0 likewise (a roll selection's apart), the roll
 // selections' votes and tail barriers, the sweeps they ran (1 + the last
@@ -163,8 +164,9 @@ constexpr int kLWPer = 2;
 // selections of a step) and the most marks one thread wrote in a
 // selection (row_select.cuh note_selection), and the layout the launch
 // ran (kPer, blockDim, CTAs a filter).
-enum LWSpan { kLWSpanMoments, kLWSpanCholesky, kLWSpanFirstStage,
-              kLWSpanDraws, kLWSpanWeigh, kLWSpanResample, kLWSpanRingWait,
+enum LWSpan { kLWSpanMoments, kLWSpanMomentsFold, kLWSpanCholesky,
+              kLWSpanFirstStage, kLWSpanDraws, kLWSpanWeigh,
+              kLWSpanResample, kLWSpanRingWait,
               kLWSpanFirstResamples, kLWSpanResamples,
               kLWSpanBarFirstResample, kLWSpanBarFirstOther,
               kLWSpanBarResample, kLWSpanBarOther, kLWSpanVotes,
@@ -704,18 +706,31 @@ __device__ __forceinline__ void lw_sys_row(
 //    ancestors' theta into registers, crosses a barrier, and writes its
 //    own slots (the kernel draws' theta', the joint resample's gather), so
 //    one buffer holds the cloud;
-//  - the moments in two passes over the staged cloud: the weights and
-//    their square roots staged (the gather buffer's first leaves), then
-//    each warp sums w and w theta_k over every particle for its
-//    parameters k (lane-strided, a shuffle sum; every warp's sum of w has
-//    the same bits) and writes tbar_k = sum w theta_k / sum w; then the
-//    Gram of sqrt(w) (theta - tbar) in 7 x 7 blocks (kGramTile; 3 on the
-//    diagonal, lower triangle only, 3 below it, each in a half of 4 rows
-//    and one of 3), each in two slices of the particles (kGramSlices),
-//    one (block, slice) a warp: a lane loads and centres 7 to 11 values a
-//    particle and keeps 21 or 28 sums in registers, and the warp folds
-//    them in a reduce-scatter (warp_sum_scatter, one shuffle a sum
-//    instead of five); 3 barriers;
+//  - the moments in one pass over the cloud on the FP64 tensor cores
+//    (moments_pass): with c particle 0's theta (a shift, read by
+//    broadcast), particle j's row X_j = [w_j (theta_j - c), w_j] and
+//    D_j = [theta_j - c, 1], each in double (the difference of two floats
+//    and its product with a float weight are exact there), zero-padded to
+//    three tiles of 8, and G = X' D by mma.sync m16n8k4 f64 over steps of
+//    4 particles, three products a step for the six lower 8 x 8 tiles: the
+//    Gram about c, the sums m = sum w (theta - c) and sum w.  The
+//    fragments of A and B share their lane map (lane l: parameter 8 I + l
+//    / 4, particle 4 s + l % 4), so a lane reads each of its three theta
+//    values once a step, and the weight, which each thread first stages
+//    in double for its own particles (the gather buffer's leaves 0 and 1:
+//    an exp and a conversion a lane and step would cost 8 lanes the same
+//    work); the leaf stride (wide_leaf, 4 mod 32 words) puts a fragment's
+//    8 parameters on 8 banks.  The row's first 8 warps (kMomentWarps, two
+//    an SM sub-partition) each take a fixed range of the particles; warp w
+//    + 4 hands its tiles to warp w, which writes their sum in double
+//    (kMomentSlots); after a barrier (moments_fold) a thread an entry sums
+//    the slots in order and centres in double, C = G - m m' / sum w, tbar
+//    = c + m / sum w, rounded to float where the row keeps tbar, sum w and
+//    the Gram; no atomics, so every layout and twin adds alike; 3 barriers
+//    (the staged weights and theta published, the slots, the fold).  The
+//    double arithmetic beside the products shares the tensor cores' FP64
+//    pipe (3 products a step take 48 cycles a sub-partition, with 6
+//    double adds 74, PERF.md §6);
 //  - the Cholesky of h^2 Vt once a row, by warp 0 alone, lane r holding
 //    row r of the factor in registers, right-looking (wide_cholesky), into
 //    shared memory column-major, which every thread reads by broadcast in
@@ -734,21 +749,26 @@ __device__ __forceinline__ void lw_sys_row(
 //    the step does not use in registers waits in shared memory (the
 //    carried log-weights between steps, the state and the ancestor's
 //    density through the kernel draws, the small arrays at static
-//    addresses), the Gram's blocks hold at most 28 sums a lane, and the
+//    addresses), the moments' pass holds 12 sums in double a lane, and the
 //    step's normals are read from shared memory in both layouts (the
 //    single layout's thread first draws its pair's P + kDraws into a
 //    stash where the paired layout has its ring).
 // So 11 / 9 barriers an APF step that does / does not resample, 9 / 7 in
 // SISR, 4 / 2 at t = 0.  Two layouts, the same bits: single (OwnDraws, its
 // stash after the row's arrays), and paired (RingDrawsT<kWideRingSlots>):
-// the cloud's 99 KB of dynamic shared memory at N = 1024 (and 11 KB
-// static) and a ring of one step (92 KB at P + kDraws = 23 normal pairs a
-// thread) fit a block (wide_pair_fits), the ring after the row's arrays.
-// The twins time the moments (both passes) and the Cholesky apart, as
-// lw_sys_row's.
+// the cloud's 99 KB of dynamic shared memory at N = 1024 (and 22 KB
+// static, 12 KB of it the moments' partial tiles) and a ring of one step
+// (92 KB at P + kDraws = 23 normal pairs a thread) fit a block
+// (wide_pair_fits), the ring after the row's arrays.
+// The twins time the moments' pass (with its first barrier), their fold
+// and the Cholesky apart.
 constexpr int kRegParams = 8;
-constexpr int kGramTile = 7;
-constexpr int kGramSlices = 2;
+// the warps of the moments' pass (warps w, w + 4, .. share an SM
+// sub-partition and its tensor core)
+constexpr int kMomentWarps = 8;
+// the slots of their partial tiles, one a sub-partition (its warps' sum):
+// 6 tiles of 8 x 8 doubles a slot
+constexpr int kMomentSlots = 4;
 
 template <class Model>
 __host__ __device__ constexpr bool is_wide() {
@@ -763,16 +783,20 @@ __host__ __device__ constexpr int round4(int k) { return (k + 3) / 4 * 4; }
 __host__ __device__ constexpr int chol_stride(int p) { return round4(p); }
 
 // floats a leaf of the wide row's shared arrays takes at n particles: the
-// padded row (row_select.cuh padded) in whole float4 words
+// padded row (row_select.cuh padded), rounded up to 4 mod 32 words, so
+// that leaves k and k + 1 start 4 banks apart (the moments' fragments read
+// 8 parameters of 4 neighbouring particles at once) and a leaf stays in
+// whole float4 words
 __host__ __device__ constexpr int wide_leaf(int n) {
-  return round4(ssme::padded_size(n));
+  return (ssme::padded_size(n) + 27) / 32 * 32 + 4;
 }
 
 // The wide row's dynamic shared memory at n particles: theta (P leaves)
 // and the gather buffer (S + 1 leaves) at wide_leaf(n) floats a leaf; the
 // paired layout's ring after them.  Its small arrays (the marks, tbar,
-// the Gram's slices, the factor) are static, at fixed addresses: a
-// pointer held for each would cost a register the kernel draws lack.
+// the moments' partial tiles, the Gram, the factor) are static, at fixed
+// addresses: a pointer held for each would cost a register the kernel
+// draws lack.
 template <class Model>
 struct WideRowLayout {
   static constexpr int P = Model::kNumParams;
@@ -797,11 +821,11 @@ struct WideRowLayout {
   }
 };
 
-// the wide row's static shared memory at P = 21, at most (the marks 4 KB,
-// tbar, the Gram's slices and the factor 3.9 KB, the exchanges' and the
-// twin's record 2.7 KB; chip_smoke phase 2 holds each instance's with its
-// dynamic bytes to the block)
-constexpr int kWideStaticBytes = 12 * 1024;
+// the wide row's static shared memory at P = 21, at most (the moments'
+// partial tiles 12 KB, the marks 4 KB, tbar, the Gram and the factor 3 KB,
+// the exchanges' and the twin's record 2.7 KB; chip_smoke phase 2 holds
+// each instance's with its dynamic bytes to the block)
+constexpr int kWideStaticBytes = 24 * 1024;
 
 // whether a wide row's cloud and a ring of one step (the paired layout,
 // lw_ring.cuh) fit a block at the family's largest N: lw_pair_row holds
@@ -813,126 +837,163 @@ __host__ __device__ constexpr bool wide_pair_fits() {
          kBlockBytes;
 }
 
-// The warp's sums of M values a lane (M a multiple of 32), scattered: a
-// reduce-scatter in five halvings (lane bit O = 16, 8, .. 1), each lane
-// sending the half it does not keep to its partner (one shuffle a kept
-// value); lane l ends with the sums of values (M / 32) l .. (M / 32) (l +
-// 1) - 1 in v[0 .. M / 32).  A fixed order, so every compilation and
-// every twin adds alike.
-template <int M, int O = 16>
-__device__ __forceinline__ void warp_sum_scatter(float (&v)[M]) {
-  static_assert(M % 32 == 0, "whole lanes");
-  if constexpr (O > 0) {
-    constexpr int kHalf = M * O / 32;  // the values kept at this halving
-    const bool hi = (threadIdx.x & O) != 0;
-#pragma unroll
-    for (int k = 0; k < kHalf; ++k) {
-      const float send = hi ? v[k] : v[k + kHalf];
-      const float keep = hi ? v[k + kHalf] : v[k];
-      v[k] = keep + __shfl_xor_sync(ssme::kFullMask, send, O);
-    }
-    warp_sum_scatter<M, O / 2>(v);
-  }
+// one m16n8k4 product on the FP64 tensor cores, accumulated: lane l holds
+// entries (l / 4, 2 (l % 4) + i) of the 8 x 8 tile d[0..1] and of d[2..3],
+// and d += A B, the tiles stacked in A's rows: A's entries (l / 4, l % 4)
+// a0 and (8 + l / 4, l % 4) a1, B's (l % 4, l / 4) b
+__device__ __forceinline__ void dmma_16x8x4(double (&d)[4], double a0,
+                                            double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-// One (block, slice) of the wide row's Gram: rows r0 .. r0 + kRows - 1,
-// columns c0 .. c0 + 6 (kDiag: kRows = 7, c0 = r0, the lower triangle),
-// over the particles of chunks m = s, s + kGramSlices, ... of 32 (lane l
-// takes particle 32 m + l), of sqrt(w) (theta - tbar) from theta (`th`, P
-// leaves at `stride`), the staged sqrt(w) (`sw`) and tbar (`tb`); the
-// sums to out[r (r + 1) / 2 + c], entry (r, c) of the lower triangle.  At
-// most 28 sums a lane (a block below the diagonal comes in a half of 4
-// rows and one of 3: 49 sums beside the loads spilled).
-template <bool kDiag, int kRows>
-__device__ __forceinline__ void gram_block(const float* th, const float* sw,
-                                           const float* tb, int stride,
-                                           int r0, int c0, int s, int n,
-                                           float* out) {
-  constexpr int kT = kGramTile;
-  static_assert(!kDiag || kRows == kT, "a diagonal block is whole");
-  constexpr int kE = kDiag ? kT * (kT + 1) / 2 : kRows * kT;
-  constexpr int kM = (kE + 31) / 32 * 32;
-  const int lane = threadIdx.x & 31;
-  float tr[kRows], tc[kT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) tr[r] = tb[r0 + r];
-#pragma unroll
-  for (int q = 0; q < kT; ++q) tc[q] = tb[c0 + q];
-  float acc[kM];
-#pragma unroll
-  for (int e = 0; e < kM; ++e) acc[e] = 0.0f;
-  // one chunk at a time: an unrolled pair of chunks would hold a second
-  // set of loads beside the sums and spill
-#pragma unroll 1
-  for (int m = s; 32 * m < n; m += kGramSlices) {
-    const int at = ssme::padded(32 * m + lane);
-    const float root = sw[at];
-    // the columns' centred values, then each row's as it is used (a
-    // row's value in one register at a time)
-    float c[kT];
-#pragma unroll
-    for (int q = 0; q < kT; ++q)
-      c[q] = (th[(c0 + q) * stride + at] - tc[q]) * root;
-    int e = 0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float a =
-          kDiag ? c[r] : (th[(r0 + r) * stride + at] - tr[r]) * root;
-#pragma unroll
-      for (int q = 0; q < (kDiag ? r + 1 : kT); ++q, ++e)
-        acc[e] = fmaf(a, c[q], acc[e]);
-    }
-  }
-  warp_sum_scatter<kM>(acc);
-#pragma unroll
-  for (int f = 0; f < kM / 32; ++f) {
-    const int e = (kM / 32) * lane + f;
-    if (e >= kE) continue;
-    int r = e / kT, q = e % kT;
-    if (kDiag) {
-      r = 0;
-      while ((r + 1) * (r + 2) / 2 <= e) ++r;
-      q = e - r * (r + 1) / 2;
-    }
-    const int gr = r0 + r, gc = c0 + q;
-    out[gr * (gr + 1) / 2 + gc] = acc[f];
-  }
+// where a warp's partial tiles keep entry (r, col), r >= col, of G (both
+// at most P): the three products of a step give the lower tiles (I, J) as
+// (0, 0) and (1, 0), (1, 1) and (2, 1), (0, 2) and (2, 2), six tiles of 64
+// doubles in that order, entry (r, c) of a tile at 8 r + c; tile (2, 0) is
+// read as the transpose of (0, 2)
+__device__ __forceinline__ int moment_at(int r, int col) {
+  const int I = r >> 3, J = col >> 3;
+  if (I == 2 && J == 0) return 4 * 64 + 8 * (col & 7) + (r & 7);
+  const int tile = I == 0 ? 0 : (I == 1 ? 1 + J : (J == 1 ? 3 : 5));
+  return tile * 64 + 8 * (r & 7) + (col & 7);
 }
 
-// item `item` of the wide row's Gram (kGramItems a step, each a warp's):
-// unit u = item % kGramUnits of the blocks in order (a diagonal block one
-// unit, a block below the diagonal two, its rows 0-3 and 4-6), slice s =
-// item / kGramUnits
+// The moments' pass of warp w of the mw that run it (the wide row's
+// note): over its steps s in [n w / (4 mw), n (w + 1) / (4 mw)), lane l
+// loads theta of parameters 8 I + l / 4 (I < 3) of particle j = 4 s + l %
+// 4 (slot padded(j) of theta's P leaves th at `stride`) and the
+// particle's staged weight w (wst, in double), forms d_I = theta - c and
+// x_I = w d_I in double (c particle 0's theta; column P: d = 1, x = w;
+// past it 0), and accumulates the lower tiles G_IJ += x_I d_J'
+// (moment_at).  Then the warps of one SM sub-partition (w, w + 4, w + 8,
+// ..) hand their tiles down through its slot of part, each adding the
+// tiles of the warp above it to its own (named barrier 1 + 3 (w % 4) + w
+// / 4 between warps w and w + 4), so that warp w % 4 leaves their sum in
+// slot w % 4 (384 doubles: lane l's entries 2 l, 2 l + 1 of each tile).
 template <int P>
-__device__ __forceinline__ void gram_item(int item, const float* th,
-                                          const float* sw, const float* tb,
-                                          int stride, int n, float* gram) {
-  constexpr int kTiles = P / kGramTile;
-  constexpr int kUnits = kTiles * kTiles;  // kTiles + 2 kTiles (kTiles-1)/2
-  const int s = item / kUnits;
-  int u = item % kUnits, bi = 0, bj = 0;
-  while (u >= (bi == bj ? 1 : 2)) {  // walk the blocks in row order
-    u -= bi == bj ? 1 : 2;
-    if (bj == bi) {
-      ++bi;
-      bj = 0;
-    } else {
-      ++bj;
-    }
+__device__ __forceinline__ void moments_pass(const float* th,
+                                             const double* wst, int stride,
+                                             int n, int w, int mw,
+                                             double* part) {
+  static_assert(P >= 16 && P < 24, "the parameters and the sum column in "
+                                   "three tiles of 8");
+  static_assert(kMomentWarps <= 16, "three named barriers a sub-partition");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  // this lane's leaves (past P, leaf g: a bank no other lane of the load
+  // takes; the third tile's d_2 = theta * sc + tc takes it times 0) and
+  // the shifts
+  int leaf[3];
+#pragma unroll
+  for (int I = 0; I < 3; ++I)
+    leaf[I] = (8 * I + g < P ? 8 * I + g : g) * stride;
+  const double c0 = static_cast<double>(th[leaf[0]]);
+  const double c1 = static_cast<double>(th[leaf[1]]);
+  const bool real = 16 + g < P;
+  const double sc = real ? 1.0 : 0.0;
+  const double tc = real ? -static_cast<double>(th[leaf[2]])
+                         : (16 + g == P ? 1.0 : 0.0);
+  double acc[3][4];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0.0;
+  const int s0 = n / 4 * w / mw, s1 = n / 4 * (w + 1) / mw;
+#pragma unroll 4
+  for (int s = s0; s < s1; ++s) {
+    const int at = ssme::padded(4 * s + q);
+    const double wd = wst[at];
+    const double d0 = __dsub_rn(static_cast<double>(th[leaf[0] + at]), c0);
+    const double d1 = __dsub_rn(static_cast<double>(th[leaf[1] + at]), c1);
+    const double d2 =
+        __fma_rn(static_cast<double>(th[leaf[2] + at]), sc, tc);
+    dmma_16x8x4(acc[0], __dmul_rn(wd, d0), __dmul_rn(wd, d1), d0);
+    dmma_16x8x4(acc[1], __dmul_rn(wd, d1), __dmul_rn(wd, d2), d1);
+    dmma_16x8x4(acc[2], __dmul_rn(wd, d0), __dmul_rn(wd, d2), d2);
   }
-  float* const out = gram + s * (P * (P + 1) / 2);
-  const int r0 = kGramTile * bi, c0 = kGramTile * bj;
-  if (bi == bj)
-    gram_block<true, kGramTile>(th, sw, tb, stride, r0, c0, s, n, out);
-  else if (u == 0)
-    gram_block<false, 4>(th, sw, tb, stride, r0, c0, s, n, out);
-  else
-    gram_block<false, kGramTile - 4>(th, sw, tb, stride, r0 + 4, c0, s, n,
-                                     out);
+  // tile 2 u + h of product u: lane l's two entries at 2 l, 2 l + 1
+  const int sp = w & 3, k = w >> 2;
+  double2* const slot =
+      reinterpret_cast<double2*>(part) + sp * 6 * 32 + lane;
+  if (w + 4 < mw) {  // the tiles of the warp above, added to this one's
+    asm volatile("bar.sync %0, 64;" :: "r"(1 + 3 * sp + k) : "memory");
+#pragma unroll
+    for (int u = 0; u < 3; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double2 o = slot[(2 * u + h) * 32];
+        acc[u][2 * h] = __dadd_rn(acc[u][2 * h], o.x);
+        acc[u][2 * h + 1] = __dadd_rn(acc[u][2 * h + 1], o.y);
+      }
+  }
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      slot[(2 * u + h) * 32] = make_double2(acc[u][2 * h], acc[u][2 * h + 1]);
+  if (k > 0)  // handed to the warp below
+    asm volatile("bar.arrive %0, 64;" :: "r"(3 * sp + k) : "memory");
 }
 
-// the wide row's Cholesky of h^2 Vt (h2w = h^2 / sum w) from the Gram's
-// slices (gram: kGramSlices x P (P + 1) / 2, summed in slice order) by one
+// the row's warps, read where they are used (asm volatile: a count
+// hoisted out of the step loop would hold a register through the kernel
+// draws, which have none to spare)
+__device__ __forceinline__ int block_warps() {
+  unsigned threads;
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(threads));
+  return static_cast<int>(threads >> 5);
+}
+
+// The moments' fold (the wide row's note), after the pass's barrier: the
+// Gram's rows v and P - 1 - v a warp (v = warp, warp + nw, .. below (P +
+// 1) / 2), lane b of the first holding entry (v, b) and lane v + 1 + b of
+// the second (P - 1 - v, b).  G_ab, m_a, m_b and sum w are each the sum of
+// the slots of part in slot order (one a sub-partition of the mw warps,
+// 384 doubles each, moment_at); q_a = m_a / sum w, by a float reciprocal
+// refined twice in double; gram[a (a + 1) / 2 + b] = G_ab - q_a m_b and,
+// on the diagonal, tb[a] = c_a + q_a (c particle 0's theta), each rounded
+// to float; entry (0, 0) also writes sum w to tb[P] and *wsum.
+template <int P>
+__device__ __forceinline__ void moments_fold(const float* th, int stride,
+                                             const double* part, int mw,
+                                             int warp, int nw, float* tb,
+                                             float* gram, float* wsum) {
+  static_assert(P + 1 <= 32, "two rows of the Gram a warp");
+  const int lane = threadIdx.x & 31;
+  const int ms = mw < kMomentSlots ? mw : kMomentSlots;
+  auto entry = [&](int r, int col) {
+    const double* at = part + moment_at(r, col);
+    double v = at[0];
+#pragma unroll
+    for (int k = 1; k < kMomentSlots; ++k)
+      if (k < ms) v = __dadd_rn(v, at[k * 6 * 64]);
+    return v;
+  };
+  for (int v = warp; v < (P + 1) / 2; v += nw) {
+    const bool first = lane <= v;
+    const int a = first ? v : P - 1 - v;
+    const int b = first ? lane : lane - v - 1;
+    if (b > a || (!first && a == v)) continue;
+    const double sw = entry(P, P), ma = entry(P, a), mb = entry(P, b);
+    const double gab = entry(a, b);
+    double r = static_cast<double>(__fdividef(1.0f, __double2float_rn(sw)));
+    r = __fma_rn(r, __fma_rn(-sw, r, 1.0), r);
+    r = __fma_rn(r, __fma_rn(-sw, r, 1.0), r);
+    const double qa = __dmul_rn(ma, r);
+    gram[a * (a + 1) / 2 + b] = __double2float_rn(__fma_rn(-qa, mb, gab));
+    if (a == b)
+      tb[a] = __double2float_rn(__dadd_rn(
+          static_cast<double>(th[a * stride]), qa));
+    if (a == 0) tb[P] = *wsum = __double2float_rn(sw);
+  }
+}
+
+// the wide row's Cholesky of h^2 Vt (h2w = h^2 / sum w) from the Gram
+// (gram: its P (P + 1) / 2 sums, entry (r, c) at r (r + 1) / 2 + c) by one
 // warp, lane r holding row r, into chol column-major (entry (r, k) at
 // chol[k chol_stride(P) + r], 0 above the diagonal).  Right-looking:
 // column jj's pivot is broadcast, each lane scales its entry, and the
@@ -944,8 +1005,10 @@ __device__ __forceinline__ void gram_item(int item, const float* th,
 // reciprocal is rsqrtf of the floored pivot, beside its sqrtf: warp 0
 // runs the factor while the other warps' first stage takes the SM's
 // issue slots, so its chain of 21 columns sets the step (a correctly
-// rounded divide cost it ~640 cycles a column; the plain version divides
-// each entry, a few ulp apart).  One rule more: at 21 parameters a cloud of few distinct
+// rounded divide cost it ~640 cycles a column; the plain version takes
+// the same fused products and, through torch.rsqrt, on the card the same
+// reciprocal, so that from one Gram both take the rank rule's decisions
+// alike).  One rule more: at 21 parameters a cloud of few distinct
 // particles makes Vt nearly singular, and in float32 a pivot that falls
 // to rounding (with the floor, sqrt(1e-9)) turns the rest of its column
 // into rounding over a tiny divisor, which the later columns square and
@@ -959,21 +1022,20 @@ constexpr float kRankRel = 1e-4f;
 template <int P>
 __device__ __forceinline__ void wide_cholesky(float h2w, const float* gram,
                                               float* chol) {
-  constexpr int kGram = P * (P + 1) / 2;
   constexpr int kCol = chol_stride(P);
-  static_assert(kGramSlices == 2 && P <= 32, "two slices, a lane a row");
+  static_assert(P <= 32, "a lane a row");
   const int lane = threadIdx.x & 31;
   const int r = lane < P ? lane : P - 1;  // past P: row P - 1, unwritten
   float a[P];  // row r: h^2 G, then the factor as its columns finish
 #pragma unroll
   for (int c = 0; c < P; ++c) {
     const int at = r >= c ? r * (r + 1) / 2 + c : 0;
-    a[c] = __fmul_rn(h2w, gram[at] + gram[kGram + at]);
+    a[c] = __fmul_rn(h2w, gram[at]);
   }
   // h^2 G_rr before any update, read again (a[r] would index the row by
   // the lane and put it in local memory)
   const int rr = r * (r + 1) / 2 + r;
-  const float diag0 = __fmul_rn(h2w, gram[rr] + gram[kGram + rr]);
+  const float diag0 = __fmul_rn(h2w, gram[rr]);
 #pragma unroll
   for (int jj = 0; jj < P; ++jj) {
     const float dd = __shfl_sync(ssme::kFullMask, a[jj], jj);
@@ -1026,21 +1088,19 @@ __device__ __forceinline__ void lw_wide_row(
   static_assert(kPer == 2, "one Philox pair a thread");
   constexpr int P = Model::kNumParams;
   constexpr int S = Model::kNumState;
+  static_assert(S >= 2, "the moments stage the weights in double in the "
+                        "gather buffer's leaves 0 and 1, the carried "
+                        "log-weights wait in leaf S");
   constexpr int K = Model::kNumFunctionals;
   constexpr int kK = K > 0 ? K : 1;
   constexpr int kDraws = Model::kDraws;
   constexpr int kCov = Model::kDimCov > 0 ? Model::kDimCov : 1;
-  static_assert(P % kGramTile == 0, "whole 7 x 7 blocks of the Gram");
-  static_assert(S >= 2, "the moments stage w and sqrt(w) in the gather "
-                        "buffer's leaves 0 and 1, the log-weights wait in S");
   using Layout = WideRowLayout<Model>;
   extern __shared__ __align__(16) float lw_wide_arrays[];
   const int n = num_particles;
   const int stride = wide_leaf(n);
   float* const th = lw_wide_arrays;  // theta, P leaves
   // the gather buffer: the state's S leaves, then the lookahead's density
-  // (the weights and their square roots in leaves 0 and 1 during the
-  // moments)
   float* const gbuf = lw_wide_arrays + Layout::gather(n);
   // the single layout's stash of the step's normals, pair q's draw k at
   // k blockDim + q (volatile: read back as written, not forwarded)
@@ -1048,7 +1108,8 @@ __device__ __forceinline__ void lw_wide_row(
       reinterpret_cast<float2*>(lw_wide_arrays + Layout::bytes(n) / 4);
   __shared__ __align__(16) int marks[kMaxThreads];  // the selections'
   __shared__ float tb[round4(P + 1)];                // tbar, then sum w
-  __shared__ float gram[kGramSlices * Layout::kGram];
+  __shared__ __align__(16) double mom_part[kMomentSlots * 6 * 64];
+  __shared__ float gram[Layout::kGram];
   __shared__ __align__(16) float chol[P * chol_stride(P)];
   __shared__ float max_part[32];
   // A: the first stage's scan; B: the weights' sums and scan
@@ -1061,8 +1122,7 @@ __device__ __forceinline__ void lw_wide_row(
   long long* const bars = rec.bars();
 
   const uint32_t i = threadIdx.x;
-  const int lane = static_cast<int>(i & 31), warp = static_cast<int>(i >> 5);
-  const int nw = static_cast<int>(blockDim.x >> 5);
+  const int warp = static_cast<int>(i >> 5);
   const bool active = static_cast<int>(kPer * i) < n;
   const uint32_t k0 = static_cast<uint32_t>(seed[0]);
   const uint32_t k1 = static_cast<uint32_t>(seed[1]);
@@ -1185,47 +1245,31 @@ __device__ __forceinline__ void lw_wide_row(
   for (int t = 1; t < num_steps; ++t) {
     const uint32_t tu = static_cast<uint32_t>(t);
 
-    // the moments' first pass: the weights and their square roots staged
-    // (lw has maximum 0), then sum w and sum w theta_k over the staged
-    // cloud, a parameter a warp
-    float* const wrow = gbuf;
-    float* const swrow = gbuf + stride;
+    // the moments (the note): the weights staged in double and theta
+    // published, the pass on the row's first warps, then the fold
+    double* const wst = reinterpret_cast<double*>(gbuf);
     if (active) {
 #pragma unroll
-      for (int p = 0; p < kPer; ++p) {
-        const float w = expf(lwrow[own0 + p]);
-        wrow[own0 + p] = w;
-        swrow[own0 + p] = sqrtf(w);
-      }
+      for (int p = 0; p < kPer; ++p)
+        wst[own0 + p] = static_cast<double>(expf(lwrow[own0 + p]));
     }
     ssme::row_sync(bars);
-    for (int k = warp; k < P; k += nw) {
-      float sw = 0.0f, st = 0.0f;
-#pragma unroll 1
-      for (int j = lane; j < n; j += 32) {
-        const float w = wrow[ssme::padded(j)];
-        sw = sw + w;
-        st = fmaf(th[k * stride + ssme::padded(j)], w, st);
-      }
-      sw = ssme::warp_sum(sw);
-      st = ssme::warp_sum(st);
-      if (lane == 0) {
-        tb[k] = st / sw;
-        if (k == 0) tb[P] = lcl_terms[0] = sw;
-      }
+    {
+      // the warps of the pass (the row's first, at most kMomentWarps)
+      const int nw = block_warps();
+      const int mw = nw < kMomentWarps ? nw : kMomentWarps;
+      if (warp < mw) moments_pass<P>(th, wst, stride, n, warp, mw, mom_part);
+      ssme::row_sync(bars);
+      rec.tick(kLWSpanMoments);
+      moments_fold<P>(th, stride, mom_part, mw, warp, nw, tb, gram,
+                      lcl_terms);
     }
     ssme::row_sync(bars);
-    // the second pass: the Gram of sqrt(w) (theta - tbar), its (block,
-    // slice) items over the warps
-    constexpr int kItems = (P / kGramTile) * (P / kGramTile) * kGramSlices;
-    for (int item = warp; item < kItems; item += nw)
-      gram_item<P>(item, th, swrow, tb, stride, n, gram);
-    ssme::row_sync(bars);
-    rec.tick(kLWSpanMoments);
+    rec.tick(kLWSpanMomentsFold);
     if (warp == 0) wide_cholesky<P>(args.h2 / tb[P], gram, chol);
     rec.tick(kLWSpanCholesky);
     // the step's observation, loaded where it is used, here and again at
-    // the transition (registers held through the Gram and the kernel
+    // the transition (registers held through the moments and the kernel
     // draws would spill)
     load_step<Model>(ys, zs, t, y, z);
 

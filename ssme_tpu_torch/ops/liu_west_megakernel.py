@@ -117,12 +117,13 @@ _RANK_REL = 1e-4
 def wide_row_bytes(kmodel, num_particles, paired=False):
     """Dynamic shared memory of the wide row of ``kmodel`` at N (csrc/
     lw_megakernel_sys.cuh WideRowLayout::bytes): theta's P leaves and the
-    gather buffer's S + 1, each the padded row in whole float4 words,
+    gather buffer's S + 1, each the padded row rounded up to 4 mod 32
+    words (wide_leaf),
     then the single layout's stash of the step's P + kDraws normal pairs
     a thread (single_bytes) or, ``paired``, rank 0's ring of one step
     (pair_bytes: P + kDraws normal pairs a thread and the offsets)."""
     n, p, s = int(num_particles), kmodel.num_params, kmodel.num_state
-    leaf = (n + n // 32 + 3) // 4 * 4
+    leaf = (n + n // 32 + 27) // 32 * 32 + 4
     threads = -(-n // 2 // 32) * 32
     dynamic = 4 * (p + s + 1) * leaf
     if not paired:
@@ -301,38 +302,78 @@ def _coefficients(delta):
     return a, 1.0 - a, 1.0 - a * a
 
 
+def _fma_sub(a, b, c):
+    """c - a b rounded once, as the kernel's fmaf(-a, b, c), of float32
+    tensors: the product of two floats is exact in double."""
+    return (c.double() - a.double() * b.double()).float()
+
+
 def _cholesky(gram, h2, p, rank_rel=None):
-    """Lower P x P Cholesky of h^2 * gram with the floored diagonal, on
-    lists of (F, 1) entries; every thread of the kernel does the same.
+    """Lower P x P Cholesky of h2 * gram with the floored diagonal, on
+    lists of (F, 1) entries (h2: h^2, or the wide row's (F, 1) h^2 / sum
+    w); every thread of the kernel does the same.
     With ``rank_rel`` (the wide row's rule, csrc/lw_megakernel_sys.cuh
     kRankRel) a pivot at or below rank_rel of its column's h^2 gram_jj
-    leaves the rest of its column 0.  A column's entries below the
-    diagonal are computed as one (F, P - jj - 1) tensor, each with the
-    operations of an entry's own loop (a product and a subtraction a term,
-    k in order, then the divide): the entries of an entry-by-entry loop,
-    in P^2 / 2 torch operations rather than P^3 / 3."""
+    leaves the rest of its column 0, and the arithmetic is the wide row's
+    (wide_cholesky): each term one fused multiply-add, the entries below
+    the diagonal times the reciprocal square root of the floored pivot
+    (torch.rsqrt: on the card the kernel's rsqrtf), so that both versions
+    take the rule's decisions alike from one Gram.  A column's entries
+    below the diagonal are computed as one (F, P - jj - 1) tensor, each
+    with the operations of an entry's own loop (a product and a
+    subtraction a term, k in order, then the divide): the entries of an
+    entry-by-entry loop, in P^2 / 2 torch operations rather than P^3 /
+    3."""
+    wide = rank_rel is not None
     cols = []  # column k: rows k .. p-1, (F, p - k)
     for jj in range(p):
         diag = h2 * gram[jj][jj]
         s = diag
         for k in range(jj):
             ljk = cols[k][:, jj - k:jj - k + 1]
-            s = s - ljk * ljk
-        d = torch.sqrt(torch.clamp(s, min=_EPS_CHOL))
+            s = _fma_sub(ljk, ljk, s) if wide else s - ljk * ljk
+        floored = torch.clamp(s, min=_EPS_CHOL)
+        d = torch.sqrt(floored)
         if jj + 1 == p:
             cols.append(d)
             break
         below = h2 * torch.cat([gram[i][jj] for i in range(jj + 1, p)], -1)
         for k in range(jj):
-            below = (below - cols[k][:, jj - k + 1:]
-                     * cols[k][:, jj - k:jj - k + 1])
-        below = below / d
-        if rank_rel is not None:
+            lk, ljk = cols[k][:, jj - k + 1:], cols[k][:, jj - k:jj - k + 1]
+            below = _fma_sub(lk, ljk, below) if wide else below - lk * ljk
+        below = below * torch.rsqrt(floored) if wide else below / d
+        if wide:
             below = torch.where(s > rank_rel * diag, below,
                                 torch.zeros_like(below))
         cols.append(torch.cat([d, below], -1))
     return [[cols[k][:, i - k:i - k + 1] if k <= i else None
              for k in range(p)] for i in range(p)]
+
+
+def wide_moments(th, lw):
+    """The wide row's shrinkage moments (csrc/lw_megakernel_sys.cuh
+    moments_pass and moments_fold) of the (P, F, N) float32 cloud ``th``
+    under the carried log-weights ``lw`` (F, N), in float64 as the
+    kernel's tensor cores take them: about c, particle 0's theta, each
+    particle's rows X = [w (theta - c), w] and D = [theta - c, 1], G =
+    X' D in one product, then C = G - m m' / sum w and tbar = c + m / sum
+    w (m: G's last row), rounded to float32 where the kernel keeps tbar,
+    sum w and C.  Returns tbar (P entries (F, 1)), sum w (F, 1) and C, the
+    weighted Gram about tbar, as :func:`_cholesky` takes it (entry (i, j
+    <= i) an (F, 1) float32 tensor, None above the diagonal)."""
+    p = th.shape[0]
+    w = torch.exp(lw).double()[..., None]                     # (F, N, 1)
+    c = th[:, :, :1].double()                                 # (P, F, 1)
+    d = (th.double() - c).permute(1, 2, 0)                    # (F, N, P)
+    g = torch.einsum("fna,fnb->fab", torch.cat([d * w, w], -1),
+                     torch.cat([d, torch.ones_like(w)], -1))
+    sw = g[:, p, p:]                                          # (F, 1)
+    q = g[:, p, :p] / sw                                      # (F, P)
+    cen = (g[:, :p, :p] - q[:, :, None] * g[:, p, None, :p]).float()
+    tbar = (c[:, :, 0].T + q).float()
+    gram = [[cen[:, i, j:j + 1] for j in range(i + 1)] + [None] * (p - i - 1)
+            for i in range(p)]
+    return [tbar[:, k:k + 1] for k in range(p)], sw.float(), gram
 
 
 def _gather(leaves, anc):
@@ -342,12 +383,18 @@ def _gather(leaves, anc):
 def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
                             num_particles=512, delta=0.99, resample_every=1,
                             variant="apf", ess_threshold=0.0,
-                            resampler="systematic", metropolis_iters=16):
+                            resampler="systematic", metropolis_iters=16,
+                            start=None):
     """Plain PyTorch version of :func:`lw_megakernel`, callable on either
     device and with any :class:`LWKernelModel`; consumes the kernel's
     Philox bits step by step.  Under a roll resampler the APF first stage
     selects on ``_prng.TAG_ROLL_SELECT``, the joint resample on
-    ``TAG_ROLL_SWEEP``, and only the firing filters run the sweep loop."""
+    ``TAG_ROLL_SWEEP``, and only the firing filters run the sweep loop.
+    ``start=(t0, cloud)`` (t0 >= 1) resumes at step t0 from ``cloud``, the
+    cloud a run over ys[:t0] returns, and runs steps t0 .. T-1 alone (the
+    log-likelihood terms and functional paths of the steps before t0 are
+    0): the steps of one run from one state, for comparing a step of two
+    versions without the steps before it."""
     seed, ys, zs = _validate(kmodel, seed, ys, zs, num_filters,
                              num_particles, resample_every, variant,
                              ess_threshold, resampler, metropolis_iters)
@@ -394,35 +441,54 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
                                       lw, None, fire, 0.0, roll)
         return picked[:s_rows], torch.stack(picked[s_rows:]), lw
 
-    # t = 0: the prior draw, the init draw, the first weights
-    y, z = obs_at(0)
-    cp = kmodel.sample_prior(rng.at(0), (f, n))
-    th = kmodel.transform(cp)
-    state = tuple(kmodel.init(rng.at(0), cp, y, (f, n)))
-    lw = kmodel.log_weight(cp, state, y, z)
-    m, wn, s, s2 = weigh(0, cp, state, lw)
-    lcl[:, 0] = ((m + torch.log(s)) - log_n)[:, 0]
-    lw = lw - m
-    state, th, lw = maybe_resample(0, wn, s, s2, state, th, lw)
+    if start is None:
+        # t = 0: the prior draw, the init draw, the first weights
+        t0 = 1
+        y, z = obs_at(0)
+        cp = kmodel.sample_prior(rng.at(0), (f, n))
+        th = kmodel.transform(cp)
+        state = tuple(kmodel.init(rng.at(0), cp, y, (f, n)))
+        lw = kmodel.log_weight(cp, state, y, z)
+        m, wn, s, s2 = weigh(0, cp, state, lw)
+        lcl[:, 0] = ((m + torch.log(s)) - log_n)[:, 0]
+        lw = lw - m
+        state, th, lw = maybe_resample(0, wn, s, s2, state, th, lw)
+    else:
+        t0, cloud = int(start[0]), start[1]
+        if not 1 <= t0 < t_len or cloud.shape != (f, s_rows + 1 + p, n):
+            raise ValueError(f"start: a step in [1, {t_len}) and a cloud of "
+                             f"shape {(f, s_rows + 1 + p, n)}")
+        state = tuple(cloud[:, :s_rows].unbind(1))
+        lw = cloud[:, s_rows]
+        th = cloud[:, s_rows + 1:].transpose(0, 1).contiguous()
 
-    for t in range(1, t_len):
+    for t in range(t0, t_len):
         y, z = obs_at(t)
         # weighted shrinkage moments; lw has maximum 0
-        ww = torch.exp(lw)
-        wsum = ww.sum(-1, keepdim=True)
-        tbar = [(th[k] * ww).sum(-1, keepdim=True) / wsum for k in range(p)]
-        # the Gram's entry (i, j <= i): sum over the particles of (cen_i
-        # w) cen_j, over sum w; row i's products and quotients one torch
-        # operation each, its sums one a column, as entry by entry
-        cen = th - torch.stack(tbar)
-        gram = []
-        for i in range(p):
-            prod = (cen[i] * ww) * cen[:i + 1]
-            row = torch.cat([prod[j].sum(-1, keepdim=True)
-                             for j in range(i + 1)], -1) / wsum
-            gram.append([row[:, j:j + 1] for j in range(i + 1)]
-                        + [None] * (p - i - 1))
-        lmat = _cholesky(gram, h2, p,
+        if p > REG_PARAMS:
+            # the Gram about tbar, scaled by h^2 / sum w as the kernel
+            # scales it
+            tbar, wsum, gram = wide_moments(th, lw)
+            scale = torch.full_like(wsum, h2) / wsum
+        else:
+            ww = torch.exp(lw)
+            wsum = ww.sum(-1, keepdim=True)
+            tbar = [(th[k] * ww).sum(-1, keepdim=True) / wsum
+                    for k in range(p)]
+            # the Gram's entry (i, j <= i): sum over the particles of
+            # (cen_i w) cen_j, over sum w; row i's products and quotients
+            # one torch operation each, its sums one a column, as entry by
+            # entry
+            cen = th - torch.stack(tbar)
+            gram = []
+            for i in range(p):
+                prod = (cen[i] * ww) * cen[:i + 1]
+                row = torch.cat([prod[j].sum(-1, keepdim=True)
+                                 for j in range(i + 1)], -1) / wsum
+                gram.append([row[:, j:j + 1] for j in range(i + 1)]
+                            + [None] * (p - i - 1))
+            scale = h2
+        lmat = _cholesky(gram, scale, p,
                          _RANK_REL if p > REG_PARAMS else None)
         shrunk = torch.stack([a * th[k] + one_minus_a * tbar[k]
                               for k in range(p)])
@@ -450,7 +516,10 @@ def lw_megakernel_reference(kmodel, seed, ys, zs=None, num_filters=1,
         th_new = torch.stack(tuple(shrunk_anc))
         for k in range(p):
             col = torch.stack([lmat[i][k] for i in range(k, p)])
-            th_new[k:] += col * rng.normals(t, k)
+            if p > REG_PARAMS:  # the wide row's fmaf
+                th_new[k:] = _fma_sub(-col, rng.normals(t, k), th_new[k:])
+            else:
+                th_new[k:] += col * rng.normals(t, k)
         cp = kmodel.constrain(th_new)
         prop = (kmodel.sample_q if not apf and kmodel.sample_q is not None
                 else kmodel.propagate)
@@ -647,8 +716,9 @@ BARRIERS_PER_STEP = {
             "other": 7},
     "sisr": {"first_resample": 3, "first_other": 2, "resample": 5,
              "other": 4}}
-# the wide row's (more than REG_PARAMS parameters): the moments over the
-# staged cloud take 3 where the registers' exchanges take 2, theta's
+# the wide row's (more than REG_PARAMS parameters): the moments take 3
+# (the cloud published, the pass's partial tiles, the fold) where the
+# registers' exchanges take 2, theta's
 # gathers one each (the ancestors read before it, the own slots written
 # after it: the kernel draws and the joint resample), and SISR one more to
 # publish the factor
@@ -665,11 +735,12 @@ def barriers_per_step(kmodel, variant):
     table = (WIDE_BARRIERS_PER_STEP if kmodel.num_params > REG_PARAMS
              else BARRIERS_PER_STEP)
     return table[variant]
-# the parts of a step its clock64 spans time (the paired layout's waits on
-# its ring apart), then the rest of the instrumented twins' record per
-# filter (csrc/lw_megakernel_sys.cuh LWSpan)
-SPAN_PARTS = ("moments", "cholesky", "first_stage", "draws", "weigh",
-              "resample", "ring_wait")
+# the parts of a step its clock64 spans time (the wide row's fold of the
+# moments apart, 0 in the other rows; the paired layout's waits on its
+# ring apart), then the rest of the instrumented twins' record per filter
+# (csrc/lw_megakernel_sys.cuh LWSpan)
+SPAN_PARTS = ("moments", "moments_fold", "cholesky", "first_stage", "draws",
+              "weigh", "resample", "ring_wait")
 SPAN_RECORD = SPAN_PARTS + ("first_resamples", "resamples",
                             "barriers_first_resample",
                             "barriers_first_other", "barriers_resample",
@@ -1024,7 +1095,7 @@ __all__ = ["LWKernelModel", "lw_megakernel", "lw_megakernel_reference",
            "lw_cloud_params", "lw_cloud_weights", "lw_cloud_states",
            "lw_kernel_sim_future_obs", "step_spans", "BARRIERS_PER_STEP",
            "LAYOUTS", "layout_for", "launch_key", "barriers_per_step",
-           "wide_row_bytes",
+           "wide_row_bytes", "wide_moments",
            "WIDE_BARRIERS_PER_STEP", "REG_PARAMS",
            "factor_svol_lw_kernel_model", "FACTOR_SVOL_5_PRIOR_BOUNDS",
            "SPAN_PARTS", "SPAN_RECORD", "svol_leverage_lw_kernel_model",

@@ -971,7 +971,8 @@ def test_k3_layout_counter_and_span_key(dev):
 def test_k3_twins_report_the_ring_wait_and_cluster(dev, n):
     """The twin records the paired layout's waits on its ring and the
     CTAs a filter: 2 and a wait at F=8, 1 and no wait at F=128, the same
-    barriers a step and the same bits in both."""
+    barriers a step and the same bits in both; the register row has no
+    fold of the moments (the wide row's part)."""
     ys = _ys(40, 33).to(dev)
     km, zs = _k3_functor("svol_leverage_lw", ys)
     paired = lwm.step_spans(4, ys, zs, 8, n, kmodel=km)
@@ -979,6 +980,8 @@ def test_k3_twins_report_the_ring_wait_and_cluster(dev, n):
     assert (paired["cluster"], single["cluster"]) == (2, 1)
     assert paired["cycles_per_step"]["ring_wait"] > 0
     assert single["cycles_per_step"]["ring_wait"] == 0
+    assert (paired["cycles_per_step"]["moments_fold"]
+            == single["cycles_per_step"]["moments_fold"] == 0)
     assert paired["barriers_per_step"] == single["barriers_per_step"]
     for key in ("log_cond_likes", "cloud"):
         assert torch.equal(paired["outputs"][key],
@@ -1366,44 +1369,31 @@ def _factor_panel(t_len, dev):
     return torch.as_tensor(ys, dtype=torch.float32, device=dev).contiguous()
 
 
-@pytest.mark.parametrize("n", [32, 96, 512, 1024])
-def test_k3_factor_matches_plain(dev, n):
-    """The factor_svol_5_lw instance (the wide row: theta, the Gram's
-    blocks and the factor in shared memory) against its plain version on
-    the same bits, as K3's other functors: SISR with a gate that never
-    fires within 2e-3 (the totals; plus 2e-5 of the total, the same
-    tolerance a nat: the 5-column densities sum to ~300 nats over these
-    48 steps where the one-column instances' sum to ~100) and 1e-3 (the
-    cloud, the weights and the two functional paths; the Gram sums in
-    another order and the draws' products fused); APF and SISR
-    resampling every step by phase 25's rule and the means within 4
-    combined standard errors.  The no-selection comparison runs at N =
-    512 and 1024: at N = 32 and 96 the weights of SISR without a resample
-    settle on a few particles within these steps, Vt spans fewer than 21
-    directions, and whether a pivot falls under the Cholesky's rank rule
-    (1e-4 of its diagonal) is a matter of rounding, so the two versions'
-    kernel draws part by a few 1e-3 there."""
-    ys = _factor_panel(48, dev)
-    km = lwm.factor_svol_lw_kernel_model()
-    f = 16
-    if n >= 512:
-        got, want = _k3_pair(km, 12, ys, None, f, n, variant="sisr",
-                             ess_threshold=0.5 / n)
-        torch.testing.assert_close(got["log_likelihood"],
-                                   want["log_likelihood"], rtol=2e-5,
-                                   atol=2e-3)
-        s = km.num_state
-        for rows in (slice(0, s), slice(s + 1, None)):
-            torch.testing.assert_close(got["cloud"][:, rows],
-                                       want["cloud"][:, rows], rtol=0,
-                                       atol=1e-3)
-        torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
-                                   lwm.lw_cloud_weights(km, want["cloud"]),
-                                   rtol=0, atol=1e-3)
-        for a, b in zip(got["functional_paths"], want["functional_paths"]):
-            torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+def _k3_factor_close(km, ys, f, n):
+    """The factor instance and its plain version, SISR with a gate that
+    never fires, over ys: the totals within 2e-3 plus 2e-5 of the total,
+    the cloud, the weights and the two functional paths within 1e-3."""
+    got, want = _k3_pair(km, 12, ys, None, f, n, variant="sisr",
+                         ess_threshold=0.5 / n)
+    torch.testing.assert_close(got["log_likelihood"],
+                               want["log_likelihood"], rtol=2e-5, atol=2e-3)
+    s = km.num_state
+    for rows in (slice(0, s), slice(s + 1, None)):
+        torch.testing.assert_close(got["cloud"][:, rows],
+                                   want["cloud"][:, rows], rtol=0, atol=1e-3)
+    torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                               lwm.lw_cloud_weights(km, want["cloud"]),
+                               rtol=0, atol=1e-3)
+    for a, b in zip(got["functional_paths"], want["functional_paths"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+def _k3_factor_statistical(km, ys, f, n, seed=13):
+    """The factor instance and its plain version, APF and SISR resampling
+    every step: phase 25's step-one rule and the means within 4 combined
+    standard errors."""
     for variant in ("apf", "sisr"):
-        got, want = _k3_pair(km, 13, ys, None, f, n, variant=variant)
+        got, want = _k3_pair(km, seed, ys, None, f, n, variant=variant)
         tot, tot_p = got["log_likelihood"], want["log_likelihood"]
         assert torch.isfinite(tot).all()
         _step_one_rule(got["log_cond_likes"], want["log_cond_likes"])
@@ -1411,14 +1401,108 @@ def test_k3_factor_matches_plain(dev, n):
         assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se
 
 
+def _far_factor_model():
+    """factor_svol_5_lw with mu2 (a null transform) drawn from a box 1e-2
+    wide at -20: a cloud mean some 7000 times its spread, the case the
+    wide row's moments take their shift for."""
+    bounds = list(lwm.FACTOR_SVOL_5_PRIOR_BOUNDS)
+    bounds[3] = (-20.005, -19.995)
+    far = lwm.factor_svol_lw_kernel_model(5, tuple(bounds))
+    assert far.cuda_instance == "factor_svol_5_lw"
+    return far
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_k3_factor_matches_plain(dev, n):
+    """The factor_svol_5_lw instance (the wide row: theta in shared
+    memory, the moments on the FP64 tensor cores, the factor by one warp)
+    against its plain version on the same bits, as K3's other functors:
+    SISR with a gate that never fires within 2e-3 (the totals; plus 2e-5
+    of the total, the same tolerance a nat: the 5-column densities sum to
+    ~300 nats over these 48 steps where the one-column instances' sum to
+    ~100) and 1e-3 (the cloud, the weights and the two functional paths;
+    the moments sum in another order and the draws' products fused); APF
+    and SISR resampling every step by phase 25's rule and the means
+    within 4 combined standard errors.  The no-selection comparison runs
+    at N = 512 and 1024: at N = 32 and 96 the weights of SISR without a
+    resample settle on a few particles within these steps, Vt spans fewer
+    than 21 directions, and whether a pivot falls under the Cholesky's
+    rank rule (1e-4 of its diagonal) is a matter of rounding, so the two
+    versions' kernel draws part by a few 1e-3 there (each step from one
+    state: test_k3_factor_steps_match_plain_from_one_state).  At N = 1024
+    both comparisons run again on _far_factor_model."""
+    ys = _factor_panel(48, dev)
+    km = lwm.factor_svol_lw_kernel_model()
+    f = 16
+    if n >= 512:
+        _k3_factor_close(km, ys, f, n)
+    _k3_factor_statistical(km, ys, f, n)
+    if n == 1024:
+        far = _far_factor_model()
+        _k3_factor_close(far, ys, f, n)
+        _k3_factor_statistical(far, ys, f, n, seed=14)
+
+
+# each step of the factor instance from the kernel's own state: the
+# largest gap a step may leave in the cloud, its weights and functional
+# paths, and in its log-likelihood term (about ten times the largest
+# read on the card: 1.9e-6, 5.5e-6 and 1.6e-5)
+STEP_CLOUD_ATOL, STEP_LCL_ATOL = 2e-5, 1e-4
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("n", [32, 512, 1024])
+def test_k3_factor_steps_match_plain_from_one_state(dev, n, far):
+    """Every step t = 1 .. 47 of the factor instance, SISR with a gate
+    that never fires, against the plain version's step t from the same
+    state: the cloud the kernel returns over ys[:t] (the plain version's
+    ``start``), so that no step inherits the steps before it and the rank
+    rule cannot part the two versions through a cloud that rounding has
+    already moved.  From one state both take the same moments and, the
+    plain version's Cholesky and kernel draws taking the kernel's fused
+    products and reciprocal square root, the same factor and theta'.
+    The cloud, its weights and the two functional paths within
+    STEP_CLOUD_ATOL, the step's log-likelihood term within STEP_LCL_ATOL,
+    at every step, on the default box and on _far_factor_model."""
+    ys = _factor_panel(48, dev)
+    km = _far_factor_model() if far else lwm.factor_svol_lw_kernel_model()
+    kw = dict(variant="sisr", ess_threshold=0.5 / n)
+    f, s = 16, km.num_state
+    rows = torch.cat([torch.arange(s),
+                      torch.arange(s + 1, s + 1 + km.num_params)])
+    before = lwm.lw_megakernel(km, 12, ys[:1], None, f, n, **kw)
+    for t in range(1, ys.shape[0]):
+        def at(m, t=t):
+            return f"step {t}: {m}"
+
+        got = lwm.lw_megakernel(km, 12, ys[:t + 1], None, f, n, **kw)
+        want = lwm.lw_megakernel_reference(km, 12, ys[:t + 1], None, f, n,
+                                           start=(t, before["cloud"]), **kw)
+        torch.testing.assert_close(got["cloud"][:, rows],
+                                   want["cloud"][:, rows], rtol=0,
+                                   atol=STEP_CLOUD_ATOL, msg=at)
+        torch.testing.assert_close(lwm.lw_cloud_weights(km, got["cloud"]),
+                                   lwm.lw_cloud_weights(km, want["cloud"]),
+                                   rtol=0, atol=STEP_CLOUD_ATOL,
+                                   msg=at)
+        for a, b in zip(got["functional_paths"], want["functional_paths"]):
+            torch.testing.assert_close(a[:, t], b[:, t], rtol=0,
+                                       atol=STEP_CLOUD_ATOL, msg=at)
+        torch.testing.assert_close(got["log_cond_likes"][:, t],
+                                   want["log_cond_likes"][:, t], rtol=0,
+                                   atol=STEP_LCL_ATOL, msg=at)
+        before = got
+
+
 @pytest.mark.parametrize("n", [32, 96, 512, 1024])
 def test_k3_factor_twin_records_parts_and_gives_the_instance_bits(dev, n):
     """The wide row's instrumented twin at each N and schedule, in both
     layouts (F=8 paired, F=128 one CTA a filter): kPer 2, its threads and
     CTAs a filter, the barriers the source note states (11 / 9 an APF step
-    that does / does not resample, 9 / 7 in SISR, 4 / 2 at t = 0), the
-    moments and the Cholesky timed apart, a ring wait iff paired, and its
-    outputs the plain instance's bits."""
+    that does / does not resample, 9 / 7 in SISR, 4 / 2 at t = 0; the
+    moments' 3 the cloud published, the tensor cores' partial tiles and
+    the fold), the moments' pass, their fold and the Cholesky timed apart,
+    a ring wait iff paired, and its outputs the plain instance's bits."""
     ys = _factor_panel(40, dev)
     km = lwm.factor_svol_lw_kernel_model()
     for f, cluster in ((8, 2), (128, 1)):
@@ -1431,7 +1515,8 @@ def test_k3_factor_twin_records_parts_and_gives_the_instance_bits(dev, n):
                    if v is not None}
             assert got == {k: want[k] for k in got}, (f, kw)
             cycles = rec["cycles_per_step"]
-            assert cycles["moments"] > 0 and cycles["cholesky"] > 0
+            assert all(cycles[k] > 0 for k in ("moments", "moments_fold",
+                                               "cholesky"))
             assert (cycles["ring_wait"] > 0) == (cluster == 2)
             plain = lwm.lw_megakernel(km, 6, ys, None, f, n, **kw)
             for key in ("log_cond_likes", "cloud"):

@@ -2,8 +2,9 @@
 (``ops/liu_west_megakernel.py::factor_svol_lw_kernel_model``, K3's
 ``factor_svol_5_lw`` instance) on the CPU: its plain hooks against the
 model (``models/factor_svol.py``), the plain version of the whole bank
-against the benchmark's float64 reference, and the instance's place in
-the CUDA header."""
+against the benchmark's float64 reference, its wide moments against a
+centred two-pass float64 computation, its steps resumed from a cloud,
+and the instance's place in the CUDA header."""
 
 import math
 import os
@@ -107,6 +108,80 @@ def test_plain_bank_matches_the_float64_reference():
     d = cloud.mean(1) - ref_cloud.mean(1)                      # (F, P)
     z = d.mean(0) / torch.clamp(d.std(0) / math.sqrt(f), min=1e-4)
     assert float(z.abs().max()) <= 6.0, z
+
+
+def test_wide_moments_hold_a_cloud_far_from_zero():
+    """The plain version's wide moments (the kernel's arithmetic: float64
+    about particle 0's theta, one product) against a centred two-pass
+    float64 computation on a cloud whose far parameters sit at 50 + 1e-3
+    z, a mean 5e4 times the spread, beside others at N(0, 1), with
+    log-weights from -8 to 0: tbar within float32 rounding of itself,
+    each Gram entry over sum w within 4e-7 of its row's and column's
+    spread and sum w within 2e-7; an unshifted one-pass
+    float32 sum (running sums, particle by particle) misses each far
+    parameter's variance by more than half of it (most by over 100 times
+    it): a million times the plain version's error."""
+    rng = np.random.default_rng(24)
+    p, f, n = 21, 3, 1024
+    z = rng.normal(size=(p, f, n))
+    far = [1, 4, 9, 20]
+    z[far] = 50.0 + 1e-3 * z[far]
+    th = torch.as_tensor(z, dtype=torch.float32)
+    lw = torch.as_tensor(rng.uniform(-8.0, 0.0, (f, n)), dtype=torch.float32)
+    lw[:, 5] = 0.0
+    tbar, wsum, gram = lwm.wide_moments(th, lw)
+    w = torch.exp(lw).double()
+    sw = w.sum(-1, keepdim=True)
+    mean = (th.double() * w).sum(-1) / sw[:, 0]                    # (P, F)
+    cen = th.double() - mean[..., None]
+    cov = torch.einsum("afn,bfn->fab", cen * w, cen) / sw[..., None]
+    scale = torch.sqrt(torch.diagonal(cov, dim1=1, dim2=2))        # (F, P)
+    got_mean = torch.cat(tbar, -1).double().T
+    assert ((got_mean - mean).abs() <= mean.abs() * 2.0 ** -23).all()
+    torch.testing.assert_close(wsum.double(), sw, rtol=2e-7, atol=0)
+    for i in range(p):
+        for j in range(i + 1):
+            got = gram[i][j][:, 0].double() / wsum[:, 0].double()
+            err = (got - cov[:, i, j]).abs()
+            assert (err <= 4e-7 * scale[:, i] * scale[:, j]).all(), (i, j)
+    # the one-pass float32 sums without a shift: E[theta^2] - E[theta]^2
+    w32 = torch.exp(lw)
+    s32 = w32.cumsum(-1)[..., -1]
+    m32 = (th * w32).cumsum(-1)[..., -1] / s32
+    var32 = (th * th * w32).cumsum(-1)[..., -1] / s32 - m32 * m32
+    miss = (var32.double() - torch.diagonal(cov, dim1=1, dim2=2).T).abs()
+    assert (miss[far] > 0.5 * scale.T[far] ** 2).all()
+
+
+@pytest.mark.parametrize("variant,ess", [("sisr", 0.5 / 64), ("apf", 0.0)])
+def test_plain_resumes_a_step_from_a_cloud(variant, ess):
+    """The plain version's ``start=(t, cloud)``: step t of a run from the
+    cloud a run over ys[:t] returns gives the bits of the same step of one
+    run over ys[:t + 1] (the cloud, its log-likelihood term and functional
+    paths), at t = 1, 2 and 5, SISR with a gate that never fires and APF
+    resampling every step; the card test compares the kernel's steps this
+    way."""
+    torch.set_num_threads(2)
+    ys = torch.as_tensor(np.loadtxt(PANEL, delimiter=",", ndmin=2)[:6],
+                         dtype=torch.float32)
+    f, n = 2, 64
+    km = lwm.factor_svol_lw_kernel_model()
+    kw = dict(variant=variant, ess_threshold=ess)
+    for t in (1, 2, 5):
+        before = lwm.lw_megakernel_reference(km, 31, ys[:t], None, f, n, **kw)
+        whole = lwm.lw_megakernel_reference(km, 31, ys[:t + 1], None, f, n,
+                                            **kw)
+        step = lwm.lw_megakernel_reference(km, 31, ys[:t + 1], None, f, n,
+                                           start=(t, before["cloud"]), **kw)
+        assert torch.equal(step["cloud"], whole["cloud"]), t
+        assert torch.equal(step["log_cond_likes"][:, t],
+                           whole["log_cond_likes"][:, t])
+        assert not step["log_cond_likes"][:, :t].any()
+        for a, b in zip(step["functional_paths"], whole["functional_paths"]):
+            assert torch.equal(a[:, t], b[:, t])
+    with pytest.raises(ValueError, match="start"):
+        lwm.lw_megakernel_reference(km, 31, ys, None, f, n,
+                                    start=(0, before["cloud"]), **kw)
 
 
 def test_header_registers_the_instance_and_the_argument_block_holds_it():
