@@ -233,7 +233,17 @@ run.  Phases, one line each:
             (``--oracle-npy`` with no file: 5 iterations, N=500, R=2) and
             both engines for 300 iterations each: 301 SVOL-kernel
             launches an engine, finite means, nine comparisons, the draws
-            saved beside its output.
+            saved beside its output;
+37. k3-factor   K3's factor_svol_5_lw (the wide row) against its plain
+            version at F=16 T=64 and over the whole 5-column panel at
+            F=64 N=1024, its twin and both layouts' launches;
+38. k2-factor-sv  K2's factor_svol_sv_10 (12 leaves, 10 columns) at the
+            benchmark cell's shape (B=256, N=1024, T=3084): against its
+            plain version on the same seed by the step-one rule and
+            within 4 SE, the launch's ms against its bound, the twin's
+            cycles a step by part; then AdaptivePMMH through
+            ``megakernel_log_like`` over the instance (64 chains x 4
+            replicates), one launch an iteration.
 
 Any failure exits non-zero.  The line before the last is a JSON object
 describing the kernels; the last is the ``{"ok": true, ...}`` contract.
@@ -361,7 +371,7 @@ K3_ROLL_KPER = {32: 2, 512: 2, 1024: 2, 2048: 4, 4096: 8}
 # (csrc/filter_megakernel_sys.cuh): per kPer (2, 4) the 7 functors'
 # bootstrap, the 4 lookahead functors' APF and the 2 instrumented twins;
 # of its roll family, per kPer (2, 4, 8, 16) the same and 3 twins
-K2_SYS_INSTANCES = 2 * (7 + 4 + 2)
+K2_SYS_INSTANCES = 2 * (8 + 4 + 3)
 K2_ROLL_INSTANCES = 4 * (7 + 4 + 3)
 # N at which phase 30 reads the twins' record (partial warps at 32 and 96),
 # and the roll twins' (powers of two)
@@ -446,6 +456,13 @@ STEP_OPS = {
     # assets (3 x 4 fma + 4 mul), 2 exp + 2 add, det 2, the quadratic form
     # 8 + a divide, log + 3 adds, 3 for the result: 36
     "filter_megakernel/factor_svol_4": 2 * NORMAL_OPS + 6 + 36 + 8,
+    # the factor SV model as published, 10 assets (PR 25; the benchmark's
+    # paths["filter_megakernel.factor_svol_sv_10"]): 12 normals; 12
+    # transitions (sub, mul, fma) and their clamps (min, max); the weight:
+    # per asset exp(-u), A's 3 fma, y e^-u, v1, v2, yy 3 fma, sum u (9 x
+    # 10), then factor_svol's 2 x 2 solve 20
+    "filter_megakernel/factor_svol_sv_10": 12 * NORMAL_OPS + 36 + 24 + 90
+                                           + 20 + 8,
     # APF adds per step: the lookahead twice (svol: 1 each), two more
     # weights (6 each), the first-stage add and exp/max 2, and the
     # selection (scan, 9-step search, gather) 20
@@ -550,7 +567,7 @@ def _k1_key(name, roll):
 def _k2_key(name, roll):
     """The generic kernel's instance of a mangled entry name in the
     systematic family (roll False) or the roll family (roll True)."""
-    t = re.search(r"filter_megakernel_sysIN4ssme\d+(\w+?Model)(?:ILi(\d)EE)?"
+    t = re.search(r"filter_megakernel_sysIN4ssme\d+(\w+?Model)(?:ILi(\d+)EE)?"
                   r"ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", name)
     if not t or (t.group(6) == "1") != roll:
         return None
@@ -2638,31 +2655,38 @@ FACTOR_LW_CHECK = (16, 64)
 FACTOR_LW_F, FACTOR_LW_N = 64, 1024
 
 
-def _factor_vs_plain(km, seed, ys, f, n, out=None):
-    """The factor kernel's outputs (``out``, else launched here) against
-    its plain version on the same seed: finite totals, phase 25's
-    step-one rule (step 0 within float32 rounding, step 1 within 2e-3 in
-    90% of the filters) and the mean totals within 4 SE; the means, 4 SE
-    and the plain version's ms."""
-    what = f"factor F={f} N={n} T={ys.shape[0]}"
-    if out is None:
-        out = lwm.lw_megakernel(km, seed, ys, None, f, n)
-    ref, plain_ms = event_ms(
-        lambda: lwm.lw_megakernel_reference(km, seed, ys, None, f, n))
-    tot, tot_p = out["log_likelihood"], ref["log_likelihood"]
+def _vs_plain(what, tot, lcl, plain, rows):
+    """Kernel totals ``tot`` and log-likelihood increments ``lcl`` of
+    ``rows`` filters against ``plain()``'s, its plain version on the same
+    seed: finite totals, phase 25's step-one rule (step 0 within float32
+    rounding, step 1 within 2e-3 in 90% of the filters) and the mean
+    totals within 4 SE; the means, 4 SE and the plain version's ms."""
+    (tot_p, lcl_p), plain_ms = event_ms(plain)
     require(bool(torch.isfinite(tot).all())
             and bool(torch.isfinite(tot_p).all()), f"{what}: NaN totals")
-    lcl, lcl_p = out["log_cond_likes"], ref["log_cond_likes"]
     require(bool(torch.allclose(lcl[:, 0], lcl_p[:, 0], rtol=1e-5, atol=1e-4))
             and float(((lcl[:, 1] - lcl_p[:, 1]).abs() <= 2e-3).float()
                       .mean()) >= 0.9, f"{what}: step-one rule")
-    se = math.sqrt(float(tot.var()) / f + float(tot_p.var()) / f)
+    se = math.sqrt(float(tot.var()) / rows + float(tot_p.var()) / rows)
     d = abs(float(tot.mean()) - float(tot_p.mean()))
     require(d <= 4 * se, f"{what}: means differ by {d:.3f} > 4 SE "
             f"{4 * se:.3f}")
     return {"kernel_mean": float(tot.mean()),
             "plain_mean": float(tot_p.mean()), "four_se": 4 * se,
             "plain_ms": plain_ms}
+
+
+def _factor_vs_plain(km, seed, ys, f, n, out=None):
+    """The factor kernel's outputs (``out``, else launched here) against
+    its plain version on the same seed by :func:`_vs_plain`."""
+    if out is None:
+        out = lwm.lw_megakernel(km, seed, ys, None, f, n)
+
+    def plain():
+        ref = lwm.lw_megakernel_reference(km, seed, ys, None, f, n)
+        return ref["log_likelihood"], ref["log_cond_likes"]
+    return _vs_plain(f"factor F={f} N={n} T={ys.shape[0]}",
+                     out["log_likelihood"], out["log_cond_likes"], plain, f)
 
 
 def phase_k3_factor(dev, ident, k3_ptxas):
@@ -2732,6 +2756,103 @@ def phase_k3_factor(dev, ident, k3_ptxas):
     return {"ms": {keys[g]: v for g, v in ms.items()},
             "layout": layouts[f], "check": checks, "clock64_spans": cycles,
             "barriers_per_step": got, "ptxas": ptx}
+
+
+# phase 38: factor_svol_sv_10, K2's 12-leaf instance, over the 10-column
+# panel of benchmark/data at the benchmark cell's shape (B=256, N=1024,
+# T=3084 x 10): the kernel against its plain version on the same seed,
+# the launch timed, its twin, then the cell's entry point (AdaptivePMMH
+# over megakernel_log_like, C=64 chains x R=4) for a few iterations
+FACTOR_SV_C, FACTOR_SV_R, FACTOR_SV_N = 64, 4, 1024
+FACTOR_SV_ITERS = 4
+
+
+def phase_k2_factor_sv(dev, ident, k2_ptxas):
+    """K2's factor_svol_sv_10 instance (the factor SV model as published:
+    12 leaves, 56 parameters, a particle's own D in the Woodbury density)
+    at the benchmark cell's shape, every-step resampling: its ptxas
+    figures (phase 2 holds them at 0 spills), the kernel against its
+    plain version on the same seed by phase 25's step-one rule and within
+    4 SE, the launch's ms, its bound and share, and the twin's cycles a
+    step by part (its outputs the plain instance's bits); then
+    FACTOR_SV_ITERS AdaptivePMMH iterations through
+    ``megakernel_log_like`` over the instance, the K2 launches counted
+    from 0 before the path (one for the start, one an iteration, all
+    under the instance)."""
+    from ssme_tpu_torch.examples.estimate_factor_svol import EPS, START_SV
+    path = os.path.join(ROOT, "benchmark", "data",
+                        "factor_svol_sv_10_returns.csv")
+    panel = torch.as_tensor(np.loadtxt(path, delimiter=",", ndmin=2),
+                            dtype=torch.float32, device=dev).contiguous()
+    km = fmk.factor_svol_sv_kernel_model(10)
+    start = torch.tensor(START_SV, device=dev)
+    c, r, n, t_len = FACTOR_SV_C, FACTOR_SV_R, FACTOR_SV_N, panel.shape[0]
+    b = c * r
+    full = start.expand(b, -1).contiguous()
+    key = "factor_svol_sv_10"
+    before = _cuda.launches(K2, key)
+    out = fmk.filter_megakernel(km, 38, full, panel, num_particles=n)
+    check = _vs_plain(f"factor sv B={b} N={n} T={t_len}", out[0], out[1],
+                      lambda: fmk.filter_megakernel_reference(
+                          km, 38, full, panel, num_particles=n)[:2], b)
+    ms = cuda_ms(lambda: fmk.filter_megakernel(km, 40, full, panel,
+                                               num_particles=n), 3)
+    require(_cuda.launches(K2, key) == before + 5,
+            "factor sv launches not counted under the instance")
+    rec = fmk.step_spans(41, full, panel, None, n, kmodel=km)
+    plain = fmk.filter_megakernel(km, 41, full, panel, num_particles=n)
+    require(all(torch.equal(a, x) for a, x in zip(plain, rec["outputs"])),
+            "factor sv twin: outputs are not the plain instance's bits")
+    got = {k: v for k, v in rec["barriers_per_step"].items() if v is not None}
+    require(got == {k: fmk.BARRIERS_PER_STEP[k] for k in got}
+            and (rec["kper"], rec["threads"]) == (4, 256),
+            f"factor sv twin: barriers {got}, layout ({rec['kper']}, "
+            f"{rec['threads']})")
+    # inputs read once (the series, 56 parameters a row, the seed),
+    # outputs written once (lcl, means, totals)
+    bound_ms = bound("filter_megakernel/factor_svol_sv_10", b, n, t_len,
+                     40 * t_len + 224 * b + 16, 4 * b * (2 * t_len + 1))[0]
+    # the cell's entry point: the counts start at 0 just before this path
+    model = factor_svol.make_sv_model(10, 2)
+    d = model.dim_param
+    zero_launches(K2)
+    before = _cuda.launches(K2, key)
+    pmmh = AdaptivePMMH(model, num_particles=n, num_replicates=r, t0=150,
+                        t1=1000, eps=EPS,
+                        batched_log_like=fmk.megakernel_log_like(
+                            km, n, r, ess_threshold=1.0, gate_stride=1))
+    state = pmmh.init(0, model.transform.unconstrain(start.cpu()), panel,
+                      c0=2.4 * 2.4 / d * EPS * torch.eye(d), num_chains=c)
+    t0 = time.perf_counter()
+    res = pmmh.run_from(state, FACTOR_SV_ITERS, panel)
+    torch.cuda.synchronize()
+    iter_ms = 1e3 * (time.perf_counter() - t0) / FACTOR_SV_ITERS
+    launches = launched(K2)
+    require(launches == FACTOR_SV_ITERS + 1
+            and _cuda.launches(K2, key) - before == launches,
+            f"pmmh: {launches} K2 launches, want {FACTOR_SV_ITERS + 1} "
+            "under the instance")
+    require(bool(torch.isfinite(state.log_like).all())
+            and bool(torch.isfinite(res.log_likes).all()),
+            "pmmh: non-finite log-likelihoods")
+    ptx = {k: v for k, v in k2_ptxas.items() if "FactorSvolSvModel" in k}
+    cycles = rec["cycles_per_step"]
+    phase(38, "k2-factor-sv", f"factor_svol_sv_10 at B={b} N={n} T={t_len} "
+          f"x 10 by the step-one rule and within 4 SE of plain: kernel "
+          f"{check['kernel_mean']:.3f} plain {check['plain_mean']:.3f} (4 SE "
+          f"{check['four_se']:.3f}, plain {check['plain_ms']:.0f} ms); "
+          f"{ms:.3f} ms a launch, bound {bound_ms:.3f} ms "
+          f"({100 * bound_ms / ms:.2f}%); twin cycles a step " + ", ".join(
+              f"{p} {v:.0f}" for p, v in cycles.items())
+          + f" (sum {sum(cycles.values()):.0f}); barriers {got}; "
+          f"AdaptivePMMH C={c} R={r}: {launches} launches for "
+          f"{FACTOR_SV_ITERS} iterations, {iter_ms:.1f} ms an iteration, "
+          f"{int(res.accepted.sum())} accepts; ptxas (registers, spill "
+          "stores, spill loads) " + ", ".join(
+              f"{k} {v}" for k, v in ptx.items()) + f" ({ident})")
+    return {"ms": ms, "bound_ms": bound_ms, "check": check,
+            "clock64_spans": cycles, "barriers_per_step": got, "ptxas": ptx,
+            "pmmh": {"launches": launches, "iter_ms": iter_ms}}
 
 
 def phase_k3_layout(dev, ys_all):
@@ -3231,6 +3352,7 @@ def main():
     par_launches = par["launches"]
     gate_launches, oracle_rec = phase_oracle(ys, ident)
     k3_factor = phase_k3_factor(dev, ident, k3_ptxas)
+    k2_factor_sv = phase_k2_factor_sv(dev, ident, k2_ptxas)
 
     t_len = ys.shape[0]
     k_ms, p_ms, _ = times["adaptive"]
@@ -3325,6 +3447,7 @@ def main():
                                     "spill_loads"), v))
                        for k, v in k2_roll_ptxas.items()},
         "svol_vs_svol_filter": k2_vs_k1,
+        "factor_svol_sv_10": k2_factor_sv,
     }, {
         "name": "lw_megakernel",
         "route": "cuda",

@@ -28,7 +28,9 @@ events, over all of ``data/spy_returns.csv``.
   N=512), and Poisson AR (bootstrap and APF, B=128) and factor SVOL with
   4 assets (B=32) at their phase-18 shapes (``data/k2_families_jax.json``);
   where the tree has them, the systematic family's step records
-  (``step_spans``) of the leverage cases at N=512 and 1024;
+  (``step_spans``) of the leverage cases at N=512 and 1024, and the factor
+  SV model as published (``factor_svol_sv_10``, 12 leaves) at the
+  benchmark cell's shape (B=256, N=1024, T=3084 x 10) with its twin's;
 - ``--k3``: the Liu-West kernel (K3) under systematic selection over SPY,
   F=8 and 64 filters, N=512 and 1024, the leverage model's APF every
   step (``apf``), APF at ESS 0.5 (``apf-ess``) and SISR every step
@@ -55,7 +57,9 @@ events, over all of ``data/spy_returns.csv``.
   and K3 under the roll resamplers (both, N=512 and 2048:
   ``bits_k1_roll``, ``bits_k3_roll``), of K2's and K3's systematic
   families (``bits_k2_systematic``, ``bits_k3_systematic``) and of K2's
-  roll family (``bits_k2_roll``), to show which families two trees
+  roll family (``bits_k2_roll``), and, in a tree that has it, of K2's
+  ``factor_svol_sv_10`` at N=512 and 1024 (``bits_k2_sv``), to show
+  which families two trees
   compute the same bits in: a change of their arithmetic, their CDF's
   rounding order or their layout changes them.
 
@@ -230,6 +234,20 @@ def _k2(torch, ys, dev, ms):
                          device=dev).expand(32, -1).contiguous()
     out["factor_svol_4"] = ms(lambda: fmk.filter_megakernel(
         fmk.factor_svol_kernel_model(4), 11, frows, fys, num_particles=512))
+    if hasattr(fmk, "factor_svol_sv_kernel_model"):
+        # the factor SV model as published over the 10-column panel at the
+        # benchmark cell's shape (B=256, N=1024, T=3084), and its twin
+        from ssme_tpu_torch.examples.estimate_factor_svol import (DATA_SV,
+                                                                  START_SV)
+        panel = torch.as_tensor(np.loadtxt(DATA_SV, delimiter=","),
+                                dtype=torch.float32, device=dev).contiguous()
+        sv = fmk.factor_svol_sv_kernel_model(10)
+        svrows = torch.tensor([START_SV] * 256, device=dev)
+        out["factor_svol_sv_10"] = ms(lambda: fmk.filter_megakernel(
+            sv, 11, svrows, panel, num_particles=1024))
+        rec = fmk.step_spans(11, svrows, panel, None, 1024, kmodel=sv)
+        rec.pop("outputs")
+        spans["factor_svol_sv_10/N1024"] = rec
     return {"k2_ms": out, "k2_spans": spans}
 
 
@@ -474,9 +492,25 @@ def _bits(torch, ys, dev):
                                       metropolis_iters=16)
                 key = f"K3/{variant}/{r}" + ("" if n == 512 else f"/N{n}")
                 k3_roll[key] = digest(o["log_cond_likes"], o["cloud"])
-    return {"bits": out, "bits_k1_roll": k1_roll, "bits_k3_roll": k3_roll,
-            "bits_k2_systematic": k2_sys, "bits_k3_systematic": k3_sys,
-            "bits_k2_roll": k2_roll}
+    groups = {"bits": out, "bits_k1_roll": k1_roll, "bits_k3_roll": k3_roll,
+              "bits_k2_systematic": k2_sys, "bits_k3_systematic": k3_sys,
+              "bits_k2_roll": k2_roll}
+    if hasattr(fmk, "factor_svol_sv_kernel_model"):
+        # K2's factor_svol_sv_10 at both kPer over the 10-column panel's
+        # first 512 steps, at its generating point
+        from ssme_tpu_torch.examples.estimate_factor_svol import (DATA_SV,
+                                                                  START_SV)
+        sv_panel = torch.as_tensor(np.loadtxt(DATA_SV, delimiter=",")[:512],
+                                   dtype=torch.float32,
+                                   device=dev).contiguous()
+        svrows = torch.tensor([START_SV] * 64, device=dev)
+        groups["bits_k2_sv"] = {
+            f"K2/factor_svol_sv_10/bootstrap/systematic/N{n}": digest(
+                *fmk.filter_megakernel(fmk.factor_svol_sv_kernel_model(10), 3,
+                                       svrows, sv_panel,
+                                       num_particles=n)[:2])
+            for n in (512, 1024)}
+    return groups
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@
 // empty).  kPer per N is fixed in kper_for() from the grid measured on
 // the card (PERF.md §6): 2 to N = 512, 4 at 1024 (both families), 8 at
 // 2048 and 16 at 4096 (roll).  The state leaves and the carried
-// log-weights live in registers for all T steps; the systematic
+// log-weights live in registers for all T steps (but those of a
+// shared-state functor, factor_svol_sv_10's 12 leaves, which live in
+// dynamic shared memory, 110 KB a CTA at kPer 4); the systematic
 // selection's marks (roll: the weights) and one gather buffer per state
 // leaf, padded_size(kPer * 256) words each (row_select.cuh), in static
 // shared memory (12.7 KB at N =
@@ -42,7 +44,9 @@
 // CTAs an SM (B = 256 rows fill the 132 SMs in one wave), but one for
 // factor SVOL at kPer 16 (min_ctas).  Instrumented twins (kSpans) count the barriers a
 // step crosses: svol_leverage in both modes and families, svol's
-// bootstrap under the roll resamplers.
+// bootstrap under the roll resamplers, factor_svol_sv_10's bootstrap under
+// systematic selection.  A shared-state functor (factor_svol_sv_10: 12
+// leaves) has systematic bootstrap instances only.
 //
 // What bounds it: per-step latency, not bytes.  The design cuts the
 // step's chain as K1's (svol_filter_sys.cu) does:
@@ -129,16 +133,18 @@ __host__ __device__ constexpr int min_ctas(int leaves, int kper) {
 
 // words of an instance's row arrays in shared memory: the systematic
 // selection's marks (roll: the weights) and one gather buffer per moved
-// value, padded_size(kPer * 256) each, then, in the bootstrap under the
-// roll resamplers, each thread's carried log-weights (kPer * 256)
-template <int kMoved, int kPer, bool kCarried>
+// value, padded_size(kPer * 256) each, then kShadow more (a shared-state
+// functor's second state buffer, one a leaf) and, in the bootstrap under
+// the roll resamplers, each thread's carried log-weights (kPer * 256)
+template <int kMoved, int kPer, bool kCarried, int kShadow = 0>
 __host__ __device__ constexpr int row_floats() {
-  return (1 + kMoved) * ssme::padded_size(kPer * kSysThreads) +
+  return (1 + kMoved + kShadow) * ssme::padded_size(kPer * kSysThreads) +
          (kCarried ? kPer * kSysThreads : 0);
 }
 
 // The instrumented twins record, per row, by thread 0 in shared memory:
-// the clock64 cycles of the step's parts (APF: the first stage's
+// the clock64 cycles of the step's parts (the transition's draws apart
+// from the observation density's weights; APF: the first stage's
 // lookahead, max, sum, stage, walk and gather count under the same parts
 // as the check's and the resample's; roll: the selection counts as the
 // walk), the counts of checks, resamples (roll: and APF first stages) and
@@ -153,8 +159,9 @@ __host__ __device__ constexpr int row_floats() {
 // the twins also write each selection's sweeps to sweeps[b * T + t] and
 // the ratio of its largest weight to its mean, N / sum(w), to
 // ratio[b * T + t], t the step of its draws (0 where none).
-enum SysSpan { kSpanPropagate, kSpanMax, kSpanSums, kSpanStage, kSpanWalk,
-               kSpanGather, kSpanChecks, kSpanResamples, kSpanApfSteps,
+enum SysSpan { kSpanPropagate, kSpanWeight, kSpanMax, kSpanSums, kSpanStage,
+               kSpanWalk, kSpanGather, kSpanChecks, kSpanResamples,
+               kSpanApfSteps,
                kSpanBarResample, kSpanBarCheck, kSpanBarOther, kSpanBarApf,
                kSpanVotes, kSpanTailBars, kSpanSweeps, kSpanTailSlots,
                kSpanFixups, kSpanMostMarks, kSpanLayoutPer,
@@ -195,9 +202,24 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
   // selection, as it keeps the states, so that no particle's values wait
   // in registers on either branch (slot p of thread i at p * kSysThreads
   // + i: a constant stride, so the addresses take no registers)
-  constexpr bool kCarried = kRoll && !kApf;
+  // A shared-state functor (kernel_models.cuh SharedState: its leaves
+  // would not fit in registers beside the step's work) keeps each
+  // particle's state in two row buffers of kLeaves planes, the gather
+  // buffers and one more (leaf l of particle j at l * kRow + padded(j)),
+  // the selection's gather writing each from the other, and its carried
+  // log-weights in shared memory as the roll bootstrap does, in registers
+  // only from the check's max to its end.  Its hooks are leafwise: a
+  // pair's leaf l drawn from one Philox call in place (the pair loop not
+  // unrolled, so at most two leaves' calls are in flight), and the
+  // density of one particle at a time.  Bootstrap, systematic.
+  constexpr bool kShared = ssme::SharedState<Model>::value;
+  static_assert(!kShared || (!kApf && !kRoll),
+                "a shared state runs the systematic bootstrap only");
+  constexpr int kShadow = kShared ? kLeaves : 0;
+  constexpr bool kCarried = (kRoll && !kApf) || kShared;
   constexpr bool kDynamic =
-      row_floats<kMoved, kPer, kCarried>() * 4 > kStaticBytes;
+      row_floats<kMoved, kPer, kCarried, kShadow>() * 4 > kStaticBytes;
+  static_assert(!kShared || kDynamic, "a shared state's rows are dynamic");
   __shared__ __align__(16) float cdf_static[kDynamic ? 1 : kRow];
   __shared__ float buf_static[kDynamic ? 1 : kMoved * kRow];
   __shared__ float carried_static[kDynamic || !kCarried ? 1
@@ -208,11 +230,17 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
   int* const marks = reinterpret_cast<int*>(cdf);
   float* const buf = kDynamic ? dynamic_row + kRow : buf_static;
   float* const carried =
-      kDynamic ? dynamic_row + (1 + kMoved) * kRow : carried_static;
+      kDynamic ? dynamic_row + (1 + kMoved + kShadow) * kRow
+               : carried_static;
+  // kShared: the state's row buffer, and the one the next gather fills
+  float* st = buf;
+  float* st_next = buf + kMoved * kRow;
   __shared__ float max_part[32];
   __shared__ float offset;  // the step's offset, drawn by thread 0
   __shared__ float4 sum_part[32];
-  __shared__ float row_shared[Model::kRowShared > 0 ? Model::kRowShared : 1];
+  // 16-byte aligned: a functor may read its constants in vector words
+  __shared__ __align__(16) float
+      row_shared[Model::kRowShared > 0 ? Model::kRowShared : 1];
   // the spans, then the last clock read and this step's barriers
   constexpr int kMark = kNumSysSpans, kStepBars = kNumSysSpans + 1;
   __shared__ long long rec[kSpans ? kNumSysSpans + 2 : 1];
@@ -303,15 +331,48 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
 
   float y[kObs];
   float z[kCov];
-  float x[kPer][kLeaves];
+  float x[kPer][kLeaves];   // the state, unless kShared
+  // kShared: pair q's leaves drawn in shared memory, leaf l of both
+  // particles from draw l's Philox call (the cosine the first's, the sine
+  // the second's: for_pair's bits); at t = 0 from the stationary law
+  auto leaf_draws = [&](int q, uint32_t tt, bool first) {
+    if constexpr (kShared) {
+      float* const at = st + staged + 2 * q;
+#pragma unroll 2
+      for (int l = 0; l < kLeaves; ++l) {
+        const float2 e = ssme::normal_pair_at(k0, k1, kPairs * i + q, tt, b,
+                                              static_cast<uint32_t>(l));
+        float* const v = at + l * kRow;
+        if (first) {
+          v[0] = model.init_leaf(l, e.x);
+          v[1] = model.init_leaf(l, e.y);
+        } else {
+          v[0] = model.propagate_leaf(l, v[0], e.x);
+          v[1] = model.propagate_leaf(l, v[1], e.y);
+        }
+      }
+    }
+  };
+  // kShared: particle p's leaves into registers
+  auto load_particle = [&](int p, float (&v)[kLeaves]) {
+#pragma unroll
+    for (int l = 0; l < kLeaves; ++l) v[l] = st[l * kRow + staged + p];
+  };
   load_row<kObs>(ys, 0, y);
   if constexpr (Model::kDimCov > 0) load_row<kCov>(zs, 0, z);
+  if constexpr (kShared) {
+#pragma unroll 1
+    for (int q = 0; q < kPairs; ++q) leaf_draws(q, 0u, true);
 #pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    ssme::for_pair<kDraws>(k0, k1, kPairs * i + q, 0u, b,
-                           [&](auto& rng, int e) {
-                             model.init(rng, y, z, x[2 * q + e]);
-                           });
+    for (int p = 0; p < kPer; ++p) carried[p * kSysThreads + i] = 0.0f;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      ssme::for_pair<kDraws>(k0, k1, kPairs * i + q, 0u, b,
+                             [&](auto& rng, int e) {
+                               model.init(rng, y, z, x[2 * q + e]);
+                             });
+    }
   }
   float lw[kPer];
 #pragma unroll
@@ -345,6 +406,31 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
     ssme::systematic_scan<kPer>(marks, active, anc);
     tick(kSpanWalk);
     ssme::row_gather(v, anc, buf, kRow);
+  };
+  // the same selection on a shared state: the marks and the barrier that
+  // publishes them (the states were written at the step's transition, two
+  // barriers before), the scan, then the gather into the other buffer
+  auto shared_resample = [&](const float (&w)[kPer], float base, float u0,
+                             float cdf_total) {
+    int fixups = 0;
+    const int wrote = ssme::systematic_marks<kPer>(w, base, u0, cdf_total,
+                                                   n, active, marks, fixups);
+    if constexpr (kSpans) ssme::note_selection(sel_part, fixups, wrote);
+    ssme::row_sync(bars);
+    tick(kSpanStage);
+    int anc[kPer];
+    ssme::systematic_scan<kPer>(marks, active, anc);
+    tick(kSpanWalk);
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int from = ssme::padded(anc[p]);
+#pragma unroll
+      for (int l = 0; l < kLeaves; ++l)
+        st_next[l * kRow + staged + p] = st[l * kRow + from];
+    }
+    float* const was = st;
+    st = st_next;
+    st_next = was;
   };
 
   for (int t = 0; t < num_steps; ++t) {
@@ -411,6 +497,7 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
                                    model.propagate(rng, x[2 * q + e], y, z);
                                  });
         }
+        tick(kSpanPropagate);
 #pragma unroll
         for (int p = 0; p < kPer; ++p)
           lw[p] = model.log_weight(x[p], y, z) -
@@ -464,9 +551,14 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
                                    model.propagate(rng, x[2 * q + e], y, z);
                                  });
         }
+        tick(kSpanPropagate);
 #pragma unroll
         for (int p = 0; p < kPer; ++p)
           lw[p] = model.log_weight(x[p], y, z) - v[p][kLeaves];
+      } else if constexpr (kShared) {
+#pragma unroll 1
+        for (int q = 0; q < kPairs; ++q) leaf_draws(q, tu, false);
+        tick(kSpanPropagate);
       } else {
 #pragma unroll
         for (int q = 0; q < kPairs; ++q) {
@@ -475,13 +567,22 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
                                    model.propagate(rng, x[2 * q + e], y, z);
                                  });
         }
+        tick(kSpanPropagate);
       }
     }
-    if (!kApf || t == 0) {
+    if constexpr (kShared) {
+#pragma unroll 1
+      for (int p = 0; p < kPer; ++p) {
+        float v[kLeaves];
+        load_particle(p, v);
+        carried[p * kSysThreads + i] += model.log_weight(v, y, z);
+      }
+    } else if (!kApf || t == 0) {
 #pragma unroll
       for (int p = 0; p < kPer; ++p)
         lw[p] = lw[p] + model.log_weight(x[p], y, z);
     }
+    tick(kSpanWeight);
     const bool check = gate_stride == 1 || t % gate_stride == gate_stride - 1
                        || t == num_steps - 1;
     if (!check) {
@@ -504,6 +605,10 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
     const uint32_t t_resample = gate_stride == 1 ? tu + 1 : tu;
     if (!kApf && !kRoll && i == 0)
       offset = ssme::offset_at(k0, k1, t_resample, b);
+    if constexpr (kShared) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) lw[p] = carried[p * kSysThreads + i];
+    }
     tick(kSpanPropagate);
     const float m = ssme::row_max<kPer>(lw, active, max_part, bars);
     const float u0 = kRoll ? 0.0f : offset;
@@ -537,7 +642,13 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
         w[p] = active ? expf(lw[p] - m) : 0.0f;
         lw[p] = lw[p] - m;
         s[0] += w[p];
-        s[1] += model.functional(x[p]) * w[p];
+        if constexpr (kShared) {
+          float v[kLeaves];
+          load_particle(p, v);
+          s[1] += model.functional(v) * w[p];
+        } else {
+          s[1] += model.functional(x[p]) * w[p];
+        }
         if constexpr (!kApf) s[2] += w[p] * w[p];
       }
     }
@@ -594,12 +705,20 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
         }
       } else if (resample) {
         ssme::warp_cdf_raise<kPer>(w, active);
-        systematic_resample(w, base, u0, cdf_total, x);
+        if constexpr (kShared) {
+          shared_resample(w, base, u0, cdf_total);
+        } else {
+          systematic_resample(w, base, u0, cdf_total, x);
+        }
 #pragma unroll
         for (int p = 0; p < kPer; ++p) lw[p] = 0.0f;
         carry = log_n;
         count(kSpanResamples);
         tick(kSpanGather);
+      }
+      if constexpr (kShared) {
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) carried[p * kSysThreads + i] = lw[p];
       }
       close_step(resample ? kSpanBarResample : kSpanBarCheck);
     }
@@ -622,7 +741,9 @@ filter_megakernel_sys(const int64_t* __restrict__ seed,
 #pragma unroll
     for (int p = 0; p < kPer; ++p) {
 #pragma unroll
-      for (int l = 0; l < kLeaves; ++l) cloud[l * plane + at + p] = x[p][l];
+      for (int l = 0; l < kLeaves; ++l)
+        cloud[l * plane + at + p] =
+            kShared ? st[l * kRow + staged + p] : x[p][l];
       cloud_lw[at + p] = lw[p];
     }
   }
@@ -633,13 +754,23 @@ template <class Model, bool kApf, int kPer, bool kRoll, bool kSpans = false>
 int launch_sys(const Launch& a, long long* spans = nullptr,
                int* sweeps = nullptr, float* ratio = nullptr) {
   constexpr int kMoved = Model::kNumState + (kApf ? 1 : 0);
-  constexpr int kBytes = row_floats<kMoved, kPer, kRoll && !kApf>() * 4;
+  constexpr bool kShared = ssme::SharedState<Model>::value;
+  constexpr int kBytes =
+      row_floats<kMoved, kPer, (kRoll && !kApf) || kShared,
+                 kShared ? Model::kNumState : 0>() * 4;
   auto* kernel = filter_megakernel_sys<Model, kApf, kPer, kSpans, kRoll>;
   int dynamic = 0;
   if constexpr (kBytes > kStaticBytes) {
     dynamic = kBytes;
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if constexpr (kShared) {
+    // two CTAs an SM need 2 x 110 KB at kPer 4: the largest carveout
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int threads = (a.num_particles / kPer + 31) / 32 * 32;
@@ -652,25 +783,36 @@ int launch_sys(const Launch& a, long long* spans = nullptr,
 }
 
 // the instances of every model id at kPer in one selection family; -1 for
-// an unknown id, -2 for APF mode on a functor without a lookahead
+// an unknown id, -2 for APF mode on a functor without a lookahead, -4 for
+// a roll resampler on a shared-state functor (systematic family only)
 template <int kPer, bool kRoll>
 int dispatch_family(int model_id, int apf, const Launch& a) {
   return ssme::with_model(model_id, [&](auto is) -> int {
     using Model = typename decltype(is)::type;
-    if (!apf) return launch_sys<Model, false, kPer, kRoll>(a);
-    if constexpr (Model::kHasPropMu) {
-      return launch_sys<Model, true, kPer, kRoll>(a);
+    if constexpr (kRoll && ssme::SharedState<Model>::value) {
+      return -4;
     } else {
-      return -2;
+      if (!apf) return launch_sys<Model, false, kPer, kRoll>(a);
+      if constexpr (Model::kHasPropMu) {
+        return launch_sys<Model, true, kPer, kRoll>(a);
+      } else {
+        return -2;
+      }
     }
   });
 }
 
 // the instrumented twins at kPer: svol_leverage in both modes and, under
-// the roll resamplers, svol's bootstrap; -1 for another functor or mode
+// the roll resamplers, svol's bootstrap; under systematic selection also
+// factor_svol_sv_10's bootstrap; -1 for another functor or mode
 template <int kPer, bool kRoll>
 int dispatch_spans(int model_id, int apf, const Launch& a, long long* spans,
                    int* sweeps, float* ratio) {
+  if constexpr (!kRoll) {
+    if (model_id == ssme::kModelFactorSvolSv10 && !apf)
+      return launch_sys<ssme::FactorSvolSvModel<10>, false, kPer, false,
+                        true>(a, spans, sweeps, ratio);
+  }
   if (model_id == ssme::kModelSvolLeverage) {
     using Model = ssme::SvolLeverageModel;
     return apf ? launch_sys<Model, true, kPer, kRoll, true>(a, spans, sweeps,

@@ -20,6 +20,11 @@
 //            kHasPropMu)
 //   log_weight (x, y, z) -> float                            log g(y | x)
 //   functional (x) -> float          whose filtered mean the kernel emits
+// A functor whose state lives in shared memory (kSharedState, below:
+// independent AR(1) leaves) takes leafwise draws in place of init and
+// propagate:
+//   init_leaf (l, eps) -> float, propagate_leaf (l, x_l, eps) -> float
+// on draw l of the particle's step (leaf l's normal).
 // The hooks that draw are templates over the rng, which hands out normal
 // k of (particle, step, row) in the order the hook asks for them (draw 0
 // first; the tags are in ops/_prng.py), so a hook that draws one normal
@@ -48,6 +53,7 @@ constexpr int kModelPoissonAr = 3;     // "poisson_ar"
 constexpr int kModelFactorSvol3 = 4;   // "factor_svol_3"
 constexpr int kModelFactorSvol4 = 5;   // "factor_svol_4"
 constexpr int kModelFactorSvol5 = 6;   // "factor_svol_5"
+constexpr int kModelFactorSvolSv10 = 7;  // "factor_svol_sv_10"
 
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 constexpr float kStateClamp = 40.0f;   // models/svol_leverage.py STATE_CLAMP
@@ -273,6 +279,14 @@ struct FactorWoodbury {
       v2 = v2 + s[kAssets + i] * y[i];
       yy = yy + y[i] * y[i] * s[2 * kAssets + i];
     }
+    return solve(a11, a12, a22, sum_log_d, v1, v2, yy, x);
+  }
+  // the 2 x 2 part: det and inverse of M = diag(e^-x) + A, with v, y' D^-1
+  // y and sum log d given (K2's FactorSvolSvModel feeds it a particle's
+  // own D = diag(e^u))
+  __device__ static float solve(float a11, float a12, float a22,
+                                float sum_log_d, float v1, float v2,
+                                float yy, const float* x) {
     const float m11 = expf(-x[0]) + a11;
     const float m22 = expf(-x[1]) + a22;
     const float det = m11 * m22 - a12 * a12;
@@ -339,6 +353,133 @@ struct FactorSvolModel {
   __device__ float functional(const float* x) const { return x[0]; }
 };
 
+// Factor SV as Pitt & Shephard (1999) publish it, with kAssets assets and
+// two factors: the idiosyncratic variances are stochastic too, so the
+// state has 2 + kAssets leaves h = (f1, f2, u_1 .. u_kAssets), each an
+// AR(1); row [phi (2 + kAssets), mu (2 + kAssets), sigma (2 + kAssets),
+// vec(L) (2 kAssets, row-major)]:
+//   h'_j = mu_j + phi_j (h_j - mu_j) + sigma_j eps_j,
+//   y ~ N(0, L diag(e^f) L' + diag(e^u)).
+// D = diag(e^u) is a particle's own, so A = L' D^-1 L, v = L' D^-1 y and
+// y' D^-1 y are a particle's work every step (kAssets expf and six
+// multiply-adds an asset, from the row's l1, l2, l1 l1, l1 l2 and l2 l2),
+// then FactorWoodbury's 2 x 2 solve with sum u in place of sum log d; the
+// float operations of the plain hook (ops/filter_megakernel.py
+// factor_svol_sv_kernel_model, models/factor_svol.py
+// two_factor_sv_log_g) in their order.  Each leaf is clamped to +-40
+// (kStateClamp) after its draw, as the other SV functors' states are:
+// e^{-u} of a runaway leaf would overflow.
+// Registers: the particles' 12 leaves and carried log-weights live in
+// shared memory (kSharedState: with the state in registers, four
+// particles a thread spilled 252-372 bytes at 128 registers, the 12
+// draws' Philox calls and the densities in flight), drawn leaf by leaf
+// (init_leaf, propagate_leaf: the leaves' AR(1)s are independent), the
+// density one particle at a time.  The row's constants live in shared
+// memory too, a leaf's (phi, mu, sigma, its stationary sd) in one 16-byte
+// word and an asset's (l1 l1, l1 l2, l2 l2, -) and (l1, l2) in the next 8
+// words, read by volatile vector loads (lds4, lds2) in each hook call:
+// with plain loads the compiler keeps all 108 in registers across the
+// particles.  Systematic selection only (as every shared-state functor):
+// the roll families keep every moved value in shared memory, and 13
+// leaves' worth at kPer 16 would not fit.  No lookahead.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+__device__ __forceinline__ float2 lds2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+template <int kAssets>
+struct FactorSvolSvModel {
+  static constexpr int kLeaves = 2 + kAssets;
+  static constexpr int kNumParams = 3 * (2 + kAssets) + 2 * kAssets;
+  static constexpr int kNumState = 2 + kAssets;
+  static constexpr int kDimObs = kAssets;
+  static constexpr int kDimCov = 0;
+  static constexpr int kRowShared = 4 * (2 + kAssets) + 8 * kAssets;
+  static constexpr bool kHasPropMu = false;
+  static constexpr bool kSharedState = true;
+  static constexpr int kDraws = 2 + kAssets;
+  // the first word of the loadings' block in the shared row
+  static constexpr int kL = 4 * (2 + kAssets);
+
+  // leaf j at 4 j: (phi, mu, sigma, sigma / sqrt(1 - phi^2)); asset i at
+  // kL + 8 i: (l1 l1, l1 l2, l2 l2, 0, l1, l2, 0, 0)
+  __device__ static float row_shared(const float* p, int j) {
+    if (j < kL) {
+      const int leaf = j / 4, c = j % 4;
+      const float phi = p[leaf], sigma = p[2 * kLeaves + leaf];
+      return c == 0 ? phi : c == 1 ? p[kLeaves + leaf] : c == 2 ? sigma
+                          : sigma / sqrtf(1.0f - phi * phi);
+    }
+    const int i = (j - kL) / 8, c = (j - kL) % 8;
+    const float l1 = p[3 * kLeaves + 2 * i], l2 = p[3 * kLeaves + 2 * i + 1];
+    return c == 0 ? l1 * l1 : c == 1 ? l1 * l2 : c == 2 ? l2 * l2
+         : c == 4 ? l1 : c == 5 ? l2 : 0.0f;
+  }
+
+  const float* s;
+
+  __device__ FactorSvolSvModel(const float*, const float* shared)
+      : s(shared) {}
+
+  // the leafwise hooks of a shared-state functor: leaf l from the
+  // stationary law, and its AR(1) transition, on normal eps
+  __device__ float init_leaf(int l, float eps) const {
+    const float4 c = lds4(s + 4 * l);  // phi, mu, sigma, stationary sd
+    return clamp_state(c.y + eps * c.w);
+  }
+  __device__ float propagate_leaf(int l, float x, float eps) const {
+    const float4 c = lds4(s + 4 * l);
+    return clamp_state(c.y + c.x * (x - c.y) + c.z * eps);
+  }
+  __device__ float log_weight(const float* x, const float* y,
+                              const float*) const {
+    float a11 = 0.0f, a12 = 0.0f, a22 = 0.0f, v1 = 0.0f, v2 = 0.0f;
+    float yy = 0.0f, sum_u = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kAssets; ++i) {
+      const float4 q = lds4(s + kL + 8 * i);  // l1 l1, l1 l2, l2 l2
+      const float2 l = lds2(s + kL + 8 * i + 4);  // l1, l2
+      const float u = x[2 + i];
+      const float dinv = expf(-u);
+      a11 = a11 + q.x * dinv;
+      a12 = a12 + q.y * dinv;
+      a22 = a22 + q.z * dinv;
+      const float yd = y[i] * dinv;
+      v1 = v1 + l.x * yd;
+      v2 = v2 + l.y * yd;
+      yy = yy + y[i] * yd;
+      sum_u = sum_u + u;
+    }
+    return FactorWoodbury<kAssets>::solve(a11, a12, a22, sum_u, v1, v2, yy,
+                                          x);
+  }
+  __device__ float functional(const float* x) const { return x[0]; }
+};
+
+// Whether a functor's state lives in shared memory between its hooks
+// (kSharedState = true), else in registers; such a functor runs the
+// systematic family's bootstrap only (its kernel model in
+// ops/filter_megakernel.py sets systematic_only, and the wrapper refuses
+// the roll resamplers before a launch)
+template <class M, class = void>
+struct SharedState {
+  static constexpr bool value = false;
+};
+template <class M>
+struct SharedState<M, decltype(void(M::kSharedState))> {
+  static constexpr bool value = M::kSharedState;
+};
+
 // The functor of a model id: f(Is<Functor>{}), or -1 for an unknown id.
 // Both filter families dispatch through this one table
 // (tests/test_torch_megakernel.py reads it).
@@ -357,6 +498,7 @@ int with_model(int model_id, F&& f) {
     case kModelFactorSvol3: return f(Is<FactorSvolModel<3>>{});
     case kModelFactorSvol4: return f(Is<FactorSvolModel<4>>{});
     case kModelFactorSvol5: return f(Is<FactorSvolModel<5>>{});
+    case kModelFactorSvolSv10: return f(Is<FactorSvolSvModel<10>>{});
     default: return -1;
   }
 }

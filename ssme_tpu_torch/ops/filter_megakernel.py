@@ -47,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import re
 import warnings
 from typing import Callable
 
@@ -54,7 +55,8 @@ import torch
 
 from ssme_tpu_torch import profiling
 from ssme_tpu_torch.filters.bootstrap import replicated_log_like_fn
-from ssme_tpu_torch.models.factor_svol import two_factor_log_g
+from ssme_tpu_torch.models.factor_svol import (two_factor_log_g,
+                                               two_factor_sv_log_g)
 from ssme_tpu_torch.models.svol import kernel_rows
 from ssme_tpu_torch.models.svol_leverage import STATE_CLAMP
 from ssme_tpu_torch.ops import _cuda, _prng
@@ -74,11 +76,12 @@ HOST_SPANS = ("filter_megakernel.launch",)
 # tests/test_torch_megakernel.py parses the header and compares)
 CUDA_MODEL_IDS = {"svol": 0, "svol_leverage": 1, "svol_t": 2,
                   "poisson_ar": 3, "factor_svol_3": 4, "factor_svol_4": 5,
-                  "factor_svol_5": 6}
-# the asset counts the factor-SVOL functor is compiled for
+                  "factor_svol_5": 6, "factor_svol_sv_10": 7}
+# the asset counts the constant-d factor-SVOL functor is compiled for
+# (instances "factor_svol_<n>"; "factor_svol_sv_<n>" is the other family)
 FACTOR_ASSET_COUNTS = tuple(sorted(
-    int(name.rsplit("_", 1)[1]) for name in CUDA_MODEL_IDS
-    if name.startswith("factor_svol_")))
+    int(m.group(1)) for m in map(re.compile(r"factor_svol_(\d+)").fullmatch,
+                                 CUDA_MODEL_IDS) if m))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -87,7 +90,9 @@ class KernelModel:
 
     ``cuda_instance``: the name of the functor in ``csrc/kernel_models.cuh``
     that computes the same hooks, or None for a model that runs on CPU
-    tensors only.
+    tensors only.  ``systematic_only``: the functor keeps its leaves in
+    shared memory (``kSharedState``), which the roll families do not
+    compile, so CUDA tensors run it under systematic selection only.
     """
 
     num_params: int
@@ -103,6 +108,7 @@ class KernelModel:
     prop_mu: Callable = None      # APF lookahead; required for mode="apf"
     name: str = "kernel_model"
     cuda_instance: str = None
+    systematic_only: bool = False
 
     @property
     def functional_list(self):
@@ -323,6 +329,11 @@ def filter_megakernel(kmodel, seed, params, ys, zs=None, num_particles=512,
     if params.device.type != "cuda":
         raise ValueError(f"filter_megakernel: unsupported device "
                          f"{params.device}")
+    if kmodel.systematic_only and resampler != "systematic":
+        raise ValueError(
+            f"model {kmodel.name!r}: the kernel runs it under systematic "
+            f"selection only (its {kmodel.num_state} state leaves have no "
+            f"roll form); resampler={resampler!r} runs on CPU tensors")
     with profiling.span("filter_megakernel.launch",
                         key=kmodel.cuda_instance):
         model_id = _model_id(kmodel)
@@ -362,7 +373,8 @@ ROLL_BARRIERS_PER_STEP = {"resample": 2, "check": 2, "other": 0, "apf": 4}
 # the parts of a step its clock64 spans time (roll: the selection counts
 # as the walk), then the rest of the instrumented twins' record per row
 # (csrc/filter_megakernel_sys.cuh SysSpan)
-SPAN_PARTS = ("propagate", "max", "sums", "stage", "walk", "gather")
+SPAN_PARTS = ("propagate", "weight", "max", "sums", "stage", "walk",
+              "gather")
 SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "apf_steps",
                             "barriers_resample", "barriers_check",
                             "barriers_other", "barriers_apf", "votes",
@@ -370,7 +382,8 @@ SPAN_RECORD = SPAN_PARTS + ("checks", "resamples", "apf_steps",
                             "fixups", "most_marks", "kper", "threads")
 # the twins' (functor, mode) under each selection family
 SPAN_TWINS = {"systematic": (("svol_leverage", "bootstrap"),
-                             ("svol_leverage", "apf")),
+                             ("svol_leverage", "apf"),
+                             ("factor_svol_sv_10", "bootstrap")),
               "roll": (("svol_leverage", "bootstrap"),
                        ("svol_leverage", "apf"), ("svol", "bootstrap"))}
 
@@ -383,8 +396,9 @@ def step_spans(seed, params, ys, zs, num_particles=512, ess_threshold=1.0,
     svol_leverage model, rows (phi, mu, sigma, rho), covariates ``zs``),
     recorded by thread 0 of each row.  Returns {"cycles_per_step": {part:
     mean clock64 cycles a step} over SPAN_PARTS (the barriers' waits inside
-    the part that ends in them; APF's first stage counts under the same
-    parts), "checks", "resamples", "apf_steps": mean counts per row,
+    the part that ends in them; "propagate" the transition's draws,
+    "weight" the observation density; APF's first stage counts under the
+    same parts), "checks", "resamples", "apf_steps": mean counts per row,
     "barriers_per_step": {"resample", "check", "other", "apf": barriers a
     step of that kind crossed, mean over the rows' steps of that kind, or
     None where there was none; under a roll resampler without the
@@ -716,6 +730,66 @@ def factor_svol_kernel_model(n_assets: int = 5) -> KernelModel:
 
 
 @functools.lru_cache(maxsize=None)
+def factor_svol_sv_kernel_model(n_assets: int = 10) -> KernelModel:
+    """Factor SV as published (``models/factor_svol.py::make_sv_model``):
+    k = 2 factors and ``n_assets`` idiosyncratic log-variances, a state of
+    2 + n leaves (f1, f2, u_1 .. u_n) resampled together, each leaf's AR(1)
+    draw clamped to +-STATE_CLAMP.  Rows: the model's constrained [phi,
+    mu, sigma (2 + n each), vec(L) (2n, row-major)].
+
+    D = diag(e^u) is a particle's own, so the density's A = L' D^-1 L,
+    v = L' D^-1 y and y' D^-1 y are a particle's work every step (n exp and
+    six multiply-adds an asset, from the row's loadings and their products
+    l1 l1, l1 l2, l2 l2), then the constant-d model's 2 x 2 solve
+    (``models/factor_svol.py::two_factor_sv_log_g``).  No ``prop_mu``.
+    CUDA instance ``FactorSvolSvModel<10>`` at 10 assets, under systematic
+    selection only (``systematic_only``), its 12 leaves kept in shared
+    memory between the hooks (``csrc/filter_megakernel_sys.cuh``); another
+    count runs on CPU tensors only."""
+    na = int(n_assets)
+    m = 2 + na
+    num_params = 3 * m + 2 * na
+
+    def unpack(p):
+        col = lambda j: p[:, j:j + 1]
+        phi = [col(j) for j in range(m)]
+        mu = [col(m + j) for j in range(m)]
+        sigma = [col(2 * m + j) for j in range(m)]
+        ell = [(col(3 * m + 2 * i), col(3 * m + 2 * i + 1))
+               for i in range(na)]
+        return phi, mu, sigma, ell
+
+    def clamp(v):
+        return torch.clamp(v, -STATE_CLAMP, STATE_CLAMP)
+
+    def init(rng, p, y, z, shape):
+        phi, mu, sigma, _ = unpack(p)
+        return tuple(clamp(mu[j] + rng.normal(shape)
+                           * (sigma[j] / torch.sqrt(1.0 - phi[j] * phi[j])))
+                     for j in range(m))
+
+    def propagate(rng, p, state, y, z):
+        phi, mu, sigma, _ = unpack(p)
+        return tuple(clamp(mu[j] + phi[j] * (state[j] - mu[j])
+                           + sigma[j] * rng.normal(state[j].shape))
+                     for j in range(m))
+
+    def log_weight(p, state, y, z):
+        _, _, _, ell = unpack(p)
+        products = [(l1 * l1, l1 * l2, l2 * l2) for l1, l2 in ell]
+        return two_factor_sv_log_g(ell, products, state[0], state[1],
+                                   state[2:], y)
+
+    return KernelModel(num_params=num_params, init=init,
+                       propagate=propagate, log_weight=log_weight,
+                       num_state=m, dim_obs=na,
+                       functional=lambda p, state: state[0],
+                       name=f"factor_svol_sv_{na}x2",
+                       cuda_instance=f"factor_svol_sv_{na}",
+                       systematic_only=True)
+
+
+@functools.lru_cache(maxsize=None)
 def poisson_ar_kernel_model() -> KernelModel:
     """Poisson AR(1) counts (``models/poisson_ar.py``); rows (phi, mu,
     sigma).  log(y!) = gammaln(y + 1) depends on the data only, so it
@@ -804,6 +878,7 @@ __all__ = ["KernelModel", "filter_megakernel", "filter_megakernel_reference",
            "megakernel_log_like", "megakernel_swarm_evidence",
            "svol_kernel_model", "svol_kernel_rows",
            "svol_leverage_kernel_model", "factor_svol_kernel_model",
+           "factor_svol_sv_kernel_model",
            "poisson_ar_kernel_model", "poisson_obs_rows",
            "svol_t_kernel_model", "svol_t_param_rows", "CUDA_MODEL_IDS",
            "FACTOR_ASSET_COUNTS", "step_spans", "BARRIERS_PER_STEP",

@@ -1558,3 +1558,191 @@ def test_k3_factor_layouts_agree_where_both_launch(dev, n):
             assert torch.equal(a, b[:8]), kw
     with pytest.raises(ValueError, match="systematic"):
         lwm.lw_megakernel(km, 1, ys, None, 8, 512, resampler="rejection")
+
+
+# -- factor SV as published: K2's factor_svol_sv_10 instance ---------------
+
+def _sv_panel(t_len, dev):
+    """The benchmark's 10-column panel's first t_len rows."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "data",
+        "factor_svol_sv_10_returns.csv")
+    ys = np.loadtxt(path, delimiter=",", ndmin=2)[:t_len]
+    return torch.as_tensor(ys, dtype=torch.float32, device=dev).contiguous()
+
+
+def _sv_rows(b, dev, seed=0):
+    """b rows about the panel's generating point (phi, mu and sigma of
+    the 12 leaves moved by up to 2%, the loadings by up to 0.05)."""
+    from ssme_tpu_torch.examples.estimate_factor_svol import START_SV
+    gen = torch.Generator().manual_seed(seed)
+    start = torch.tensor(START_SV)
+    noise = torch.rand((b, start.numel()), generator=gen) - 0.5
+    scale = torch.cat([0.04 * start[:36].abs(), torch.full((20,), 0.1)])
+    rows = start + noise * scale
+    rows[:, :12] = rows[:, :12].clamp(max=0.995)
+    return rows.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_factor_svol_sv_matches_plain_without_resampling(dev, n):
+    """The 12-leaf instance against its plain version on the same bits,
+    with a gate that never fires, over 100 steps of the 10-column panel:
+    totals within 2e-3 plus 1e-4 of the total, the means and the final
+    cloud's 12 leaves and weights within 1e-3 (kPer 2 to N=512, 4 at
+    1024: fused multiply-adds and expf against torch.exp only)."""
+    ys = _sv_panel(100, dev)
+    km = fm.factor_svol_sv_kernel_model(10)
+    rows = _sv_rows(16, dev)
+    kw = dict(num_particles=n, ess_threshold=1e-6, return_cloud=True)
+    tot, lcl, fmean, cloud, clw = fm.filter_megakernel(km, 9, rows, ys, **kw)
+    tot_p, _, fmean_p, cloud_p, clw_p = fm.filter_megakernel_reference(
+        km, 9, rows, ys, **kw)
+    assert len(cloud) == 12
+    torch.testing.assert_close(tot, tot_p, rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(fmean, fmean_p, rtol=1e-3, atol=1e-3)
+    for a, b in zip(cloud, cloud_p):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(torch.exp(clw), torch.exp(clw_p), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_factor_svol_sv_resampling_matches_plain_at_the_cell_width(dev, n):
+    """10 assets, 12 leaves resampled together every step through one
+    gather buffer each (dynamic shared memory at N=1024): kernel and plain
+    mean log-likelihoods over 64 rows and 300 steps within 4 combined
+    standard errors, the plain version on a seed of its own."""
+    ys = _sv_panel(300, dev)
+    km = fm.factor_svol_sv_kernel_model(10)
+    rows = _sv_rows(64, dev, seed=1)
+    tot = fm.filter_megakernel(km, 9, rows, ys, num_particles=n)[0]
+    tot_p = fm.filter_megakernel_reference(km, 10, rows, ys,
+                                           num_particles=n)[0]
+    assert bool(torch.isfinite(tot).all())
+    se = math.sqrt(float(tot.var()) / 64 + float(tot_p.var()) / 64)
+    assert abs(float(tot.mean()) - float(tot_p.mean())) <= 4 * se, (
+        float(tot.mean()), float(tot_p.mean()), se)
+
+
+@pytest.mark.parametrize("n", [32, 96, 512, 1024])
+def test_factor_svol_sv_twin_records_parts_and_gives_the_instance_bits(dev,
+                                                                       n):
+    """The instance's instrumented twin: its outputs the plain instance's
+    bits, the barriers of the bootstrap's systematic steps, its layout,
+    and a step's draws and weights apart (both counted)."""
+    ys = _sv_panel(48, dev)
+    km = fm.factor_svol_sv_kernel_model(10)
+    rows = _sv_rows(8, dev)
+    rec = fm.step_spans(6, rows, ys, None, n, kmodel=km)
+    plain = fm.filter_megakernel(km, 6, rows, ys, num_particles=n)
+    for a, b in zip(plain, rec["outputs"]):
+        assert torch.equal(a, b)
+    kper = 2 if n <= 512 else 4
+    assert (rec["kper"], rec["threads"]) == (kper, -(-n // kper // 32) * 32)
+    got = {k: v for k, v in rec["barriers_per_step"].items()
+           if v is not None}
+    assert got == {k: fm.BARRIERS_PER_STEP[k] for k in got}
+    assert rec["checks"] == 48 and rec["resamples"] == 47
+    cycles = rec["cycles_per_step"]
+    assert cycles["propagate"] > 0 and cycles["weight"] > 0
+
+
+def test_factor_svol_sv_bits_are_reproducible_and_seeded(dev):
+    """Two launches on one seed give the same bits (the
+    ``kernel_timing.py --bits`` group ``bits_k2_sv``), another seed
+    others."""
+    ys = _sv_panel(128, dev)
+    km = fm.factor_svol_sv_kernel_model(10)
+    rows = _sv_rows(16, dev)
+    a = fm.filter_megakernel(km, 3, rows, ys, num_particles=1024)
+    b = fm.filter_megakernel(km, 3, rows, ys, num_particles=1024)
+    c = fm.filter_megakernel(km, 4, rows, ys, num_particles=1024)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+
+
+def test_factor_svol_sv_instances_and_twins_do_not_spill(dev):
+    """ptxas' lines of every FactorSvolSvModel instance and twin (kPer 2
+    and 4, bootstrap, systematic only): 0 spill bytes, at most 128
+    registers (two CTAs an SM)."""
+    import re
+    _cuda.library()
+    found, name = {}, None
+    for ln in _cuda.build_info.get("ptxas", []):
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if "FactorSvolSvModel" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            found.setdefault(name, {})["spill"] = (int(m.group(1)),
+                                                   int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    assert len(found) == 4, sorted(found)
+    for name, v in found.items():
+        assert v["spill"] == (0, 0) and v["registers"] <= 128, (name, v)
+
+
+def test_factor_svol_sv_refuses_the_roll_resamplers_and_apf(dev):
+    """The roll families have no factor_svol_sv_10 instance: the wrapper
+    refuses before any launch, and the C entry returns -4 for it."""
+    ys = _sv_panel(20, dev)
+    km = fm.factor_svol_sv_kernel_model(10)
+    rows = _sv_rows(8, dev)
+    before = _cuda.launches("ssme_filter_megakernel")
+    for r in ("metropolis", "rejection"):
+        with pytest.raises(ValueError, match="systematic selection only"):
+            fm.filter_megakernel(km, 1, rows, ys, num_particles=64,
+                                 resampler=r)
+    with pytest.raises(ValueError, match="prop_mu"):
+        fm.filter_megakernel(km, 1, rows, ys, num_particles=64, mode="apf")
+    assert _cuda.launches("ssme_filter_megakernel") == before
+    seed = _prng.seed_words(1, device=dev)
+    out = torch.empty((8, 20), device=dev)
+    with pytest.raises(RuntimeError, match="error -4"):
+        _cuda.call("ssme_filter_megakernel", fm.CUDA_MODEL_IDS[km.cuda_instance],
+                   0, seed.data_ptr(), rows.data_ptr(), ys.data_ptr(), None,
+                   8, 20, 64, 64.0, 1, 1, _select.RESAMPLER_CODES["rejection"],
+                   16, out.data_ptr(), out.data_ptr(), out.data_ptr(), None,
+                   None, _cuda.stream_ptr(dev))
+
+
+def test_factor_svol_sv_10_hook_at_the_benchmark_cell_size(dev):
+    """K2's factor_svol_sv_10 hook at the benchmark cell's size: T=3084
+    steps of 10 columns, 64 chains x 4 replicates, N=1024, every-step
+    resampling, at the panel's generating parameters; against its plain
+    twin in distribution (the 64 chain log-likelihoods, means within 4
+    combined standard errors); one launch counted under the instance, its
+    span keyed by it."""
+    from ssme_tpu_torch import profiling
+    from ssme_tpu_torch.examples.estimate_factor_svol import START_SV
+    from ssme_tpu_torch.utils import logmeanexp
+
+    ys = _sv_panel(3084, dev)
+    assert tuple(ys.shape) == (3084, 10)
+    km = fm.factor_svol_sv_kernel_model(10)
+    params = torch.tensor(START_SV, device=dev).expand(64, -1).contiguous()
+    hook = fm.megakernel_log_like(km, 1024, 4, ess_threshold=1.0)
+    before = _cuda.launches("ssme_filter_megakernel", "factor_svol_sv_10")
+    profiling.reset()
+    with profiling.record():
+        got = hook(torch.Generator(device=dev).manual_seed(5), params, ys)
+    torch.cuda.synchronize()
+    keys = [r.key for r in profiling.spans()
+            if r.name == "filter_megakernel.launch"]
+    assert keys == ["factor_svol_sv_10"]
+    assert _cuda.launches("ssme_filter_megakernel",
+                          "factor_svol_sv_10") == before + 1
+    rows = params.repeat_interleave(4, 0).contiguous()
+    tot = fm.filter_megakernel_reference(km, 6, rows, ys, num_particles=1024,
+                                         ess_threshold=1.0)[0]
+    want = logmeanexp(tot.reshape(64, 4), dim=-1)
+    assert bool(torch.isfinite(got).all())
+    se = math.sqrt(float(got.var()) / 64 + float(want.var()) / 64)
+    assert abs(float(got.mean()) - float(want.mean())) <= 4 * se, (
+        float(got.mean()), float(want.mean()), se)

@@ -453,6 +453,7 @@ def test_model_id_table_matches_the_cuda_header():
              (fm.poisson_ar_kernel_model(), "PoissonArModel", None)]
     cases += [(fm.factor_svol_kernel_model(na), "FactorSvolModel", na)
               for na in fm.FACTOR_ASSET_COUNTS]
+    cases += [(fm.factor_svol_sv_kernel_model(10), "FactorSvolSvModel", 10)]
     for km, struct, na in cases:
         t = traits(struct, na)
         assert {k: t[k] for k in ("kNumParams", "kNumState", "kDimObs",
@@ -475,6 +476,7 @@ def test_model_id_table_matches_the_cuda_header():
             3: "PoissonArModel"}
     want.update({fm.CUDA_MODEL_IDS[f"factor_svol_{na}"]:
                  f"FactorSvolModel<{na}>" for na in fm.FACTOR_ASSET_COUNTS})
+    want[fm.CUDA_MODEL_IDS["factor_svol_sv_10"]] = "FactorSvolSvModel<10>"
     assert by_id == want
 
 

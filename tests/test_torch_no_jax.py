@@ -31,7 +31,7 @@ print("imported", len({modules!r}) + 1 + len({scripts!r}))
 """
 # the port's own scripts (the JAX yardstick scripts import JAX by design),
 # the rank programs that the parallel tests' spawned processes import, and
-# the benchmark's factor-SVOL reference, driver and data script
+# the benchmark's factor-SVOL references, drivers and data scripts
 SCRIPTS = [os.path.join(ROOT, "scripts", name)
            for name in ("k3_roll_fullsize.py", "kernel_timing.py",
                         "roll_sweeps.py", "k5_timing.py",
@@ -40,7 +40,10 @@ SCRIPTS = [os.path.join(ROOT, "scripts", name)
     os.path.join(ROOT, "benchmark", *parts)
     for parts in (("reference", "factor_svol.py"),
                   ("drivers", "pmmh_k2.py"),
-                  ("data", "make_factor_svol_5.py"))]
+                  ("data", "make_factor_svol_5.py"),
+                  ("reference", "factor_svol_sv.py"),
+                  ("drivers", "pmmh_k2_sv.py"),
+                  ("data", "make_factor_svol_sv_10.py"))]
 
 
 def _port_modules():
